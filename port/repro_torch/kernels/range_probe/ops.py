@@ -1,0 +1,136 @@
+"""Public surface of the routed range probe (twin of the gathered half
+of ``repro.kernels.range_probe.ops``).
+
+Dispatch: tensors on the CPU go to the plain versions in ``ref``;
+tensors on a CUDA device go to the Hopper kernel in ``kernel``, which
+either launches or raises.  There is no other path.
+
+Candidate-list contract (``gathered_*``): ``cand`` is (Q, F) int32 tile
+indices from ``serve.router`` -- entries in [0, T) are real tiles,
+``-1`` marks padding and reads as an all-sentinel tile (no hits), an
+all-dead alive row and all-sentinel chunk boxes.
+
+Local-index contract (``*_skip``): ``cboxes`` is the staging's
+``(T, C, 4)`` chunk-box summary, ``C == ceil(cap / CHUNK)``.
+
+Tombstone contract (keyword-only ``alive``): an optional (T, cap) bool
+per-slot alive mask; a hit counts only if its slot is alive.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.geometry import sentinel
+from . import kernel, ref
+from .kernel import CHUNK  # noqa: F401  (re-export: staging chunks on this)
+
+_SKIP_RATE_BLOCK = 1 << 24   # (query, candidate, chunk) tests per block
+
+
+def _gather(table: torch.Tensor, cand: torch.Tensor, pad_value
+            ) -> torch.Tensor:
+    """``table[cand]`` along the leading axis, with every ``-1``
+    candidate reading a row of ``pad_value`` (the reference appends
+    that row to the table; here the table is never copied)."""
+    if table.shape[0] == 0:
+        table = table.new_empty((1,) + table.shape[1:])
+    out = table[cand.clamp_min(0).long()]
+    out[cand < 0] = torch.as_tensor(pad_value, dtype=table.dtype,
+                                    device=table.device)
+    return out
+
+
+def gathered_rows(tiles: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """(T, cap, 4) x (Q, F) -> (Q, F, cap, 4), -1 -> all-sentinel tile."""
+    return _gather(tiles.float(), cand, sentinel(tiles.device))
+
+
+def gathered_ids(ids: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """(T, cap) int32 x (Q, F) -> (Q, F, cap), -1 -> all ``-1`` row."""
+    return _gather(ids, cand, -1)
+
+
+def gathered_alive(alive: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
+    """(T, cap) bool x (Q, F) -> (Q, F, cap), -1 -> all-dead row."""
+    return _gather(alive, cand, False)
+
+
+def gathered_chunk_boxes(cboxes: torch.Tensor, cand: torch.Tensor
+                         ) -> torch.Tensor:
+    """(T, C, 4) x (Q, F) -> (Q, F, C, 4), -1 -> all-sentinel chunks."""
+    return _gather(cboxes.float(), cand, sentinel(cboxes.device))
+
+
+def _kargs(qboxes: torch.Tensor, cand: torch.Tensor):
+    return qboxes.float().contiguous(), cand.int().contiguous()
+
+
+def gathered_counts(qboxes: torch.Tensor, tiles: torch.Tensor,
+                    cand: torch.Tensor, *,
+                    alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Routed probe: (Q, 4), (T, cap, 4), (Q, F) -> (Q, F) int32
+    per-(query, candidate) hit counts."""
+    if tiles.is_cuda:
+        q, c = _kargs(qboxes, cand)
+        return kernel.gather_count(q, tiles, c, alive=alive)
+    return ref.gathered_counts(
+        qboxes.float(), gathered_rows(tiles, cand),
+        None if alive is None else gathered_alive(alive, cand))
+
+
+def gathered_mask(qboxes: torch.Tensor, tiles: torch.Tensor,
+                  cand: torch.Tensor, *,
+                  alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Routed probe hit table -> (Q, F, cap) bool."""
+    if tiles.is_cuda:
+        q, c = _kargs(qboxes, cand)
+        return kernel.gather_mask(q, tiles, c, alive=alive)
+    return ref.gathered_mask(
+        qboxes.float(), gathered_rows(tiles, cand),
+        None if alive is None else gathered_alive(alive, cand))
+
+
+def gathered_counts_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
+                         cboxes: torch.Tensor, cand: torch.Tensor, *,
+                         alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Routed counts with chunk skipping -> (Q, F) int32; equal to
+    ``gathered_counts`` whenever the chunk boxes bound their members."""
+    if tiles.is_cuda:
+        q, c = _kargs(qboxes, cand)
+        return kernel.gather_count_skip(q, tiles, cboxes, c, alive=alive)
+    return ref.gathered_counts_skip(
+        qboxes.float(), gathered_rows(tiles, cand),
+        gathered_chunk_boxes(cboxes, cand),
+        None if alive is None else gathered_alive(alive, cand))
+
+
+def gathered_mask_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
+                       cboxes: torch.Tensor, cand: torch.Tensor, *,
+                       alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Routed hit table with chunk skipping -> (Q, F, cap) bool."""
+    if tiles.is_cuda:
+        q, c = _kargs(qboxes, cand)
+        return kernel.gather_mask_skip(q, tiles, cboxes, c, alive=alive)
+    return ref.gathered_mask_skip(
+        qboxes.float(), gathered_rows(tiles, cand),
+        gathered_chunk_boxes(cboxes, cand),
+        None if alive is None else gathered_alive(alive, cand))
+
+
+def chunk_skip_rate(qboxes: torch.Tensor, cboxes: torch.Tensor,
+                    cand: torch.Tensor) -> torch.Tensor:
+    """Fraction of (query, live candidate) chunk probes the local index
+    skips: chunks whose box the query misses, over all chunks of all
+    non-padding candidates (all-sentinel chunks count as skipped).
+    -> () float32 in [0, 1].  Counted in query blocks, so the gathered
+    (Q, F, C, 4) chunk boxes never materialise at once."""
+    q, f = cand.shape
+    rows = max(1, _SKIP_RATE_BLOCK // max(f * cboxes.shape[1], 1))
+    skipped = torch.zeros((), dtype=torch.int64, device=cand.device)
+    for i in range(0, q, rows):
+        cd = cand[i:i + rows]
+        hit = ref.gathered_chunk_hits(qboxes[i:i + rows].float(),
+                                      gathered_chunk_boxes(cboxes, cd))
+        skipped += (~hit & (cd >= 0)[..., None]).sum()
+    total = (cand >= 0).sum() * cboxes.shape[1]
+    return skipped / total.clamp_min(1)

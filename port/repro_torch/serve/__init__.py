@@ -1,0 +1,21 @@
+"""Batched spatial query serving, routed range half.
+
+- ``config``: ``ServeConfig`` / ``PlacementPolicy``.
+- ``router``: probe-box routing, fixed-width ``(Q, F)`` candidate
+  lists, the region fan-out metric and ``HeatTracker``.
+- ``layout``: ``stage_tiles`` (MASJ tiles, canonical marks, probe
+  boxes, the ``"x"`` local index, the alive mask), ``StagedLayout``
+  and the replicated single-device executors.
+- ``engine``: ``SpatialServer`` and ``WidthPolicy``.
+"""
+from . import config, engine, layout, router  # noqa: F401
+from .config import PlacementPolicy, ServeConfig  # noqa: F401
+from .engine import SpatialServer, WidthPolicy  # noqa: F401
+from .layout import (  # noqa: F401
+    ReplicatedTiles,
+    StagedLayout,
+    build_tiles,
+    stage_tiles,
+    staged_from_numpy,
+)
+from .router import HeatTracker  # noqa: F401
