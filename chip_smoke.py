@@ -32,7 +32,6 @@ the last line.  Any failure raises and the script exits non-zero.
 """
 from __future__ import annotations
 
-import argparse
 import json
 import subprocess
 import sys
@@ -45,6 +44,9 @@ sys.path.insert(0, str(ROOT / "port"))
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
 PAYLOAD, MAX_HITS, SEED = 4096, 1024, 0
+N = 8_000_000          # osm-like objects served
+Q, Q_IDS = 4096, 1024  # boxes per range_counts / range_ids batch
+BATCHES, ID_BATCHES = 20, 5
 CHECK_Q = 1024         # queries of the first counts batch brute-forced
 CASES = {  # entry point -> (kernel line name, TPU kernel it replaces)
     "gather_count_skip": "src/repro/kernels/range_probe/kernel.py:467",
@@ -56,16 +58,6 @@ CASES = {  # entry point -> (kernel line name, TPU kernel it replaces)
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def parse_args():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=8_000_000)
-    ap.add_argument("--q", type=int, default=4096)
-    ap.add_argument("--q-ids", type=int, default=1024)
-    ap.add_argument("--batches", type=int, default=20)
-    ap.add_argument("--id-batches", type=int, default=5)
-    return ap.parse_args()
 
 
 def qboxes(torch, g, q: int, half: float, dev):
@@ -132,22 +124,22 @@ def device_busy(torch, fn, reps: int):
     return sum(by_name.values()), [[k[:80], v] for k, v in top]
 
 
-def serve_phase(torch, args, dev):
+def serve_phase(torch, dev):
     from repro_torch.core import geometry
     from repro_torch.data import spatial_gen
     from repro_torch.kernels.range_probe import kernel
     from repro_torch.serve import ServeConfig, SpatialServer
 
     g = torch.Generator(device=dev).manual_seed(SEED + 1)
-    cbatches = [qboxes(torch, g, args.q, 0.03, dev)
-                for _ in range(args.batches)]
-    ibatches = [qboxes(torch, g, args.q_ids, 0.003, dev)
-                for _ in range(args.id_batches)]
+    cbatches = [qboxes(torch, g, Q, 0.03, dev)
+                for _ in range(BATCHES)]
+    ibatches = [qboxes(torch, g, Q_IDS, 0.003, dev)
+                for _ in range(ID_BATCHES)]
 
     kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    mbrs = spatial_gen.osm_like(args.n, seed=SEED, device=dev)
+    mbrs = spatial_gen.osm_like(N, seed=SEED, device=dev)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
 
@@ -189,20 +181,20 @@ def serve_phase(torch, args, dev):
         c_sorted, i_sorted = sorted(c_ms), sorted(i_ms)
         pct = lambda xs, p: xs[min(len(xs) - 1, int(p * len(xs)))]  # noqa
         emit(dict(
-            phase="serve", local_index=li, n=args.n, payload=PAYLOAD,
+            phase="serve", local_index=li, n=N, payload=PAYLOAD,
             t=srv.stats["t"], cap=srv.stats["cap"],
             t_live=srv.stats["t_live"], chunks=srv.stats["chunks"],
             replication=srv.stats["replication"], stage_s=stage_s,
             gen_s=gen_s, resident_tile_bytes=srv.resident_tile_bytes(),
-            counts=dict(q=args.q, batches=len(c_ms),
-                        qps=args.q * len(c_ms) / (sum(c_ms) / 1e3),
+            counts=dict(q=Q, batches=len(c_ms),
+                        qps=Q * len(c_ms) / (sum(c_ms) / 1e3),
                         p50_ms=pct(c_sorted, 0.5), p99_ms=pct(c_sorted, 0.99),
                         f_max=f_max,
                         fanout_mean=sum(fan) / len(fan),
                         device_ms_per_batch=dev_ms, top_device=top,
                         chunk_skip_rate=srv.chunk_skip_rate(cbatches[0])),
-            ids=dict(q=args.q_ids, batches=len(i_ms),
-                     qps=args.q_ids * len(i_ms) / (sum(i_ms) / 1e3),
+            ids=dict(q=Q_IDS, batches=len(i_ms),
+                     qps=Q_IDS * len(i_ms) / (sum(i_ms) / 1e3),
                      p50_ms=pct(i_sorted, 0.5), p99_ms=pct(i_sorted, 0.99),
                      f_max=i_fmax, device_ms_per_batch=dev_ids_ms,
                      top_device=top_ids),
@@ -215,14 +207,13 @@ def serve_phase(torch, args, dev):
     for a, b in zip(results["x"]["ids"], results["off"]["ids"]):
         if not all(torch.equal(u, v) for u, v in zip(a, b)):
             raise AssertionError('ids of local_index "x" and "off" differ')
-    nchk = min(CHECK_Q, args.q)
-    check_counts(torch, geometry, mbrs, cbatches[0][:nchk],
-                 results["x"]["counts"][0][:nchk])
+    check_counts(torch, geometry, mbrs, cbatches[0][:CHECK_Q],
+                 results["x"]["counts"][0][:CHECK_Q])
     hit_ids, cnt, ovf = results["x"]["ids"][0]
     n_over = check_ids(torch, geometry, mbrs, ibatches[0], hit_ids, cnt, ovf,
                        MAX_HITS)
-    emit(dict(phase="check", x_equals_off=True, brute_force_counts=nchk,
-              brute_force_ids=args.q_ids, overflowed_queries=n_over,
+    emit(dict(phase="check", x_equals_off=True, brute_force_counts=CHECK_Q,
+              brute_force_ids=Q_IDS, overflowed_queries=n_over,
               hits_in_first_counts_batch=int(results["x"]["counts"][0].sum())))
     for name in CASES:
         if launches[name] <= 0:
@@ -292,9 +283,11 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
                      bad[..., 2:] - jitter[..., 2:]], dim=-1).contiguous()
 
     def routed(srv, q):
-        """The candidate lists the server routes for batch ``q``."""
+        """The candidate lists the server routes for batch ``q``, at the
+        width its ratchet gives (as ``_route_batch``, minus the update)."""
         hit = router.probe_overlap(srv.probe_boxes, q)
-        f = _f_width(int(hit.sum(1).max()), srv.stats["t_live"])
+        floor = _f_width(int(hit.sum(1).max()), srv.stats["t_live"])
+        f = srv.widths.at_least("range", floor)
         return router.candidates_from_overlap(hit, f)[0]
 
     entries = []
@@ -419,7 +412,6 @@ def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
 
 
 def main() -> int:
-    args = parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda is not "
@@ -443,7 +435,7 @@ def main() -> int:
               ptxas=ptxas))
 
     t0 = time.perf_counter()
-    servers, qc, qi, launches, calls = serve_phase(torch, args, dev)
+    servers, qc, qi, launches, calls = serve_phase(torch, dev)
     t1 = time.perf_counter()
     entries = kernel_phase(torch, servers, qc, qi, launches, calls)
     for e in entries:
