@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's range-serving path on one CUDA card.
+"""Drive the PyTorch/H100 port's serving paths on one CUDA card.
 
     python3 chip_smoke.py            # full size: N = 8,000,000 osm-like objects
 
-Phases, each printing one JSON line:
+Phases, each printing one JSON line (launch counts are set to 0 just
+before each serving path and read just after it):
 
 1. build  -- compile the range-probe kernels from the checkout's sources
    with nvcc (sm_90a) and report the compiler's register/spill summary.
@@ -17,14 +18,36 @@ Phases, each printing one JSON line:
    of the first counts batch and every query of the first ids batch
    are checked against a blocked brute force on the card, overflow
    flags included.  The launch counts are read right after.
-3. kernels -- each of the four kernels against its plain PyTorch
-   version on the card, at the shapes the serving path gives it (a
-   routed counts batch; the ids executor's largest hit-table block):
-   the path's own inputs (staged alive mask, bounding chunk boxes),
-   then ``alive`` None and a random mask and, for the skip kernels,
-   chunk boxes that do not bound their members.  Results must be
-   bit-equal.  Kernel times come from CUDA events, plain times from
-   the host clock.
+3. knn    -- 5 batches of 1024 points (uniform in the unit square,
+   k = 10, max_cand = 1024) through each server's pruned kNN, the
+   widen-and-retry ladder included.  "x" must flag the same points as
+   "off" and equal it bit for bit (ids, d2) on every unflagged point,
+   and 256 points of the first batch must equal an on-card brute force
+   by (d2, id) over all N objects, d2 rounded as the executors round it
+   (``mindist2_fused``).  A point flagged for more than max_cand
+   candidates keeps the first max_cand hits in (tile, slot) order, as
+   repro does, and the two stagings order slots differently, so its
+   answer is the staging's own (repro's "x" and "off" differ there
+   too).  The gathered kernels'
+   launch counts are read right after.
+4. dense  -- the dense oracle (``pruned=False``) on the "x" server:
+   range_counts on the first counts batch (Q = 4096), range_ids and
+   knn on the first 256 boxes / points of the first ids and kNN
+   batches (each row's (T, cap) hit table is 277 MB, so the dense id
+   and kNN paths are kept to 256 rows).  Each must equal the pruned
+   answer bit for bit (kNN: on every point that neither side flags).
+   The dense kernels' launch counts are read right after.
+5. kernels -- each of the eight kernels against its plain PyTorch
+   version on the card, at the shapes its path gives it (gathered: a
+   routed counts batch, the ids executor's largest hit-table block;
+   dense: the Q = 4096 counts batch, the dense executor's hit-table
+   block): the path's own inputs (staged alive mask, bounding chunk
+   boxes), then ``alive`` None and a random mask and, for the skip
+   kernels, chunk boxes that do not bound their members.  Results must
+   be bit-equal.  Kernel times come from CUDA events, plain times from
+   the host clock.  The dense skip pair has no serving caller (repro
+   launches it from tests only), so it is launched from this phase
+   only and its row says so.
 
 Then one ``{"kernels": [...]}`` line, the card's name and power limit
 as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}`` as
@@ -48,11 +71,22 @@ N = 8_000_000          # osm-like objects served
 Q, Q_IDS = 4096, 1024  # boxes per range_counts / range_ids batch
 BATCHES, ID_BATCHES = 20, 5
 CHECK_Q = 1024         # queries of the first counts batch brute-forced
-CASES = {  # entry point -> (kernel line name, TPU kernel it replaces)
-    "gather_count_skip": "src/repro/kernels/range_probe/kernel.py:467",
-    "gather_mask_skip": "src/repro/kernels/range_probe/kernel.py:495",
-    "gather_count": "src/repro/kernels/range_probe/kernel.py:190",
-    "gather_mask": "src/repro/kernels/range_probe/kernel.py:215",
+Q_KNN, KNN_BATCHES, K, MAX_CAND = 1024, 5, 10, 1024
+CHECK_KNN = 256        # points of the first kNN batch brute-forced
+DENSE_ROWS = 256       # rows of the dense range_ids and knn calls
+SOURCE = "port/repro_torch/kernels/range_probe/csrc/range_probe.cu"
+TPU = "src/repro/kernels/range_probe/kernel.py"
+CASES = {  # gathered entry point -> the TPU kernel it replaces
+    "gather_count_skip": f"{TPU}:467",
+    "gather_mask_skip": f"{TPU}:495",
+    "gather_count": f"{TPU}:190",
+    "gather_mask": f"{TPU}:215",
+}
+DENSE_CASES = {  # dense entry point -> the TPU kernel it replaces
+    "count": f"{TPU}:106",
+    "mask": f"{TPU}:126",
+    "count_skip": f"{TPU}:329",
+    "mask_skip": f"{TPU}:354",
 }
 
 
@@ -178,8 +212,6 @@ def serve_phase(torch, dev):
         dev_ids_ms, top_ids = device_busy(torch, lambda: srv.range_ids(
             ibatches[1 % len(ibatches)], max_hits=MAX_HITS), 3)
         results[li] = dict(counts=counts, ids=ids)
-        c_sorted, i_sorted = sorted(c_ms), sorted(i_ms)
-        pct = lambda xs, p: xs[min(len(xs) - 1, int(p * len(xs)))]  # noqa
         emit(dict(
             phase="serve", local_index=li, n=N, payload=PAYLOAD,
             t=srv.stats["t"], cap=srv.stats["cap"],
@@ -188,14 +220,14 @@ def serve_phase(torch, dev):
             gen_s=gen_s, resident_tile_bytes=srv.resident_tile_bytes(),
             counts=dict(q=Q, batches=len(c_ms),
                         qps=Q * len(c_ms) / (sum(c_ms) / 1e3),
-                        p50_ms=pct(c_sorted, 0.5), p99_ms=pct(c_sorted, 0.99),
+                        p50_ms=pct(c_ms, 0.5), p99_ms=pct(c_ms, 0.99),
                         f_max=f_max,
                         fanout_mean=sum(fan) / len(fan),
                         device_ms_per_batch=dev_ms, top_device=top,
                         chunk_skip_rate=srv.chunk_skip_rate(cbatches[0])),
             ids=dict(q=Q_IDS, batches=len(i_ms),
                      qps=Q_IDS * len(i_ms) / (sum(i_ms) / 1e3),
-                     p50_ms=pct(i_sorted, 0.5), p99_ms=pct(i_sorted, 0.99),
+                     p50_ms=pct(i_ms, 0.5), p99_ms=pct(i_ms, 0.99),
                      f_max=i_fmax, device_ms_per_batch=dev_ids_ms,
                      top_device=top_ids),
             max_memory_allocated=torch.cuda.max_memory_allocated()))
@@ -221,7 +253,132 @@ def serve_phase(torch, dev):
                                  f"path: {launches}")
     # per server: warm-up + timed + profiled batches
     calls = dict(counts=1 + len(cbatches) + 3, ids=1 + len(ibatches) + 3)
-    return servers, cbatches[0], ibatches[0], launches, calls
+    return (servers, mbrs, cbatches[0], ibatches[0], results["x"],
+            launches, calls)
+
+
+def pct(xs, p):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(p * len(xs)))]
+
+
+def knn_brute(torch, knn_mod, mbrs, pts, k, block=8):
+    """Exact kNN over all objects by the key ``bits(d2) << 32 | id``
+    (d2 >= 0, so its bits order as its values) -> ``(ids, d2)``."""
+    ar = torch.arange(mbrs.shape[0], device=mbrs.device)
+    ids, d2s = [], []
+    for i in range(0, pts.shape[0], block):
+        d2 = knn_mod.mindist2_fused(pts[i:i + block], mbrs)
+        key = (d2.view(torch.int32).long() << 32) | ar
+        top = torch.topk(key, k, dim=1, largest=False, sorted=True).values
+        ids.append((top & 0xFFFFFFFF).to(torch.int32))
+        d2s.append((top >> 32).to(torch.int32).view(torch.float32))
+    return torch.cat(ids), torch.cat(d2s)
+
+
+def knn_phase(torch, servers, mbrs, dev):
+    from repro_torch.kernels.range_probe import kernel
+    from repro_torch.query import knn as knn_mod
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batches = [torch.rand(Q_KNN, 2, generator=g, device=dev)
+               for _ in range(KNN_BATCHES)]
+    kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    answers = {}
+    for li, srv in servers.items():
+        ms, out = [], []
+        for pts in batches:
+            t0 = time.perf_counter()
+            nn_ids, nn_d2, ovf, st = srv.knn(pts, K, max_cand=MAX_CAND)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(((nn_ids, nn_d2, ovf), st))
+        dev_ms, top = device_busy(torch, lambda: srv.knn(
+            batches[1], K, max_cand=MAX_CAND), 3)
+        answers[li] = [a for a, _ in out]
+        stats = [st for _, st in out]
+        emit(dict(
+            phase="knn", local_index=li, q=Q_KNN, k=K, max_cand=MAX_CAND,
+            batches=len(ms), batch_ms=ms,
+            qps=Q_KNN * len(ms) / (sum(ms) / 1e3), p50_ms=pct(ms, 0.5),
+            p99_ms=pct(ms, 0.99), device_ms_per_batch=dev_ms,
+            top_device=top, f_max=[st["f_max"] for st in stats],
+            retries=[st["retries"] for st in stats],
+            max_rounds=max(st["rounds"] for st in stats),
+            fanout_mean=sum(st["fanout_mean"] for st in stats) / len(stats),
+            overflowed=sum(int(a[2].sum()) for a in answers[li]),
+            max_memory_allocated=torch.cuda.max_memory_allocated()))
+    launches = dict(kernel.LAUNCHES)
+
+    for (xi, xd, xo), (oi, od, oo) in zip(answers["x"], answers["off"]):
+        if not (torch.equal(xo, oo) and torch.equal(xi[~xo], oi[~oo])
+                and torch.equal(xd[~xo], od[~oo])):
+            raise AssertionError('kNN of local_index "x" and "off" differ')
+    nn_ids, nn_d2, ovf = answers["x"][0]
+    want_ids, want_d2 = knn_brute(torch, knn_mod, mbrs,
+                                  batches[0][:CHECK_KNN], K)
+    ok = ~ovf[:CHECK_KNN]
+    if not (torch.equal(nn_ids[:CHECK_KNN][ok], want_ids[ok])
+            and torch.equal(nn_d2[:CHECK_KNN][ok], want_d2[ok])):
+        raise AssertionError("kNN disagrees with the brute force")
+    for name in CASES:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the kNN "
+                                 f"path: {launches}")
+    emit(dict(phase="knn_check", x_equals_off_unflagged=True,
+              brute_force_points=CHECK_KNN,
+              flagged_in_checked=int((~ok).sum()), launches=launches))
+    return batches[0], answers["x"][0], launches
+
+
+def dense_phase(torch, srv, qc, qi, pts, pruned_x, pruned_knn):
+    """The dense oracle against the pruned answers of the same inputs
+    -> the dense kernels' launches and each call's wall ms."""
+    from repro_torch.kernels.range_probe import kernel
+
+    kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    calls = {}
+
+    def timed(name, fn):
+        before = dict(kernel.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        calls[name] = dict(ms=(time.perf_counter() - t0) * 1e3, launches={
+            k: v - before[k] for k, v in kernel.LAUNCHES.items()
+            if v != before[k]})
+        return out
+
+    counts, _ = timed("range_counts", lambda: srv.range_counts(
+        qc, pruned=False))
+    if not torch.equal(counts, pruned_x["counts"][0]):
+        raise AssertionError("dense range_counts differ from pruned")
+    qd = qi[:DENSE_ROWS]
+    ids = timed("range_ids", lambda: srv.range_ids(
+        qd, max_hits=MAX_HITS, pruned=False))
+    want = [x[:DENSE_ROWS] for x in pruned_x["ids"][0]]
+    if not all(torch.equal(u, v) for u, v in zip(ids[:3], want)):
+        raise AssertionError("dense range_ids differ from pruned")
+    nn_ids, nn_d2, ovf, st = timed("knn", lambda: srv.knn(
+        pts[:DENSE_ROWS], K, max_cand=MAX_CAND, pruned=False))
+    p_ids, p_d2, p_ovf = (x[:DENSE_ROWS] for x in pruned_knn)
+    ok = ~(ovf | p_ovf)
+    if not (torch.equal(nn_ids[ok], p_ids[ok])
+            and torch.equal(nn_d2[ok], p_d2[ok])):
+        raise AssertionError("dense kNN differs from pruned")
+    launches = dict(kernel.LAUNCHES)
+    for name in ("count", "mask"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the dense "
+                                 f"path: {launches}")
+    emit(dict(phase="dense", counts_q=qc.shape[0], ids_q=DENSE_ROWS,
+              knn_q=DENSE_ROWS, calls=calls, knn_rounds=st["rounds"],
+              knn_flagged=int((~ok).sum()),
+              equal_to_pruned=True, launches=launches,
+              max_memory_allocated=torch.cuda.max_memory_allocated()))
+    return launches
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -306,54 +463,34 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
         kfn = getattr(kernel, name)
         plain = getattr(ref, name.replace("gather_", "gathered_")
                         .replace("count", "counts"))
-        cases, worst = [], 0
-        for alive_name, alive in (("staged", lay[li].alive),
-                                  ("none", None), ("random", rand_alive)):
-            for cb_name, cb in ((("bounding", lay["x"].chunk_boxes),
-                                 ("non_bounding", bad)) if skip
-                                else (("none", None),)):
-                extra = (cb,) if skip else ()
 
-                def k():
-                    return kfn(q, tiles, *extra, cand, alive=alive)
+        def k_of(alive, cb):
+            return kfn(q, tiles, *((cb,) if skip else ()), cand, alive=alive)
 
-                def r(qq, cc):
-                    boxes = ((ops.gathered_chunk_boxes(cb, cc),) if skip
-                             else ())
-                    return plain(qq, ops.gathered_rows(tiles, cc), *boxes,
-                                 None if alive is None
-                                 else ops.gathered_alive(alive, cc))
+        def plain_of(alive, cb):
+            def r(qq, cc):
+                boxes = ((ops.gathered_chunk_boxes(cb, cc),) if skip
+                         else ())
+                return plain(qq, ops.gathered_rows(tiles, cc), *boxes,
+                             None if alive is None
+                             else ops.gathered_alive(alive, cc))
+            return plain_blocked(torch, r, q, cand, cap, mask_out)
 
-                got = k()
-                t_plain = time.perf_counter()
-                want = plain_blocked(torch, r, q, cand, cap, mask_out)
-                torch.cuda.synchronize()
-                plain_ms = (time.perf_counter() - t_plain) * 1e3
-                if got.shape != want.shape:
-                    raise AssertionError(f"{name}: shape {tuple(got.shape)}"
-                                         f" != {tuple(want.shape)}")
-                err = 0 if not got.numel() else int(
-                    torch.ne(got, want).any() if mask_out
-                    else (got - want).abs().max())
-                if err != 0:
-                    raise AssertionError(
-                        f"{name} (alive={alive_name}, chunk boxes="
-                        f"{cb_name}) differs from its plain version: "
-                        f"max abs err {err}")
-                worst = max(worst, err)
-                ms = cuda_ms(torch, k, 10)
-                cases.append(dict(alive=alive_name, chunk_boxes=cb_name,
-                                  ms=ms, plain_ms=plain_ms))
+        cases, worst = timed_cases(
+            torch, name, k_of, plain_of,
+            (("staged", lay[li].alive), ("none", None),
+             ("random", rand_alive)),
+            (("bounding", lay["x"].chunk_boxes), ("non_bounding", bad))
+            if skip else (("none", None),))
         main = cases[0]      # the serving path's own inputs
         bytes_, pair_bytes, ops_ = bound_work(
             torch, ref, ops, q, cand, tiles, lay[li].alive,
             lay["x"].chunk_boxes if skip else None, mask_out)
         bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
         entries.append(dict(
-            name=name, route="cuda",
-            source="port/repro_torch/kernels/range_probe/csrc/range_probe.cu",
-            replaces=replaces, launches=launches[name], max_abs_err=worst,
-            ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=bound_ms,
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=launches[name], max_abs_err=worst, ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=bound_ms,
             bound_by=("bytes" if bytes_ / HBM_BYTES_PER_S
                       >= ops_ / FP32_OPS_PER_S else "operations"),
             library_ms=None, bit_equal=worst == 0,
@@ -411,6 +548,120 @@ def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
     return bytes_, pair_bytes, ops_
 
 
+def timed_cases(torch, name, k_of, plain_of, alives, boxes):
+    """Run one kernel and its plain version on every (alive, chunk box)
+    case; raise unless bit-equal -> ``(cases, worst error)``."""
+    cases, worst = [], 0
+    for alive_name, alive in alives:
+        for cb_name, cb in boxes:
+            def k():
+                return k_of(alive, cb)
+            got = k()
+            t_plain = time.perf_counter()
+            want = plain_of(alive, cb)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t_plain) * 1e3
+            if got.shape != want.shape:
+                raise AssertionError(f"{name}: shape {tuple(got.shape)} != "
+                                     f"{tuple(want.shape)}")
+            err = 0 if not got.numel() else int(
+                torch.ne(got, want).any() if got.dtype == torch.bool
+                else (got - want).abs().max())
+            if err != 0:
+                raise AssertionError(
+                    f"{name} (alive={alive_name}, chunk boxes={cb_name}) "
+                    f"differs from its plain version: max abs err {err}")
+            worst = max(worst, err)
+            cases.append(dict(alive=alive_name, chunk_boxes=cb_name,
+                              ms=cuda_ms(torch, k, 10), plain_ms=plain_ms))
+    return cases, worst
+
+
+def dense_kernel_phase(torch, srv, qc, qi, launches):
+    """The four dense kernels on the "x" staging: counts at the dense
+    counts batch (Q = 4096), masks at the dense executor's hit-table
+    block of the ids batch."""
+    from repro_torch.kernels.range_probe import kernel, ref
+    from repro_torch.query import range as range_mod
+
+    lay = srv.layout
+    tiles, alive, cbs = lay.canon_tiles, lay.alive, lay.chunk_boxes
+    t, cap = tiles.shape[:2]
+    gen = torch.Generator(device=qc.device).manual_seed(8)
+    rand_alive = torch.rand(t, cap, generator=gen, device=qc.device) < 0.7
+    jitter = torch.rand(cbs.shape, generator=gen, device=qc.device) * 0.02
+    bad = torch.cat([cbs[..., :2] + jitter[..., :2],
+                     cbs[..., 2:] - jitter[..., 2:]], dim=-1).contiguous()
+    rows = range_mod.dense_blocks(qi.shape[0], t * cap)[0]
+    entries = []
+    for name, replaces in DENSE_CASES.items():
+        skip, mask_out = name.endswith("_skip"), name.startswith("mask")
+        q = qi[rows] if mask_out else qc
+        kfn = getattr(kernel, name)
+        plain = getattr(ref, "probe_" + name.replace("count", "counts"))
+
+        def k_of(al, cb):
+            return kfn(q, tiles, *((cb,) if skip else ()), alive=al)
+
+        def plain_of(al, cb, block=8):
+            extra = (cb,) if skip else ()
+            if mask_out:
+                return plain(q, tiles, *extra, al).transpose(0, 1)
+            return torch.cat([plain(q[i:i + block], tiles, *extra, al)
+                              for i in range(0, q.shape[0], block)])
+
+        cases, worst = timed_cases(
+            torch, name, k_of, plain_of,
+            (("staged", alive), ("none", None), ("random", rand_alive)),
+            (("bounding", cbs), ("non_bounding", bad)) if skip
+            else (("none", None),))
+        main = cases[0]
+        bytes_, ops_ = dense_bound_work(torch, ref, q, tiles, alive,
+                                        cbs if skip else None, mask_out)
+        b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
+        o_ms = ops_ / FP32_OPS_PER_S * 1e3
+        entries.append(dict(
+            name=name, route="cuda", source=SOURCE, replaces=replaces,
+            launches=launches[name], max_abs_err=worst, ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=max(b_ms, o_ms),
+            bound_by="bytes" if b_ms >= o_ms else "operations",
+            library_ms=None, bit_equal=worst == 0,
+            on_serving_path=not skip,
+            launched_by="dense phase" if not skip else
+            "this phase only (repro launches it from tests only)",
+            shape=dict(q=q.shape[0], t=t, cap=cap, c=cbs.shape[1]),
+            cases=cases))
+    return entries
+
+
+def dense_bound_work(torch, ref, q, tiles, alive, cboxes, mask_out,
+                     rows=16):
+    """Least bytes and operations of one dense call on these inputs.
+
+    bytes: the queries, the alive flags, the boxes of alive slots (and
+    the chunk boxes), each read once, and the output written once.
+    operations: four float compares per (query, alive slot); with chunk
+    boxes, only the alive slots of chunks the query hits, plus four per
+    (query, chunk) test.
+    """
+    t, cap = tiles.shape[:2]
+    n_alive = int(alive.sum())
+    out_bytes = q.shape[0] * t * (cap if mask_out else 4)
+    bytes_ = q.numel() * 4 + t * cap + n_alive * 16 + out_bytes
+    if cboxes is None:
+        return bytes_, 4 * q.shape[0] * n_alive
+    n_chunks = cboxes.shape[1]
+    slot_alive = torch.cat([alive, alive.new_zeros(
+        t, n_chunks * 128 - cap)], dim=1)
+    per_chunk = slot_alive.reshape(t, n_chunks, 128).sum(2)
+    live_slots = 0
+    for i in range(0, q.shape[0], rows):
+        hit = ref.chunk_hits(q[i:i + rows], cboxes)       # (B, T, C)
+        live_slots += int((hit * per_chunk).sum())
+    return (bytes_ + cboxes.numel() * 4,
+            4 * live_slots + 4 * q.shape[0] * cboxes.shape[0] * n_chunks)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -435,13 +686,21 @@ def main() -> int:
               ptxas=ptxas))
 
     t0 = time.perf_counter()
-    servers, qc, qi, launches, calls = serve_phase(torch, dev)
+    servers, mbrs, qc, qi, pruned_x, launches, calls = serve_phase(torch, dev)
     t1 = time.perf_counter()
+    pts, pruned_knn, knn_launches = knn_phase(torch, servers, mbrs, dev)
+    t2 = time.perf_counter()
+    dense_launches = dense_phase(torch, servers["x"], qc, qi, pts, pruned_x,
+                                 pruned_knn)
+    t3 = time.perf_counter()
     entries = kernel_phase(torch, servers, qc, qi, launches, calls)
+    entries += dense_kernel_phase(torch, servers["x"], qc, qi, dense_launches)
     for e in entries:
+        if e["name"] in CASES:
+            e["knn_launches"] = knn_launches[e["name"]]
         emit(dict(phase="kernel", **e))
-    emit(dict(phase="wall", serve_s=t1 - t0,
-              kernels_s=time.perf_counter() - t1))
+    emit(dict(phase="wall", serve_s=t1 - t0, knn_s=t2 - t1,
+              dense_s=t3 - t2, kernels_s=time.perf_counter() - t3))
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,5 +1,6 @@
-"""Public surface of the routed range probe (twin of the gathered half
-of ``repro.kernels.range_probe.ops``).
+"""Public surface of the range probe (twin of
+``repro.kernels.range_probe.ops``): dense (``probe_*``, every tile)
+and routed (``gathered_*``, each query's candidate tiles).
 
 Dispatch: tensors on the CPU go to the plain versions in ``ref``;
 tensors on a CUDA device go to the Hopper kernel in ``kernel``, which
@@ -63,6 +64,46 @@ def gathered_chunk_boxes(cboxes: torch.Tensor, cand: torch.Tensor
 
 def _kargs(qboxes: torch.Tensor, cand: torch.Tensor):
     return qboxes.float().contiguous(), cand.int().contiguous()
+
+
+def probe_counts(qboxes: torch.Tensor, tiles: torch.Tensor, *,
+                 alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-(query, tile) hit counts: (Q, 4), (T, cap, 4) -> (Q, T)
+    int32.  ``alive``: (T, cap) bool, dead slots never count."""
+    if tiles.is_cuda:
+        return kernel.count(qboxes.float().contiguous(), tiles, alive=alive)
+    return ref.probe_counts(qboxes.float(), tiles.float(), alive)
+
+
+def probe_mask(qboxes: torch.Tensor, tiles: torch.Tensor, *,
+               alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Full hit table for id extraction -> (Q, T, cap) bool."""
+    if tiles.is_cuda:
+        return kernel.mask(qboxes.float().contiguous(), tiles, alive=alive)
+    return ref.probe_mask(qboxes.float(), tiles.float(), alive).transpose(0, 1)
+
+
+def probe_counts_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
+                      cboxes: torch.Tensor, *,
+                      alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense counts with chunk skipping -> (Q, T) int32; equal to
+    ``probe_counts`` whenever each chunk box bounds its members."""
+    if tiles.is_cuda:
+        return kernel.count_skip(qboxes.float().contiguous(), tiles, cboxes,
+                                 alive=alive)
+    return ref.probe_counts_skip(qboxes.float(), tiles.float(),
+                                 cboxes.float(), alive)
+
+
+def probe_mask_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
+                    cboxes: torch.Tensor, *,
+                    alive: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense hit table with chunk skipping -> (Q, T, cap) bool."""
+    if tiles.is_cuda:
+        return kernel.mask_skip(qboxes.float().contiguous(), tiles, cboxes,
+                                alive=alive)
+    return ref.probe_mask_skip(qboxes.float(), tiles.float(), cboxes.float(),
+                               alive).transpose(0, 1)
 
 
 def gathered_counts(qboxes: torch.Tensor, tiles: torch.Tensor,

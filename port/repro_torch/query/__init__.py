@@ -1,1 +1,1 @@
-"""Query executors over staged layouts (this slice: range)."""
+"""Query executors over staged layouts: range and kNN."""

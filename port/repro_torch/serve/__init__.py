@@ -1,8 +1,8 @@
-"""Batched spatial query serving, routed range half.
+"""Batched spatial query serving: range and kNN, pruned and dense.
 
 - ``config``: ``ServeConfig`` / ``PlacementPolicy``.
-- ``router``: probe-box routing, fixed-width ``(Q, F)`` candidate
-  lists, the region fan-out metric and ``HeatTracker``.
+- ``router``: probe-box and MINDIST routing, fixed-width ``(Q, F)``
+  candidate lists, the region fan-out metric and ``HeatTracker``.
 - ``layout``: ``stage_tiles`` (MASJ tiles, canonical marks, probe
   boxes, the ``"x"`` local index, the alive mask), ``StagedLayout``
   and the replicated single-device executors.

@@ -1,8 +1,8 @@
-"""The batched spatial query server, routed range half (twin of
-``repro.serve.engine``).
+"""The batched spatial query server (twin of ``repro.serve.engine``,
+replicated placement on one device).
 
 A dataset is partitioned and MASJ-staged once; each range batch is
-then answered in three steps:
+then answered in three steps (the pruned probe, the default):
 
   route  -- probe-box overlap gives every query's fan-out and a
             fixed-width ``(Q, F)`` candidate-tile index, ``F`` covering
@@ -14,11 +14,19 @@ then answered in three steps:
   answer -- exact unique counts, or ascending id lists with overflow
             flagged past ``max_hits``.
 
-Features of the reference server not ported yet (kNN, ingest,
-rebalancing, the dense oracle, sharded and heat placements, meshes)
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+kNN batches deepen over each point's MINDIST frontier of tiles and
+widen the frontier until no query can have missed a neighbour (the
+widen-and-retry ladder).  ``probe="dense"`` or ``pruned=False`` runs
+the dense oracle instead: every tile, through the dense kernels.
+
+Features of the reference server not ported yet (ingest, rebalancing,
+sharded and heat placements, meshes) raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
+
+import logging
+import math
 
 import numpy as np
 import torch
@@ -27,9 +35,12 @@ from ..core.partition import api
 from ..core.partition.assign import round_up
 from ..device import not_ported, resolve
 from ..kernels.range_probe import ops as rops
+from ..query import knn as knn_mod
 from . import router
 from .config import ServeConfig
 from .layout import ReplicatedTiles, StagedLayout, build_tiles
+
+log = logging.getLogger(__name__)
 
 
 def _f_width(fanout_max: int, t: int) -> int:
@@ -39,10 +50,13 @@ def _f_width(fanout_max: int, t: int) -> int:
 
 
 class WidthPolicy:
-    """Adaptive candidate-width cache: widths per query kind only move
-    up (wider is always exact), clamped to ``cap`` (the live tile
-    count).  ``at_least(key, floor)`` returns ``max(cached, floor)``, so
-    a narrow batch after a wide one reuses the wider width."""
+    """Adaptive candidate-width cache: widths per query kind (``"range"``
+    or ``("knn", k, max_cand)``) only move up (wider is always exact),
+    clamped to ``cap`` (the live tile count).  ``at_least(key, floor)``
+    returns ``max(cached, floor)``, so a narrow range batch after a wide
+    one reuses the wider width; ``start(key, default)`` returns the
+    cached kNN width, or ``default`` cold (any kNN width is correct: the
+    ladder widens until exact)."""
 
     def __init__(self, cap: int | None = None):
         self.cap = cap
@@ -61,16 +75,19 @@ class WidthPolicy:
         self.misses += 1
         return floor
 
+    def start(self, key, default: int) -> int:
+        w = self._w.get(key)
+        if w is not None:
+            self.hits += 1
+            return w
+        self.misses += 1
+        return default
+
     def observe(self, key, width: int) -> None:
         self._w[key] = self._clamp(max(self._w.get(key, 0), width))
 
 
-_DENSE_ITEMS = "Queue 1 items 2-3, Queue 2 items 4-5"
-
-
 def _check_ported(config: ServeConfig) -> None:
-    if config.probe == "dense":
-        raise not_ported("probe='dense'", _DENSE_ITEMS)
     if config.placement == "sharded":
         raise not_ported("placement='sharded'", "Queue 1 item 10")
     if config.placement == "heat":
@@ -83,13 +100,15 @@ def _check_ported(config: ServeConfig) -> None:
 
 
 class SpatialServer:
-    """Stage once, then serve batched exact range queries on one device.
+    """Stage once, then serve batched exact range and kNN queries on
+    one device.
 
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
-    ``config`` is a frozen ``ServeConfig``; this slice serves the
-    replicated placement with the pruned probe and ``local_index``
-    ``"x"`` (default) or ``"off"``.
+    ``config`` is a frozen ``ServeConfig``; the port serves the
+    replicated placement, ``probe`` ``"pruned"`` (default) or
+    ``"dense"`` (also a per-call ``pruned=`` override), and
+    ``local_index`` ``"x"`` (default) or ``"off"``.
     """
 
     def __init__(self, parts: api.Partitioning, mbrs,
@@ -140,6 +159,7 @@ class SpatialServer:
         return self.tiles.staged
 
     def _queries(self, qboxes) -> torch.Tensor:
+        """Query boxes (Q, 4) or points (Q, 2) as float32 on the device."""
         return torch.as_tensor(qboxes, dtype=torch.float32,
                                device=self.device)
 
@@ -162,9 +182,6 @@ class SpatialServer:
 
     # -- not ported yet ---------------------------------------------------
 
-    def knn(self, *args, **kwargs):
-        raise not_ported("SpatialServer.knn", "Queue 1 item 6")
-
     def append(self, mbrs):
         raise not_ported("SpatialServer.append", "Queue 1 item 9")
 
@@ -182,9 +199,8 @@ class SpatialServer:
 
     # -- routing (host side, per batch) -----------------------------------
 
-    def _pruned(self, pruned: bool | None) -> None:
-        if pruned is False:
-            raise not_ported("pruned=False (the dense oracle)", _DENSE_ITEMS)
+    def _use_pruned(self, pruned: bool | None) -> bool:
+        return (self.config.probe == "pruned") if pruned is None else pruned
 
     def _route_batch(self, qboxes: torch.Tensor):
         """Candidate-tile index for one range batch: ``f_max`` covers the
@@ -211,23 +227,87 @@ class SpatialServer:
 
     def range_counts(self, qboxes, pruned: bool | None = None):
         """Exact unique hit counts -> ``((Q,) int32, stats)``."""
-        self._pruned(pruned)
         qboxes = self._queries(qboxes)
         stats = self._fanout_stats(qboxes)
-        cand, costs, f = self._route_batch(qboxes)
-        counts, xstats = self.tiles.range_counts(qboxes, cand, costs)
-        stats.update(mode=self.tiles.mode, f_max=f, **xstats)
+        if self._use_pruned(pruned):
+            cand, costs, f = self._route_batch(qboxes)
+            counts, xstats = self.tiles.range_counts(qboxes, cand, costs)
+            stats.update(mode=self.tiles.mode, f_max=f, **xstats)
+        else:
+            counts, xstats = self.tiles.dense_range_counts(qboxes)
+            stats.update(mode="dense", **xstats)
         return counts, stats
 
     def range_ids(self, qboxes, max_hits: int = 1024,
                   pruned: bool | None = None):
         """Exact unique hit-id sets (ascending, -1 padded) + overflow
         -> ``(hit_ids[Q, max_hits], counts[Q], overflow[Q], stats)``."""
-        self._pruned(pruned)
         qboxes = self._queries(qboxes)
         stats = self._fanout_stats(qboxes)
-        cand, costs, f = self._route_batch(qboxes)
-        hit_ids, counts, overflow, xstats = self.tiles.range_ids(
-            qboxes, cand, costs, max_hits)
-        stats.update(mode=self.tiles.mode, f_max=f, **xstats)
+        if self._use_pruned(pruned):
+            cand, costs, f = self._route_batch(qboxes)
+            hit_ids, counts, overflow, xstats = self.tiles.range_ids(
+                qboxes, cand, costs, max_hits)
+            stats.update(mode=self.tiles.mode, f_max=f, **xstats)
+        else:
+            hit_ids, counts, overflow, xstats = self.tiles.dense_range_ids(
+                qboxes, max_hits)
+            stats.update(mode="dense", **xstats)
         return hit_ids, counts, overflow, stats
+
+    def knn(self, pts, k: int, max_cand: int = 1024,
+            pruned: bool | None = None):
+        """Exact batched kNN -> ``(nn_ids[Q, k], nn_d2[Q, k], overflow[Q],
+        stats)``; the reported fan-out is the MINDIST partitions a
+        best-first search would visit given the answered kth distance.
+
+        The pruned executor starts from a density-sized MINDIST frontier
+        (or the width cache's converged start) and doubles it while any
+        query's refinement radius reaches an excluded tile
+        (``stats['retries']``), so unflagged answers equal the dense
+        oracle's.
+        """
+        pts = self._queries(pts)
+        if self._use_pruned(pruned):
+            nn_ids, nn_d2, overflow, mode_stats = self._knn_retry_loop(
+                pts, k, max_cand)
+            mode_stats = dict(mode=self.tiles.mode, **mode_stats)
+        else:
+            nn_ids, nn_d2, overflow, xstats = self.tiles.dense_knn(
+                pts, k, max_cand)
+            mode_stats = dict(mode="dense", **xstats)
+        fanout = knn_mod.knn_fanout(pts, nn_d2[:, -1], self.parts.boxes,
+                                    self.parts.valid).cpu().numpy()
+        stats = dict(fanout_mean=float(fanout.mean()),
+                     fanout_max=int(fanout.max()), **mode_stats)
+        return nn_ids, nn_d2, overflow, stats
+
+    def _knn_retry_loop(self, pts: torch.Tensor, k: int, max_cand: int):
+        """The widen-and-retry ladder: answer at frontier width ``f``;
+        while a query's √2-inflated radius reaches its nearest excluded
+        tile (it may have missed a neighbour), double ``f``, up to the
+        live tile count.  The miss test is float64, as the reference's
+        float32 radius times ``np.sqrt(2.0)`` is under NumPy 2."""
+        t_live, n = self.stats["t_live"], self.stats["n"]
+        wkey = ("knn", k, max_cand)
+        f = self.widths.start(
+            wkey, _f_width(4 * k * t_live // max(n, 1) + 3, t_live))
+        retries = 0
+        while True:
+            nn_ids, nn_d2, radius, overflow, excl, xstats = \
+                self.tiles.knn_attempt(pts, k, max_cand, f)
+            miss = excl.double() <= radius.double() * math.sqrt(2.0)
+            if not bool(miss.any()) or f >= t_live:
+                break
+            new_f = _f_width(2 * f, t_live)
+            log.info("kNN frontier miss on %d/%d queries: widening "
+                     "f_max %d -> %d (retry %d)",
+                     int(miss.sum()), pts.shape[0], f, new_f, retries + 1)
+            f = new_f
+            retries += 1
+        self.widths.observe(wkey, f)
+        # heat sees the converged frontier: the tiles this batch probed
+        cand, _, _ = router.candidate_knn(self.probe_boxes, pts, f)
+        self.heat.observe(cand)
+        return (nn_ids, nn_d2, overflow | miss,
+                dict(f_max=f, retries=retries, **xstats))

@@ -7,8 +7,9 @@ whose region it touches, exactly one copy is marked canonical, each
 tile gets a *probe box* (tight MBR over its canonical members) for
 routing, and with ``local_index="x"`` each tile's slots are sorted by
 canonical xmin and summarised by one chunk box per 128 slots for the
-chunk-skipping kernels.  ``ReplicatedTiles`` serves routed range
-batches against one such staging on one device.
+chunk-skipping kernels.  ``ReplicatedTiles`` serves range and kNN
+batches against one such staging on one device, routed (pruned) or
+over every tile (the dense oracle).
 
 Membership is built blockwise over objects as (object, tile) pairs:
 the reference's dense ``(N, kmax)`` bool table would be 16 GB at 8 M
@@ -26,7 +27,9 @@ from ..core.partition import api
 from ..core.partition.assign import assign_from_pairs, round_up
 from ..device import not_ported
 from ..kernels.range_probe import ops as rops
+from ..query import knn as knn_mod
 from ..query import range as range_mod
+from . import router
 from .config import ServeConfig
 
 _HIT_BLOCK_ELEMS = 1 << 27   # (objects x tiles) per membership block
@@ -207,9 +210,11 @@ def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
 
 
 class ReplicatedTiles:
-    """The full staging on one device; each routed batch probes its
+    """The full staging on one device.  Each routed batch probes its
     candidate tiles with the gathered kernels (chunk-skipping when the
-    staging carries a local index), always passing the alive mask."""
+    staging carries a local index); the dense oracle probes every tile
+    with the dense kernels.  Every probe passes the alive mask.  Stats
+    dicts equal the reference's with ``mesh=None``."""
 
     mode = "pruned"
 
@@ -250,6 +255,43 @@ class ReplicatedTiles:
             qboxes, lay.canon_tiles, lay.ids, cand, max_hits,
             chunk_boxes=lay.chunk_boxes, alive=lay.alive)
         return hit_ids, counts, overflow, dict(skew=1.0)
+
+    def knn_attempt(self, pts, k: int, max_cand: int, f: int):
+        """One pruned kNN pass at frontier width ``f`` -> ``(nn_ids,
+        nn_d2, radius, overflow, excluded, stats)``."""
+        lay = self.staged
+        cand, _, excl = router.candidate_knn(lay.probe_boxes, pts, f)
+        nn_ids, nn_d2, radius, overflow, rounds = knn_mod.pruned_knn(
+            pts, k, lay.canon_tiles, lay.ids, lay.uni, cand, excl,
+            max_cand=max_cand, n_live=self.stats["n"],
+            chunk_boxes=lay.chunk_boxes, alive=lay.alive)
+        return nn_ids, nn_d2, radius, overflow, excl, dict(
+            skew=1.0, rounds=_max_rounds(rounds))
+
+    # -- dense oracle ----------------------------------------------------
+
+    def dense_range_counts(self, qboxes):
+        lay = self.staged
+        counts = range_mod.range_counts(qboxes, lay.canon_tiles, lay.alive)
+        return counts, dict(skew=1.0)
+
+    def dense_range_ids(self, qboxes, max_hits: int):
+        lay = self.staged
+        hit_ids, counts, overflow = range_mod.range_ids(
+            qboxes, lay.canon_tiles, lay.ids, max_hits, lay.alive)
+        return hit_ids, counts, overflow, dict(skew=1.0)
+
+    def dense_knn(self, pts, k: int, max_cand: int):
+        lay = self.staged
+        nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn(
+            pts, k, lay.canon_tiles, lay.ids, lay.uni, max_cand=max_cand,
+            n_live=self.stats["n"], alive=lay.alive)
+        return nn_ids, nn_d2, overflow, dict(rounds=_max_rounds(rounds),
+                                             skew=1.0)
+
+
+def _max_rounds(rounds: torch.Tensor) -> int:
+    return int(rounds.max()) if rounds.numel() else 0
 
 
 def build_tiles(parts: api.Partitioning, mbrs: torch.Tensor,

@@ -1,11 +1,14 @@
-"""The global partition index, range half (twin of
-``repro.serve.router``).
+"""The global partition index (twin of ``repro.serve.router``, single
+device).
 
 Range queries route by box overlap: against the partition regions for
 the paper's fan-out metric (``route_range``), and against each staged
 tile's canonical *probe box* for the pruned executor
-(``candidate_range``).  Candidate lists are fixed-width ``(Q, f_max)``
-int32 with ``-1`` padding, each query's tiles in ascending order.
+(``candidate_range``).  kNN queries route by distance: partitions in
+MINDIST order (``route_knn``), and each point's MINDIST frontier of
+probe boxes in L∞ order (``candidate_knn``).  Candidate lists are
+fixed-width ``(Q, f_max)`` int32 with ``-1`` padding.  Every sort that
+stands in for a JAX ``argsort`` is stable.
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import torch
 
 from ..core import geometry
 from ..core.partition.api import Partitioning
+from ..device import resolve
+from ..query.knn import mindist2_fused
 
 
 def route_range(parts: Partitioning, qboxes: torch.Tensor
@@ -22,6 +27,18 @@ def route_range(parts: Partitioning, qboxes: torch.Tensor
     mask = geometry.intersects(qboxes[:, None, :], parts.boxes[None, :, :])
     mask = mask & parts.valid[None, :]
     return mask, mask.sum(1, dtype=torch.int32)
+
+
+def route_knn(parts: Partitioning, pts: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Q, 2) query points -> best-first partition visit order
+    ``(order[Q, kmax] int32, d2[Q, kmax] f32)``: partitions by ascending
+    MINDIST² (ties by index), invalid ones last at +inf.  ``d2`` rounds
+    as the reference's jitted ``route_knn`` does (``mindist2_fused``)."""
+    d2 = mindist2_fused(pts, parts.boxes)
+    d2 = torch.where(parts.valid[None, :], d2, torch.inf)
+    order = torch.sort(d2, dim=1, stable=True).indices.to(torch.int32)
+    return order, d2
 
 
 def probe_overlap(boxes: torch.Tensor, qboxes: torch.Tensor) -> torch.Tensor:
@@ -60,6 +77,41 @@ def candidate_range(boxes: torch.Tensor, qboxes: torch.Tensor, f_max: int
     return candidates_from_overlap(probe_overlap(boxes, qboxes), f_max)
 
 
+def linf_dist(pts: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """L∞ distance, point to closed box: (..., 2) x (T, 4) -> (..., T);
+    0 inside the box, +inf for sentinel (inverted) boxes."""
+    x, y = pts[..., None, 0], pts[..., None, 1]
+    zero = torch.zeros((), dtype=boxes.dtype, device=boxes.device)
+    dx = torch.maximum(torch.maximum(boxes[..., 0] - x, x - boxes[..., 2]),
+                       zero)
+    dy = torch.maximum(torch.maximum(boxes[..., 1] - y, y - boxes[..., 3]),
+                       zero)
+    return torch.where(boxes[..., 0] <= boxes[..., 2], torch.maximum(dx, dy),
+                       torch.inf)
+
+
+def candidate_knn(boxes: torch.Tensor, pts: torch.Tensor, f_max: int
+                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MINDIST frontier: each point's ``f_max`` nearest tiles.
+
+    boxes: (T, 4) probe boxes; pts: (Q, 2) -> ``(cand[Q, f_max] int32,
+    dist[Q, f_max] f32, excluded[Q] f32)``: tiles by ascending L∞
+    distance, ties by index (many tiles sit at distance 0 from a
+    point, so the sort must be stable), ``-1`` where fewer than
+    ``f_max`` non-empty tiles exist; ``excluded`` is the distance of
+    the nearest tile left out (+inf when none is).
+    """
+    d = linf_dist(pts, boxes)                          # (Q, T)
+    ds, order = torch.sort(d, dim=1, stable=True)
+    cand = torch.where(torch.isfinite(ds[:, :f_max]), order[:, :f_max],
+                       -1).to(torch.int32)
+    if f_max < boxes.shape[0]:
+        excluded = ds[:, f_max]
+    else:
+        excluded = torch.full((pts.shape[0],), torch.inf, device=pts.device)
+    return cand, ds[:, :f_max], excluded
+
+
 class HeatTracker:
     """EWMA per-tile hit counts + tile-pair co-occurrence sketch.
 
@@ -68,13 +120,15 @@ class HeatTracker:
     both.  State lives on the tracker's device in float64.  The 0/1
     co-occurrence sums are exact in any order, and the decay is a
     separate multiply and add (never fused), so a batch sequence gives
-    the reference's numpy state bit for bit.
+    the reference's numpy state bit for bit.  ``device`` defaults to
+    ``cuda`` (``repro_torch.device.resolve``).
     """
 
     def __init__(self, t: int, decay: float = 0.85,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str | None = None):
         if not 0.0 < decay <= 1.0:
             raise ValueError(f"decay must be in (0, 1], got {decay}")
+        device = resolve(device)
         self.t = int(t)
         self.decay = float(decay)
         self.heat = torch.zeros(self.t, dtype=torch.float64, device=device)

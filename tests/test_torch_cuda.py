@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.data import spatial_gen
 from repro_torch.kernels.range_probe import kernel, ops
+from repro_torch.query import knn as knn_mod
 from repro_torch.query import range as range_mod
 from repro_torch.serve import ServeConfig, SpatialServer
 
@@ -71,6 +72,29 @@ def test_kernels_match_plain_versions(q, t, cap, f, alive, boxes):
         assert torch.equal(got.cpu(), want), fn
 
 
+@pytest.mark.parametrize("alive", [None, "random"])
+@pytest.mark.parametrize("boxes", ["bounding", "arbitrary"])
+@pytest.mark.parametrize("q,t,cap", [(1, 1, 1), (7, 2, 1024), (130, 5, 257),
+                                     (300, 3, 4100)])
+def test_dense_kernels_match_plain_versions(q, t, cap, alive, boxes):
+    """The four dense kernels bit-equal their plain versions: ragged Q
+    and cap (both store paths: cap % 4 == 0 and not), sentinel slots,
+    chunk boxes that do not bound their members."""
+    _need_cuda()
+    qb, tiles, _, al, cb = _case(q, t, cap, 1, alive, boxes)
+    tiles[torch.from_numpy(np.random.default_rng(cap).random((t, cap))
+                           < 0.3)] = torch.tensor([9e9, 9e9, -9e9, -9e9])
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    for fn, extra in [("probe_counts", ()), ("probe_mask", ()),
+                      ("probe_counts_skip", (cb,)),
+                      ("probe_mask_skip", (cb,))]:
+        got = getattr(ops, fn)(dev(qb), dev(tiles), *map(dev, extra),
+                               alive=dev(al))
+        want = getattr(ops, fn)(qb, tiles, *extra, alive=al)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want), fn
+
+
 def test_wrappers_count_launches_and_reject_bad_inputs():
     _need_cuda()
     qb, tiles, cand, _, cb = _case(20, 3, 300, 4, None, "bounding")
@@ -84,7 +108,11 @@ def test_wrappers_count_launches_and_reject_bad_inputs():
         kernel.gather_mask(qb, tiles.transpose(0, 1), cand)
     with pytest.raises(ValueError):
         kernel.gather_count_skip(qb, tiles, cb[:, :1].contiguous(), cand)
-    assert sum(kernel.LAUNCHES.values()) == 1
+    kernel.count(qb, tiles, alive=None)
+    assert kernel.LAUNCHES["count"] == 1
+    with pytest.raises(ValueError):
+        kernel.mask_skip(qb, tiles, cb[:1].contiguous())
+    assert sum(kernel.LAUNCHES.values()) == 2
 
 
 def test_server_on_cuda_matches_cpu():
@@ -106,3 +134,27 @@ def test_server_on_cuda_matches_cpu():
             assert torch.equal(g.cpu(), w)
         ref = range_mod.range_query_ref(mbrs.numpy(), qb.numpy())
         assert [len(r) for r in ref] == got[1].cpu().tolist()
+
+
+def test_knn_on_cuda_matches_cpu_and_bruteforce():
+    """Pruned and dense kNN on the card equal the plain versions on the
+    CPU, stats included, and the numpy brute force's ids."""
+    _need_cuda()
+    mbrs = spatial_gen.osm_like(20_000, seed=0, device="cpu")
+    pts = torch.from_numpy(
+        np.random.default_rng(2).random((64, 2)).astype(np.float32))
+    want_ids, _ = knn_mod.knn_ref(mbrs.numpy(), pts.numpy(), 8)
+    for li in ("x", "off"):
+        srv = {d: SpatialServer.from_method("bsp", mbrs, 256,
+                                            ServeConfig(local_index=li),
+                                            device=d)
+               for d in ("cpu", "cuda")}
+        for pruned in (None, False):
+            want = srv["cpu"].knn(pts, 8, pruned=pruned)
+            got = srv["cuda"].knn(pts, 8, pruned=pruned)
+            for g, w in zip(got[:3], want[:3]):
+                assert torch.equal(g.cpu(), w)
+            assert got[3] == want[3]
+            ok = ~got[2].cpu().numpy()
+            np.testing.assert_array_equal(got[0].cpu().numpy()[ok],
+                                          want_ids[ok])

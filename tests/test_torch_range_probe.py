@@ -111,7 +111,7 @@ def test_gather_helpers_and_skip_rate_match_repro(q, t, cap, f):
 @pytest.mark.parametrize("alive", [None, "random"])
 @pytest.mark.parametrize("q,t,cap", [(5, 2, 30), (64, 2, 257)])
 def test_dense_oracles_match_repro(q, t, cap, alive):
-    """The dense oracles the next slice's kernels will be held to."""
+    """The dense oracles the dense kernels are held to."""
     qb, tiles, _, al, cb = _case(q, t, cap, 1, alive, "arbitrary")
     for fn, args in [("probe_mask", ()), ("probe_counts", ()),
                      ("probe_mask_skip", (cb,)),

@@ -1,10 +1,13 @@
 """repro_torch's SpatialServer against repro's and the numpy brute
 force on the same osm- and pi-like data: range counts, id lists with
-overflow flags and the fan-out stats for local_index "x" and "off";
-the replicated executors fed a staging carried across from repro; the
+overflow flags, kNN (pruned with its widen-and-retry ladder, and the
+dense oracle) and every stat for local_index "x" and "off"; the dense
+range oracle through ``pruned=False`` and ``probe="dense"``; the
+replicated executors fed a staging carried across from repro; the
 device rule and the unported features; and the generators' distribution
-against repro's.  Tolerance: exact equality for every answer and stat;
-the distribution checks state theirs."""
+against repro's.  Tolerance: exact equality for every answer and stat,
+float32 kNN distances bit for bit; the distribution checks state
+theirs."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
@@ -16,6 +19,7 @@ import torch
 
 from repro.data import spatial_gen as jgen
 from repro.serve import ServeConfig as JConfig, SpatialServer as JServer
+from repro.query import knn as jknn
 from repro.serve import router as jrouter
 from repro_torch.core.partition import api as tapi
 from repro_torch.data import spatial_gen as tgen
@@ -23,6 +27,7 @@ from repro_torch.query import range as trange
 from repro_torch.serve import PlacementPolicy
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
 from repro_torch.serve import layout as tlayout
+from repro_torch.serve import router as trouter
 
 torch.set_num_threads(1)
 N, NQ = 3000, 40
@@ -162,18 +167,19 @@ def test_executors_on_a_staging_carried_from_repro(data, servers,
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
-def test_default_device_is_cuda_and_never_falls_back(data):
+@pytest.mark.parametrize("make", [
+    lambda d: TServer.from_method("bsp", d, 120),
+    lambda d: tgen.osm_like(100),
+    lambda d: trouter.HeatTracker(8),
+], ids=["server", "generator", "heat_tracker"])
+def test_default_device_is_cuda_and_never_falls_back(data, make):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
-        TServer.from_method("bsp", data, 120)
-    with pytest.raises(RuntimeError, match="cuda"):
-        tgen.osm_like(100)
+        make(data)
 
 
 @pytest.mark.parametrize("make", [
-    lambda d: TServer.from_method("bsp", d, 120, TConfig(probe="dense"),
-                                  device="cpu"),
     lambda d: TServer.from_method("bsp", d, 120,
                                   TConfig(placement="sharded"), device="cpu"),
     lambda d: TServer.from_method("bsp", d, 120, TConfig(placement="heat"),
@@ -187,24 +193,122 @@ def test_default_device_is_cuda_and_never_falls_back(data):
     lambda d: TServer.from_method("str", d, 120, device="cpu"),
     lambda d: TServer(tapi.partition("bsp", torch.from_numpy(d), 120), d,
                       device="cpu", mesh=object()),
-], ids=["dense", "sharded", "heat", "hilbert", "rebalance_every", "str",
-        "mesh"])
+], ids=["sharded", "heat", "hilbert", "rebalance_every", "str", "mesh"])
 def test_unported_configurations_raise(data, make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make(data)
 
 
 @pytest.mark.parametrize("call", [
-    lambda s, q: s.range_counts(q, pruned=False),
-    lambda s, q: s.range_ids(q, pruned=False),
-    lambda s, q: s.knn(q[:, :2], 4), lambda s, q: s.append(q),
+    lambda s, q: s.append(q),
     lambda s, q: s.delete([0]), lambda s, q: s.update([0], q[:1]),
     lambda s, q: s.compact(), lambda s, q: s.rebalance(),
-], ids=["dense_counts", "dense_ids", "knn", "append", "delete", "update",
-        "compact", "rebalance"])
+], ids=["append", "delete", "update", "compact", "rebalance"])
 def test_unported_server_methods_raise(servers, call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(servers["x"][1], _qboxes(5, 4))
+
+
+def _pts(seed, q=NQ):
+    return np.random.default_rng(seed).random((q, 2)).astype(np.float32)
+
+
+def _assert_knn_equal(got, want):
+    for g, w in zip(got[:3], want[:3]):
+        w = np.asarray(w)
+        assert g.dtype == getattr(torch, str(w.dtype))
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert got[3] == want[3]
+
+
+@pytest.mark.parametrize("pruned", [None, False])
+@pytest.mark.parametrize("local_index", ["x", "off"])
+def test_knn_matches_repro_and_bruteforce(data, servers, local_index,
+                                          pruned):
+    """Pruned (the ladder, its f_max, retries and rounds) and dense:
+    ids, d2 and overflow bit for bit, every stat and the width cache.
+    Unflagged answers equal the numpy brute force's ids."""
+    js, ts = servers[local_index]
+    for k, seed in [(4, 20), (10, 21), (4, 22)]:
+        pts = _pts(seed)
+        want = js.knn(jnp.asarray(pts), k, pruned=pruned)
+        got = ts.knn(pts, k, pruned=pruned)
+        _assert_knn_equal(got, want)
+        ref_ids, _ = jknn.knn_ref(data, pts, k)
+        ok = ~got[2].numpy()
+        np.testing.assert_array_equal(got[0].numpy()[ok], ref_ids[ok])
+    assert ts.widths._w == js.widths._w
+    assert (ts.widths.hits, ts.widths.misses) == (js.widths.hits,
+                                                  js.widths.misses)
+
+
+@pytest.mark.parametrize("pruned", [None, False])
+def test_knn_overflow_keeps_repro_candidates(data, servers, pruned):
+    """max_cand 6 < the refinement box's hits: the truncated candidate
+    sets, and so the flagged answers, are repro's."""
+    js, ts = servers["x"]
+    pts = _pts(23)
+    want = js.knn(jnp.asarray(pts), 3, max_cand=6, pruned=pruned)
+    got = ts.knn(pts, 3, max_cand=6, pruned=pruned)
+    _assert_knn_equal(got, want)
+    assert got[2].any()
+
+
+def test_knn_widening_ladder_and_heat_match_repro(data):
+    """A cold server per package: the first batch climbs the ladder from
+    the density start, later batches start at the cached width; the heat
+    tracker sees each converged frontier."""
+    js = JServer.from_method("bsp", jnp.asarray(data), 60)
+    ts = TServer.from_method("bsp", data, 60, device="cpu")
+    retries = []
+    for seed in (24, 25):
+        pts = _pts(seed)
+        want = js.knn(jnp.asarray(pts), 8)
+        _assert_knn_equal(ts.knn(pts, 8), want)
+        retries.append(want[3]["retries"])
+    assert retries[0] > 0 and retries[1] == 0
+    for got, want in zip(ts.heat.snapshot(), js.heat.snapshot()):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("local_index", ["x", "off"])
+def test_dense_range_oracle_matches_repro(data, servers, local_index):
+    """pruned=False on a pruned server, and a server built with
+    probe="dense", answer as repro's dense oracle, stats included."""
+    js, ts = servers[local_index]
+    dense = TServer.from_method("bsp", data, 120,
+                                TConfig(local_index=local_index,
+                                        probe="dense"), device="cpu")
+    qb = _qboxes(26, NQ)
+    want = js.range_counts(jnp.asarray(qb), pruned=False)
+    for got in (ts.range_counts(qb, pruned=False), dense.range_counts(qb)):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        assert got[1] == want[1] and got[1]["mode"] == "dense"
+    want = js.range_ids(jnp.asarray(qb), max_hits=8, pruned=False)
+    for got in (ts.range_ids(qb, max_hits=8, pruned=False),
+                dense.range_ids(qb, max_hits=8)):
+        for g, w in zip(got[:3], want[:3]):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert got[3] == want[3]
+    got = dense.knn(_pts(27), 4)
+    _assert_knn_equal(got, js.knn(jnp.asarray(_pts(27)), 4, pruned=False))
+    assert dense.widths._w == {}
+
+
+def test_dense_executors_in_small_blocks_match_repro(data, servers,
+                                                     monkeypatch):
+    """Dense id and kNN hit tables built two queries at a time."""
+    js, ts = servers["off"]
+    monkeypatch.setattr(trange, "_HIT_TABLE_BYTES",
+                        2 * ts.layout.ids.numel())
+    qb = _qboxes(28, NQ)
+    want = js.range_ids(jnp.asarray(qb), max_hits=16, pruned=False)
+    got = ts.range_ids(qb, max_hits=16, pruned=False)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    pts = _pts(29)
+    _assert_knn_equal(ts.knn(pts, 5, pruned=False),
+                      js.knn(jnp.asarray(pts), 5, pruned=False))
 
 
 def _log_half_extent_quantiles(mbrs):

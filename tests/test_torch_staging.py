@@ -133,7 +133,8 @@ def test_candidates_and_routing_match_repro(data, f_max):
 @pytest.mark.parametrize("decay", [0.85, 1.0])
 def test_heat_tracker_state_matches_repro(decay):
     rng = np.random.default_rng(3)
-    jt, tt = jrouter.HeatTracker(40, decay), trouter.HeatTracker(40, decay)
+    jt, tt = jrouter.HeatTracker(40, decay), trouter.HeatTracker(40, decay,
+                                                          device="cpu")
     for q, f in [(30, 4), (1, 1), (64, 9), (17, 40)]:
         cand = np.where(rng.random((q, f)) < 0.7,
                         rng.integers(0, 40, (q, f)), -1).astype(np.int32)
