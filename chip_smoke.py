@@ -1,35 +1,39 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving paths on one CUDA card.
+"""Drive the PyTorch/H100 port's serving, partitioning and join paths
+on one CUDA card.
 
-    python3 chip_smoke.py            # full size: N = 8,000,000 osm-like objects
+    python3 chip_smoke.py            # full size: 8 M osm-like objects served,
+                                     # 4 M + 4 M pi and 1 M + 1 M osm joined
 
-Phases, each printing one JSON line (launch counts are set to 0 just
-before each serving path and read just after it):
+Phases, each printing JSON lines (launch counts are set to 0 just
+before each path and read just after it) and its wall seconds:
 
-1. build  -- compile the range-probe kernels from the checkout's sources
-   with nvcc (sm_90a) and report the compiler's register/spill summary.
+1. build  -- compile the three kernel sources of the checkout (range
+   probe, Hilbert encode, MBR join) with one nvcc each, all at once
+   (sm_90a), and report the compiler's register/spill summary.
 2. serve  -- with every kernel launch count at 0: generate N osm-like
    objects on the card (seeded), partition them with ``bsp`` at payload
-   4096 and stage them twice (``local_index="x"`` and ``"off"``), then
-   serve 20 ``range_counts`` batches of Q = 4096 boxes (centres uniform,
-   half-extents uniform in [0, 0.03]) and 5 ``range_ids`` batches of
-   1024 boxes (half-extents in [0, 0.003], max_hits = 1024) through
-   each server.  Counts of "x" must equal those of "off"; 1024 queries
-   of the first counts batch and every query of the first ids batch
-   are checked against a blocked brute force on the card, overflow
-   flags included.  The launch counts are read right after.
-3. knn    -- 5 batches of 1024 points (uniform in the unit square,
-   k = 10, max_cand = 1024) through each server's pruned kNN, the
-   widen-and-retry ladder included.  "x" must flag the same points as
-   "off" and equal it bit for bit (ids, d2) on every unflagged point,
-   and 256 points of the first batch must equal an on-card brute force
-   by (d2, id) over all N objects, d2 rounded as the executors round it
-   (``mindist2_fused``).  A point flagged for more than max_cand
-   candidates keeps the first max_cand hits in (tile, slot) order, as
-   repro does, and the two stagings order slots differently, so its
-   answer is the staging's own (repro's "x" and "off" differ there
-   too).  The gathered kernels'
+   4096 and stage them three times (``local_index="x"``, ``"off"`` and
+   ``"hilbert"``, whose staging runs the Hilbert encode over every
+   slot), then serve 20 ``range_counts`` batches of Q = 4096 boxes
+   (centres uniform, half-extents uniform in [0, 0.03]) and 5
+   ``range_ids`` batches of 1024 boxes (half-extents in [0, 0.003],
+   max_hits = 1024) through each server.  Counts and ids of "x",
+   "hilbert" and "off" must be equal; 1024 queries of the first counts
+   batch and every query of the first ids batch are checked against a
+   blocked brute force on the card, overflow flags included.  The
    launch counts are read right after.
+3. knn    -- 5 batches of 1024 points (uniform in the unit square,
+   k = 10, max_cand = 1024) through the "x" and "off" servers' pruned
+   kNN, the widen-and-retry ladder included.  "x" must flag the same
+   points as "off" and equal it bit for bit (ids, d2) on every
+   unflagged point, and 256 points of the first batch must equal an
+   on-card brute force by (d2, id) over all N objects, d2 rounded as
+   the executors round it (``mindist2_fused``).  A point flagged for
+   more than max_cand candidates keeps the first max_cand hits in
+   (tile, slot) order, as repro does, and the two stagings order slots
+   differently, so its answer is the staging's own.  The gathered
+   kernels' launch counts are read right after.
 4. dense  -- the dense oracle (``pruned=False``) on the "x" server:
    range_counts on the first counts batch (Q = 4096), range_ids and
    knn on the first 256 boxes / points of the first ids and kNN
@@ -37,21 +41,44 @@ before each serving path and read just after it):
    and kNN paths are kept to 256 rows).  Each must equal the pruned
    answer bit for bit (kNN: on every point that neither side flags).
    The dense kernels' launch counts are read right after.
-5. kernels -- each of the eight kernels against its plain PyTorch
-   version on the card, at the shapes its path gives it (gathered: a
-   routed counts batch, the ids executor's largest hit-table block;
-   dense: the Q = 4096 counts batch, the dense executor's hit-table
-   block): the path's own inputs (staged alive mask, bounding chunk
-   boxes), then ``alive`` None and a random mask and, for the skip
-   kernels, chunk boxes that do not bound their members.  Results must
-   be bit-equal.  Kernel times come from CUDA events, plain times from
-   the host clock.  The dense skip pair has no serving caller (repro
-   launches it from tests only), so it is launched from this phase
-   only and its row says so.
+5. kernels -- each of the eight range-probe kernels against its plain
+   PyTorch version on the card, at the shapes its path gives it
+   (gathered: a routed counts batch, the ids executor's largest
+   hit-table block; dense: the Q = 4096 counts batch, the dense
+   executor's hit-table block): the path's own inputs (staged alive
+   mask, bounding chunk boxes), then ``alive`` None and a random mask
+   and, for the skip kernels, chunk boxes that do not bound their
+   members.  Results must be bit-equal.  Kernel times come from CUDA
+   events, plain times from the host clock.  The dense skip pair has
+   no serving caller (repro launches it from tests only), so it is
+   launched from this phase only and its row says so.
+6. partition -- the six Table-1 partitioners on the join's merged pi
+   input (8 M objects) at payload 4096: seconds, k, and the paper's
+   lambda, balance stddev, skew and coverage; hc's encode launches.
+7. join   -- ``plan_join`` then ``spatial_join_count`` for each of the
+   six layouts on two inputs at payload 4096: pi |><| pi (4 M + 4 M
+   ``pi_like``, seeds 0 and 1) and osm |><| osm (1 M + 1 M
+   ``osm_like``, seeds 0 and 1).  Plan and join seconds are medians of
+   3; the raw MASJ count comes from ``run_join_count(dedup="none")``'s
+   per-tile counts, whose largest value sets ``max_pairs_per_tile``,
+   so no tile's pairs are truncated; the MASJ pair path runs for every
+   layout.  The kernels' launches are read right after.
+8. join_check -- fails unless, on each input, all six exact counts are
+   equal, rp equals MASJ pairs for the non-overlapping layouts, the
+   exact count equals one unpartitioned ``join_count`` of the whole
+   inputs (the count kernel over every pair), the partner counts of
+   4096 sampled R objects in the deduplicated bsp pair list equal a
+   plain brute force against all of S, the raw count is at least the
+   exact count, and no tile was truncated.
+9. kernels -- encode over the 8 M merged pi centroids, and the count
+   and mask kernels on the largest live tile of the pi and the osm bsp
+   joins, each against its plain version (bit-equal), CUDA-event ms
+   over 10 launches beside the plain ms and the bound.
 
-Then one ``{"kernels": [...]}`` line, the card's name and power limit
-as ``nvidia-smi`` prints them, and ``{"ok": true, "device": ...}`` as
-the last line.  Any failure raises and the script exits non-zero.
+Then one ``{"kernels": [...]}`` line (all eleven kernels), the card's
+name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
+"device": ...}`` as the last line.  Any failure raises and the script
+exits non-zero.
 """
 from __future__ import annotations
 
@@ -66,6 +93,10 @@ sys.path.insert(0, str(ROOT / "port"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
+# no scalar integer peak is published beside the float32 one: the float32
+# rate is used for the Hilbert encode's integer operations, which can
+# only understate the bound
+INT_OPS_PER_S = FP32_OPS_PER_S
 PAYLOAD, MAX_HITS, SEED = 4096, 1024, 0
 N = 8_000_000          # osm-like objects served
 Q, Q_IDS = 4096, 1024  # boxes per range_counts / range_ids batch
@@ -74,7 +105,15 @@ CHECK_Q = 1024         # queries of the first counts batch brute-forced
 Q_KNN, KNN_BATCHES, K, MAX_CAND = 1024, 5, 10, 1024
 CHECK_KNN = 256        # points of the first kNN batch brute-forced
 DENSE_ROWS = 256       # rows of the dense range_ids and knn calls
+STAGINGS = ("x", "off", "hilbert")
+INDEXED = ("x", "hilbert")  # stagings probed by the *_skip kernels
+METHODS = ("fg", "bsp", "slc", "bos", "str", "hc")
+JOIN_INPUTS = {"pi": 4_000_000, "osm": 1_000_000}   # objects per side
+JOIN_SAMPLE = 4096     # R objects whose partners are brute-forced
+HILBERT_OPS = 21       # integer operations per point and bit plane
 SOURCE = "port/repro_torch/kernels/range_probe/csrc/range_probe.cu"
+HILBERT_SOURCE = "port/repro_torch/kernels/hilbert/csrc/hilbert.cu"
+MBR_SOURCE = "port/repro_torch/kernels/mbr_join/csrc/mbr_join.cu"
 TPU = "src/repro/kernels/range_probe/kernel.py"
 CASES = {  # gathered entry point -> the TPU kernel it replaces
     "gather_count_skip": f"{TPU}:467",
@@ -87,6 +126,11 @@ DENSE_CASES = {  # dense entry point -> the TPU kernel it replaces
     "mask": f"{TPU}:126",
     "count_skip": f"{TPU}:329",
     "mask_skip": f"{TPU}:354",
+}
+NEW_CASES = {  # this slice's kernels -> the TPU kernel each replaces
+    "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
+    "mbr_count": "src/repro/kernels/mbr_join/kernel.py:49",
+    "mbr_mask": "src/repro/kernels/mbr_join/kernel.py:67",
 }
 
 
@@ -161,6 +205,7 @@ def device_busy(torch, fn, reps: int):
 def serve_phase(torch, dev):
     from repro_torch.core import geometry
     from repro_torch.data import spatial_gen
+    from repro_torch.kernels.hilbert import kernel as hkernel
     from repro_torch.kernels.range_probe import kernel
     from repro_torch.serve import ServeConfig, SpatialServer
 
@@ -171,6 +216,7 @@ def serve_phase(torch, dev):
                 for _ in range(ID_BATCHES)]
 
     kernel.reset_launches()
+    hkernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mbrs = spatial_gen.osm_like(N, seed=SEED, device=dev)
@@ -178,7 +224,7 @@ def serve_phase(torch, dev):
     gen_s = time.perf_counter() - t0
 
     servers, results = {}, {}
-    for li in ("x", "off"):
+    for li in STAGINGS:
         t0 = time.perf_counter()
         srv = SpatialServer.from_method("bsp", mbrs, PAYLOAD,
                                         ServeConfig(local_index=li),
@@ -232,29 +278,37 @@ def serve_phase(torch, dev):
                      top_device=top_ids),
             max_memory_allocated=torch.cuda.max_memory_allocated()))
     launches = dict(kernel.LAUNCHES)
+    encode_launches = hkernel.LAUNCHES["encode"]
 
-    for a, b in zip(results["x"]["counts"], results["off"]["counts"]):
-        if not torch.equal(a, b):
-            raise AssertionError('counts of local_index "x" and "off" differ')
-    for a, b in zip(results["x"]["ids"], results["off"]["ids"]):
-        if not all(torch.equal(u, v) for u, v in zip(a, b)):
-            raise AssertionError('ids of local_index "x" and "off" differ')
+    for li in ("off", "hilbert"):
+        for a, b in zip(results["x"]["counts"], results[li]["counts"]):
+            if not torch.equal(a, b):
+                raise AssertionError(f'counts of local_index "x" and '
+                                     f'"{li}" differ')
+        for a, b in zip(results["x"]["ids"], results[li]["ids"]):
+            if not all(torch.equal(u, v) for u, v in zip(a, b)):
+                raise AssertionError(f'ids of local_index "x" and "{li}" '
+                                     f'differ')
     check_counts(torch, geometry, mbrs, cbatches[0][:CHECK_Q],
                  results["x"]["counts"][0][:CHECK_Q])
     hit_ids, cnt, ovf = results["x"]["ids"][0]
     n_over = check_ids(torch, geometry, mbrs, ibatches[0], hit_ids, cnt, ovf,
                        MAX_HITS)
-    emit(dict(phase="check", x_equals_off=True, brute_force_counts=CHECK_Q,
+    emit(dict(phase="check", x_equals_off=True, x_equals_hilbert=True,
+              encode_launches=encode_launches, brute_force_counts=CHECK_Q,
               brute_force_ids=Q_IDS, overflowed_queries=n_over,
               hits_in_first_counts_batch=int(results["x"]["counts"][0].sum())))
     for name in CASES:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the serving "
                                  f"path: {launches}")
+    if encode_launches <= 0:
+        raise AssertionError("encode was not launched by the hilbert "
+                             "staging")
     # per server: warm-up + timed + profiled batches
     calls = dict(counts=1 + len(cbatches) + 3, ids=1 + len(ibatches) + 3)
     return (servers, mbrs, cbatches[0], ibatches[0], results["x"],
-            launches, calls)
+            launches, calls, encode_launches)
 
 
 def pct(xs, p):
@@ -286,7 +340,8 @@ def knn_phase(torch, servers, mbrs, dev):
     kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     answers = {}
-    for li, srv in servers.items():
+    for li in ("x", "off"):
+        srv = servers[li]
         ms, out = [], []
         for pts in batches:
             t0 = time.perf_counter()
@@ -494,8 +549,9 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
             bound_by=("bytes" if bytes_ / HBM_BYTES_PER_S
                       >= ops_ / FP32_OPS_PER_S else "operations"),
             library_ms=None, bit_equal=worst == 0,
-            launches_per_batch=launches[name] / calls["ids" if mask_out
-                                                      else "counts"],
+            launches_per_batch=launches[name] / calls[
+                "ids" if mask_out else "counts"] / (len(INDEXED) if skip
+                                                    else 1),
             shape=dict(q=qn, f=f, t=t, cap=cap, c=c),
             bound_ms_per_pair=pair_bytes / HBM_BYTES_PER_S * 1e3,
             cases=cases))
@@ -662,12 +718,251 @@ def dense_bound_work(torch, ref, q, tiles, alive, cboxes, mask_out,
             4 * live_slots + 4 * q.shape[0] * cboxes.shape[0] * n_chunks)
 
 
+def median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def timed_s(torch, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def join_inputs(torch, dev):
+    """R and S of each join input, generated on the card (seeds 0, 1)."""
+    from repro_torch.data import spatial_gen
+    return {name: (spatial_gen.dataset(name, n, seed=SEED, device=dev),
+                   spatial_gen.dataset(name, n, seed=SEED + 1, device=dev))
+            for name, n in JOIN_INPUTS.items()}
+
+
+def partition_phase(torch, r, s):
+    """The six partitioners on the merged pi input, with the paper's
+    layout metrics -> hc's encode launches."""
+    from repro_torch.core import metrics
+    from repro_torch.core.partition import api, partition_counts
+    from repro_torch.kernels.hilbert import kernel as hkernel
+
+    merged = torch.cat([r, s])
+    n = merged.shape[0]
+    hkernel.reset_launches()
+    for method in METHODS:
+        before = hkernel.LAUNCHES["encode"]
+        parts, secs = timed_s(torch, lambda: api.partition(method, merged,
+                                                           PAYLOAD))
+        counts, copies = partition_counts(merged, parts)
+        emit(dict(
+            phase="partition", method=method, n=n, payload=PAYLOAD,
+            seconds=secs, k=parts.k(), kmax=parts.kmax,
+            lambda_=float(metrics.boundary_ratio(counts, parts.valid, n)),
+            balance_stddev=float(metrics.balance_stddev(counts,
+                                                        parts.valid)),
+            skew=float(metrics.skew_ratio(counts, parts.valid)),
+            coverage=float(metrics.coverage(copies)),
+            encode_launches=hkernel.LAUNCHES["encode"] - before))
+    launches = hkernel.LAUNCHES["encode"]
+    if launches <= 0:
+        raise AssertionError("hc did not launch the encode kernel")
+    return launches
+
+
+def join_phase(torch, dev, inputs):
+    """plan_join + spatial_join_count for six layouts on each input ->
+    ``(results, launches, bsp plans' largest tiles, bsp pair lists)``."""
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.query import engine
+
+    hkernel.reset_launches()
+    mkernel.reset_launches()
+    results, tiles, pairs = {}, {}, {}
+    for name, (r, s) in inputs.items():
+        for method in METHODS:
+            torch.cuda.reset_peak_memory_stats()
+            plan_s = []
+            for _ in range(3):
+                plan, secs = timed_s(torch, lambda: engine.plan_join(
+                    method, r, s, PAYLOAD, 1, device=dev))
+                plan_s.append(secs)
+            m0 = dict(mkernel.LAUNCHES)
+            per_tile = engine.tile_counts(plan, dedup="none")
+            raw = int(per_tile.sum())
+            max_n = max(int(per_tile.max()), 1)
+            m1 = dict(mkernel.LAUNCHES)
+            join_s = []
+            for _ in range(3):
+                exact, secs = timed_s(torch, lambda: engine.spatial_join_count(
+                    plan, max_pairs_per_tile=max_n))
+                join_s.append(secs)
+            m2 = dict(mkernel.LAUNCHES)
+            mstats = {}
+            rid, sid, uniq = engine.masj_pairs(plan, max_pairs_per_tile=max_n,
+                                               stats=mstats)
+            masj = int(uniq.sum())
+            st = plan.stats
+            tpd = plan.r_tiles.shape[1]
+            results[name, method] = dict(
+                exact=exact, raw=raw, masj=masj,
+                overlapping=st["overlapping"],
+                truncated_tiles=mstats["truncated_tiles"])
+            emit(dict(
+                phase="join", input=name, method=method,
+                n_r=r.shape[0], n_s=s.shape[0], payload=PAYLOAD,
+                plan_s=median(plan_s), join_s=median(join_s),
+                plan_s_all=plan_s, join_s_all=join_s,
+                k=st["k"], cap_r=st["cap_r"], cap_s=st["cap_s"],
+                lambda_r=st["lambda_r"], lambda_s=st["lambda_s"],
+                skew=st["skew"], exact=exact, raw=raw, masj_pairs=masj,
+                max_tile_pairs=max_n, gathered_pairs=mstats["pairs"],
+                truncated_tiles=mstats["truncated_tiles"],
+                padded_pair_table_bytes=2 * 4 * tpd * max_n,
+                launches_per_join={k: (m2[k] - m1[k]) / 3 for k in m2},
+                raw_count_launches={k: m1[k] - m0[k] for k in m1},
+                max_memory_allocated=torch.cuda.max_memory_allocated()))
+            if method in ("bsp", "hc"):
+                dev_ms, top = device_busy(torch, lambda: (
+                    engine.spatial_join_count(plan,
+                                              max_pairs_per_tile=max_n)), 1)
+                emit(dict(phase="join_device", input=name, method=method,
+                          device_ms_per_join=dev_ms, top_device=top))
+            if method == "bsp":
+                j = int(torch.from_numpy(plan.live_r * plan.live_s)[0]
+                        .argmax())
+                nr, ns = int(plan.live_r[0, j]), int(plan.live_s[0, j])
+                tiles[name] = (plan.r_tiles[0, j, :nr].clone(),
+                               plan.s_tiles[0, j, :ns].clone())
+                pairs[name] = (rid[uniq], sid[uniq])
+            del plan, rid, sid, uniq
+    launches = dict(mkernel.LAUNCHES, encode=hkernel.LAUNCHES["encode"])
+    for k in ("count", "mask", "encode"):
+        if launches[k] <= 0:
+            raise AssertionError(f"{k} was not launched on the join path: "
+                                 f"{launches}")
+    return results, launches, tiles, pairs
+
+
+def join_check_phase(torch, inputs, results, pairs):
+    """The join's exactness against the unpartitioned oracle and a
+    brute force of sampled objects; raises on any disagreement."""
+    from repro_torch.core import geometry
+    from repro_torch.kernels.mbr_join import ops as mops
+
+    for name, (r, s) in inputs.items():
+        rows = [results[name, m] for m in METHODS]
+        exact = rows[0]["exact"]
+        oracle, oracle_s = timed_s(torch, lambda: int(mops.join_count(r, s)))
+        for m, row in zip(METHODS, rows):
+            if row["exact"] != exact:
+                raise AssertionError(f"{name}: {m} counts {row['exact']}, "
+                                     f"{METHODS[0]} {exact}")
+            if not row["overlapping"] and row["exact"] != row["masj"]:
+                raise AssertionError(f"{name}: {m} rp {row['exact']} != "
+                                     f"MASJ pairs {row['masj']}")
+            if row["raw"] < row["exact"] or row["truncated_tiles"]:
+                raise AssertionError(f"{name}: {m} raw {row['raw']} or "
+                                     f"truncation {row['truncated_tiles']}")
+        if oracle != exact:
+            raise AssertionError(f"{name}: exact {exact} != unpartitioned "
+                                 f"join_count {oracle}")
+        g = torch.Generator(device=r.device).manual_seed(SEED + 3)
+        sample = torch.randperm(r.shape[0], generator=g,
+                                device=r.device)[:JOIN_SAMPLE]
+        rid, _ = pairs[name]
+        got = torch.bincount(rid.long(), minlength=r.shape[0])[sample]
+        want = torch.cat([
+            geometry.intersects(r[sample[i:i + 64], None, :],
+                                s[None, :, :]).sum(1)
+            for i in range(0, JOIN_SAMPLE, 64)])
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: bsp partner counts differ from "
+                                 f"the brute force")
+        emit(dict(phase="join_check", input=name, exact=exact,
+                  unpartitioned=oracle, unpartitioned_s=oracle_s,
+                  all_six_equal=True, rp_equals_masj=True,
+                  sampled_objects=JOIN_SAMPLE,
+                  sampled_partners=int(want.sum()), truncated_tiles=0))
+
+
+def new_kernel_phase(torch, inputs, tiles, launches):
+    """encode on the 8 M merged pi centroids; count and mask on the
+    largest live tile of each bsp join.  Bit-equal to the plain
+    versions, else raise."""
+    from repro_torch.core import geometry, hilbert
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.hilbert import ref as href
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.kernels.mbr_join import ops as mops
+    from repro_torch.kernels.mbr_join import ref as mref
+
+    def compare(name, k, plain):
+        got = k()
+        want, plain_s = timed_s(torch, plain)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"{name} differs from its plain version")
+        return dict(ms=cuda_ms(torch, k, 10), plain_ms=plain_s * 1e3)
+
+    def entry(name, source, case, bytes_, ops_, shape, rate=FP32_OPS_PER_S):
+        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops_ / rate * 1e3
+        return dict(name=name, route="cuda", source=source,
+                    replaces=NEW_CASES[name], launches=launches[name],
+                    max_abs_err=0, ms=case["ms"], plain_ms=case["plain_ms"],
+                    bound_ms=max(b_ms, o_ms),
+                    bound_by="bytes" if b_ms >= o_ms else "operations",
+                    library_ms=None, bit_equal=True, shape=shape)
+
+    r, s = inputs["pi"]
+    merged = torch.cat([r, s])
+    gx, gy = (g.contiguous() for g in hilbert.quantize(
+        geometry.centroids(merged), geometry.universe(merged)))
+    n, order = gx.shape[0], hilbert.DEFAULT_ORDER
+    case = compare("hilbert_encode", lambda: hkernel.encode(gx, gy, order),
+                   lambda: href.encode(gx, gy, order))
+    entries = [entry("hilbert_encode", HILBERT_SOURCE, case, 16 * n,
+                     HILBERT_OPS * order * n, dict(n=n, order=order),
+                     INT_OPS_PER_S)]
+    for name in ("mbr_count", "mbr_mask"):
+        cases = {}
+        for inp, (rt, st) in tiles.items():
+            r4 = mops.pad_cm(rt, mops.DEFAULT_BR)
+            s4 = mops.pad_cm(st, mops.DEFAULT_BS)
+            np_, mp = r4.shape[1], s4.shape[1]
+            if name == "mbr_count":
+                c = compare(name, lambda: mkernel.count(
+                    r4, s4, mops.DEFAULT_BR, mops.DEFAULT_BS),
+                    lambda: mref.count_cm(r4, s4, mops.DEFAULT_BR,
+                                          mops.DEFAULT_BS))
+                cells = (np_ // mops.DEFAULT_BR) * (mp // mops.DEFAULT_BS)
+                out_bytes = 4 * cells
+            else:
+                c = compare(name, lambda: mkernel.mask(r4, s4),
+                            lambda: mref.mask_cm(r4, s4))
+                out_bytes = np_ * mp
+            cases[inp] = dict(c, bytes=16 * (np_ + mp) + out_bytes,
+                              ops=4 * np_ * mp,
+                              shape=dict(live_r=rt.shape[0],
+                                         live_s=st.shape[0], n_pad=np_,
+                                         m_pad=mp))
+        main = cases["pi"]
+        e = entry(name, MBR_SOURCE, main, main["bytes"], main["ops"],
+                  main["shape"])
+        e["cases"] = {
+            k: dict(v, bound_ms=max(v["bytes"] / HBM_BYTES_PER_S,
+                                    v["ops"] / FP32_OPS_PER_S) * 1e3)
+            for k, v in cases.items()}
+        entries.append(e)
+    return entries
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda is not "
               "available", file=sys.stderr)
         return 2
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.mbr_join import kernel as mkernel
     from repro_torch.kernels.range_probe import kernel
 
     dev = torch.device("cuda")
@@ -676,17 +971,23 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    wall = {}
     t0 = time.perf_counter()
-    lib = kernel.build()
-    ptxas = [ln.strip() for ln in lib.with_suffix(".log").read_text()
-             .splitlines() if "registers" in ln or "spill" in ln]
-    emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              library=lib.name, device=name, nvidia_smi=smi,
-              torch=torch.__version__, cuda=torch.version.cuda,
+    libs = cuda_build.build_all([kernel.SOURCE, hkernel.SOURCE,
+                                 mkernel.SOURCE])
+    ptxas = {lib.name: [ln.strip() for ln in lib.with_suffix(".log")
+                        .read_text().splitlines()
+                        if "registers" in ln or "spill" in ln]
+             for lib in libs}
+    wall["build_s"] = time.perf_counter() - t0
+    emit(dict(phase="build", seconds=wall["build_s"],
+              libraries=[lib.name for lib in libs], device=name,
+              nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
               ptxas=ptxas))
 
     t0 = time.perf_counter()
-    servers, mbrs, qc, qi, pruned_x, launches, calls = serve_phase(torch, dev)
+    (servers, mbrs, qc, qi, pruned_x, launches, calls,
+     serve_encode) = serve_phase(torch, dev)
     t1 = time.perf_counter()
     pts, pruned_knn, knn_launches = knn_phase(torch, servers, mbrs, dev)
     t2 = time.perf_counter()
@@ -699,8 +1000,34 @@ def main() -> int:
         if e["name"] in CASES:
             e["knn_launches"] = knn_launches[e["name"]]
         emit(dict(phase="kernel", **e))
-    emit(dict(phase="wall", serve_s=t1 - t0, knn_s=t2 - t1,
-              dense_s=t3 - t2, kernels_s=time.perf_counter() - t3))
+    t4 = time.perf_counter()
+    wall.update(serve_s=t1 - t0, knn_s=t2 - t1, dense_s=t3 - t2,
+                kernels_s=t4 - t3)
+    del servers, mbrs, qc, qi, pruned_x, pts, pruned_knn
+    torch.cuda.empty_cache()
+
+    inputs = join_inputs(torch, dev)
+    part_encode = partition_phase(torch, *inputs["pi"])
+    t5 = time.perf_counter()
+    results, join_launches, tiles, pairs = join_phase(torch, dev, inputs)
+    t6 = time.perf_counter()
+    join_check_phase(torch, inputs, results, pairs)
+    t7 = time.perf_counter()
+    main_launches = dict(
+        hilbert_encode=serve_encode + part_encode + join_launches["encode"],
+        mbr_count=join_launches["count"], mbr_mask=join_launches["mask"])
+    new_entries = new_kernel_phase(torch, inputs, tiles, main_launches)
+    for e in new_entries:
+        e["launches_by_path"] = (
+            dict(serve_hilbert_staging=serve_encode, partition=part_encode,
+                 join=join_launches["encode"])
+            if e["name"] == "hilbert_encode" else
+            dict(join=join_launches[e["name"][4:]]))
+        emit(dict(phase="kernel", **e))
+    entries += new_entries
+    wall.update(partition_s=t5 - t4, join_s=t6 - t5, join_check_s=t7 - t6,
+                new_kernels_s=time.perf_counter() - t7)
+    emit(dict(phase="wall", **wall))
     emit({"kernels": [{k: e[k] for k in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",

@@ -1,1 +1,3 @@
-"""Core library: geometry, partitioning and MASJ assignment."""
+"""Core library: geometry, the Hilbert curve, partitioning, MASJ
+assignment, the paper's metrics and cost model, sampling and
+placement."""

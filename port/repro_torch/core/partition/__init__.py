@@ -1,3 +1,5 @@
-"""Spatial partitioning + MASJ assignment (this slice: ``bsp``)."""
-from . import api, assign, bsp  # noqa: F401  (registration)
-from .api import Partitioning, partition  # noqa: F401
+"""The paper's six spatial partitioning algorithms + MASJ assignment."""
+from . import (  # noqa: F401  (registration)
+    api, assign, bos, bsp, fg, hc, slc, str_)
+from .api import Partitioning, info, methods, partition  # noqa: F401
+from .assign import partition_counts  # noqa: F401

@@ -1,8 +1,8 @@
 """Partitioner registry and the common result structure.
 
-Every partitioner is a function ``(mbrs, payload) -> Partitioning``.
-The paper's Table-1 classification is attached as registry metadata,
-as in ``repro.core.partition.api``.
+Every partitioner is a function ``(mbrs, payload, **kw) ->
+Partitioning``.  The paper's Table-1 classification is attached as
+registry metadata, as in ``repro.core.partition.api``.
 """
 from __future__ import annotations
 
@@ -11,11 +11,6 @@ from typing import Callable
 
 import numpy as np
 import torch
-
-from ...device import not_ported
-
-# the reference's other Table-1 partitioners, ported by a later slice
-_NOT_PORTED = ("fg", "hc", "str", "slc", "bos")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,11 +62,18 @@ def register(name: str, *, overlapping: bool, search: str, criterion: str,
     return deco
 
 
-def partition(method: str, mbrs: torch.Tensor, payload: int) -> Partitioning:
+def methods() -> dict[str, MethodInfo]:
+    return dict(_REGISTRY)
+
+
+def info(name: str) -> MethodInfo:
+    return _REGISTRY[name]
+
+
+def partition(method: str, mbrs: torch.Tensor, payload: int, **kw
+              ) -> Partitioning:
     """Run a registered partitioner. ``payload`` is the paper's ``b``."""
-    if method in _NOT_PORTED:
-        raise not_ported(f"partitioner {method!r}", "Queue 1 item 7")
     if method not in _REGISTRY:
         raise KeyError(f"unknown partition method {method!r}; "
                        f"have {sorted(_REGISTRY)}")
-    return _REGISTRY[method].fn(mbrs, payload)
+    return _REGISTRY[method].fn(mbrs, payload, **kw)

@@ -2,4 +2,10 @@
 
 - ``range_probe``: query-box vs tiled-layout probe, routed and dense,
   the serving hot spot (``repro_torch.serve``).
+- ``hilbert``: the Hilbert-curve xy->d encode, the hc partitioner's and
+  the ``"hilbert"`` local index's sort key.
+- ``mbr_join``: blocked pairwise MBR intersection, the per-tile join
+  filter (``repro_torch.query.join``).
+
+``cuda_build`` builds and binds every family's source.
 """

@@ -1,10 +1,9 @@
 """Build, bind and launch the Hopper range-probe kernels.
 
 ``csrc/range_probe.cu`` is compiled with ``nvcc`` for ``sm_90a`` at
-first use into a shared library with a plain C interface, under the
-git-ignored ``port/repro_torch/build/`` (named by the source's hash, so
-an edited source rebuilds), and bound with ``ctypes``.  Nothing is
-compiled or loaded when this module is imported.
+first use into a shared library with a plain C interface and bound
+with ``ctypes`` (``kernels/cuda_build.py``).  Nothing is compiled or
+loaded when this module is imported.
 
 The eight launch wrappers are the port's counterparts of the
 ``pl.pallas_call`` entry points in ``repro.kernels.range_probe.kernel``:
@@ -18,27 +17,31 @@ launch returned an error, and adds one to its count in ``LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from .. import cuda_build
+from ..cuda_build import check as _check, device_index as _index
+from ..cuda_build import ptr as _ptr
+
 CHUNK = 128  # member slots summarised per chunk box
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "range_probe.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # kernel launches per entry point since the last reset_launches()
 LAUNCHES = {"gather_count": 0, "gather_mask": 0,
             "gather_count_skip": 0, "gather_mask_skip": 0,
             "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0}
 
-_lib = None
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+LIB = cuda_build.Library(SOURCE, {
+    "rp_gathered_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp,
+                           ctypes.c_longlong, _ci, _ci, _ci, _ci,
+                           _vp, _vp, _vp], _ci),
+    "rp_dense_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_longlong,
+                        _ci, _ci, _ci, _vp, _vp, _vp], _ci),
+}, "rp_error_string")
 
 
 def reset_launches() -> None:
@@ -46,66 +49,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the range-probe "
-                       "kernels are built from source at first use")
-
-
 def build() -> Path:
     """Compile the kernel library if this source has not been built yet;
-    -> its path.  The compiler's register/spill report is kept beside
-    it as ``<name>.log``."""
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:12]
-    lib = BUILD_DIR / f"librange_probe-{digest}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stderr)
-    os.replace(tmp, lib)        # atomic: concurrent builders agree
-    return lib
-
-
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rp_gathered_probe.argtypes = [
-            ci, ci, vp, vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, ci,
-            vp, vp, vp]
-        lib.rp_gathered_probe.restype = ci
-        lib.rp_dense_probe.argtypes = [
-            ci, ci, vp, vp, vp, vp, ctypes.c_longlong, ci, ci, ci, vp, vp, vp]
-        lib.rp_dense_probe.restype = ci
-        lib.rp_error_string.argtypes = [ci]
-        lib.rp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
-           device: torch.device, align: int = 1) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, "
-                         f"got {tuple(x.shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if x.data_ptr() % align:
-        raise ValueError(f"{name} must be {align}-byte aligned")
+    -> its path (the compiler's report beside it as ``<name>.log``)."""
+    return LIB.build()
 
 
 def _inputs(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
@@ -113,9 +60,7 @@ def _inputs(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
             ) -> tuple[torch.device, int, int, int]:
     """Checks shared by every wrapper -> ``(device, T, cap, C)``."""
     dev = tiles.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: the CUDA kernel needs cuda tensors, "
-                         f"got {dev}")
+    cuda_build.require_cuda(name, tiles)
     t, cap = tiles.shape[:2]
     c = -(-cap // CHUNK)
     _check("qboxes", qboxes, torch.float32, (qboxes.shape[0], 4), dev, 16)
@@ -125,21 +70,6 @@ def _inputs(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
     if alive is not None:
         _check("alive", alive, torch.bool, (t, cap), dev)
     return dev, t, cap, c
-
-
-def _launched(name: str, lib, err: int) -> None:
-    if err:
-        raise RuntimeError(f"{name} launch failed: "
-                           f"{lib.rp_error_string(err).decode()}")
-    LAUNCHES[name] += 1
-
-
-def _ptr(x: torch.Tensor | None):
-    return None if x is None else x.data_ptr()
-
-
-def _index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
 def _probe(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
@@ -156,14 +86,14 @@ def _probe(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
         out = torch.empty((q, f), dtype=torch.int32, device=dev)
     if q * f == 0:
         return out
-    lib = _load()
+    lib = LIB.get()
     err = lib.rp_gathered_probe(
         _index(dev), int(mask_out), _ptr(qboxes), _ptr(tiles), _ptr(cboxes),
         _ptr(alive), _ptr(cand), q, f, t, cap, c,
         None if mask_out else out.data_ptr(),
         out.data_ptr() if mask_out else None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _launched(name, lib, err)
+        cuda_build.stream(dev))
+    LIB.launched(name, err, LAUNCHES)
     return out
 
 
@@ -180,14 +110,14 @@ def _dense(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
         out = torch.empty((q, t), dtype=torch.int32, device=dev)
     if q * t == 0:
         return out
-    lib = _load()
+    lib = LIB.get()
     err = lib.rp_dense_probe(
         _index(dev), int(mask_out), _ptr(qboxes), _ptr(tiles), _ptr(cboxes),
         _ptr(alive), q, t, cap, c,
         None if mask_out else out.data_ptr(),
         out.data_ptr() if mask_out else None,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _launched(name, lib, err)
+        cuda_build.stream(dev))
+    LIB.launched(name, err, LAUNCHES)
     return out
 
 

@@ -1,0 +1,78 @@
+"""The paper's partitioning + spatial join as one command (twin of
+``repro.launch.partition_etl``): partition a generated dataset, print
+the paper's layout metrics, and optionally run a self-join.
+
+    cd port && python -m repro_torch.launch.partition_etl \\
+        --dataset osm --n 20000 --method bos --payload 500 --join
+
+It runs on one card, or on the CPU only when given ``--device cpu``.
+``--parallel`` (the MapReduce-style partitioner over a device mesh)
+is not ported yet and raises.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from ..core import metrics
+from ..core.partition import api as papi, partition_counts
+from ..data import spatial_gen
+from ..device import not_ported, resolve
+from ..query import engine
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--dataset", default="osm", choices=["osm", "pi"])
+    ap.add_argument("--n", type=int, default=20000)
+    ap.add_argument("--method", default="bos", choices=list(papi.methods()))
+    ap.add_argument("--payload", type=int, default=500)
+    ap.add_argument("--parallel", action="store_true",
+                    help="use the MapReduce-style distributed partitioner")
+    ap.add_argument("--join", action="store_true", help="run a self-join")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu (plain kernel versions)")
+    args = ap.parse_args(argv)
+    if args.parallel:
+        raise not_ported("partition_etl --parallel", "Queue 1 item 10")
+
+    dev = resolve(args.device)
+    mbrs = spatial_gen.dataset(args.dataset, args.n, seed=0, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    parts = papi.partition(args.method, mbrs, args.payload)
+    _sync(dev)
+    t_part = time.perf_counter() - t0
+
+    counts, copies = partition_counts(mbrs, parts)
+    print(f"method={args.method} n={args.n} payload={args.payload} "
+          f"k={parts.k()} time={t_part * 1e3:.1f}ms device={dev}")
+    print(f"  λ(boundary ratio) = "
+          f"{float(metrics.boundary_ratio(counts, parts.valid, args.n)):.4f}")
+    print(f"  balance stddev    = "
+          f"{float(metrics.balance_stddev(counts, parts.valid)):.2f}")
+    print(f"  skew (max/mean)   = "
+          f"{float(metrics.skew_ratio(counts, parts.valid)):.2f}")
+    print(f"  coverage          = {float(metrics.coverage(copies)):.4f}")
+
+    if args.join:
+        s = spatial_gen.dataset(args.dataset, args.n, seed=7, device=dev)
+        t0 = time.perf_counter()
+        plan = engine.plan_join(args.method, mbrs, s, args.payload, 1,
+                                device=dev)
+        cnt = engine.spatial_join_count(plan)
+        dt = time.perf_counter() - t0
+        print(f"  join: |R⋈S| = {cnt}  ({dt:.2f}s incl. planning; "
+              f"tile skew {plan.stats['skew']:.2f})")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,1 +1,2 @@
-"""Query executors over staged layouts: range and kNN."""
+"""Query executors: range and kNN over staged layouts, and the spatial
+join (tile joins, dedup, the join engine)."""

@@ -38,6 +38,7 @@ import math
 import numpy as np
 import torch
 
+from ..core.fma import fma32
 from ..kernels.range_probe import ops as rops
 from . import range as range_mod
 
@@ -72,19 +73,8 @@ def _deltas(x, y, boxes):
 
 
 def _fma_sq(dx: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
-    """float32 ``fma(dx, dx, dy*dy)``, correctly rounded, from float64
-    ops: ``dx*dx`` is exact in float64, TwoSum gives the exact sum as
-    ``s + e``, and rounding ``s`` to odd before the float32 rounding
-    keeps the double rounding exact (53 >= 24 + 2 bits)."""
-    a2 = dx.double() * dx.double()
-    c = (dy * dy).double()
-    s = a2 + c
-    bb = s - a2
-    e = (a2 - (s - bb)) + (c - bb)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(e > 0, torch.inf, -torch.inf).to(s.dtype)
-    s = torch.where((e != 0) & even, torch.nextafter(s, toward), s)
-    return s.float()
+    """float32 ``fma(dx, dx, dy*dy)``, correctly rounded."""
+    return fma32(dx, dx, dy * dy)
 
 
 def knn_ref(mbrs: np.ndarray, pts: np.ndarray, k: int

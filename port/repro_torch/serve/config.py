@@ -6,9 +6,9 @@ Axes: ``placement`` (``"replicated"`` | ``"sharded"`` | ``"heat"``),
 ``"x"`` | ``"hilbert"``), ``chunk`` (chunk-box granularity, a multiple
 of 128), ``capacity``/``slack`` (per-tile member slots), ``shards``,
 ``axis``, the compaction thresholds, and the heat ``policy``.  The
-port serves ``placement="replicated"``, ``probe="pruned"`` and
-``local_index`` ``"off"``/``"x"``; ``serve.engine`` raises
-``NotImplementedError`` for the rest.
+port serves ``placement="replicated"`` with every ``probe`` and
+``local_index``; ``serve.engine`` raises ``NotImplementedError`` for
+the other placements.
 """
 from __future__ import annotations
 

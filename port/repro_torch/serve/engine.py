@@ -92,8 +92,6 @@ def _check_ported(config: ServeConfig) -> None:
         raise not_ported("placement='sharded'", "Queue 1 item 10")
     if config.placement == "heat":
         raise not_ported("placement='heat'", "Queue 1 item 11")
-    if config.local_index == "hilbert":
-        raise not_ported("local_index='hilbert'", "Queue 1 item 7")
     if config.policy.rebalance_every is not None:
         raise not_ported("PlacementPolicy.rebalance_every",
                          "Queue 1 item 11")
@@ -108,7 +106,8 @@ class SpatialServer:
     ``config`` is a frozen ``ServeConfig``; the port serves the
     replicated placement, ``probe`` ``"pruned"`` (default) or
     ``"dense"`` (also a per-call ``pruned=`` override), and
-    ``local_index`` ``"x"`` (default) or ``"off"``.
+    ``local_index`` ``"x"`` (default), ``"hilbert"`` or ``"off"``, on
+    any of the six layouts.
     """
 
     def __init__(self, parts: api.Partitioning, mbrs,

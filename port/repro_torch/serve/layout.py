@@ -5,15 +5,16 @@
 ``(T, cap, 4)`` member tiles: every object is copied to every tile
 whose region it touches, exactly one copy is marked canonical, each
 tile gets a *probe box* (tight MBR over its canonical members) for
-routing, and with ``local_index="x"`` each tile's slots are sorted by
-canonical xmin and summarised by one chunk box per 128 slots for the
+routing, and with a local index (``local_index="x"``: canonical xmin;
+``"hilbert"``: the Hilbert key of the canonical centre) each tile's
+slots are sorted and summarised by one chunk box per 128 slots for the
 chunk-skipping kernels.  ``ReplicatedTiles`` serves range and kNN
 batches against one such staging on one device, routed (pruned) or
 over every tile (the dense oracle).
 
-Membership is built blockwise over objects as (object, tile) pairs:
-the reference's dense ``(N, kmax)`` bool table would be 16 GB at 8 M
-objects and 2048 tiles.
+Membership is built blockwise over objects as (object, tile) pairs
+(``core.partition.assign.membership``): the reference's dense
+``(N, kmax)`` bool table would be 16 GB at 8 M objects and 2048 tiles.
 """
 from __future__ import annotations
 
@@ -24,16 +25,16 @@ import torch
 
 from ..core import geometry
 from ..core.partition import api
-from ..core.partition.assign import assign_from_pairs, round_up
+from ..core.partition.assign import assign_from_pairs, membership, round_up
 from ..device import not_ported
+from ..kernels.hilbert import ops as hilbert_ops
 from ..kernels.range_probe import ops as rops
 from ..query import knn as knn_mod
 from ..query import range as range_mod
 from . import router
 from .config import ServeConfig
 
-_HIT_BLOCK_ELEMS = 1 << 27   # (objects x tiles) per membership block
-
+_KEY_BLOCK_SLOTS = 1 << 25   # slots per block of Hilbert sort keys
 
 @dataclasses.dataclass(frozen=True)
 class StagedLayout:
@@ -76,39 +77,6 @@ def staged_from_numpy(src, device: torch.device | str) -> StagedLayout:
                            for f in dataclasses.fields(StagedLayout)})
 
 
-def membership(parts: api.Partitioning, mbrs: torch.Tensor
-               ) -> tuple[torch.Tensor, torch.Tensor]:
-    """MASJ membership with nearest-tile adoption, as (object, tile)
-    pairs in object-major order -> ``(obj[nnz], part[nnz])`` int64.
-
-    The pairs are the nonzeros of the reference's ``(N, kmax)`` table:
-    box intersection against every valid partition region, and an
-    object that intersects none is adopted by the nearest valid tile
-    (squared box-to-box distance, ties to the lowest tile index).
-    """
-    b, valid = parts.boxes, parts.valid
-    n, kmax = mbrs.shape[0], parts.kmax
-    block = max(1, _HIT_BLOCK_ELEMS // max(kmax, 1))
-    objs, tiles = [], []
-    for i0 in range(0, n, block):
-        m = mbrs[i0:i0 + block]
-        hit = geometry.intersect_matrix(m, b) & valid[None, :]
-        none = ~hit.any(dim=1)
-        if bool(none.any()):       # staging-time: covering layouts skip it
-            dx = torch.maximum(b[None, :, 0] - m[:, None, 2],
-                               m[:, None, 0] - b[None, :, 2]).clamp_min(0)
-            dy = torch.maximum(b[None, :, 1] - m[:, None, 3],
-                               m[:, None, 1] - b[None, :, 3]).clamp_min(0)
-            d2 = torch.where(valid[None, :], dx * dx + dy * dy, torch.inf)
-            nearest = d2.argmin(dim=1)
-            hit |= none[:, None] & (torch.arange(kmax, device=m.device)[None]
-                                    == nearest[:, None])
-        o, p = hit.nonzero(as_tuple=True)
-        objs.append(o + i0)
-        tiles.append(p)
-    return torch.cat(objs), torch.cat(tiles)
-
-
 def _chunk_summary(canon_tiles: torch.Tensor, chunk: int) -> torch.Tensor:
     """(T, cap, 4) canonical tiles -> (T, ceil(cap/128), 4) chunk boxes
     at ``chunk``-slot granularity, broadcast down to the kernels'
@@ -128,11 +96,35 @@ def _chunk_summary(canon_tiles: torch.Tensor, chunk: int) -> torch.Tensor:
     return boxes.repeat_interleave(chunk // rops.CHUNK, dim=1)[:, :c128]
 
 
-def _local_sort_order(canon_tiles: torch.Tensor) -> torch.Tensor:
-    """Per-tile slot permutation for the ``"x"`` local index: stable
-    sort on canonical xmin; non-canonical copies and padding carry the
-    sentinel 9e9 and sink to the tail in their original order."""
-    return torch.sort(canon_tiles[..., 0], dim=1, stable=True).indices
+def _local_sort_order(canon_tiles: torch.Tensor, ids: torch.Tensor,
+                      mode: str, uni: torch.Tensor) -> torch.Tensor:
+    """Per-tile slot permutation for the local index.
+
+    ``"x"``: stable sort on canonical xmin; non-canonical copies and
+    padding carry the sentinel 9e9 and sink to the tail in their
+    original order.  ``"hilbert"``: canonical slots lead in ascending
+    Hilbert key of their MBR centre (``kernels.hilbert`` over the
+    dataset universe), under a three-tier primary key (canonical <
+    non-canonical live < padding) so live slots stay a prefix.  The
+    reference's two stable sorts (key, then tier) are one stable sort
+    of ``tier << 32 | key`` here; non-canonical and padding slots all
+    carry the sentinel centre (0, 0), so their keys tie and they keep
+    their order.  Keys are built ``_KEY_BLOCK_SLOTS`` slots at a time.
+    """
+    if mode == "x":
+        return torch.sort(canon_tiles[..., 0], dim=1, stable=True).indices
+    t, cap, _ = canon_tiles.shape
+    rows = max(1, _KEY_BLOCK_SLOTS // max(cap, 1))
+    out = []
+    for i0 in range(0, t, rows):
+        ct = canon_tiles[i0:i0 + rows]
+        centers = (ct[..., :2] + ct[..., 2:]) * 0.5
+        keys = hilbert_ops.hilbert_keys(centers.reshape(-1, 2), uni)
+        tier = torch.where(ct[..., 0] < 1e9, 0,
+                           torch.where(ids[i0:i0 + rows] >= 0, 1, 2))
+        key = (tier.long() << 32) | keys.reshape(tier.shape)
+        out.append(torch.sort(key, dim=1, stable=True).indices)
+    return torch.cat(out)
 
 
 def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
@@ -146,8 +138,6 @@ def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
     128-aligned.  ``stats['replication']`` is the paper's lambda.
     """
     config = config or ServeConfig()
-    if config.local_index == "hilbert":
-        raise not_ported("local_index='hilbert'", "Queue 1 item 7")
     dev = mbrs.device
     n, kmax = mbrs.shape[0], parts.kmax
     obj, part = membership(parts, mbrs)
@@ -184,7 +174,8 @@ def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
     uni = geometry.universe(mbrs)
     chunk_boxes = None
     if config.indexed:
-        slot_order = _local_sort_order(canon_tiles)
+        slot_order = _local_sort_order(canon_tiles, ids,
+                                       config.local_index, uni)
         idx4 = slot_order[..., None].expand(-1, -1, 4)
         tiles = torch.gather(tiles, 1, idx4)
         canon_tiles = torch.gather(canon_tiles, 1, idx4)

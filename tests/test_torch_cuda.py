@@ -13,8 +13,15 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import hilbert as core_hilbert
+from repro_torch.core.partition import api as papi
 from repro_torch.data import spatial_gen
+from repro_torch.kernels.hilbert import kernel as hkernel
+from repro_torch.kernels.hilbert import ops as hops
+from repro_torch.kernels.mbr_join import kernel as mkernel
+from repro_torch.kernels.mbr_join import ops as mops
 from repro_torch.kernels.range_probe import kernel, ops
+from repro_torch.query import engine as join_engine
 from repro_torch.query import knn as knn_mod
 from repro_torch.query import range as range_mod
 from repro_torch.serve import ServeConfig, SpatialServer
@@ -158,3 +165,95 @@ def test_knn_on_cuda_matches_cpu_and_bruteforce():
             ok = ~got[2].cpu().numpy()
             np.testing.assert_array_equal(got[0].cpu().numpy()[ok],
                                           want_ids[ok])
+
+
+@pytest.mark.parametrize("order", [1, 4, 8, 16])
+@pytest.mark.parametrize("n", [1, 255, 4097, 300_001])
+def test_hilbert_encode_matches_plain_version(n, order):
+    """Ragged N (the grid masks the edge; 300k runs the grid-stride
+    loop), every order the callers use, and keys past 2**31."""
+    _need_cuda()
+    rng = np.random.default_rng(n + order)
+    gx, gy = (torch.from_numpy(rng.integers(0, 2**order, n).astype(np.int32))
+              for _ in range(2))
+    if order == 16:
+        gx[0], gy[0] = 65535, 0                 # key >= 2**31
+    hkernel.reset_launches()
+    got = hops.encode(gx.cuda(), gy.cuda(), order)
+    torch.cuda.synchronize()
+    assert hkernel.LAUNCHES["encode"] == 1
+    assert torch.equal(got.cpu(), core_hilbert.xy2d(gx, gy, order))
+    with pytest.raises(TypeError):
+        hkernel.encode(gx.cuda().long(), gy.cuda(), order)
+
+
+@pytest.mark.parametrize("br,bs", [(256, 128), (128, 128), (512, 256),
+                                   (100, 96), (1024, 2048)])
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 5), (300, 257), (2049, 515)])
+def test_mbr_join_kernels_match_plain_versions(n, m, br, bs):
+    """Block counts cell by cell, and the full table padding included
+    (both store widths: M_pad % 16 == 0, M_pad % 4 == 0 and neither),
+    with touching boxes and sentinel padding."""
+    _need_cuda()
+    rng = np.random.default_rng(n * m + br)
+    r, s = _boxes(rng, n, 0.1), _boxes(rng, m, 0.1)
+    r[0] = torch.tensor([0.0, 0.0, 0.5, 0.5])
+    s[0] = torch.tensor([0.5, 0.5, 1.0, 1.0])           # touches r[0]
+    r4, s4 = mops.pad_cm(r, br), mops.pad_cm(s, bs)
+    mkernel.reset_launches()
+    got = mops.count_blocks(r4.cuda(), s4.cuda(), br, bs)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), mops.count_blocks(r4, s4, br, bs))
+    for m_pad in (s4.shape[1], s4.shape[1] + 4, s4.shape[1] + 1):
+        s_odd = mops.pad_cm(s, 1)
+        s_odd = torch.cat([s_odd, torch.tensor(
+            [[9e9], [9e9], [-9e9], [-9e9]]).expand(4, m_pad - m)], 1)
+        got = mops.mask_cm(r4.cuda(), s_odd.contiguous().cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), mops.mask_cm(r4, s_odd))
+    assert mkernel.LAUNCHES == {"count": 1, "mask": 3}
+    assert int(mops.join_count(r.cuda(), s.cuda(), br, bs)) == int(
+        mops.join_count(r, s, br, bs))
+    with pytest.raises(ValueError):
+        mkernel.count(r4.cuda(), s4.cuda(), br, bs + 1)
+
+
+@pytest.mark.parametrize("method", ["fg", "bsp", "slc", "bos", "str", "hc"])
+def test_partition_and_join_on_cuda_match_cpu(method):
+    """The slice on the card equals the plain versions on the CPU:
+    partition boxes, the plan, the exact count and the raw count; hc
+    launches encode, every rp or MASJ join launches mask."""
+    _need_cuda()
+    r = spatial_gen.osm_like(6000, seed=0, device="cpu")
+    s = spatial_gen.osm_like(5000, seed=1, device="cpu")
+    parts = {d: papi.partition(method, torch.cat([r, s]).to(d), 400)
+             for d in ("cpu", "cuda")}
+    assert torch.equal(parts["cuda"].boxes.cpu(), parts["cpu"].boxes)
+    hkernel.reset_launches()
+    mkernel.reset_launches()
+    plans = {d: join_engine.plan_join(method, r, s, 400, 1, device=d)
+             for d in ("cpu", "cuda")}
+    for name in ("r_tiles", "r_ids", "s_tiles", "s_ids", "tile_boxes"):
+        assert torch.equal(getattr(plans["cuda"], name).cpu(),
+                           getattr(plans["cpu"], name)), name
+    assert plans["cuda"].stats == plans["cpu"].stats
+    for fn in (lambda p: join_engine.spatial_join_count(
+                   p, max_pairs_per_tile=10**6),
+               lambda p: join_engine.run_join_count(p, dedup="none")):
+        assert fn(plans["cuda"]) == fn(plans["cpu"])
+    assert (hkernel.LAUNCHES["encode"] > 0) == (method == "hc")
+    assert mkernel.LAUNCHES["mask"] > 0 and mkernel.LAUNCHES["count"] > 0
+
+
+def test_hilbert_local_index_on_cuda_matches_cpu():
+    _need_cuda()
+    mbrs = spatial_gen.osm_like(20_000, seed=0, device="cpu")
+    qb = _boxes(np.random.default_rng(3), 64, 0.03)
+    srv = {d: SpatialServer.from_method("hc", mbrs, 256,
+                                        ServeConfig(local_index="hilbert"),
+                                        device=d)
+           for d in ("cpu", "cuda")}
+    assert torch.equal(srv["cuda"].layout.ids.cpu(), srv["cpu"].layout.ids)
+    want = srv["cpu"].range_counts(qb)
+    got = srv["cuda"].range_counts(qb)
+    assert torch.equal(got[0].cpu(), want[0]) and got[1] == want[1]

@@ -1,0 +1,319 @@
+"""repro_torch's spatial join against repro's on the same numpy inputs:
+the ``mbr_join`` ops (repro's Pallas kernels in interpret mode) on
+``tests/test_kernels_mbr.py``'s shapes; ``rp_own_mask``,
+``tile_join_count`` and ``tile_join_pairs`` (truncation included) on
+repro's planned tiles; ``unique_pairs``; the LPT packers;
+``plan_join``'s arrays and stats for the six layouts on 1 and 4
+devices; and the engine's counts on a 1-device mesh, at the sizes of
+``tests/test_join_engine.py`` and on a denser box set.  Hit tables in
+row blocks give the same answers.  Unported execution raises, and the
+ETL command runs on the CPU.  Tolerance: exact equality throughout."""
+import os, sys  # noqa: E401
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh
+
+import repro.kernels  # noqa: F401  (wires repro's Hilbert kernel into hc)
+from repro.data import spatial_gen as jgen
+from repro.kernels.mbr_join import kernel as jmk, ops as jmops
+from repro.kernels.mbr_join import ref as jmref
+from repro.query import balance as jbalance, dedup as jdedup
+from repro.query import engine as jengine, join as jjoin
+from repro_torch.kernels.mbr_join import kernel as tmk, ops as tmops
+from repro_torch.kernels.mbr_join import ref as tmref
+from repro_torch.launch import partition_etl
+from repro_torch.query import balance as tbalance, dedup as tdedup
+from repro_torch.query import engine as tengine, join as tjoin
+
+torch.set_num_threads(1)
+METHODS = ["fg", "bsp", "slc", "bos", "str", "hc"]
+
+
+def _boxes(n, seed, scale=0.1):
+    rng = np.random.default_rng(seed)
+    c = rng.random((n, 2))
+    s = rng.random((n, 2)) * scale
+    return np.concatenate([c - s, c + s], -1).astype(np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.array(x))
+
+
+def _mesh():
+    return Mesh(np.array(jax.devices()[:1]), ("d",))
+
+
+# -- mbr_join kernels ------------------------------------------------------
+
+@pytest.mark.parametrize("n,m", [(1, 1), (7, 5), (128, 128), (300, 257),
+                                 (1024, 513)])
+def test_join_count_matches_repro(n, m):
+    r, s = _boxes(n, n), _boxes(m, m + 1)
+    want = int(jmops.join_count(jnp.asarray(r), jnp.asarray(s)))
+    assert int(tmops.join_count(_t(r), _t(s))) == want
+    assert want == int(jmref.intersect_count(jnp.asarray(r), jnp.asarray(s)))
+    assert int(tmref.intersect_count(_t(r), _t(s))) == want
+
+
+@pytest.mark.parametrize("n,m", [(5, 9), (130, 260), (511, 140)])
+def test_join_mask_matches_repro(n, m):
+    r, s = _boxes(n, n), _boxes(m, m)
+    got = tmops.join_mask(_t(r), _t(s))
+    assert got.shape == (n, m) and got.dtype == torch.bool
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jmops.join_mask(jnp.asarray(r),
+                                                jnp.asarray(s))))
+
+
+@pytest.mark.parametrize("br,bs", [(128, 128), (256, 128), (512, 256)])
+def test_block_counts_match_repro_block_by_block(br, bs):
+    """The count kernel's (N/br, M/bs) output against repro's Pallas
+    kernel on the same sentinel-padded component-major inputs."""
+    r, s = _boxes(700, 0), _boxes(300, 1)
+    r4, s4 = tmops.pad_cm(_t(r), br), tmops.pad_cm(_t(s), bs)
+    want = jmk.count_pallas(jnp.asarray(r4.numpy()), jnp.asarray(s4.numpy()),
+                            br, bs, interpret=True)
+    got = tmops.count_blocks(r4, s4, br, bs)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(tmops.join_count(_t(r), _t(s), br=br, bs=bs)) == int(
+        jmops.join_count(jnp.asarray(r), jnp.asarray(s), br=br, bs=bs))
+
+
+def test_padded_mask_matches_repro_kernel():
+    r4 = tmops.pad_cm(_t(_boxes(3, 4)), 256)
+    s4 = tmops.pad_cm(_t(_boxes(2, 5)), 128)
+    want = jmk.mask_pallas(jnp.asarray(r4.numpy()), jnp.asarray(s4.numpy()),
+                           interpret=True)
+    np.testing.assert_array_equal(tmops.mask_cm(r4, s4).numpy(),
+                                  np.asarray(want))
+
+
+def test_bfloat16_inputs_are_cast_to_float32():
+    r = _boxes(256, 2)
+    s = _boxes(256, 3)
+    jr = jnp.asarray(r).astype(jnp.bfloat16)
+    js = jnp.asarray(s).astype(jnp.bfloat16)
+    tr = torch.from_numpy(np.array(jr.astype(jnp.float32))).bfloat16()
+    ts = torch.from_numpy(np.array(js.astype(jnp.float32))).bfloat16()
+    assert int(tmops.join_count(tr, ts)) == int(jmops.join_count(jr, js))
+
+
+def test_touching_boxes_intersect_and_sentinels_never_match():
+    r = torch.tensor([[0.0, 0.0, 1.0, 1.0]])
+    s = torch.tensor([[1.0, 1.0, 2.0, 2.0]])     # one shared corner
+    assert int(tmops.join_count(r, s)) == 1
+    r3, s2 = _boxes(3, 4), _boxes(2, 5)           # heavy padding to 256
+    assert int(tmops.join_count(_t(r3), _t(s2))) == int(
+        jmref.intersect_count(jnp.asarray(r3), jnp.asarray(s2)))
+    assert int(tmops.join_count(torch.tensor([[9e9, 9e9, -9e9, -9e9]]),
+                                torch.tensor([[-1e9, -1e9, 1e9, 1e9]]))) == 0
+
+
+def test_kernel_wrappers_need_cuda_tensors():
+    x = tmops.pad_cm(_t(_boxes(4, 0)), 128)
+    for call in (lambda: tmk.count(x, x, 128, 128), lambda: tmk.mask(x, x)):
+        with pytest.raises(ValueError, match="cuda"):
+            call()
+
+
+# -- tile joins ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def dense_plan():
+    """repro's plan of a dense join (many pairs per tile)."""
+    r, s = _boxes(600, 10, 0.04), _boxes(500, 11, 0.04)
+    return r, s, jengine.plan_join("bsp", jnp.asarray(r), jnp.asarray(s),
+                                   150, 1)
+
+
+def _tile(plan, j):
+    return [plan.r_tiles[0, j], plan.s_tiles[0, j], plan.r_ids[0, j],
+            plan.s_ids[0, j], plan.tile_boxes[0, j]]
+
+
+@pytest.mark.parametrize("j", [0, 1, 2, 3])
+def test_rp_own_mask_and_tile_counts_match_repro(dense_plan, j):
+    _, _, plan = dense_plan
+    rt, st, _, _, tb = _tile(plan, j)
+    uni = plan.universe
+    args = [jnp.asarray(a) for a in (rt, st, tb, uni)]
+    targs = [_t(a) for a in (rt, st, tb, uni)]
+    np.testing.assert_array_equal(tjoin.rp_own_mask(*targs).numpy(),
+                                  np.asarray(jjoin.rp_own_mask(*args)))
+    for dedup in ("rp", "none"):
+        want = int(jjoin.tile_join_count(*args, dedup=dedup))
+        assert int(tjoin.tile_join_count(*targs, dedup=dedup)) == want
+    assert want > 0
+
+
+@pytest.mark.parametrize("max_pairs", [1, 37, 100_000])
+@pytest.mark.parametrize("dedup", ["none", "rp"])
+def test_tile_join_pairs_match_repro(dense_plan, dedup, max_pairs):
+    """Row-major pairs padded with -1, truncated at max_pairs, and n
+    counting every hit."""
+    _, _, plan = dense_plan
+    rt, st, rid, sid, tb = _tile(plan, 0)
+    want = jjoin.tile_join_pairs(
+        *(jnp.asarray(a) for a in (rt, st, rid, sid, tb, plan.universe)),
+        max_pairs, dedup=dedup)
+    got = tjoin.tile_join_pairs(
+        *(_t(a) for a in (rt, st, rid, sid, tb, plan.universe)),
+        max_pairs, dedup=dedup)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert int(want[2]) > 37
+
+
+def test_tile_joins_in_row_blocks_match_repro(dense_plan, monkeypatch):
+    """Hit tables built a few rows at a time: same counts, same pairs,
+    same truncation point."""
+    _, _, plan = dense_plan
+    rt, st, rid, sid, tb = _tile(plan, 1)
+    jargs = [jnp.asarray(a) for a in (rt, st, rid, sid, tb, plan.universe)]
+    targs = [_t(a) for a in (rt, st, rid, sid, tb, plan.universe)]
+    monkeypatch.setattr(tjoin, "TABLE_BYTES", 5 * st.shape[0])
+    assert int(tjoin.tile_join_count(targs[0], targs[1], targs[4], targs[5])
+               ) == int(jjoin.tile_join_count(jargs[0], jargs[1], jargs[4],
+                                              jargs[5]))
+    for max_pairs in (13, 10_000):
+        want = jjoin.tile_join_pairs(*jargs, max_pairs)
+        got = tjoin.tile_join_pairs(*targs, max_pairs)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_unique_pairs_match_repro():
+    rng = np.random.default_rng(0)
+    rid = rng.integers(0, 50, 500).astype(np.int32)
+    sid = rng.integers(0, 50, 500).astype(np.int32)
+    pad = rng.random(500) < 0.2
+    rid[pad], sid[pad] = -1, -1
+    want_n, want_u = jdedup.unique_pairs(jnp.asarray(rid), jnp.asarray(sid))
+    got_n, got_u = tdedup.unique_pairs(_t(rid), _t(sid))
+    assert int(got_n) == int(want_n) == len(set(zip(rid[~pad], sid[~pad])))
+    np.testing.assert_array_equal(got_u.numpy(), np.asarray(want_u))
+    np.testing.assert_array_equal(
+        tdedup.lexsort_pairs(_t(rid), _t(sid)).numpy(),
+        np.asarray(jdedup.lexsort_pairs(jnp.asarray(rid), jnp.asarray(sid))))
+
+
+@pytest.mark.parametrize("n_devices", [1, 4, 16])
+def test_packers_match_repro(n_devices):
+    rng = np.random.default_rng(n_devices)
+    costs = rng.pareto(1.3, 300) + 1.0
+    costs[::7] = costs[0]                       # ties
+    for name in ("lpt_pack", "round_robin_pack"):
+        want = getattr(jbalance, name)(costs, n_devices)
+        got = getattr(tbalance, name)(costs, n_devices)
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1:] == want[1:]
+    np.testing.assert_array_equal(
+        tbalance.tile_costs(np.arange(5), np.arange(5) + 1),
+        jbalance.tile_costs(np.arange(5), np.arange(5) + 1))
+
+
+# -- the engine ------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def rs():
+    r = np.array(jgen.dataset("osm", jax.random.PRNGKey(0), 1200))
+    s = np.array(jgen.dataset("osm", jax.random.PRNGKey(9), 900))
+    return r, s
+
+
+_PLAN_ARRAYS = ("r_tiles", "r_ids", "s_tiles", "s_ids", "tile_boxes",
+                "universe")
+
+
+@pytest.mark.parametrize("n_devices", [1, 4])
+@pytest.mark.parametrize("method", METHODS)
+def test_plan_join_matches_repro(rs, method, n_devices):
+    r, s = rs
+    want = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 200,
+                             n_devices)
+    got = tengine.plan_join(method, r, s, 200, n_devices, device="cpu")
+    for name in _PLAN_ARRAYS:
+        w = np.asarray(getattr(want, name))
+        g = getattr(got, name).numpy()
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    assert got.stats == want.stats
+    np.testing.assert_array_equal(got.live_r, (got.r_ids >= 0).sum(-1))
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_join_counts_match_repro(rs, method):
+    r, s = rs
+    want = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 200, 1)
+    got = tengine.plan_join(method, r, s, 200, 1, device="cpu")
+    oracle = int(jmref.intersect_count(jnp.asarray(r), jnp.asarray(s)))
+    assert tengine.spatial_join_count(got, max_pairs_per_tile=8192) == \
+        jengine.spatial_join_count(want, _mesh(), "d",
+                                   max_pairs_per_tile=8192) == oracle
+    for dedup in ("rp", "none"):
+        assert tengine.run_join_count(got, dedup=dedup) == \
+            jengine.run_join_count(want, _mesh(), "d", dedup=dedup)
+    assert tengine.run_join_pairs_masj(got, max_pairs_per_tile=8192) == \
+        jengine.run_join_pairs_masj(want, _mesh(), "d",
+                                    max_pairs_per_tile=8192)
+
+
+@pytest.mark.parametrize("method", METHODS)
+def test_dense_join_counts_and_truncation_match_repro(method):
+    """Many pairs per tile: exact counts, and the MASJ path truncated
+    at 16 pairs a tile drops what repro drops."""
+    r, s = _boxes(700, 20, 0.03), _boxes(600, 21, 0.03)
+    want = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 150, 1)
+    got = tengine.plan_join(method, r, s, 150, 1, device="cpu")
+    oracle = int(jmref.intersect_count(jnp.asarray(r), jnp.asarray(s)))
+    assert tengine.spatial_join_count(got, max_pairs_per_tile=100_000) == \
+        oracle
+    assert tengine.run_join_count(got, dedup="none") == \
+        jengine.run_join_count(want, _mesh(), "d", dedup="none") >= oracle
+    stats = {}
+    short = tengine.run_join_pairs_masj(got, max_pairs_per_tile=16,
+                                        stats=stats)
+    assert short == jengine.run_join_pairs_masj(want, _mesh(), "d",
+                                                max_pairs_per_tile=16)
+    assert stats["truncated_tiles"] > 0 and short < oracle
+    per_tile = tengine.tile_counts(got, dedup="none")
+    assert stats["max_tile_pairs"] == int(per_tile.max())
+
+
+def test_unported_execution_raises(rs):
+    r, s = rs
+    plan4 = tengine.plan_join("bsp", r, s, 200, 4, device="cpu")
+    plan1 = tengine.plan_join("bsp", r, s, 200, 1, device="cpu")
+    calls = [lambda: tengine.run_join_count(plan4),
+             lambda: tengine.spatial_join_count(plan4),
+             lambda: tengine.run_join_pairs_masj(plan4),
+             lambda: tengine.run_join_count(plan1, mesh=object()),
+             lambda: tengine.spatial_join_count(plan1, object(), "d")]
+    for call in calls:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            call()
+
+
+def test_plan_join_defaults_to_cuda(rs):
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour of a machine without CUDA")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tengine.plan_join("bsp", *rs, 200, 1)
+
+
+@pytest.mark.parametrize("method", ["bos", "hc"])
+def test_etl_partitions_and_joins_on_the_cpu(method, capsys):
+    assert partition_etl.main(["--device", "cpu", "--n", "3000", "--method",
+                               method, "--payload", "300", "--join"]) == 0
+    out = capsys.readouterr().out
+    assert f"method={method} n=3000" in out and "coverage          = 1.0000" \
+        in out and "join: |R⋈S| =" in out
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        partition_etl.main(["--device", "cpu", "--parallel"])

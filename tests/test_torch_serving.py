@@ -1,7 +1,8 @@
 """repro_torch's SpatialServer against repro's and the numpy brute
 force on the same osm- and pi-like data: range counts, id lists with
 overflow flags, kNN (pruned with its widen-and-retry ladder, and the
-dense oracle) and every stat for local_index "x" and "off"; the dense
+dense oracle) and every stat for local_index "x" and "off"; the six
+Table-1 layouts x local_index "off"/"x"/"hilbert"; the dense
 range oracle through ``pruned=False`` and ``probe="dense"``; the
 replicated executors fed a staging carried across from repro; the
 device rule and the unported features; and the generators' distribution
@@ -167,6 +168,44 @@ def test_executors_on_a_staging_carried_from_repro(data, servers,
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+N_LAYOUTS = 2500     # objects per dataset in the six-layout parity test
+
+
+@pytest.fixture(scope="module", params=["osm", "pi"])
+def layout_data(request):
+    return np.array(jgen.dataset(request.param, jax.random.PRNGKey(3),
+                                 N_LAYOUTS))
+
+
+@pytest.mark.parametrize("local_index", ["off", "x", "hilbert"])
+@pytest.mark.parametrize("method", ["fg", "bsp", "slc", "bos", "str", "hc"])
+def test_six_layouts_and_local_indexes_match_repro(layout_data, method,
+                                                   local_index):
+    """Every Table-1 layout partitioned by each package itself, staged
+    with every local index: the staged slots, range counts, range ids
+    (with overflow) and kNN answer bit for bit as repro's, stats
+    included."""
+    js = JServer.from_method(method, jnp.asarray(layout_data), 120,
+                             JConfig(local_index=local_index))
+    ts = TServer.from_method(method, layout_data, 120,
+                             TConfig(local_index=local_index), device="cpu")
+    for name in ("ids", "canon_tiles", "probe_boxes", "alive"):
+        np.testing.assert_array_equal(getattr(ts.layout, name).numpy(),
+                                      np.asarray(getattr(js.layout, name)))
+    assert ts.stats == js.stats
+    qb = _qboxes(30, NQ)
+    want, got = js.range_counts(jnp.asarray(qb)), ts.range_counts(qb)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    assert got[1] == want[1]
+    want = js.range_ids(jnp.asarray(qb), max_hits=16)
+    got = ts.range_ids(qb, max_hits=16)
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[3] == want[3]
+    pts = _pts(31, 24)
+    _assert_knn_equal(ts.knn(pts, 5), js.knn(jnp.asarray(pts), 5))
+
+
 @pytest.mark.parametrize("make", [
     lambda d: TServer.from_method("bsp", d, 120),
     lambda d: tgen.osm_like(100),
@@ -184,16 +223,12 @@ def test_default_device_is_cuda_and_never_falls_back(data, make):
                                   TConfig(placement="sharded"), device="cpu"),
     lambda d: TServer.from_method("bsp", d, 120, TConfig(placement="heat"),
                                   device="cpu"),
-    lambda d: TServer.from_method("bsp", d, 120,
-                                  TConfig(local_index="hilbert"),
-                                  device="cpu"),
     lambda d: TServer.from_method(
         "bsp", d, 120, TConfig(policy=PlacementPolicy(rebalance_every=2)),
         device="cpu"),
-    lambda d: TServer.from_method("str", d, 120, device="cpu"),
     lambda d: TServer(tapi.partition("bsp", torch.from_numpy(d), 120), d,
                       device="cpu", mesh=object()),
-], ids=["sharded", "heat", "hilbert", "rebalance_every", "str", "mesh"])
+], ids=["sharded", "heat", "rebalance_every", "mesh"])
 def test_unported_configurations_raise(data, make):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make(data)
