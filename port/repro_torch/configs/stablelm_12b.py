@@ -1,0 +1,8 @@
+"""StableLM 2 12B [hf:stabilityai]: dense GQA decoder."""
+from ..models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="stablelm-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv=8, d_ff=13824,
+    vocab=100352, head_dim=160,
+)

@@ -52,3 +52,11 @@ def test_importing_every_module_loads_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def test_the_lm_slice_is_in_the_walk():
+    mods = [m for _, m in _modules()]
+    for m in ("repro_torch.models.lm", "repro_torch.models.api",
+              "repro_torch.configs.mamba2_1p3b",
+              "repro_torch.kernels.ssd.kernel", "repro_torch.launch.serve"):
+        assert m in mods, m

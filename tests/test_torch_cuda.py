@@ -5,7 +5,9 @@ only torch is installed:
     python -m pytest -m cuda tests/test_torch_cuda.py
 
 Without a CUDA device every test skips.  Tolerance: exact equality
-(bool and int outputs)."""
+(bool and int outputs); the SSD block's float32 output within the
+reference's 2e-5 (another summation order than the plain version's),
+and the Mamba2 model within 1e-4 in float32."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
@@ -21,6 +23,9 @@ from repro_torch.kernels.hilbert import ops as hops
 from repro_torch.kernels.mbr_join import kernel as mkernel
 from repro_torch.kernels.mbr_join import ops as mops
 from repro_torch.kernels.range_probe import kernel, ops
+from repro_torch.kernels.ssd import kernel as skernel
+from repro_torch.kernels.ssd import ops as sops
+from repro_torch.kernels.ssd import ref as sref
 from repro_torch.query import engine as join_engine
 from repro_torch.query import knn as knn_mod
 from repro_torch.query import range as range_mod
@@ -257,3 +262,70 @@ def test_hilbert_local_index_on_cuda_matches_cpu():
     want = srv["cpu"].range_counts(qb)
     got = srv["cuda"].range_counts(qb)
     assert torch.equal(got[0].cpu(), want[0]) and got[1] == want[1]
+
+
+@pytest.mark.parametrize("h,g,chunk,p,s", [
+    (64, 1, 128, 64, 128),      # Mamba2-1.3B's widths
+    (4, 2, 128, 32, 64), (6, 3, 64, 16, 32), (8, 1, 128, 128, 128),
+    (4, 4, 8, 4, 4)])
+@pytest.mark.parametrize("batch,l", [(1, 256), (2, 1024)])
+def test_ssd_intra_chunk_kernel_matches_plain_version(h, g, chunk, p, s,
+                                                      batch, l):
+    """Grouped heads, every chunk width and run split the wrapper picks
+    (1,024 chunks keep whole groups a block; 2 chunks split them)."""
+    _need_cuda()
+    rng = np.random.default_rng(h + g + chunk + p + s + l)
+    x = torch.from_numpy(rng.standard_normal((batch, l, h, p)).astype(
+        np.float32))
+    dt = torch.from_numpy((np.logaddexp(rng.standard_normal(
+        (batch, l, h)), 0) * 0.1).astype(np.float32))
+    a = -torch.exp(torch.from_numpy(rng.standard_normal(h).astype(
+        np.float32)) * 0.3)
+    cl = torch.cumsum((dt * a).reshape(batch, l // chunk, chunk, h),
+                      2).reshape(batch, l, h)
+    b, c = (torch.from_numpy((rng.standard_normal((batch, l, g, s)) * 0.3)
+                             .astype(np.float32)) for _ in range(2))
+    want = sref.intra_chunk_grouped(x, dt, cl, b, c, chunk)
+    skernel.reset_launches()
+    got = skernel.intra_chunk(*(t.cuda() for t in (x, dt, cl, b, c)), chunk)
+    torch.cuda.synchronize()
+    assert skernel.LAUNCHES["intra_chunk"] == 1
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    y = sops.ssd_forward(*(t.cuda() for t in (x, dt, a, b, c)), chunk=chunk)
+    torch.testing.assert_close(
+        y.cpu(), sops.ssd_forward(x, dt, a, b, c, chunk=chunk),
+        rtol=1e-5, atol=1e-5)
+    assert skernel.LAUNCHES["intra_chunk"] == 2
+    with pytest.raises(ValueError):
+        skernel.intra_chunk(*(t.cuda() for t in (x, dt, cl, b, c)), 12)
+    with pytest.raises(NotImplementedError, match="14b"):
+        skernel.intra_chunk(x.cuda().requires_grad_(True), dt.cuda(),
+                            cl.cuda(), b.cuda(), c.cuda(), chunk)
+
+
+def test_mamba2_on_cuda_matches_cpu():
+    """The smoke config in float32: prefill logits through the kernel and
+    greedy tokens through the recurrence, card against CPU."""
+    _need_cuda()
+    import copy
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+    cfg = dataclasses.replace(configs.smoke("mamba2_1p3b"), dtype="float32")
+    models = {d: api.build(cfg, d) for d in ("cpu", "cuda")}
+    params = {"cpu": models["cpu"].init_params(
+        torch.Generator().manual_seed(0))}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to("cuda")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 200)))
+    skernel.reset_launches()
+    got = api.make_prefill_step(models["cuda"])(params["cuda"],
+                                                {"tokens": toks.cuda()})
+    assert skernel.LAUNCHES["intra_chunk"] == cfg.n_layers
+    want = api.make_prefill_step(models["cpu"])(params["cpu"],
+                                                {"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    gen = {d: serve.generate(models[d], params[d], toks[:, :8].to(d), 8)
+           for d in ("cpu", "cuda")}
+    assert torch.equal(gen["cuda"].cpu(), gen["cpu"])
