@@ -1002,31 +1002,22 @@ def lm_model(torch, dev):
     return cfg, model, params
 
 
+def prefill_batch(torch, dev, cfg):
+    g = torch.Generator(dev).manual_seed(SEED + 4)
+    return {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_L),
+                                    generator=g, device=dev)}
+
+
 def lm_prefill_phase(torch, dev, cfg, model, params):
-    """make_prefill_step on PREFILL_B x PREFILL_L tokens -> (layer 0's
-    SSD inputs, the SSD launches of the timed prefills)."""
+    """make_prefill_step on PREFILL_B x PREFILL_L tokens -> the SSD
+    launches of the timed prefills."""
     from repro_torch.kernels.ssd import kernel as skernel
     from repro_torch.models import api
 
-    g = torch.Generator(dev).manual_seed(SEED + 4)
-    toks = torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_L), generator=g,
-                         device=dev)
     step = api.make_prefill_step(model)
-    batch = {"tokens": toks}
-    captured = []
-    launch = skernel.intra_chunk
-
-    def capture(*args):             # keep layer 0's real inputs
-        if not captured:
-            captured.append(args)
-        return launch(*args)
-
+    batch = prefill_batch(torch, dev, cfg)
+    warm, warm_s = timed_s(torch, lambda: step(params, batch))
     torch.cuda.reset_peak_memory_stats()
-    skernel.intra_chunk = capture
-    try:
-        warm, warm_s = timed_s(torch, lambda: step(params, batch))
-    finally:
-        skernel.intra_chunk = launch
     skernel.reset_launches()
     secs = []
     for _ in range(3):
@@ -1056,7 +1047,30 @@ def lm_prefill_phase(torch, dev, cfg, model, params):
     if launches != 3 * cfg.n_layers:
         raise AssertionError(f"the SSD kernel launched {launches} times in "
                              f"3 prefills of {cfg.n_layers} layers")
-    return captured[0], launches
+    return launches
+
+
+def prefill_layer0_inputs(torch, dev, cfg, model, params):
+    """One more prefill of the same batch, keeping layer 0's SSD inputs
+    (run after the timed phases, so their peaks do not hold them)."""
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.models import api
+
+    step = api.make_prefill_step(model)
+    captured = []
+    launch = skernel.intra_chunk
+
+    def capture(*args):
+        if not captured:
+            captured.append(args)
+        return launch(*args)
+
+    skernel.intra_chunk = capture
+    try:
+        step(params, prefill_batch(torch, dev, cfg))
+    finally:
+        skernel.intra_chunk = launch
+    return captured[0]
 
 
 def lm_decode_phase(torch, dev, cfg, model, params):
@@ -1144,7 +1158,7 @@ def ssd_bound(x, b, chunk):
     return bytes_, flops
 
 
-def lm_check_phase(torch, dev, cfg, params, layer0, launches):
+def lm_check_phase(torch, dev, cfg, model, params, launches):
     """Kernel against plain, float32 prefill against decode, and the
     launch count -> the SSD kernel's row."""
     import dataclasses
@@ -1153,6 +1167,7 @@ def lm_check_phase(torch, dev, cfg, params, layer0, launches):
     from repro_torch.models import lm
 
     chunk = 128
+    layer0 = prefill_layer0_inputs(torch, dev, cfg, model, params)
     sets = {"layer0": layer0[:5]}
     x0 = layer0[0]
     sets["random"] = ssd_inputs_random(
@@ -1315,12 +1330,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     cfg, model, params = lm_model(torch, dev)
-    layer0, ssd_launches = lm_prefill_phase(torch, dev, cfg, model, params)
+    ssd_launches = lm_prefill_phase(torch, dev, cfg, model, params)
     t9 = time.perf_counter()
     lm_decode_phase(torch, dev, cfg, model, params)
     t10 = time.perf_counter()
-    ssd_entry = lm_check_phase(torch, dev, cfg, params, layer0, ssd_launches)
-    del layer0
+    ssd_entry = lm_check_phase(torch, dev, cfg, model, params, ssd_launches)
     emit(dict(phase="kernel", **ssd_entry))
     entries.append(ssd_entry)
     wall.update(lm_prefill_s=t9 - t8, lm_decode_s=t10 - t9,

@@ -285,6 +285,31 @@ extern "C" int ssd_intra_chunk(int device, const void* x, const void* dt,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Blocks of the kernel the device holds at once at (q, p, s): blocks an
+// SM by the occupancy calculator (shared memory allows one at
+// Q = S = 128) times the SM count.  The wrapper sizes a block's run of
+// heads so the grid fills this.
+extern "C" int ssd_resident_blocks(int device, int q, int p, int s,
+                                   int* out) {
+  if (q < 8 || q > kMaxDim || p < 4 || p > kMaxDim || s < 4 || s > kMaxDim)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t bytes = smem_bytes(q, p, s);
+  err = cudaFuncSetAttribute(intra_chunk_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, intra_chunk_kernel, kThreads, bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *out = per_sm * sms;
+  return 0;
+}
+
 extern "C" const char* ssd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

@@ -23,7 +23,6 @@ from .. import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
 MAX_DIM = 128          # Q, P and S at most (the shared-memory staging)
-MIN_BLOCKS = 2 * 132   # two blocks per H100 SM before a run is split
 
 # kernel launches since the last reset_launches()
 LAUNCHES = {"intra_chunk": 0}
@@ -32,7 +31,9 @@ _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 LIB = cuda_build.Library(SOURCE, {
     "ssd_intra_chunk": ([_ci, _vp, _vp, _vp, _vp, _vp, _vp, _ll, _ll, _ci,
                          _ci, _ci, _ci, _ci, _ci, _vp], _ci),
+    "ssd_resident_blocks": ([_ci, _ci, _ci, _ci, ctypes.POINTER(_ci)], _ci),
 }, "ssd_error_string")
+_RESIDENT: dict = {}   # (device index, Q, P, S) -> resident blocks
 
 
 def reset_launches() -> None:
@@ -44,12 +45,27 @@ def build() -> Path:
     return LIB.build()
 
 
-def heads_per_block(chunks: int, rep: int) -> int:
+def resident_blocks(index: int, q: int, p: int, s: int) -> int:
+    """Blocks the card holds at once at (Q, P, S), as the CUDA occupancy
+    calculator and the card's SM count give it (queried once a shape)."""
+    key = (index, q, p, s)
+    if key not in _RESIDENT:
+        out = ctypes.c_int(0)
+        err = LIB.get().ssd_resident_blocks(index, q, p, s, ctypes.byref(out))
+        if err:
+            msg = LIB.get().ssd_error_string(err).decode()
+            raise RuntimeError(f"ssd_resident_blocks failed: {msg}")
+        _RESIDENT[key] = out.value
+    return _RESIDENT[key]
+
+
+def heads_per_block(chunks: int, rep: int, min_blocks: int) -> int:
     """Heads of one group a block serves: the whole group (G = C . B^T is
     computed once a block), halved while the grid of ``chunks``
-    (batch, chunk, group) blocks would hold fewer than MIN_BLOCKS."""
+    (batch, chunk, group) blocks would hold fewer than ``min_blocks``,
+    the blocks the card holds at once."""
     run = rep
-    while run % 2 == 0 and chunks * (rep // run) < MIN_BLOCKS:
+    while run % 2 == 0 and chunks * (rep // run) < min_blocks:
         run //= 2
     return run
 
@@ -81,9 +97,11 @@ def intra_chunk(x: torch.Tensor, dt: torch.Tensor, cl: torch.Tensor,
     y = torch.empty((bs, l, h, p), dtype=torch.float32, device=dev)
     if y.numel() == 0:
         return y
-    run = heads_per_block(bs * (l // chunk) * g, h // g)
+    index = cuda_build.device_index(dev)
+    run = heads_per_block(bs * (l // chunk) * g, h // g,
+                          resident_blocks(index, chunk, p, s))
     err = LIB.get().ssd_intra_chunk(
-        cuda_build.device_index(dev), x.data_ptr(), dt.data_ptr(),
+        index, x.data_ptr(), dt.data_ptr(),
         cl.data_ptr(), b.data_ptr(), c.data_ptr(), y.data_ptr(), bs, l, h,
         g, chunk, p, s, run, cuda_build.stream(dev))
     LIB.launched("intra_chunk", err, LAUNCHES)

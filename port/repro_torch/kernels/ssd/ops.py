@@ -24,17 +24,15 @@ CHUNK = 128
 
 
 def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
-                b: torch.Tensor, c: torch.Tensor, chunk: int = CHUNK,
-                use_kernel: bool | None = None) -> torch.Tensor:
+                b: torch.Tensor, c: torch.Tensor, chunk: int = CHUNK
+                ) -> torch.Tensor:
     """Multi-head chunked SSD.
 
     x: (B, L, H, P), dt: (B, L, H), a_log: (H,) (negative), b, c:
     (B, L, G, S) with H % G == 0, all float32.  Returns (B, L, H, P)
-    float32.  ``use_kernel=None`` launches the kernel for CUDA tensors
-    and runs the plain version for CPU ones; ``True`` asks for the
-    kernel (CUDA only: it raises rather than falls back); ``False``
-    runs the reference's einsum form (``ref.intra_chunk_grouped``) on
-    any device.
+    float32.  The intra-chunk block is the CUDA kernel for CUDA tensors
+    and its plain version (``ref.intra_chunk_grouped``, the reference's
+    einsum form) for CPU ones.
     """
     bs, l, h, p = x.shape
     g, s = b.shape[2], b.shape[3]
@@ -49,9 +47,8 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     cl = torch.cumsum(ld.reshape(bs, nc, chunk, h), dim=2)  # (B, nc, Q, H)
 
     # ---- intra-chunk ----
-    if use_kernel is None:
-        use_kernel = x.device.type == "cuda"
-    intra = kernel.intra_chunk if use_kernel else ref.intra_chunk_grouped
+    intra = (kernel.intra_chunk if x.device.type == "cuda"
+             else ref.intra_chunk_grouped)
     y = intra(x, dt, cl.reshape(bs, l, h), b, c, chunk).reshape(
         bs, nc, chunk, g, rep, p)
 

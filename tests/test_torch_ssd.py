@@ -104,12 +104,10 @@ def test_grouped_plain_version_equals_flat_contract(h, g, chunk, l):
 
 
 @pytest.mark.parametrize("l,chunk", [(256, 128), (384, 128), (128, 64)])
-@pytest.mark.parametrize("use_kernel", [None, False])
-def test_ssd_forward_matches_repro_and_the_scan(l, chunk, use_kernel):
+def test_ssd_forward_matches_repro_and_the_scan(l, chunk):
     b, h, p, g, s = 2, 4, 32, 2, 64
     args = _inputs(0, b, l, h, p, g, s)
-    got = ops.ssd_forward(*_t(*args), chunk=chunk,
-                          use_kernel=use_kernel).numpy()
+    got = ops.ssd_forward(*_t(*args), chunk=chunk).numpy()
     for jk in (True, False):
         want = np.asarray(jops.ssd_forward(*_j(*args), chunk=chunk,
                                            use_kernel=jk))
@@ -136,13 +134,33 @@ def test_ssd_scan_ref_matches_repro():
                                rtol=1e-5, atol=1e-5)
 
 
+def test_ssd_forward_sends_cpu_tensors_to_the_plain_version(monkeypatch):
+    """``ssd_forward`` picks its route by the tensors' device alone: CPU
+    tensors reach ``ref.intra_chunk_grouped`` and never the kernel."""
+    args = _t(*_inputs(2, 1, 256, 2, 16, 1, 32))
+    want = ops.ssd_forward(*args)
+    calls = []
+    grouped = ref.intra_chunk_grouped
+
+    def kernel_called(*a, **k):
+        raise AssertionError("the kernel route took CPU tensors")
+
+    def plain(*a, **k):
+        calls.append(1)
+        return grouped(*a, **k)
+
+    monkeypatch.setattr(kernel, "intra_chunk", kernel_called)
+    monkeypatch.setattr(ref, "intra_chunk_grouped", plain)
+    np.testing.assert_array_equal(ops.ssd_forward(*args).numpy(),
+                                  want.numpy())
+    assert calls == [1]
+
+
 def test_kernel_route_refuses_cpu_tensors_and_gradients():
-    """``use_kernel=True`` is the CUDA kernel: a CPU tensor is refused,
-    not sent to the plain version; a launch with inputs that require
-    grad raises, because the launch is invisible to autograd."""
+    """The CUDA kernel's wrapper refuses a CPU tensor rather than send it
+    to the plain version; a launch with inputs that require grad raises,
+    because the launch is invisible to autograd."""
     args = _t(*_inputs(1, 1, 128, 2, 16, 1, 32))
-    with pytest.raises(ValueError, match="cuda"):
-        ops.ssd_forward(*args, use_kernel=True)
     x, dt, a_log, bm, cm = args
     x.requires_grad_(True)
     with pytest.raises(NotImplementedError, match="14b"):
@@ -155,10 +173,12 @@ def test_kernel_route_refuses_cpu_tensors_and_gradients():
 
 
 def test_heads_per_block_keeps_the_grid_full():
-    assert kernel.heads_per_block(1024, 64) == 64       # Mamba2 prefill
-    assert kernel.heads_per_block(4, 64) == 1
-    assert kernel.heads_per_block(16, 64) == 2          # 16 x 32 >= 264
-    assert kernel.heads_per_block(2, 3) == 3            # odd: not split
+    # 132 resident blocks: one a block an SM of an H100 SXM at Q = S = 128
+    assert kernel.heads_per_block(1024, 64, 132) == 64  # Mamba2 prefill
+    assert kernel.heads_per_block(4, 64, 132) == 1
+    assert kernel.heads_per_block(16, 64, 132) == 4     # 16 x 16 >= 132
+    assert kernel.heads_per_block(16, 64, 264) == 2     # 16 x 32 >= 264
+    assert kernel.heads_per_block(2, 3, 132) == 3       # odd: not split
 
 
 def _mixer_params(cfg, seed):
