@@ -38,7 +38,7 @@ import math
 import numpy as np
 import torch
 
-from ..core.fma import fma32
+from ..core.fma import fma32, sqrt32
 from ..kernels.range_probe import ops as rops
 from . import range as range_mod
 
@@ -109,16 +109,17 @@ def initial_radius(diag: torch.Tensor, k: int, n_slots) -> torch.Tensor:
 
     ``k / n`` is a float32 division of two tensors: torch computes a
     Python scalar over a tensor as a reciprocal times the scalar, which
-    is not the same bits.
+    is not the same bits.  The root is ``sqrt32``: torch's float32
+    ``sqrt`` on the CPU is not correctly rounded on every host.
     """
     n = torch.clamp_min(_f32(n_slots, diag.device), 1.0)
-    r = diag * 0.5 * torch.sqrt(_f32(k, diag.device) / n)
+    r = diag * 0.5 * sqrt32(_f32(k, diag.device) / n)
     return torch.maximum(r, diag * 1e-6)
 
 
 def _deepening_start(pts, k, canon_tiles, uni, r0, n_live):
     """-> ``(r_init, r_cover[Q])``, as the reference's executors."""
-    diag = torch.sqrt(torch.sum((uni[2:] - uni[:2]) ** 2))
+    diag = sqrt32(torch.sum((uni[2:] - uni[:2]) ** 2))
     if r0 is None:
         n_slots = (n_live if n_live is not None
                    else canon_tiles.shape[0] * canon_tiles.shape[1])

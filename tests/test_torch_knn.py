@@ -1,5 +1,6 @@
 """repro_torch's kNN pieces against repro's, on the same numpy inputs:
-the distance functions, kNN routing, the initial radius, and the three
+the distance functions, kNN routing, the initial radius and its
+correctly rounded float32 square root (``sqrt32``), and the three
 executors (dense ``batched_knn``, routed ``pruned_knn`` and its
 refinement ``knn_partial``) over stagings carried across from repro,
 with and without chunk boxes and alive masks, and with ``max_cand``
@@ -19,6 +20,7 @@ from repro.data import spatial_gen as jgen
 from repro.query import knn as jknn
 from repro.serve import router as jrouter, stage_tiles as jstage
 from repro.serve import ServeConfig as JConfig
+from repro_torch.core.fma import sqrt32
 from repro_torch.core.partition import api as tapi
 from repro_torch.query import knn as tknn, range as trange
 from repro_torch.serve import router as trouter
@@ -112,6 +114,30 @@ def test_route_knn_matches_repro(data, staged):
     for got, want in zip(trouter.route_knn(tp, torch.from_numpy(pts)),
                          jrouter.route_knn(parts, jnp.asarray(pts))):
         _eq(got, want)
+
+
+def test_sqrt32_is_correctly_rounded():
+    """``sqrt32`` against numpy's correctly rounded float32 root, bit for
+    bit: 2**20 seeded values (half uniform in [0, 1), half random bit
+    patterns over every finite positive float32, subnormals included),
+    0-d tensors, and the special values."""
+    rng = np.random.default_rng(0)
+    half = 1 << 19
+    x = np.concatenate([
+        rng.random(half, dtype=np.float32),
+        rng.integers(0, 0x7F800000, half, dtype=np.uint32).view(np.float32)])
+    got = sqrt32(torch.from_numpy(x))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  np.sqrt(x).view(np.uint32))
+    for v in x[:64]:
+        assert sqrt32(torch.tensor(v)).numpy().view(np.uint32) == \
+            np.sqrt(v).view(np.uint32)
+    special = np.float32([0.0, -0.0, np.inf, np.nan, -1.0, -np.inf])
+    with np.errstate(invalid="ignore"):
+        want = np.sqrt(special)
+    np.testing.assert_array_equal(sqrt32(torch.from_numpy(special)).numpy(),
+                                  want)
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 2500, 8_000_000, 123_456_789])
