@@ -49,10 +49,16 @@ before each path and read just after it) and its wall seconds:
    executor's hit-table block): the path's own inputs (staged alive
    mask, bounding chunk boxes), then ``alive`` None and a random mask
    and, for the skip kernels, chunk boxes that do not bound their
-   members.  Results must be bit-equal.  Kernel times come from CUDA
-   events, plain times from the host clock.  The dense skip pair has
-   no serving caller (repro launches it from tests only), so it is
-   launched from this phase only and its row says so.
+   members; the routed count kernels take the live extent of each
+   alive mask.  Results must be bit-equal.  Kernel times come from CUDA
+   events, plain times from the host clock.  The routed count kernels
+   are also timed without the extent and against the warp-per-pair
+   kernel they replaced (with and without it), each bit-equal, and
+   their rows give the grouping pass's time, the live pairs, the -1
+   share, the extents and the bound over all of cap beside the bound
+   at the extent.  The dense skip pair has no serving caller (repro
+   launches it from tests only), so it is launched from this phase
+   only and its row says so.
 6. partition -- the six Table-1 partitioners on the join's merged pi
    input (8 M objects) at payload 4096: seconds, k, and the paper's
    lambda, balance stddev, skew and coverage; hc's encode launches.
@@ -541,6 +547,10 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
         mask_out = "mask" in name
         li = "x" if skip else "off"
         tiles = lay[li].canon_tiles
+        # (alive, the live extent the count kernels may stop at)
+        extent = servers[li].tiles.extent
+        alives = (("staged", (lay[li].alive, extent)), ("none", (None, None)),
+                  ("random", (rand_alive, ops.live_extent(rand_alive))))
         q = qi if mask_out else qc
         cand = routed(servers[li], q)
         if mask_out:        # the largest launch the ids executor makes
@@ -552,10 +562,17 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
         plain = getattr(ref, name.replace("gather_", "gathered_")
                         .replace("count", "counts"))
 
-        def k_of(alive, cb):
-            return kfn(q, tiles, *((cb,) if skip else ()), cand, alive=alive)
+        def k_of(al_ext, cb):
+            alive, ext = al_ext
+            if mask_out:
+                return kfn(q, tiles, *((cb,) if skip else ()), cand,
+                           alive=alive)
+            return kfn(q, tiles, *((cb,) if skip else ()), cand, alive=alive,
+                       extent=ext)
 
-        def plain_of(alive, cb):
+        def plain_of(al_ext, cb):
+            alive = al_ext[0]
+
             def r(qq, cc):
                 boxes = ((ops.gathered_chunk_boxes(cb, cc),) if skip
                          else ())
@@ -564,49 +581,94 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
                              else ops.gathered_alive(alive, cc))
             return plain_blocked(torch, r, q, cand, cap, mask_out)
 
+        cb0 = lay["x"].chunk_boxes if skip else None
         cases, worst = timed_cases(
-            torch, name, k_of, plain_of,
-            (("staged", lay[li].alive), ("none", None),
-             ("random", rand_alive)),
-            (("bounding", lay["x"].chunk_boxes), ("non_bounding", bad))
+            torch, name, k_of, plain_of, alives,
+            (("bounding", cb0), ("non_bounding", bad))
             if skip else (("none", None),))
         main = cases[0]      # the serving path's own inputs
-        bytes_, pair_bytes, ops_ = bound_work(
-            torch, ref, ops, q, cand, tiles, lay[li].alive,
-            lay["x"].chunk_boxes if skip else None, mask_out)
-        bound_ms = max(bytes_ / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
-        entries.append(dict(
+        work = bound_work(torch, ref, ops, q, cand, tiles, lay[li].alive,
+                          cb0, mask_out, None if mask_out else extent)
+        entry = dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=launches[name], max_abs_err=worst, ms=main["ms"],
-            plain_ms=main["plain_ms"], bound_ms=bound_ms,
-            bound_by=("bytes" if bytes_ / HBM_BYTES_PER_S
-                      >= ops_ / FP32_OPS_PER_S else "operations"),
-            library_ms=None, bit_equal=worst == 0,
+            plain_ms=main["plain_ms"], bound_ms=work["bound_ms"],
+            bound_by=work["bound_by"], library_ms=None, bit_equal=worst == 0,
             launches_per_batch=launches[name] / calls[
                 "ids" if mask_out else "counts"] / (len(INDEXED) if skip
                                                     else 1),
             shape=dict(q=qn, f=f, t=t, cap=cap, c=c),
-            bound_ms_per_pair=pair_bytes / HBM_BYTES_PER_S * 1e3,
-            cases=cases))
+            bound_ms_per_pair=work["pair_bytes"] / HBM_BYTES_PER_S * 1e3,
+            cases=cases)
+        if not mask_out:
+            entry.update(count_designs(torch, kernel, k_of, q, tiles, cand,
+                                       cb0, lay[li].alive, extent, main),
+                         bound_ms_full_cap=work["bound_ms_full_cap"])
+        entries.append(entry)
     return entries
 
 
+def count_designs(torch, kernel, k_of, q, tiles, cand, cb, alive, extent,
+                  main):
+    """The routed count kernel against the designs around it, on the
+    serving path's inputs (each bit-equal to it, else raise): without
+    the live extent, the warp-per-pair kernel it replaced with and
+    without the extent; the grouping pass alone; and the batch's shape
+    (live pairs, -1 share, extents)."""
+    cbs = (cb,) if cb is not None else ()
+    want = k_of((alive, extent), cb)
+    designs = dict(tile_major_extent=main["ms"])
+    for label, fn in (
+            ("tile_major_full_cap", lambda: k_of((alive, None), cb)),
+            ("warp_per_pair_full_cap", lambda: kernel.warp_per_pair_count(
+                q, tiles, cand, *cbs, alive=alive)),
+            ("warp_per_pair_extent", lambda: kernel.warp_per_pair_count(
+                q, tiles, cand, *cbs, alive=alive, extent=extent))):
+        if not torch.equal(fn(), want):
+            raise AssertionError(f"{label} differs from the count kernel")
+        designs[label] = cuda_ms(torch, fn, 10)
+    t, cap = tiles.shape[:2]
+    group_ms = cuda_ms(torch, lambda: kernel.group_pairs(cand, t, cap,
+                                                         extent), 10)
+    live = int((cand >= 0).sum())
+    return dict(designs_ms=designs, group_ms=group_ms,
+                group_share=group_ms / main["ms"], live_pairs=live,
+                f=cand.shape[1], pad_share=1 - live / max(cand.numel(), 1),
+                extent_mean=float(extent.float().mean()),
+                extent_max=int(extent.max()))
+
+
 def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
-               rows=64):
+               extent=None, rows=64):
     """Least bytes and operations of one call on these inputs.
 
     bytes: every (tile, chunk) that some live (query, candidate) pair
     must examine, read once (its alive flags, and its member boxes where
     alive), the chunk boxes of every referenced tile, the queries, the
-    candidate list and the output.  Also returned: the reads counted
-    per pair, Q*F*live_chunks*128*(16 + 1) plus the output, the bound
-    of a design that shares no tile between queries.  operations: four
-    float compares per alive slot of every live pair's live chunks.
+    candidate list and the output.  With the live ``extent`` an input,
+    no slot past it is alive, so the least work stops there: a tile's
+    chunks, alive flags and chunk boxes count only up to its extent
+    (``bound_ms``); ``bound_ms_full_cap`` counts them over all of cap,
+    as before the extent existed.  Also returned: the reads counted per
+    pair, Q*F*live_chunks*128*(16 + 1) plus the output, the bound of a
+    design that shares no tile between queries.  operations: four float
+    compares per alive slot of every live pair's live chunks.
     """
     t, cap = tiles.shape[:2]
-    n_chunks = -(-cap // ops.CHUNK)
-    touched = torch.zeros(t + 1, n_chunks, dtype=torch.bool, device=q.device)
-    pair_chunks = 0
+    chunk = ops.CHUNK
+    n_chunks = -(-cap // chunk)
+    dev = q.device
+    c0 = torch.arange(n_chunks, device=dev) * chunk
+    if extent is None:
+        lim = torch.full((t,), cap, dtype=torch.int64, device=dev)
+    else:
+        lim = extent.long()
+    # slots of each (tile, chunk) below the tile's limit
+    below = (lim[:, None] - c0[None, :]).clamp(0, chunk)
+    below = torch.cat([below, below.new_zeros(1, n_chunks)])   # -1 row
+    touched = torch.zeros(t + 1, n_chunks, dtype=torch.bool, device=dev)
+    touched_full = torch.zeros_like(touched)
+    pair_chunks = pair_chunks_full = 0
     for i in range(0, q.shape[0], rows):
         cc = cand[i:i + rows]
         idx = torch.where(cc >= 0, cc, t).long()
@@ -616,25 +678,39 @@ def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
             live = ref.gathered_chunk_hits(
                 q[i:i + rows], ops.gathered_chunk_boxes(cboxes, cc))
             live = live & (cc >= 0)[..., None]
-        pair_chunks += int(live.sum())
-        tt = idx[..., None].expand_as(live)[live]
-        ch = torch.nonzero(live, as_tuple=True)[2]
-        touched[tt, ch] = True
-    touched = touched[:t]
+        live_e = live & (below[idx] > 0)
+        for lv, tch in ((live, touched_full), (live_e, touched)):
+            tt = idx[..., None].expand_as(lv)[lv]
+            tch[tt, torch.nonzero(lv, as_tuple=True)[2]] = True
+        pair_chunks_full += int(live.sum())
+        pair_chunks += int(live_e.sum())
+    touched, touched_full = touched[:t], touched_full[:t]
     slot_alive = torch.cat([alive, alive.new_zeros(
-        t, n_chunks * ops.CHUNK - cap)], dim=1)
-    alive_per_chunk = slot_alive.reshape(t, n_chunks, ops.CHUNK).sum(2)
-    n_touched = int(touched.sum())
-    alive_touched = int(alive_per_chunk[touched].sum())
-    ref_tiles = int(torch.unique(cand[cand >= 0]).numel())
+        t, n_chunks * chunk - cap)], dim=1)
+    alive_per_chunk = slot_alive.reshape(t, n_chunks, chunk).sum(2)
+    alive_touched = int(alive_per_chunk[touched_full].sum())
+    ref_t = torch.unique(cand[cand >= 0]).long()
     out_bytes = cand.numel() * (cap if mask_out else 4)
-    bytes_ = (n_touched * ops.CHUNK + alive_touched * 16
-              + (ref_tiles * n_chunks * 16 if cboxes is not None else 0)
-              + q.numel() * 4 + cand.numel() * 4 + out_bytes)
-    pair_bytes = pair_chunks * ops.CHUNK * 17 + out_bytes
-    mean_alive = alive_touched / max(n_touched, 1)
-    ops_ = 4 * pair_chunks * mean_alive
-    return bytes_, pair_bytes, ops_
+    fixed = q.numel() * 4 + cand.numel() * 4 + out_bytes + alive_touched * 16
+    box_chunks = (int((-(-lim[ref_t] // chunk)).sum()) if cboxes is not None
+                  else 0)
+    bytes_ = (int(below[:t][touched].sum()) + box_chunks * 16 + fixed)
+    bytes_full = (int(touched_full.sum()) * chunk + fixed
+                  + (ref_t.numel() * n_chunks * 16 if cboxes is not None
+                     else 0))
+    ops_ = 4 * pair_chunks * alive_touched / max(int(touched.sum()), 1)
+    ops_full = (4 * pair_chunks_full * alive_touched
+                / max(int(touched_full.sum()), 1))
+
+    def bound(b, o):
+        return max(b / HBM_BYTES_PER_S, o / FP32_OPS_PER_S) * 1e3
+
+    return dict(
+        bytes=bytes_, ops=ops_, bound_ms=bound(bytes_, ops_),
+        bound_by=("bytes" if bytes_ / HBM_BYTES_PER_S >= ops_ / FP32_OPS_PER_S
+                  else "operations"),
+        bound_ms_full_cap=bound(bytes_full, ops_full),
+        pair_bytes=pair_chunks * chunk * 17 + out_bytes)
 
 
 def timed_cases(torch, name, k_of, plain_of, alives, boxes):
@@ -1344,7 +1420,8 @@ def main() -> int:
         {k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        **{k: e[k] for k in ("bit_equal", "tolerance") if k in e})
+        **{k: e[k] for k in ("bit_equal", "tolerance", "bound_ms_full_cap")
+           if k in e})
         for e in entries]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -103,11 +103,15 @@ class Library:
             self._lib = lib
         return self._lib
 
-    def launched(self, name: str, err: int, launches: dict) -> None:
-        """Raise if the launch returned an error, else count it."""
+    def check(self, name: str, err: int) -> None:
+        """Raise if the launch returned an error."""
         if err:
             msg = getattr(self.get(), self.error_fn)(err).decode()
             raise RuntimeError(f"{name} launch failed: {msg}")
+
+    def launched(self, name: str, err: int, launches: dict) -> None:
+        """Raise if the launch returned an error, else count it."""
+        self.check(name, err)
         launches[name] += 1
 
 

@@ -10,9 +10,17 @@ The eight launch wrappers are the port's counterparts of the
 four gathered (``gather_*``, routed candidates) and four dense
 (``count``, ``mask`` and their ``*_skip`` twins, all tiles).  Each
 checks device, dtype, shape, contiguity and alignment, allocates its
-output with ``torch.empty`` (the kernel writes every element),
+output with ``torch.empty`` (the kernels write every element),
 launches on the current stream without synchronising, raises if the
 launch returned an error, and adds one to its count in ``LAUNCHES``.
+
+The routed counts are tile-major: ``group_pairs`` groups the live
+(query, candidate) pairs by tile on the device, then the probe's
+blocks take (tile, run of up to 128 of its pairs, slot segment) work
+items, stopping at the tile's live ``extent`` when an alive mask is
+given (``ops.live_extent``).
+``warp_per_pair_count`` is the one-warp-a-pair design they replaced,
+kept as their yardstick; it has no caller on a serving path.
 """
 from __future__ import annotations
 
@@ -32,13 +40,18 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "range_probe.cu"
 # kernel launches per entry point since the last reset_launches()
 LAUNCHES = {"gather_count": 0, "gather_mask": 0,
             "gather_count_skip": 0, "gather_mask_skip": 0,
-            "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0}
+            "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0,
+            "warp_per_pair_count": 0}
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cuda_build.Library(SOURCE, {
-    "rp_gathered_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp,
-                           ctypes.c_longlong, _ci, _ci, _ci, _ci,
-                           _vp, _vp, _vp], _ci),
+    "rp_gathered_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _cll,
+                           _ci, _ci, _ci, _ci, _vp, _vp, _vp], _ci),
+    "rp_count_scratch": ([_ci, _cll, _ci], _cll),
+    "rp_group_pairs": ([_ci, _vp, _vp, _cll, _ci, _ci, _ci, _vp, _vp, _vp],
+                       _ci),
+    "rp_tile_counts": ([_ci, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci,
+                        _ci, _vp, _vp, _vp], _ci),
     "rp_dense_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                         _ci, _ci, _ci, _vp, _vp, _vp], _ci),
 }, "rp_error_string")
@@ -72,14 +85,30 @@ def _inputs(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
     return dev, t, cap, c
 
 
-def _probe(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
-           cand: torch.Tensor, cboxes: torch.Tensor | None,
-           alive: torch.Tensor | None, mask_out: bool) -> torch.Tensor:
+def _routed(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
+            cand: torch.Tensor, cboxes: torch.Tensor | None,
+            alive: torch.Tensor | None, extent: torch.Tensor | None):
+    """Checks of the routed wrappers -> ``(device, T, cap, C, Q, F,
+    extent)``; the extent is kept only beside an alive mask (without
+    one every slot counts)."""
     dev, t, cap, c = _inputs(name, qboxes, tiles, cboxes, alive)
     q, f = qboxes.shape[0], cand.shape[-1]
     _check("cand", cand, torch.int32, (q, f), dev)
-    if max(t, cap, f) >= 2**31:
-        raise ValueError(f"{name}: T, cap and F must fit in int32")
+    if max(t, cap, q * f) >= 2**31:
+        raise ValueError(f"{name}: T, cap and Q*F must fit in int32")
+    if alive is None:
+        extent = None
+    elif extent is not None:
+        _check("extent", extent, torch.int32, (t,), dev)
+    return dev, t, cap, c, q, f, extent
+
+
+def _probe(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
+           cand: torch.Tensor, cboxes: torch.Tensor | None,
+           alive: torch.Tensor | None, mask_out: bool,
+           extent: torch.Tensor | None = None) -> torch.Tensor:
+    dev, t, cap, c, q, f, extent = _routed(name, qboxes, tiles, cand, cboxes,
+                                           alive, None if mask_out else extent)
     if mask_out:
         out = torch.empty((q, f, cap), dtype=torch.bool, device=dev)
     else:
@@ -89,12 +118,51 @@ def _probe(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
     lib = LIB.get()
     err = lib.rp_gathered_probe(
         _index(dev), int(mask_out), _ptr(qboxes), _ptr(tiles), _ptr(cboxes),
-        _ptr(alive), _ptr(cand), q, f, t, cap, c,
+        _ptr(alive), _ptr(extent), _ptr(cand), q, f, t, cap, c,
         None if mask_out else out.data_ptr(),
         out.data_ptr() if mask_out else None,
         cuda_build.stream(dev))
     LIB.launched(name, err, LAUNCHES)
     return out
+
+
+def group_pairs(cand: torch.Tensor, t: int, cap: int,
+                extent: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routed counts' grouping pass on ``cand``'s device: the live
+    pairs of ``cand`` (Q, F) int32 by tile, and the probe's work items
+    by tile, run and slot segment (up to ``extent``, else ``cap``) ->
+    ``(counts, scratch)``, counts (Q, F) int32 all 0 (the probe adds the
+    hits), scratch the grouping the probe reads.  ``gather_count`` and
+    ``gather_count_skip`` run it first; alone it is a yardstick."""
+    dev = cand.device
+    q, f = cand.shape
+    lib = LIB.get()
+    counts = torch.empty((q, f), dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.rp_count_scratch(t, q * f, cap),
+                          dtype=torch.int32, device=dev)
+    err = lib.rp_group_pairs(_index(dev), _ptr(cand), _ptr(extent), q, f, t,
+                             cap, _ptr(scratch), _ptr(counts),
+                             cuda_build.stream(dev))
+    LIB.check("group_pairs", err)
+    return counts, scratch
+
+
+def _count(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
+           cand: torch.Tensor, cboxes: torch.Tensor | None,
+           alive: torch.Tensor | None,
+           extent: torch.Tensor | None) -> torch.Tensor:
+    dev, t, cap, c, q, f, extent = _routed(name, qboxes, tiles, cand, cboxes,
+                                           alive, extent)
+    counts, scratch = group_pairs(cand, t, cap, extent)
+    if q * f == 0:
+        return counts
+    err = LIB.get().rp_tile_counts(
+        _index(dev), _ptr(qboxes), _ptr(tiles), _ptr(cboxes), _ptr(alive),
+        _ptr(extent), q, f, t, cap, c, _ptr(scratch), _ptr(counts),
+        cuda_build.stream(dev))
+    LIB.launched(name, err, LAUNCHES)
+    return counts
 
 
 def _dense(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
@@ -121,9 +189,12 @@ def _dense(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
     return out
 
 
-def gather_count(qboxes, tiles, cand, *, alive=None) -> torch.Tensor:
-    """Routed probe counts: (Q, 4), (T, cap, 4), (Q, F) -> (Q, F) int32."""
-    return _probe("gather_count", qboxes, tiles, cand, None, alive, False)
+def gather_count(qboxes, tiles, cand, *, alive=None,
+                 extent=None) -> torch.Tensor:
+    """Routed probe counts: (Q, 4), (T, cap, 4), (Q, F) -> (Q, F) int32.
+    ``extent`` (T,) int32: no slot at or past ``extent[t]`` is alive
+    (read only with ``alive``; None walks all of cap)."""
+    return _count("gather_count", qboxes, tiles, cand, None, alive, extent)
 
 
 def gather_mask(qboxes, tiles, cand, *, alive=None) -> torch.Tensor:
@@ -131,11 +202,20 @@ def gather_mask(qboxes, tiles, cand, *, alive=None) -> torch.Tensor:
     return _probe("gather_mask", qboxes, tiles, cand, None, alive, True)
 
 
-def gather_count_skip(qboxes, tiles, cboxes, cand, *,
-                      alive=None) -> torch.Tensor:
+def gather_count_skip(qboxes, tiles, cboxes, cand, *, alive=None,
+                      extent=None) -> torch.Tensor:
     """Chunk-skipping routed counts; cboxes (T, ceil(cap/128), 4)."""
-    return _probe("gather_count_skip", qboxes, tiles, cand, cboxes, alive,
-                  False)
+    return _count("gather_count_skip", qboxes, tiles, cand, cboxes, alive,
+                  extent)
+
+
+def warp_per_pair_count(qboxes, tiles, cand, cboxes=None, *, alive=None,
+                        extent=None) -> torch.Tensor:
+    """Routed counts, one warp a (query, candidate) pair (the design of
+    PRs 11-14), chunk-skipping when ``cboxes`` is given: the yardstick
+    of ``gather_count{,_skip}``, on no serving path -> (Q, F) int32."""
+    return _probe("warp_per_pair_count", qboxes, tiles, cand, cboxes, alive,
+                  False, extent)
 
 
 def gather_mask_skip(qboxes, tiles, cboxes, cand, *,

@@ -16,6 +16,12 @@ Local-index contract (``*_skip``): ``cboxes`` is the staging's
 
 Tombstone contract (keyword-only ``alive``): an optional (T, cap) bool
 per-slot alive mask; a hit counts only if its slot is alive.
+
+Live-extent contract (keyword-only ``extent``, routed counts only): an
+optional (T,) int32 ``live_extent(alive)`` (any larger value will do):
+no slot at or past ``extent[t]`` is alive, so the kernel stops there.
+It is read only beside ``alive`` and only by the kernel; the plain
+versions need no bound.
 """
 from __future__ import annotations
 
@@ -60,6 +66,17 @@ def gathered_chunk_boxes(cboxes: torch.Tensor, cand: torch.Tensor
                          ) -> torch.Tensor:
     """(T, C, 4) x (Q, F) -> (Q, F, C, 4), -1 -> all-sentinel chunks."""
     return _gather(cboxes.float(), cand, sentinel(cboxes.device))
+
+
+def live_extent(alive: torch.Tensor) -> torch.Tensor:
+    """(T, cap) bool -> (T,) int32: 1 + the index of each tile's last
+    alive slot, 0 for a tile with none."""
+    t, cap = alive.shape
+    if cap == 0:
+        return torch.zeros(t, dtype=torch.int32, device=alive.device)
+    a = alive.to(torch.uint8)
+    last = cap - a.flip(1).argmax(1)
+    return torch.where(a.amax(1) > 0, last, 0).to(torch.int32)
 
 
 def _kargs(qboxes: torch.Tensor, cand: torch.Tensor):
@@ -108,12 +125,13 @@ def probe_mask_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
 
 def gathered_counts(qboxes: torch.Tensor, tiles: torch.Tensor,
                     cand: torch.Tensor, *,
-                    alive: torch.Tensor | None = None) -> torch.Tensor:
+                    alive: torch.Tensor | None = None,
+                    extent: torch.Tensor | None = None) -> torch.Tensor:
     """Routed probe: (Q, 4), (T, cap, 4), (Q, F) -> (Q, F) int32
     per-(query, candidate) hit counts."""
     if tiles.is_cuda:
         q, c = _kargs(qboxes, cand)
-        return kernel.gather_count(q, tiles, c, alive=alive)
+        return kernel.gather_count(q, tiles, c, alive=alive, extent=extent)
     return ref.gathered_counts(
         qboxes.float(), gathered_rows(tiles, cand),
         None if alive is None else gathered_alive(alive, cand))
@@ -133,12 +151,14 @@ def gathered_mask(qboxes: torch.Tensor, tiles: torch.Tensor,
 
 def gathered_counts_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
                          cboxes: torch.Tensor, cand: torch.Tensor, *,
-                         alive: torch.Tensor | None = None) -> torch.Tensor:
+                         alive: torch.Tensor | None = None,
+                         extent: torch.Tensor | None = None) -> torch.Tensor:
     """Routed counts with chunk skipping -> (Q, F) int32; equal to
     ``gathered_counts`` whenever the chunk boxes bound their members."""
     if tiles.is_cuda:
         q, c = _kargs(qboxes, cand)
-        return kernel.gather_count_skip(q, tiles, cboxes, c, alive=alive)
+        return kernel.gather_count_skip(q, tiles, cboxes, c, alive=alive,
+                                        extent=extent)
     return ref.gathered_counts_skip(
         qboxes.float(), gathered_rows(tiles, cand),
         gathered_chunk_boxes(cboxes, cand),

@@ -238,14 +238,17 @@ def pruned_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,
                excluded: torch.Tensor, r0: float | None = None,
                max_rounds: int = 32, max_cand: int = 1024, n_live=None,
                chunk_boxes: torch.Tensor | None = None,
-               alive: torch.Tensor | None = None):
+               alive: torch.Tensor | None = None, *,
+               extent: torch.Tensor | None = None):
     """Exact batched kNN probing only each query's candidate tiles.
 
     Same contract as ``batched_knn`` plus ``cand`` (Q, F) int32 frontier
     tiles (-1 padding) and ``excluded`` (Q,) f32, the L∞ distance of
     the nearest tile not in the frontier, from
     ``serve.router.candidate_knn``.  ``chunk_boxes`` selects the
-    chunk-skipping kernels (same bits).  ``overflow`` flags a query
+    chunk-skipping kernels (same bits); ``extent``, the ``live_extent``
+    of ``alive``, lets the deepening's count kernels stop at each tile's
+    last alive slot.  ``overflow`` flags a query
     whose refinement box held more than ``max_cand`` candidates or
     whose refinement radius reached ``excluded``.  Rows whose
     candidates are all ``-1`` start at the covering radius.
@@ -256,10 +259,11 @@ def pruned_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,
     def counts_at(r, rows):
         qb, cd = _qboxes(pts[rows], r), cand[rows]
         if chunk_boxes is None:
-            per = rops.gathered_counts(qb, canon_tiles, cd, alive=alive)
+            per = rops.gathered_counts(qb, canon_tiles, cd, alive=alive,
+                                       extent=extent)
         else:
             per = rops.gathered_counts_skip(qb, canon_tiles, chunk_boxes, cd,
-                                            alive=alive)
+                                            alive=alive, extent=extent)
         return per.sum(1, dtype=torch.int32)
 
     r = torch.where(dead, r_cover, r_init)

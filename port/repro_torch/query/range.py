@@ -145,20 +145,23 @@ def range_ids(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
 def pruned_range_counts(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
                         cand: torch.Tensor,
                         chunk_boxes: torch.Tensor | None = None,
-                        alive: torch.Tensor | None = None) -> torch.Tensor:
+                        alive: torch.Tensor | None = None, *,
+                        extent: torch.Tensor | None = None) -> torch.Tensor:
     """Exact per-query unique hit counts, probing candidate tiles only.
 
     qboxes: (Q, 4); canon_tiles: (T, cap, 4) canonical member boxes;
     cand: (Q, F) int32 from ``serve.router.candidate_range`` (-1 =
     padding) -> (Q,) int32.  ``chunk_boxes`` (T, C, 4), when given,
     selects the chunk-skipping kernel (same bits).  ``alive``: (T, cap)
-    tombstone mask.
+    tombstone mask; ``extent``: its ``live_extent``, where the kernel
+    may stop.
     """
     if chunk_boxes is None:
-        per = rops.gathered_counts(qboxes, canon_tiles, cand, alive=alive)
+        per = rops.gathered_counts(qboxes, canon_tiles, cand, alive=alive,
+                                   extent=extent)
     else:
         per = rops.gathered_counts_skip(qboxes, canon_tiles, chunk_boxes,
-                                        cand, alive=alive)
+                                        cand, alive=alive, extent=extent)
     return per.sum(1, dtype=torch.int32)
 
 

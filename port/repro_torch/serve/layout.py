@@ -216,6 +216,10 @@ class ReplicatedTiles:
         # the executors read canonical data only: drop the all-copies
         # member tiles instead of keeping (T, cap, 4) bytes resident
         self.staged = dataclasses.replace(layout, tiles=None)
+        # (T,) int32 live extent of the alive mask: the routed count
+        # kernels stop each tile's walk there (ingest must keep it in
+        # step with ``alive``)
+        self.extent = rops.live_extent(layout.alive)
         self.stats = dict(stats, placement=config.placement,
                           probe=config.probe, restages=0, compactions=0,
                           n_total=stats["n"])
@@ -237,7 +241,7 @@ class ReplicatedTiles:
         lay = self.staged
         counts = range_mod.pruned_range_counts(
             qboxes, lay.canon_tiles, cand, chunk_boxes=lay.chunk_boxes,
-            alive=lay.alive)
+            alive=lay.alive, extent=self.extent)
         return counts, dict(skew=1.0)
 
     def range_ids(self, qboxes, cand, costs, max_hits: int):
@@ -255,7 +259,7 @@ class ReplicatedTiles:
         nn_ids, nn_d2, radius, overflow, rounds = knn_mod.pruned_knn(
             pts, k, lay.canon_tiles, lay.ids, lay.uni, cand, excl,
             max_cand=max_cand, n_live=self.stats["n"],
-            chunk_boxes=lay.chunk_boxes, alive=lay.alive)
+            chunk_boxes=lay.chunk_boxes, alive=lay.alive, extent=self.extent)
         return nn_ids, nn_d2, radius, overflow, excl, dict(
             skew=1.0, rounds=_max_rounds(rounds))
 

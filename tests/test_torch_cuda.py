@@ -70,18 +70,67 @@ def _case(q, t, cap, f, alive, boxes, seed=0):
                                        (70, 3, 4100, 5)])
 def test_kernels_match_plain_versions(q, t, cap, f, alive, boxes):
     """All four kernels bit-equal their plain versions: ragged cap, -1
-    candidates, chunk boxes that do not bound their members."""
+    candidates, chunk boxes that do not bound their members; the two
+    count kernels, and the warp-per-pair counts they replaced, with and
+    without the live extent of the alive mask."""
     _need_cuda()
     qb, tiles, cand, al, cb = _case(q, t, cap, f, alive, boxes)
     dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    ext = None if al is None else ops.live_extent(al)
     for fn, extra in [("gathered_counts", ()), ("gathered_mask", ()),
                       ("gathered_counts_skip", (cb,)),
                       ("gathered_mask_skip", (cb,))]:
-        got = getattr(ops, fn)(dev(qb), dev(tiles), *map(dev, extra),
-                               dev(cand), alive=dev(al))
         want = getattr(ops, fn)(qb, tiles, *extra, cand, alive=al)
-        torch.cuda.synchronize()
-        assert torch.equal(got.cpu(), want), fn
+        kw = [{}, {"extent": dev(ext)}] if "counts" in fn else [{}]
+        for k in kw:
+            got = getattr(ops, fn)(dev(qb), dev(tiles), *map(dev, extra),
+                                   dev(cand), alive=dev(al), **k)
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (fn, k)
+        if "counts" in fn:
+            for e in (None, ext):
+                got = kernel.warp_per_pair_count(
+                    dev(qb), dev(tiles), dev(cand),
+                    *(map(dev, extra) if extra else ()), alive=dev(al),
+                    extent=dev(e))
+                torch.cuda.synchronize()
+                assert torch.equal(got.cpu(), want), (fn, "warp per pair")
+
+
+@pytest.mark.parametrize("alive", [None, "random"])
+@pytest.mark.parametrize("cap", [257, 4096])
+def test_count_kernels_runs_padding_and_empty_tiles(cap, alive):
+    """The tile-major counts at their edges: 300 queries on one tile (runs
+    of 128, 128 and 44 at most), all -1 rows, tiles whose live extent is
+    0 or cap, and alive slots only past a dead prefix; 4096
+    slots read the alive flags 16 bytes a thread, 257 a byte at a time."""
+    _need_cuda()
+    t, f = 5, 6
+    qb, tiles, cand, al, cb = _case(300, t, cap, f, alive, "bounding")
+    cand[:, 0] = 0                     # every query probes tile 0
+    cand[:40] = -1                     # all -1 rows
+    if al is not None:
+        al[2] = False                  # extent 0
+        al[3] = False
+        al[3, cap - 1] = True          # extent == cap
+        al[4, :cap // 2] = False       # alive only past a dead prefix
+    ext = None if al is None else ops.live_extent(al)
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    for fn, extra in [("gathered_counts", ()),
+                      ("gathered_counts_skip", (cb,))]:
+        want = getattr(ops, fn)(qb, tiles, *extra, cand, alive=al)
+        assert int(want[:40].abs().sum()) == 0
+        for e in (None, ext):
+            kernel.reset_launches()
+            got = getattr(ops, fn)(dev(qb), dev(tiles), *map(dev, extra),
+                                   dev(cand), alive=dev(al), extent=dev(e))
+            torch.cuda.synchronize()
+            assert torch.equal(got.cpu(), want), (fn, e is None)
+            assert sum(kernel.LAUNCHES.values()) == 1
+    empty = torch.full((7, f), -1, dtype=torch.int32)
+    got = ops.gathered_counts(dev(qb[:7]), dev(tiles), dev(empty),
+                              alive=dev(al), extent=dev(ext))
+    assert torch.equal(got.cpu(), torch.zeros((7, f), dtype=torch.int32))
 
 
 @pytest.mark.parametrize("alive", [None, "random"])
