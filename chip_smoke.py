@@ -52,11 +52,9 @@ before each path and read just after it) and its wall seconds:
    members; the routed count kernels take the live extent of each
    alive mask.  Results must be bit-equal.  Kernel times come from CUDA
    events, plain times from the host clock.  The routed count kernels
-   are also timed without the extent and against the warp-per-pair
-   kernel they replaced (with and without it), each bit-equal, and
-   their rows give the grouping pass's time, the live pairs, the -1
-   share, the extents and the bound over all of cap beside the bound
-   at the extent.  The dense skip pair has no serving caller (repro
+   are also timed without the extent (bit-equal), and their rows give
+   the grouping pass's time, the live pairs, the -1 share, the extents
+   and the bound over all of cap beside the bound at the extent.  The dense skip pair has no serving caller (repro
    launches it from tests only), so it is launched from this phase
    only and its row says so.
 6. partition -- the six Table-1 partitioners on the join's merged pi
@@ -601,37 +599,26 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
             bound_ms_per_pair=work["pair_bytes"] / HBM_BYTES_PER_S * 1e3,
             cases=cases)
         if not mask_out:
-            entry.update(count_designs(torch, kernel, k_of, q, tiles, cand,
+            entry.update(count_designs(torch, kernel, k_of, tiles, cand,
                                        cb0, lay[li].alive, extent, main),
                          bound_ms_full_cap=work["bound_ms_full_cap"])
         entries.append(entry)
     return entries
 
 
-def count_designs(torch, kernel, k_of, q, tiles, cand, cb, alive, extent,
+def count_designs(torch, kernel, k_of, tiles, cand, cb, alive, extent,
                   main):
-    """The routed count kernel against the designs around it, on the
-    serving path's inputs (each bit-equal to it, else raise): without
-    the live extent, the warp-per-pair kernel it replaced with and
-    without the extent; the grouping pass alone; and the batch's shape
-    (live pairs, -1 share, extents)."""
-    cbs = (cb,) if cb is not None else ()
-    want = k_of((alive, extent), cb)
-    designs = dict(tile_major_extent=main["ms"])
-    for label, fn in (
-            ("tile_major_full_cap", lambda: k_of((alive, None), cb)),
-            ("warp_per_pair_full_cap", lambda: kernel.warp_per_pair_count(
-                q, tiles, cand, *cbs, alive=alive)),
-            ("warp_per_pair_extent", lambda: kernel.warp_per_pair_count(
-                q, tiles, cand, *cbs, alive=alive, extent=extent))):
-        if not torch.equal(fn(), want):
-            raise AssertionError(f"{label} differs from the count kernel")
-        designs[label] = cuda_ms(torch, fn, 10)
+    """The routed count kernel on the serving path's inputs without the
+    live extent (bit-equal, else raise), the grouping pass alone, and
+    the batch's shape (live pairs, -1 share, extents)."""
     t, cap = tiles.shape[:2]
+    full = lambda: k_of((alive, None), cb)  # noqa: E731
+    if not torch.equal(full(), k_of((alive, extent), cb)):
+        raise AssertionError("the count kernel differs without the extent")
     group_ms = cuda_ms(torch, lambda: kernel.group_pairs(cand, t, cap,
                                                          extent), 10)
     live = int((cand >= 0).sum())
-    return dict(designs_ms=designs, group_ms=group_ms,
+    return dict(full_cap_ms=cuda_ms(torch, full, 10), group_ms=group_ms,
                 group_share=group_ms / main["ms"], live_pairs=live,
                 f=cand.shape[1], pad_share=1 - live / max(cand.numel(), 1),
                 extent_mean=float(extent.float().mean()),

@@ -5,7 +5,7 @@
 // Routed counts, tile-major (rp_group_pairs, then rp_tile_counts):
 //   gather_count_pallas       (_gather_count_kernel, _gather_count_alive_kernel)
 //   gather_count_skip_pallas  (_gather_count_skip_kernel, ..._alive_kernel)
-// Routed masks, a warp per pair (rp_gathered_probe):
+// Routed masks, a warp per pair (rp_gathered_mask):
 //   gather_mask_pallas        (_gather_mask_kernel, _gather_mask_alive_kernel)
 //   gather_mask_skip_pallas   (_gather_mask_skip_kernel, ..._alive_kernel)
 // Dense (all-tile) entry points, rp_dense_probe:
@@ -14,8 +14,9 @@
 //   count_skip_pallas         (_count_skip_kernel, _count_skip_alive_kernel)
 //   mask_skip_pallas          (_mask_skip_kernel, _mask_skip_alive_kernel)
 // Three templated kernels, instantiated for skip/no-skip x alive/none
-// (and count/mask), compute what repro/kernels/range_probe/ref.py
-// computes (gathered_* and probe_* with their chunk-masked *_skip twins).
+// (and count/mask for the dense one), compute what
+// repro/kernels/range_probe/ref.py computes (gathered_* and probe_*
+// with their chunk-masked *_skip twins).
 //
 // What every routed kernel differs in from the TPU kernels:
 // - No gathered stack.  The TPU path materialises (Q, F, 4, cap) member
@@ -59,9 +60,7 @@
 // chunks, and only those chunks' member boxes are read; a lane reads a
 // slot's box only when the slot is alive.  Bound by bytes: the
 // (Q, F, cap) output, written in full, skipped chunks included, so the
-// wrapper allocates it with torch.empty.  The same template counts
-// (warp_per_pair_count, the design the tile-major counts replaced, kept
-// as their yardstick), optionally stopping at the live extent.
+// wrapper allocates it with torch.empty.
 //
 // Dense design.  The TPU grid streams one tile against one 128-query
 // block per cell; here one thread block owns one (tile, 128-query
@@ -103,95 +102,63 @@ __device__ __forceinline__ bool hit(const float4 q, const float4 s) {
   return (q.x <= s.z) & (s.x <= q.z) & (q.y <= s.w) & (s.y <= q.w);
 }
 
-template <bool MASK, bool SKIP, bool ALIVE>
+template <bool SKIP, bool ALIVE>
 __global__ void __launch_bounds__(kWarps * 32)
 gathered_probe(const float4* __restrict__ q, const float4* __restrict__ tiles,
                const float4* __restrict__ cboxes,
                const uint8_t* __restrict__ alive,
-               const int32_t* __restrict__ extent,
                const int32_t* __restrict__ cand, int64_t pairs, int F, int T,
-               int cap, int C, int32_t* __restrict__ counts,
-               uint8_t* __restrict__ mask) {
+               int cap, int C, uint8_t* __restrict__ mask) {
   const int lane = threadIdx.x & 31;
   const int64_t pair =
       static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
   if (pair >= pairs) return;  // warp-uniform: a warp owns one pair
   const int t = cand[pair];
   const float4 qb = q[pair / F];
-  uint8_t* mrow = MASK ? mask + pair * cap : nullptr;
+  uint8_t* mrow = mask + pair * cap;
 
   if (t < 0 || t >= T) {  // padding candidate: no hits
-    if (MASK) {
-      for (int s = lane; s < cap; s += 32) mrow[s] = 0;
-    } else if (lane == 0) {
-      counts[pair] = 0;
-    }
+    for (int s = lane; s < cap; s += 32) mrow[s] = 0;
     return;
   }
   const float4* trow = tiles + static_cast<int64_t>(t) * cap;
   const uint8_t* arow = ALIVE ? alive + static_cast<int64_t>(t) * cap : nullptr;
   const float4* crow = SKIP ? cboxes + static_cast<int64_t>(t) * C : nullptr;
-  // counts with an alive mask stop at the tile's live extent; masks are
-  // written in full
-  const int lim = (!MASK && ALIVE && extent) ? min(extent[t], cap) : cap;
-  const int nch = (lim + kChunk - 1) / kChunk;
 
-  int acc = 0;
-  for (int c0 = 0; c0 < nch; c0 += 32) {
+  for (int c0 = 0; c0 < C; c0 += 32) {
     unsigned live = 0xffffffffu;
     if (SKIP) {
-      const bool l = (c0 + lane < nch) && hit(qb, crow[c0 + lane]);
+      const bool l = (c0 + lane < C) && hit(qb, crow[c0 + lane]);
       live = __ballot_sync(0xffffffffu, l);
     }
-    const int n = min(nch - c0, 32);
+    const int n = min(C - c0, 32);
     for (int k = 0; k < n; ++k) {
       const int base = (c0 + k) * kChunk;
       const bool on = (live >> k) & 1u;  // warp-uniform
-      if (!on && !MASK) continue;
 #pragma unroll
       for (int j = 0; j < kChunk / 32; ++j) {
         const int s = base + j * 32 + lane;
-        if (s < lim) {
+        if (s < cap) {
           bool h = false;
           if (on && (!ALIVE || arow[s])) h = hit(qb, trow[s]);
-          if (MASK) mrow[s] = h;
-          acc += h;
+          mrow[s] = h;
         }
       }
     }
   }
-  if (!MASK) {
-    acc = __reduce_add_sync(0xffffffffu, acc);
-    if (lane == 0) counts[pair] = acc;
-  }
 }
 
-template <bool MASK, bool SKIP, bool ALIVE>
+template <bool SKIP, bool ALIVE>
 void launch(const void* q, const void* tiles, const void* cboxes,
-            const void* alive, const void* extent, const void* cand,
-            int64_t pairs, int F, int T, int cap, int C, void* counts,
-            void* mask, cudaStream_t stream) {
+            const void* alive, const void* cand, int64_t pairs, int F, int T,
+            int cap, int C, void* mask, cudaStream_t stream) {
   const int64_t blocks = (pairs + kWarps - 1) / kWarps;
-  gathered_probe<MASK, SKIP, ALIVE><<<static_cast<unsigned>(blocks),
-                                      kWarps * 32, 0, stream>>>(
+  gathered_probe<SKIP, ALIVE><<<static_cast<unsigned>(blocks), kWarps * 32, 0,
+                                stream>>>(
       static_cast<const float4*>(q), static_cast<const float4*>(tiles),
       static_cast<const float4*>(cboxes), static_cast<const uint8_t*>(alive),
-      static_cast<const int32_t*>(extent), static_cast<const int32_t*>(cand),
-      pairs, F, T, cap, C, static_cast<int32_t*>(counts),
+      static_cast<const int32_t*>(cand), pairs, F, T, cap, C,
       static_cast<uint8_t*>(mask));
-}
-
-template <bool MASK, bool SKIP>
-void launch_alive(bool has_alive, const void* q, const void* tiles,
-                  const void* cboxes, const void* alive, const void* extent,
-                  const void* cand, int64_t pairs, int F, int T, int cap,
-                  int C, void* counts, void* mask, cudaStream_t stream) {
-  if (has_alive)
-    launch<MASK, SKIP, true>(q, tiles, cboxes, alive, extent, cand, pairs, F,
-                             T, cap, C, counts, mask, stream);
-  else
-    launch<MASK, SKIP, false>(q, tiles, cboxes, alive, extent, cand, pairs, F,
-                              T, cap, C, counts, mask, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -706,38 +673,34 @@ void launch_tile_count(const void* q, const void* tiles, const void* cboxes,
 
 }  // namespace
 
-// Launch one routed probe on `stream` (no synchronisation) and return
-// cudaGetLastError().  q (Q, 4) f32; tiles (T, cap, 4) f32; cboxes
-// (T, C, 4) f32 or null (no chunk skip); alive (T, cap) bool or null;
-// extent (T,) int32 or null, read only for counts with alive;
-// cand (Q, F) int32; out: counts (Q, F) int32 when mask_out == 0, else
-// mask (Q, F, cap) bool.  C == ceil(cap / 128).
-extern "C" int rp_gathered_probe(int device, int mask_out, const void* q,
-                                 const void* tiles, const void* cboxes,
-                                 const void* alive, const void* extent,
-                                 const void* cand, long long Q, int F, int T,
-                                 int cap, int C, void* counts, void* mask,
-                                 void* stream) {
+// Launch one routed hit table on `stream` (no synchronisation) and
+// return cudaGetLastError().  q (Q, 4) f32; tiles (T, cap, 4) f32;
+// cboxes (T, C, 4) f32 or null (no chunk skip); alive (T, cap) bool or
+// null; cand (Q, F) int32; out: mask (Q, F, cap) bool.
+// C == ceil(cap / 128).
+extern "C" int rp_gathered_mask(int device, const void* q, const void* tiles,
+                                const void* cboxes, const void* alive,
+                                const void* cand, long long Q, int F, int T,
+                                int cap, int C, void* mask, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t pairs = static_cast<int64_t>(Q) * F;
   if (pairs == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool skip = cboxes != nullptr, has_alive = alive != nullptr;
-  if (mask_out) {
-    if (skip)
-      launch_alive<true, true>(has_alive, q, tiles, cboxes, alive, nullptr,
-                               cand, pairs, F, T, cap, C, counts, mask, s);
+  if (cboxes != nullptr) {
+    if (alive != nullptr)
+      launch<true, true>(q, tiles, cboxes, alive, cand, pairs, F, T, cap, C,
+                         mask, s);
     else
-      launch_alive<true, false>(has_alive, q, tiles, cboxes, alive, nullptr,
-                                cand, pairs, F, T, cap, C, counts, mask, s);
+      launch<true, false>(q, tiles, cboxes, alive, cand, pairs, F, T, cap, C,
+                          mask, s);
   } else {
-    if (skip)
-      launch_alive<false, true>(has_alive, q, tiles, cboxes, alive, extent,
-                                cand, pairs, F, T, cap, C, counts, mask, s);
+    if (alive != nullptr)
+      launch<false, true>(q, tiles, cboxes, alive, cand, pairs, F, T, cap, C,
+                          mask, s);
     else
-      launch_alive<false, false>(has_alive, q, tiles, cboxes, alive, extent,
-                                 cand, pairs, F, T, cap, C, counts, mask, s);
+      launch<false, false>(q, tiles, cboxes, alive, cand, pairs, F, T, cap, C,
+                           mask, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,9 +18,8 @@ The routed counts are tile-major: ``group_pairs`` groups the live
 (query, candidate) pairs by tile on the device, then the probe's
 blocks take (tile, run of up to 128 of its pairs, slot segment) work
 items, stopping at the tile's live ``extent`` when an alive mask is
-given (``ops.live_extent``).
-``warp_per_pair_count`` is the one-warp-a-pair design they replaced,
-kept as their yardstick; it has no caller on a serving path.
+given (``ops.live_extent``).  The routed masks give each (query,
+candidate) pair a warp.
 """
 from __future__ import annotations
 
@@ -40,13 +39,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "range_probe.cu"
 # kernel launches per entry point since the last reset_launches()
 LAUNCHES = {"gather_count": 0, "gather_mask": 0,
             "gather_count_skip": 0, "gather_mask_skip": 0,
-            "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0,
-            "warp_per_pair_count": 0}
+            "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0}
 
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cuda_build.Library(SOURCE, {
-    "rp_gathered_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _cll,
-                           _ci, _ci, _ci, _ci, _vp, _vp, _vp], _ci),
+    "rp_gathered_mask": ([_ci, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci,
+                          _ci, _vp, _vp], _ci),
     "rp_count_scratch": ([_ci, _cll, _ci], _cll),
     "rp_group_pairs": ([_ci, _vp, _vp, _cll, _ci, _ci, _ci, _vp, _vp, _vp],
                        _ci),
@@ -103,25 +101,17 @@ def _routed(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
     return dev, t, cap, c, q, f, extent
 
 
-def _probe(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
-           cand: torch.Tensor, cboxes: torch.Tensor | None,
-           alive: torch.Tensor | None, mask_out: bool,
-           extent: torch.Tensor | None = None) -> torch.Tensor:
-    dev, t, cap, c, q, f, extent = _routed(name, qboxes, tiles, cand, cboxes,
-                                           alive, None if mask_out else extent)
-    if mask_out:
-        out = torch.empty((q, f, cap), dtype=torch.bool, device=dev)
-    else:
-        out = torch.empty((q, f), dtype=torch.int32, device=dev)
+def _mask(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
+          cand: torch.Tensor, cboxes: torch.Tensor | None,
+          alive: torch.Tensor | None) -> torch.Tensor:
+    dev, t, cap, c, q, f, _ = _routed(name, qboxes, tiles, cand, cboxes,
+                                      alive, None)
+    out = torch.empty((q, f, cap), dtype=torch.bool, device=dev)
     if q * f == 0:
         return out
-    lib = LIB.get()
-    err = lib.rp_gathered_probe(
-        _index(dev), int(mask_out), _ptr(qboxes), _ptr(tiles), _ptr(cboxes),
-        _ptr(alive), _ptr(extent), _ptr(cand), q, f, t, cap, c,
-        None if mask_out else out.data_ptr(),
-        out.data_ptr() if mask_out else None,
-        cuda_build.stream(dev))
+    err = LIB.get().rp_gathered_mask(
+        _index(dev), _ptr(qboxes), _ptr(tiles), _ptr(cboxes), _ptr(alive),
+        _ptr(cand), q, f, t, cap, c, out.data_ptr(), cuda_build.stream(dev))
     LIB.launched(name, err, LAUNCHES)
     return out
 
@@ -199,7 +189,7 @@ def gather_count(qboxes, tiles, cand, *, alive=None,
 
 def gather_mask(qboxes, tiles, cand, *, alive=None) -> torch.Tensor:
     """Routed probe hit table -> (Q, F, cap) bool."""
-    return _probe("gather_mask", qboxes, tiles, cand, None, alive, True)
+    return _mask("gather_mask", qboxes, tiles, cand, None, alive)
 
 
 def gather_count_skip(qboxes, tiles, cboxes, cand, *, alive=None,
@@ -209,20 +199,10 @@ def gather_count_skip(qboxes, tiles, cboxes, cand, *, alive=None,
                   extent)
 
 
-def warp_per_pair_count(qboxes, tiles, cand, cboxes=None, *, alive=None,
-                        extent=None) -> torch.Tensor:
-    """Routed counts, one warp a (query, candidate) pair (the design of
-    PRs 11-14), chunk-skipping when ``cboxes`` is given: the yardstick
-    of ``gather_count{,_skip}``, on no serving path -> (Q, F) int32."""
-    return _probe("warp_per_pair_count", qboxes, tiles, cand, cboxes, alive,
-                  False, extent)
-
-
 def gather_mask_skip(qboxes, tiles, cboxes, cand, *,
                      alive=None) -> torch.Tensor:
     """Chunk-skipping routed hit table -> (Q, F, cap) bool."""
-    return _probe("gather_mask_skip", qboxes, tiles, cand, cboxes, alive,
-                  True)
+    return _mask("gather_mask_skip", qboxes, tiles, cand, cboxes, alive)
 
 
 def count(qboxes, tiles, *, alive=None) -> torch.Tensor:

@@ -71,8 +71,7 @@ def _case(q, t, cap, f, alive, boxes, seed=0):
 def test_kernels_match_plain_versions(q, t, cap, f, alive, boxes):
     """All four kernels bit-equal their plain versions: ragged cap, -1
     candidates, chunk boxes that do not bound their members; the two
-    count kernels, and the warp-per-pair counts they replaced, with and
-    without the live extent of the alive mask."""
+    count kernels with and without the live extent of the alive mask."""
     _need_cuda()
     qb, tiles, cand, al, cb = _case(q, t, cap, f, alive, boxes)
     dev = lambda x: None if x is None else x.cuda()  # noqa: E731
@@ -87,14 +86,6 @@ def test_kernels_match_plain_versions(q, t, cap, f, alive, boxes):
                                    dev(cand), alive=dev(al), **k)
             torch.cuda.synchronize()
             assert torch.equal(got.cpu(), want), (fn, k)
-        if "counts" in fn:
-            for e in (None, ext):
-                got = kernel.warp_per_pair_count(
-                    dev(qb), dev(tiles), dev(cand),
-                    *(map(dev, extra) if extra else ()), alive=dev(al),
-                    extent=dev(e))
-                torch.cuda.synchronize()
-                assert torch.equal(got.cpu(), want), (fn, "warp per pair")
 
 
 @pytest.mark.parametrize("alive", [None, "random"])
