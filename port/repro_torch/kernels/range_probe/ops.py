@@ -71,11 +71,8 @@ def gathered_chunk_boxes(cboxes: torch.Tensor, cand: torch.Tensor
 def live_extent(alive: torch.Tensor) -> torch.Tensor:
     """(T, cap) bool -> (T,) int32: 1 + the index of each tile's last
     alive slot, 0 for a tile with none."""
-    t, cap = alive.shape
-    if cap == 0:
-        return torch.zeros(t, dtype=torch.int32, device=alive.device)
     a = alive.to(torch.uint8)
-    last = cap - a.flip(1).argmax(1)
+    last = alive.shape[1] - a.flip(1).argmax(1)
     return torch.where(a.amax(1) > 0, last, 0).to(torch.int32)
 
 
