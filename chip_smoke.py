@@ -23,18 +23,21 @@ before each path and read just after it) and its wall seconds:
    "hilbert" and "off" must be equal; 1024 queries of the first counts
    batch and every query of the first ids batch are checked against a
    blocked brute force on the card, overflow flags included.  The
-   launch counts are read right after.
+   launch counts are read right after: the routed counts and the
+   routed hit lists must have launched, the routed hit-table kernels
+   not at all.
 3. knn    -- 5 batches of 1024 points (uniform in the unit square,
-   k = 10, max_cand = 1024) through the "x" and "off" servers' pruned
-   kNN, the widen-and-retry ladder included.  "x" must flag the same
-   points as "off" and equal it bit for bit (ids, d2) on every
-   unflagged point, and 256 points of the first batch must equal an
-   on-card brute force by (d2, id) over all N objects, d2 rounded as
-   the executors round it (``mindist2_fused``).  A point flagged for
+   k = 10, max_cand = 1024) through the "x", "off" and "hilbert"
+   servers' pruned kNN, the widen-and-retry ladder included.  "off" and
+   "hilbert" must flag the same points as "x" and equal it bit for bit
+   (ids, d2) on every unflagged point, and 256 points of the first
+   batch must equal an on-card brute force by (d2, id) over all N
+   objects, d2 rounded as the executors round it (``mindist2_fused``).  A point flagged for
    more than max_cand candidates keeps the first max_cand hits in
-   (tile, slot) order, as repro does, and the two stagings order slots
+   (tile, slot) order, as repro does, and the stagings order slots
    differently, so its answer is the staging's own.  The gathered
-   kernels' launch counts are read right after.
+   kernels' launch counts are read right after (hit lists launched, no
+   hit table).
 4. dense  -- the dense oracle (``pruned=False``) on the "x" server:
    range_counts on the first counts batch (Q = 4096), range_ids and
    knn on the first 256 boxes / points of the first ids and kNN
@@ -42,15 +45,20 @@ before each path and read just after it) and its wall seconds:
    and kNN paths are kept to 256 rows).  Each must equal the pruned
    answer bit for bit (kNN: on every point that neither side flags).
    The dense kernels' launch counts are read right after.
-5. kernels -- each of the eight range-probe kernels against its plain
+5. kernels -- each of the range-probe kernels against its plain
    PyTorch version on the card, at the shapes its path gives it
-   (gathered: a routed counts batch, the ids executor's largest
-   hit-table block; dense: the Q = 4096 counts batch, the dense
-   executor's hit-table block): the path's own inputs (staged alive
-   mask, bounding chunk boxes), then ``alive`` None and a random mask
-   and, for the skip kernels, chunk boxes that do not bound their
-   members; the routed count kernels take the live extent of each
-   alive mask.  Results must be bit-equal.  Kernel times come from CUDA
+   (routed counts: a routed counts batch; routed hit lists: the ids
+   batch whole and one kNN refinement call at its own radii; routed
+   tables: the old ids executor's largest hit-table block; dense: the
+   Q = 4096 counts batch, the dense executor's hit-table block): the
+   path's own inputs (staged alive mask, bounding chunk boxes), then
+   ``alive`` None and a random mask and, for the skip kernels, chunk
+   boxes that do not bound their members; the routed count and hit
+   list kernels take the live extent of each alive mask.  Results must
+   be bit-equal.  The hit lists' rows give each stage's time
+   (grouping, count, scan, emit) and the old extraction's on the same
+   inputs (the table kernel and ``nonzero`` over ``hit_table_blocks``,
+   which must give the same list), beside the table kernel's time.  Kernel times come from CUDA
    events, plain times from the host clock.  The routed count kernels
    are also timed without the extent (bit-equal), and their rows give
    the grouping pass's time, the live pairs, the -1 share, the extents
@@ -143,12 +151,19 @@ SOURCE = "port/repro_torch/kernels/range_probe/csrc/range_probe.cu"
 HILBERT_SOURCE = "port/repro_torch/kernels/hilbert/csrc/hilbert.cu"
 MBR_SOURCE = "port/repro_torch/kernels/mbr_join/csrc/mbr_join.cu"
 TPU = "src/repro/kernels/range_probe/kernel.py"
-CASES = {  # gathered entry point -> the TPU kernel it replaces
+CASES = {  # routed entry point on the serving path -> the TPU kernel
     "gather_count_skip": f"{TPU}:467",
-    "gather_mask_skip": f"{TPU}:495",
+    "gather_hits_skip": f"{TPU}:495",
     "gather_count": f"{TPU}:190",
-    "gather_mask": f"{TPU}:215",
+    "gather_hits": f"{TPU}:215",
 }
+TABLES = {  # routed hit list -> the table kernel of the same TPU kernel
+    "gather_hits_skip": "gather_mask_skip",
+    "gather_hits": "gather_mask",
+}
+HIT_BYTES = 3 * 8      # a hit's (query, tile, slot), int64
+PLAIN_TABLE = 80_000_000   # table bytes a block of the plain hit list (its
+                           # gathered boxes and temporaries about 25x that)
 DENSE_CASES = {  # dense entry point -> the TPU kernel it replaces
     "count": f"{TPU}:106",
     "mask": f"{TPU}:126",
@@ -312,7 +327,8 @@ def serve_phase(torch, dev):
                      qps=Q_IDS * len(i_ms) / (sum(i_ms) / 1e3),
                      p50_ms=pct(i_ms, 0.5), p99_ms=pct(i_ms, 0.99),
                      f_max=i_fmax, device_ms_per_batch=dev_ids_ms,
-                     top_device=top_ids),
+                     top_device=top_ids, select_sweep_in_top5=any(
+                         "SelectSweep" in k for k, _ in top_ids)),
             max_memory_allocated=torch.cuda.max_memory_allocated()))
     launches = dict(kernel.LAUNCHES)
     encode_launches = hkernel.LAUNCHES["encode"]
@@ -338,6 +354,10 @@ def serve_phase(torch, dev):
     for name in CASES:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the serving "
+                                 f"path: {launches}")
+    for name in TABLES.values():
+        if launches[name]:
+            raise AssertionError(f"{name} built a hit table on the serving "
                                  f"path: {launches}")
     if encode_launches <= 0:
         raise AssertionError("encode was not launched by the hilbert "
@@ -377,7 +397,7 @@ def knn_phase(torch, servers, mbrs, dev):
     kernel.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     answers = {}
-    for li in ("x", "off"):
+    for li in STAGINGS:
         srv = servers[li]
         ms, out = [], []
         for pts in batches:
@@ -395,7 +415,9 @@ def knn_phase(torch, servers, mbrs, dev):
             batches=len(ms), batch_ms=ms,
             qps=Q_KNN * len(ms) / (sum(ms) / 1e3), p50_ms=pct(ms, 0.5),
             p99_ms=pct(ms, 0.99), device_ms_per_batch=dev_ms,
-            top_device=top, f_max=[st["f_max"] for st in stats],
+            top_device=top, select_sweep_in_top5=any(
+                "SelectSweep" in k for k, _ in top),
+            f_max=[st["f_max"] for st in stats],
             retries=[st["retries"] for st in stats],
             max_rounds=max(st["rounds"] for st in stats),
             fanout_mean=sum(st["fanout_mean"] for st in stats) / len(stats),
@@ -403,10 +425,12 @@ def knn_phase(torch, servers, mbrs, dev):
             max_memory_allocated=torch.cuda.max_memory_allocated()))
     launches = dict(kernel.LAUNCHES)
 
-    for (xi, xd, xo), (oi, od, oo) in zip(answers["x"], answers["off"]):
-        if not (torch.equal(xo, oo) and torch.equal(xi[~xo], oi[~oo])
-                and torch.equal(xd[~xo], od[~oo])):
-            raise AssertionError('kNN of local_index "x" and "off" differ')
+    for li in ("off", "hilbert"):
+        for (xi, xd, xo), (oi, od, oo) in zip(answers["x"], answers[li]):
+            if not (torch.equal(xo, oo) and torch.equal(xi[~xo], oi[~oo])
+                    and torch.equal(xd[~xo], od[~oo])):
+                raise AssertionError(f'kNN of local_index "x" and "{li}" '
+                                     f'differ')
     nn_ids, nn_d2, ovf = answers["x"][0]
     want_ids, want_d2 = knn_brute(torch, knn_mod, mbrs,
                                   batches[0][:CHECK_KNN], K)
@@ -418,7 +442,12 @@ def knn_phase(torch, servers, mbrs, dev):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the kNN "
                                  f"path: {launches}")
+    for name in TABLES.values():
+        if launches[name]:
+            raise AssertionError(f"{name} built a hit table on the kNN "
+                                 f"path: {launches}")
     emit(dict(phase="knn_check", x_equals_off_unflagged=True,
+              x_equals_hilbert_unflagged=True,
               brute_force_points=CHECK_KNN,
               flagged_in_checked=int((~ok).sum()), launches=launches))
     return batches[0], answers["x"][0], launches
@@ -515,9 +544,8 @@ def plain_blocked(torch, fn, q, cand, cap, mask_out, budget=2e9):
     return out
 
 
-def kernel_phase(torch, servers, qc, qi, launches, calls):
+def kernel_phase(torch, servers, qc, qi, pts, launches, calls):
     from repro_torch.kernels.range_probe import kernel, ops, ref
-    from repro_torch.query import range as range_mod
     from repro_torch.serve import router
     from repro_torch.serve.engine import _f_width
 
@@ -542,19 +570,23 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
     entries = []
     for name, replaces in CASES.items():
         skip = name.endswith("_skip")
-        mask_out = "mask" in name
         li = "x" if skip else "off"
         tiles = lay[li].canon_tiles
-        # (alive, the live extent the count kernels may stop at)
+        # (alive, the live extent the count and hit-list kernels may
+        # stop at)
         extent = servers[li].tiles.extent
         alives = (("staged", (lay[li].alive, extent)), ("none", (None, None)),
                   ("random", (rand_alive, ops.live_extent(rand_alive))))
-        q = qi if mask_out else qc
-        cand = routed(servers[li], q)
-        if mask_out:        # the largest launch the ids executor makes
-            rows, w = max(range_mod.hit_table_blocks(cand, cap),
-                          key=lambda b: (b[0].stop - b[0].start) * b[1])
-            q, cand = q[rows], cand[rows, :w].contiguous()
+        boxes = ((("bounding", lay["x"].chunk_boxes), ("non_bounding", bad))
+                 if skip else (("none", None),))
+        cb0 = lay["x"].chunk_boxes if skip else None
+        if name in TABLES:
+            entries.append(hit_entry(
+                torch, kernel, ops, ref, name, replaces, servers[li], tiles,
+                qi.contiguous(), routed(servers[li], qi).contiguous(), pts,
+                alives, boxes, cb0, launches, calls))
+            continue
+        q, cand = qc, routed(servers[li], qc)
         qn, f = cand.shape
         kfn = getattr(kernel, name)
         plain = getattr(ref, name.replace("gather_", "gathered_")
@@ -562,9 +594,6 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
 
         def k_of(al_ext, cb):
             alive, ext = al_ext
-            if mask_out:
-                return kfn(q, tiles, *((cb,) if skip else ()), cand,
-                           alive=alive)
             return kfn(q, tiles, *((cb,) if skip else ()), cand, alive=alive,
                        extent=ext)
 
@@ -577,33 +606,171 @@ def kernel_phase(torch, servers, qc, qi, launches, calls):
                 return plain(qq, ops.gathered_rows(tiles, cc), *boxes,
                              None if alive is None
                              else ops.gathered_alive(alive, cc))
-            return plain_blocked(torch, r, q, cand, cap, mask_out)
+            return plain_blocked(torch, r, q, cand, cap, False)
 
-        cb0 = lay["x"].chunk_boxes if skip else None
-        cases, worst = timed_cases(
-            torch, name, k_of, plain_of, alives,
-            (("bounding", cb0), ("non_bounding", bad))
-            if skip else (("none", None),))
+        cases, worst = timed_cases(torch, name, k_of, plain_of, alives,
+                                   boxes)
         main = cases[0]      # the serving path's own inputs
         work = bound_work(torch, ref, ops, q, cand, tiles, lay[li].alive,
-                          cb0, mask_out, None if mask_out else extent)
+                          cb0, False, extent)
         entry = dict(
             name=name, route="cuda", source=SOURCE, replaces=replaces,
             launches=launches[name], max_abs_err=worst, ms=main["ms"],
             plain_ms=main["plain_ms"], bound_ms=work["bound_ms"],
             bound_by=work["bound_by"], library_ms=None, bit_equal=worst == 0,
-            launches_per_batch=launches[name] / calls[
-                "ids" if mask_out else "counts"] / (len(INDEXED) if skip
-                                                    else 1),
+            launches_per_batch=launches[name] / calls["counts"] / (
+                len(INDEXED) if skip else 1),
             shape=dict(q=qn, f=f, t=t, cap=cap, c=c),
             bound_ms_per_pair=work["pair_bytes"] / HBM_BYTES_PER_S * 1e3,
             cases=cases)
-        if not mask_out:
-            entry.update(count_designs(torch, kernel, k_of, tiles, cand,
-                                       cb0, lay[li].alive, extent, main),
-                         bound_ms_full_cap=work["bound_ms_full_cap"])
+        entry.update(count_designs(torch, kernel, k_of, tiles, cand, cb0,
+                                   lay[li].alive, extent, main),
+                     bound_ms_full_cap=work["bound_ms_full_cap"])
         entries.append(entry)
     return entries
+
+
+def refinement_call(torch, srv, pts, skip):
+    """The arguments of the last refinement of one kNN batch through
+    ``srv`` (the ladder's final attempt) -> ``(qboxes, cand)``."""
+    from repro_torch.kernels.range_probe import ops
+    fn = "gathered_hit_list_skip" if skip else "gathered_hit_list"
+    orig, seen = getattr(ops, fn), []
+
+    def capture(qb, tiles, *rest, **kw):
+        seen.append((qb, rest[-1]))
+        return orig(qb, tiles, *rest, **kw)
+
+    setattr(ops, fn, capture)
+    try:
+        srv.knn(pts, K, max_cand=MAX_CAND)
+    finally:
+        setattr(ops, fn, orig)
+    qb, cand = seen[-1]
+    return qb.float().contiguous(), cand.int().contiguous()
+
+
+def hit_stages(torch, kernel, q, tiles, cand, cb, alive, extent):
+    """CUDA-event ms of each stage of the hit list, on the path's own
+    inputs, and the sizes that set them."""
+    t, cap = tiles.shape[:2]
+    kw = dict(cboxes=cb, alive=alive, extent=extent)
+
+    def group():
+        return kernel.group_pairs(cand, t, cap, extent, zero_counts=False)[1]
+
+    scratch = group()
+    seg = kernel.hit_counts(q, tiles, cand, scratch, **kw)
+    incl = seg.view(-1).cumsum(0)
+    return dict(
+        group_ms=cuda_ms(torch, group, 10),
+        count_ms=cuda_ms(torch, lambda: kernel.hit_counts(
+            q, tiles, cand, scratch, **kw), 10),
+        scan_ms=cuda_ms(torch, lambda: seg.view(-1).cumsum(0), 10),
+        emit_ms=cuda_ms(torch, lambda: kernel.emit_hits(
+            q, tiles, cand, scratch, seg, incl, **kw), 10),
+        hits=int(incl[-1]), segments=seg.shape[2],
+        count_cells_bytes=seg.numel() * 4,
+        live_pairs=int((cand >= 0).sum()))
+
+
+def old_extraction(torch, kernel, ops, q, tiles, cand, cb, alive):
+    """The extraction before the hit lists, composed from the table
+    kernel: ``gather_mask{,_skip}`` over ``hit_table_blocks``, then
+    ``nonzero`` -> (3, H) int64."""
+    parts = []
+    for rows, w in ops.hit_table_blocks(cand, tiles.shape[1]):
+        cd = cand[rows, :w].contiguous()
+        extra = () if cb is None else (cb,)
+        fn = kernel.gather_mask if cb is None else kernel.gather_mask_skip
+        m = fn(q[rows].contiguous(), tiles, *extra, cd, alive=alive)
+        bq, bf, bs = m.nonzero(as_tuple=True)
+        parts.append(torch.stack([bq + rows.start, cd[bq, bf].long(), bs]))
+    return torch.cat(parts, 1) if parts else torch.zeros(
+        (3, 0), dtype=torch.int64, device=q.device)
+
+
+def hit_entry(torch, kernel, ops, ref, name, replaces, srv, tiles, q, cand,
+              pts, alives, boxes, cb0, launches, calls):
+    """One routed hit list's row: the emit pipeline held to its plain
+    version on the ids batch whole and on one kNN refinement call, in
+    every alive and chunk-box case; its stages; the old extraction on
+    the same inputs; and the table kernel of the same TPU kernel held
+    to its plain version on the old executor's largest table block."""
+    skip = cb0 is not None
+    cap = tiles.shape[1]
+    alive, extent = alives[0][1]
+    kfn = getattr(kernel, name)
+
+    def pipeline(qq, cc):
+        def k_of(al_ext, cb):
+            return kfn(qq, tiles, *((cb,) if skip else ()), cc,
+                       alive=al_ext[0], extent=al_ext[1])
+
+        def plain_of(al_ext, cb):
+            return torch.stack(ops.plain_hit_list(
+                qq, tiles, cc, cb, alive=al_ext[0], budget=PLAIN_TABLE))
+
+        cases, worst = timed_cases(torch, name, k_of, plain_of, alives,
+                                   boxes)
+        main = k_of(alives[0][1], cb0)
+        old = old_extraction(torch, kernel, ops, qq, tiles, cc, cb0, alive)
+        if not torch.equal(old, main):
+            raise AssertionError(f"{name}: the old extraction gives another "
+                                 f"list")
+        stages = hit_stages(torch, kernel, qq, tiles, cc, cb0, alive, extent)
+        work = bound_work(torch, ref, ops, qq, cc, tiles, alive, cb0, False,
+                          extent, out_bytes=stages["hits"] * HIT_BYTES)
+        return dict(
+            ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+            max_abs_err=worst, bound_ms=work["bound_ms"],
+            bound_by=work["bound_by"],
+            old_extraction_ms=cuda_ms(torch, lambda: old_extraction(
+                torch, kernel, ops, qq, tiles, cc, cb0, alive), 3),
+            stages=stages, shape=dict(q=cc.shape[0], f=cc.shape[1],
+                                      t=tiles.shape[0], cap=cap),
+            cases=cases)
+
+    ids = pipeline(q, cand)
+    knn = pipeline(*refinement_call(torch, srv, pts, skip))
+
+    # the table kernel, as before, on the old ids executor's largest block
+    table = TABLES[name]
+    rows, w = max(ops.hit_table_blocks(cand, cap),
+                  key=lambda b: (b[0].stop - b[0].start) * b[1])
+    tq, tc = q[rows].contiguous(), cand[rows, :w].contiguous()
+    tfn = getattr(kernel, table)
+    plain = getattr(ref, table.replace("gather_", "gathered_"))
+
+    def t_of(al_ext, cb):
+        return tfn(tq, tiles, *((cb,) if skip else ()), tc, alive=al_ext[0])
+
+    def tplain_of(al_ext, cb):
+        al = al_ext[0]
+
+        def r(qq, cc):
+            extra = (ops.gathered_chunk_boxes(cb, cc),) if skip else ()
+            return plain(qq, ops.gathered_rows(tiles, cc), *extra,
+                         None if al is None else ops.gathered_alive(al, cc))
+        return plain_blocked(torch, r, tq, tc, cap, True)
+
+    tcases, tworst = timed_cases(torch, table, t_of, tplain_of, alives, boxes)
+    twork = bound_work(torch, ref, ops, tq, tc, tiles, alive, cb0, True)
+    return dict(
+        name=name, route="cuda", source=SOURCE, replaces=replaces,
+        launches=launches[name], max_abs_err=max(ids["max_abs_err"],
+                                                 knn["max_abs_err"], tworst),
+        ms=ids["ms"], plain_ms=ids["plain_ms"], bound_ms=ids["bound_ms"],
+        bound_by=ids["bound_by"], library_ms=None,
+        bit_equal=max(ids["max_abs_err"], knn["max_abs_err"], tworst) == 0,
+        design="count, scan, emit", table_kernel=table,
+        table_ms=tcases[0]["ms"], table_plain_ms=tcases[0]["plain_ms"],
+        table_bound_ms=twork["bound_ms"], table_launches=launches[table],
+        table_shape=dict(q=tq.shape[0], f=w, cap=cap),
+        table_cases=tcases, old_extraction_ms=ids["old_extraction_ms"],
+        launches_per_batch=launches[name] / calls["ids"] / (
+            len(INDEXED) if skip else 1),
+        ids=ids, knn_refinement=knn)
 
 
 def count_designs(torch, kernel, k_of, tiles, cand, cb, alive, extent,
@@ -626,7 +793,7 @@ def count_designs(torch, kernel, k_of, tiles, cand, cb, alive, extent,
 
 
 def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
-               extent=None, rows=64):
+               extent=None, rows=64, out_bytes=None):
     """Least bytes and operations of one call on these inputs.
 
     bytes: every (tile, chunk) that some live (query, candidate) pair
@@ -636,9 +803,11 @@ def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
     no slot past it is alive, so the least work stops there: a tile's
     chunks, alive flags and chunk boxes count only up to its extent
     (``bound_ms``); ``bound_ms_full_cap`` counts them over all of cap,
-    as before the extent existed.  Also returned: the reads counted per
-    pair, Q*F*live_chunks*128*(16 + 1) plus the output, the bound of a
-    design that shares no tile between queries.  operations: four float
+    as before the extent existed.  The output is the (Q, F) counts,
+    the (Q, F, cap) table (``mask_out``) or, given ``out_bytes``, a hit
+    list's.  Also returned: the reads counted per pair,
+    Q*F*live_chunks*128*(16 + 1) plus the output, the bound of a design
+    that shares no tile between queries.  operations: four float
     compares per alive slot of every live pair's live chunks.
     """
     t, cap = tiles.shape[:2]
@@ -677,7 +846,8 @@ def bound_work(torch, ref, ops, q, cand, tiles, alive, cboxes, mask_out,
     alive_per_chunk = slot_alive.reshape(t, n_chunks, chunk).sum(2)
     alive_touched = int(alive_per_chunk[touched_full].sum())
     ref_t = torch.unique(cand[cand >= 0]).long()
-    out_bytes = cand.numel() * (cap if mask_out else 4)
+    if out_bytes is None:
+        out_bytes = cand.numel() * (cap if mask_out else 4)
     fixed = q.numel() * 4 + cand.numel() * 4 + out_bytes + alive_touched * 16
     box_chunks = (int((-(-lim[ref_t] // chunk)).sum()) if cboxes is not None
                   else 0)
@@ -1355,7 +1525,7 @@ def main() -> int:
     dense_launches = dense_phase(torch, servers["x"], qc, qi, pts, pruned_x,
                                  pruned_knn)
     t3 = time.perf_counter()
-    entries = kernel_phase(torch, servers, qc, qi, launches, calls)
+    entries = kernel_phase(torch, servers, qc, qi, pts, launches, calls)
     entries += dense_kernel_phase(torch, servers["x"], qc, qi, dense_launches)
     for e in entries:
         if e["name"] in CASES:
@@ -1407,8 +1577,9 @@ def main() -> int:
         {k: e[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        **{k: e[k] for k in ("bit_equal", "tolerance", "bound_ms_full_cap")
-           if k in e})
+        **{k: e[k] for k in ("bit_equal", "tolerance", "bound_ms_full_cap",
+                             "design", "table_kernel", "table_ms",
+                             "old_extraction_ms") if k in e})
         for e in entries]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

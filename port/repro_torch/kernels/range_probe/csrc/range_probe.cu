@@ -5,16 +5,21 @@
 // Routed counts, tile-major (rp_group_pairs, then rp_tile_counts):
 //   gather_count_pallas       (_gather_count_kernel, _gather_count_alive_kernel)
 //   gather_count_skip_pallas  (_gather_count_skip_kernel, ..._alive_kernel)
-// Routed masks, a warp per pair (rp_gathered_mask):
+// Routed hit lists, tile-major (rp_group_pairs, then rp_tile_hits to
+// count and, after a scan, rp_tile_hits to emit), the function the
+// serving path needs from:
 //   gather_mask_pallas        (_gather_mask_kernel, _gather_mask_alive_kernel)
 //   gather_mask_skip_pallas   (_gather_mask_skip_kernel, ..._alive_kernel)
+// Routed masks, a warp per pair (rp_gathered_mask): the same two TPU
+// kernels' (Q, F, cap) table itself, with no serving caller.
 // Dense (all-tile) entry points, rp_dense_probe:
 //   count_pallas              (_count_kernel, _count_alive_kernel)
 //   mask_pallas               (_mask_kernel, _mask_alive_kernel)
 //   count_skip_pallas         (_count_skip_kernel, _count_skip_alive_kernel)
 //   mask_skip_pallas          (_mask_skip_kernel, _mask_skip_alive_kernel)
 // Three templated kernels, instantiated for skip/no-skip x alive/none
-// (and count/mask for the dense one), compute what
+// (and count/mask for the dense one, pair count/segment count/emit for
+// the tile-major one), compute what
 // repro/kernels/range_probe/ref.py computes (gathered_* and probe_*
 // with their chunk-masked *_skip twins).
 //
@@ -54,6 +59,30 @@
 // the extent, the chunk boxes up to the extent and the boxes of alive
 // slots in live chunks, and writes 4 B a pair; four float compares per
 // (pair, alive slot) are well below the float32 rate.
+//
+// Routed hit lists.  The serving path needs every hit of every (query,
+// candidate) pair as (query, tile, slot), in the reference's flat
+// (query, candidate, slot) order, not the (Q, F, cap) table, which is
+// almost all zeros (F is ratcheted, most pairs are -1, and a tile's
+// live extent is a few percent of cap).  The same grouping and the
+// same work items as the routed counts, in three passes:
+//   1. count: the tile-major probe writes each (pair, segment)'s hits
+//      to its own cell of a zeroed (Q, F, S) array, S = ceil(cap /
+//      kSegSlots) (threads that share a pair in one work item meet in
+//      integer atomics on a cell no other item writes);
+//   2. scan: the caller's inclusive scan of the flat (Q, F, S) array;
+//      a pair's segments are in slot order, so cell (pair, s) starts
+//      at its scan minus its count in the flat order, and the last
+//      element sizes the output;
+//   3. emit: the same probe again; a warp takes one pair of the run at
+//      a time and walks the step's compacted boxes (under the skip,
+//      only the chunks its query reaches) 32 at a time, a ballot and a
+//      __popc prefix placing each hit after the pair's earlier ones, so
+//      the output is deterministic and in ascending slot order.
+// Both passes decide a hit by the same code on the same compacted
+// boxes, so a cell's count is exactly the number of hits it emits.
+// Bound on the H100: bytes, the count pass's reads at the extent once
+// plus the hits written (3 x 8 bytes each).
 //
 // Routed masks.  One warp owns one (query, candidate) pair: lane c
 // tests chunk box c, a ballot gives the warp-uniform set of live
@@ -375,9 +404,9 @@ Groups carve(void* scratch, int T, int64_t pairs) {
   return g;
 }
 
-// 1. each pair's rank among its tile's pairs, and a zero count (the work
-//    items add their hits to it); a -1 (or out-of-range) candidate takes
-//    no probe work
+// 1. each pair's rank among its tile's pairs, and a zero count where
+//    counts is given (the work items add their hits to it); a -1 (or
+//    out-of-range) candidate takes no probe work
 __global__ void __launch_bounds__(kGroupThreads)
 group_rank(const int32_t* __restrict__ cand, int64_t pairs, int T, Groups g,
            int32_t* __restrict__ counts) {
@@ -385,7 +414,7 @@ group_rank(const int32_t* __restrict__ cand, int64_t pairs, int T, Groups g,
        p < pairs; p += static_cast<int64_t>(gridDim.x) * blockDim.x) {
     const int t = cand[p];
     g.rank[p] = (t < 0 || t >= T) ? -1 : atomicAdd(&g.hist[t], 1);
-    counts[p] = 0;
+    if (counts) counts[p] = 0;
   }
 }
 
@@ -477,55 +506,109 @@ __device__ __forceinline__ int count_rotated(const float4 qb,
   return acc;
 }
 
+// What a tile-major pass does with the hits it finds.
+enum Mode {
+  kPairCount = 0,  // add them to the pair's count, (Q, F)
+  kSegCount = 1,   // add them to the (pair, segment) cell, (Q, F, S)
+  kEmit = 2,       // write them as (query, tile, slot) at the cell's offset
+};
+
+// The arguments of one tile-major pass.
+struct Probe {
+  const float4* q;       // (Q, 4) query boxes
+  const float4* tiles;   // (T, cap, 4) member boxes
+  const float4* cboxes;  // (T, C, 4) chunk boxes, or null
+  const uint8_t* alive;  // (T, cap) alive flags, or null
+  const int32_t* extent; // (T,) live extents, or null
+  Groups g;
+  int F, cap, C, S;      // S = ceil(cap / kSegSlots)
+  bool vec_alive;        // alive rows 16-byte aligned: one load a thread
+  int32_t* counts;       // kPairCount: (Q, F); kSegCount and kEmit: (Q, F, S)
+  const int64_t* incl;   // kEmit: the inclusive scan of the flat counts
+  int64_t* out;          // kEmit: (3, total) int64 query, tile, slot rows
+  int64_t total;         // kEmit: hits in all
+};
+
+// Emit the hits of query box qb among s_box[beg, end), a warp together:
+// 32 boxes an iteration, a ballot and a __popc prefix placing each hit
+// after the earlier ones -> the next output position.
+__device__ __forceinline__ int64_t emit_range(
+    const float4 qb, const float4* s_box, const uint16_t* s_slot, int beg,
+    int end, int lane, int base, int64_t query, int t, int64_t cur,
+    const Probe& p) {
+  for (int i0 = beg; i0 < end; i0 += 32) {
+    const int i = i0 + lane;
+    const bool h = i < end && hit(qb, s_box[i]);
+    const unsigned b = __ballot_sync(0xffffffffu, h);
+    if (h) {
+      const int64_t pos = cur + __popc(b & ((1u << lane) - 1u));
+      p.out[pos] = query;
+      p.out[p.total + pos] = t;
+      p.out[2 * p.total + pos] = base + s_slot[i];
+    }
+    cur += __popc(b);
+  }
+  return cur;
+}
+
 // 4. blocks stride over the work items.  An item is (tile, run of up to
 //    128 pairs, segment of kSegSlots slots), so no block walks a long
 //    tile alone.  The block walks the segment kStep slots at a time.  A
 //    thread holds 16 slots' alive flags (one 16-byte load where the row
 //    is aligned), so a dead 512-slot stretch costs one warp load; a
 //    block scan compacts the alive slots of the step's live chunks, and
-//    their boxes are read once into shared memory, coalesced.
-//    - With chunk boxes, thread i tests the run's i-th query against the
-//      step's chunk boxes, and the same scan lists every (query, chunk)
-//      the query reaches; threads take the list's entries in turn and
-//      count one query against one chunk's boxes each, so a warp never
-//      walks a chunk that only some of its queries reach.  Hits gather
-//      per query in shared memory.
-//    - Without, every query meets every alive box: a run of n pairs
-//      takes parts = 128 / n' threads a pair (n' = n rounded up to a
-//      power of two, at least 32), each counting every parts-th box, so
-//      short runs still fill the block's warps.
-//    A pair's hits are added to its count with integer atomics.
-template <bool SKIP, bool ALIVE>
-__global__ void __launch_bounds__(kRun)
-tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
-           const float4* __restrict__ cboxes,
-           const uint8_t* __restrict__ alive,
-           const int32_t* __restrict__ extent, Groups g, int F, int cap,
-           int C, bool vec_alive, int32_t* __restrict__ counts) {
-  constexpr int kList = SKIP ? kStep : 1;
-  constexpr int kQueries = SKIP ? kRun : 1;
+//    their boxes are read once into shared memory, coalesced, in slot
+//    order.
+//    - Counting with chunk boxes, thread i tests the run's i-th query
+//      against the step's chunk boxes, and the same scan lists every
+//      (query, chunk) the query reaches; threads take the list's entries
+//      in turn and count one query against one chunk's boxes each, so a
+//      warp never walks a chunk that only some of its queries reach.
+//      Hits gather per query in shared memory.
+//    - Counting without, every query meets every alive box: a run of n
+//      pairs takes parts = 128 / n' threads a pair (n' = n rounded up to
+//      a power of two, at least 32), each counting every parts-th box,
+//      so short runs still fill the block's warps.
+//    - Emitting, warp w takes the run's pairs w, w + 4, ... and walks the
+//      boxes of the chunks its query reaches (all of them without chunk
+//      boxes) in order; each pair's next output position stays in
+//      shared memory from step to step.
+//    Counts are added with integer atomics.
+template <int MODE, bool SKIP, bool ALIVE>
+__global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
+  constexpr bool EMIT = MODE == kEmit;
+  constexpr bool LIST = SKIP && !EMIT;  // the (query, chunk) work list
+  constexpr bool SHARED_Q = SKIP || EMIT;
+  constexpr int kList = LIST ? kStep : 1;
+  constexpr int kQueries = SHARED_Q ? kRun : 1;
+  constexpr int kPairs = EMIT ? kRun : 1;
   __shared__ float4 s_box[kStep];          // the step's compacted boxes
   __shared__ uint16_t s_slot[kStep];       // their slots, step-relative
   __shared__ uint16_t s_list[kList];       // (query << 4 | chunk) entries
   __shared__ float4 s_q[kQueries];         // the run's query boxes
-  __shared__ int s_hits[kQueries];         // and their hits in this item
+  __shared__ int s_hits[LIST ? kRun : 1];  // and their hits in this item
+  __shared__ int64_t s_cur[kPairs];        // emit: each pair's next position
+  __shared__ int32_t s_query[kPairs];      // emit: each pair's query
+  __shared__ unsigned s_qlive[SKIP && EMIT ? kRun : 1];  // its live chunks
   __shared__ int s_coff[kStepChunks + 1];  // each chunk's first box
   __shared__ int s_warp[kRun / 32];
   __shared__ unsigned s_live[2][kRun / 32];
 
+  const Groups& g = p.g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n_items = *g.n_items;
   int step = 0;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
     const int t = g.item_tile[item];
-    const int lim = slot_limit(extent, t, cap);
+    const int lim = slot_limit(p.extent, t, p.cap);
     const int segs = (lim + kSegSlots - 1) / kSegSlots;
     const int local = item - g.item_off[t];
     const int r = local / segs;
-    const int seg_begin = (local - r * segs) * kSegSlots;
+    const int seg = local - r * segs;
+    const int seg_begin = seg * kSegSlots;
     const int seg_end = min(seg_begin + kSegSlots, lim);
     const int len = min(kRun, g.hist[t] - r * kRun);
-    int span = SKIP ? kRun : 32;  // len rounded up to a power of two
+    int span = SHARED_Q ? kRun : 32;  // len rounded up to a power of two
     while (span < len) span <<= 1;
     const int parts = kRun / span, part = tid / span, qi = tid % span;
     const bool valid = qi < len;
@@ -533,16 +616,21 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
     float4 qb = make_float4(0.f, 0.f, 0.f, 0.f);
     if (valid) {
       pair = g.order[g.pair_off[t] + r * kRun + qi];
-      qb = q[pair / F];
+      qb = p.q[pair / p.F];
     }
-    if (SKIP) {  // each thread's own slots: read back by it at the end
-      s_q[tid] = qb;
-      s_hits[tid] = 0;
+    // each thread's own slots, read by others only after a step's barrier
+    if (SHARED_Q) s_q[tid] = qb;
+    if (LIST) s_hits[tid] = 0;
+    if (EMIT && valid) {
+      const int64_t cell = static_cast<int64_t>(pair) * p.S + seg;
+      s_cur[tid] = p.incl[cell] - p.counts[cell];
+      s_query[tid] = pair / p.F;
     }
-    const float4* trow = tiles + static_cast<int64_t>(t) * cap;
+    const float4* trow = p.tiles + static_cast<int64_t>(t) * p.cap;
     const uint8_t* arow =
-        ALIVE ? alive + static_cast<int64_t>(t) * cap : nullptr;
-    const float4* crow = SKIP ? cboxes + static_cast<int64_t>(t) * C : nullptr;
+        ALIVE ? p.alive + static_cast<int64_t>(t) * p.cap : nullptr;
+    const float4* crow =
+        SKIP ? p.cboxes + static_cast<int64_t>(t) * p.C : nullptr;
 
     int acc = 0;
     for (int base = seg_begin; base < seg_end; base += kStep, ++step) {
@@ -559,6 +647,7 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
             if (j < nc)
               qlive |= static_cast<unsigned>(hit(qb, crow[c0 + j])) << j;
         }
+        if (EMIT) s_qlive[tid] = qlive;
         const unsigned w = __reduce_or_sync(0xffffffffu, qlive);
         unsigned* sl = s_live[step & 1];  // two buffers: a skipped step
         if (lane == 0) sl[warp] = w;      // needs no closing barrier
@@ -579,7 +668,7 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
         if (!ALIVE) {
 #pragma unroll
           for (int w = 0; w < 4; ++w) f[w] = low_bytes(n_in - 4 * w);
-        } else if (vec_alive) {
+        } else if (p.vec_alive) {
           const uint4 v = *reinterpret_cast<const uint4*>(arow + s0);
           f[0] = v.x & low_bytes(n_in);
           f[1] = v.y & low_bytes(n_in - 4);
@@ -599,7 +688,7 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
       // its (query, chunk) entries (high half); each total <= kStep
       const int cnt =
           __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]);
-      const int ent = SKIP ? __popc(qlive) : 0;
+      const int ent = LIST ? __popc(qlive) : 0;
       int total;
       const int packed = block_exclusive_scan(cnt | (ent << 16), s_warp,
                                               &total);
@@ -612,7 +701,7 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
         for (uint32_t m = f[w]; m; m &= m - 1u)
           s_slot[pos++] = static_cast<uint16_t>(16 * tid + 4 * w +
                                                 ((__ffs(m) - 1) >> 3));
-      if (SKIP)
+      if (LIST)
         for (unsigned m = qlive; m; m &= m - 1u)
           s_list[epos++] = static_cast<uint16_t>((tid << 4) |
                                                  (__ffs(m) - 1));
@@ -631,7 +720,23 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
         }
       }
       __syncthreads();
-      if (SKIP) {
+      if (EMIT) {
+        for (int i = warp; i < len; i += kRun / 32) {  // warp-uniform
+          const float4 qq = s_q[i];
+          int64_t cur = s_cur[i];
+          if (SKIP) {
+            for (unsigned m = s_qlive[i]; m; m &= m - 1u) {
+              const int j = __ffs(m) - 1;
+              cur = emit_range(qq, s_box, s_slot, s_coff[j], s_coff[j + 1],
+                               lane, base, s_query[i], t, cur, p);
+            }
+          } else {
+            cur = emit_range(qq, s_box, s_slot, 0, n, lane, base,
+                             s_query[i], t, cur, p);
+          }
+          if (lane == 0) s_cur[i] = cur;
+        }
+      } else if (LIST) {
         for (int e = tid; e < n_list; e += kRun) {
           const int w = s_list[e], j = w & 15;
           const float4 qq = s_q[w >> 4];
@@ -646,29 +751,74 @@ tile_count(const float4* __restrict__ q, const float4* __restrict__ tiles,
       }
       __syncthreads();  // the shared arrays are reused next step
     }
-    if (SKIP) acc = s_hits[tid];
-    if (acc) atomicAdd(&counts[pair], acc);
+    if (!EMIT) {
+      if (LIST) acc = s_hits[tid];
+      if (acc)
+        atomicAdd(MODE == kSegCount
+                      ? p.counts + static_cast<int64_t>(pair) * p.S + seg
+                      : p.counts + pair,
+                  acc);
+    }
   }
 }
 
-template <bool SKIP, bool ALIVE>
-void launch_tile_count(const void* q, const void* tiles, const void* cboxes,
-                       const void* alive, const void* extent, const Groups& g,
-                       int64_t items, int F, int cap, int C, bool vec_alive,
-                       void* counts, cudaStream_t stream) {
+template <int MODE, bool SKIP, bool ALIVE>
+void launch_probe(const Probe& p, int64_t items, cudaStream_t stream) {
   // a persistent grid: as many blocks as the card holds at once, or fewer
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tile_count<SKIP, ALIVE>, kRun, 0);
+      &per_sm, tile_probe<MODE, SKIP, ALIVE>, kRun, 0);
   const int64_t grid = std::max<int64_t>(
       1, std::min<int64_t>(items, static_cast<int64_t>(sms) * per_sm));
-  tile_count<SKIP, ALIVE><<<static_cast<unsigned>(grid), kRun, 0, stream>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(tiles),
-      static_cast<const float4*>(cboxes), static_cast<const uint8_t*>(alive),
-      static_cast<const int32_t*>(extent), g, F, cap, C, vec_alive,
-      static_cast<int32_t*>(counts));
+  tile_probe<MODE, SKIP, ALIVE>
+      <<<static_cast<unsigned>(grid), kRun, 0, stream>>>(p);
+}
+
+// One tile-major pass in MODE over the grouping in `scratch`, for the
+// chunk-box and alive-mask variant the pointers select.
+template <int MODE>
+int run_probe(int device, Probe p, long long Q, int T, void* scratch,
+              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t pairs = static_cast<int64_t>(Q) * p.F;
+  if (pairs == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  p.g = carve(scratch, T, pairs);
+  p.vec_alive = p.alive != nullptr && p.cap % 16 == 0 &&
+                reinterpret_cast<uintptr_t>(p.alive) % 16 == 0;
+  const int64_t items = max_items(T, pairs, p.cap);
+  if (p.cboxes != nullptr) {
+    if (p.alive != nullptr)
+      launch_probe<MODE, true, true>(p, items, s);
+    else
+      launch_probe<MODE, true, false>(p, items, s);
+  } else {
+    if (p.alive != nullptr)
+      launch_probe<MODE, false, true>(p, items, s);
+    else
+      launch_probe<MODE, false, false>(p, items, s);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+Probe probe_args(const void* q, const void* tiles, const void* cboxes,
+                 const void* alive, const void* extent, int F, int cap,
+                 int C, void* counts) {
+  Probe p{};
+  p.q = static_cast<const float4*>(q);
+  p.tiles = static_cast<const float4*>(tiles);
+  p.cboxes = static_cast<const float4*>(cboxes);
+  p.alive = static_cast<const uint8_t*>(alive);
+  p.extent = static_cast<const int32_t*>(extent);
+  p.F = F;
+  p.cap = cap;
+  p.C = C;
+  p.S = (cap + kSegSlots - 1) / kSegSlots;
+  p.counts = static_cast<int32_t*>(counts);
+  return p;
 }
 
 }  // namespace
@@ -713,8 +863,9 @@ extern "C" long long rp_count_scratch(int T, long long pairs, int cap) {
 
 // Group the live pairs of cand (Q, F) int32 by tile, and their work items
 // by tile, run and slot segment, into `scratch` (rp_count_scratch(T,
-// Q * F, cap) int32); write 0 to every count of counts (Q, F) int32.
-// extent (T,) int32 or null as for rp_tile_counts.  Launches on `stream`
+// Q * F, cap) int32); write 0 to every count of counts (Q, F) int32,
+// unless counts is null (the hit lists count elsewhere).  extent (T,)
+// int32 or null as for rp_tile_counts.  Launches on `stream`
 // (no synchronisation) and returns cudaGetLastError().
 extern "C" int rp_group_pairs(int device, const void* cand,
                               const void* extent, long long Q, int F, int T,
@@ -751,31 +902,37 @@ extern "C" int rp_tile_counts(int device, const void* q, const void* tiles,
                               const void* extent, long long Q, int F, int T,
                               int cap, int C, void* scratch, void* counts,
                               void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t pairs = static_cast<int64_t>(Q) * F;
-  if (pairs == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Groups g = carve(scratch, T, pairs);
-  const int64_t items = max_items(T, pairs, cap);
-  const bool vec = alive != nullptr && cap % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(alive) % 16 == 0;
-  if (cboxes != nullptr) {
-    if (alive != nullptr)
-      launch_tile_count<true, true>(q, tiles, cboxes, alive, extent, g, items,
-                                    F, cap, C, vec, counts, s);
-    else
-      launch_tile_count<true, false>(q, tiles, cboxes, alive, extent, g,
-                                     items, F, cap, C, vec, counts, s);
-  } else {
-    if (alive != nullptr)
-      launch_tile_count<false, true>(q, tiles, cboxes, alive, extent, g,
-                                     items, F, cap, C, vec, counts, s);
-    else
-      launch_tile_count<false, false>(q, tiles, cboxes, alive, extent, g,
-                                      items, F, cap, C, vec, counts, s);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return run_probe<kPairCount>(
+      device, probe_args(q, tiles, cboxes, alive, extent, F, cap, C, counts),
+      Q, T, scratch, stream);
+}
+
+// Slot segments a pair's hits are counted in: ceil(cap / kSegSlots).
+extern "C" int rp_hit_segments(int cap) {
+  return (cap + kSegSlots - 1) / kSegSlots;
+}
+
+// After rp_group_pairs on the same scratch and extent (arguments as for
+// rp_tile_counts), one pass of the routed hit list.  emit == 0: add each
+// (pair, segment)'s hits to its cell of counts (Q, F, S) int32, zeroed
+// by the caller (S = rp_hit_segments(cap)).  emit == 1: with that counts
+// array, incl (Q * F * S,) int64 its inclusive scan and total its last
+// element, write each hit to out (3, total) int64 as (query, tile, slot)
+// rows, in flat (query, candidate, slot) order.  Launches on `stream`
+// (no synchronisation) and returns cudaGetLastError().
+extern "C" int rp_tile_hits(int device, int emit, const void* q,
+                            const void* tiles, const void* cboxes,
+                            const void* alive, const void* extent,
+                            long long Q, int F, int T, int cap, int C,
+                            void* scratch, void* counts, const void* incl,
+                            void* out, long long total, void* stream) {
+  Probe p = probe_args(q, tiles, cboxes, alive, extent, F, cap, C, counts);
+  if (!emit) return run_probe<kSegCount>(device, p, Q, T, scratch, stream);
+  if (total == 0) return static_cast<int>(cudaSetDevice(device));
+  p.incl = static_cast<const int64_t*>(incl);
+  p.out = static_cast<int64_t*>(out);
+  p.total = total;
+  return run_probe<kEmit>(device, p, Q, T, scratch, stream);
 }
 
 // Launch one dense probe on `stream` (no synchronisation) and return

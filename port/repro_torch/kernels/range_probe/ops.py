@@ -17,11 +17,17 @@ Local-index contract (``*_skip``): ``cboxes`` is the staging's
 Tombstone contract (keyword-only ``alive``): an optional (T, cap) bool
 per-slot alive mask; a hit counts only if its slot is alive.
 
-Live-extent contract (keyword-only ``extent``, routed counts only): an
-optional (T,) int32 ``live_extent(alive)`` (any larger value will do):
-no slot at or past ``extent[t]`` is alive, so the kernel stops there.
-It is read only beside ``alive`` and only by the kernel; the plain
-versions need no bound.
+Live-extent contract (keyword-only ``extent``, routed counts and
+routed hit lists): an optional (T,) int32 ``live_extent(alive)`` (any
+larger value will do): no slot at or past ``extent[t]`` is alive, so
+the kernel stops there.  It is read only beside ``alive`` and only by
+the kernel; the plain versions need no bound.
+
+Hit lists (``gathered_hit_list*``): the nonzeros of the routed masks
+as int64 ``(query, tile, slot)``, in the order of ``nonzero`` over the
+flattened ``(Q, F·cap)`` table (a ``-1`` candidate holds no hits).
+The kernels count, scan and emit without the table; the plain version
+builds it in ``hit_table_blocks``.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ from . import kernel, ref
 from .kernel import CHUNK  # noqa: F401  (re-export: staging chunks on this)
 
 _SKIP_RATE_BLOCK = 1 << 24   # (query, candidate, chunk) tests per block
+_HIT_TABLE_BYTES = 1 << 31   # bytes of the plain hit list's table block
 
 
 def _gather(table: torch.Tensor, cand: torch.Tensor, pad_value
@@ -173,6 +180,94 @@ def gathered_mask_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
         qboxes.float(), gathered_rows(tiles, cand),
         gathered_chunk_boxes(cboxes, cand),
         None if alive is None else gathered_alive(alive, cand))
+
+
+def gathered_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor,
+                      cand: torch.Tensor, *,
+                      alive: torch.Tensor | None = None,
+                      extent: torch.Tensor | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every hit of the routed probe: (Q, 4), (T, cap, 4), (Q, F) ->
+    int64 ``(query, tile, slot)``, the nonzeros of ``gathered_mask``
+    in flat (query, candidate, slot) order."""
+    if tiles.is_cuda:
+        q, c = _kargs(qboxes, cand)
+        return tuple(kernel.gather_hits(q, tiles, c, alive=alive,
+                                        extent=extent))
+    return plain_hit_list(qboxes, tiles, cand, alive=alive)
+
+
+def gathered_hit_list_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
+                           cboxes: torch.Tensor, cand: torch.Tensor, *,
+                           alive: torch.Tensor | None = None,
+                           extent: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Chunk-skipping ``gathered_hit_list``: the nonzeros of
+    ``gathered_mask_skip``."""
+    if tiles.is_cuda:
+        q, c = _kargs(qboxes, cand)
+        return tuple(kernel.gather_hits_skip(q, tiles, cboxes, c, alive=alive,
+                                             extent=extent))
+    return plain_hit_list(qboxes, tiles, cand, cboxes, alive=alive)
+
+
+def hit_table_blocks(cand: torch.Tensor, cap: int, budget: int | None = None
+                     ) -> list[tuple[slice, int]]:
+    """How the plain hit list cuts one batch into routed hit tables ->
+    ``[(query rows, width), ...]``.
+
+    The full (Q, F, cap) table can exceed any memory (1024 x 448 x 135k
+    is 62 GB); ``F`` is the batch's widest fan-out, ratcheted, so most
+    columns are -1 padding, which has no hits.  Each block of
+    consecutive queries keeps only the candidate columns up to its last
+    live one, and holds at most ``budget`` bytes of table (default
+    ``_HIT_TABLE_BYTES``; at least one query).  Blocks whose queries
+    have no live candidate are left out: they hit nothing.
+    """
+    budget = _HIT_TABLE_BYTES if budget is None else budget
+    q, f = cand.shape
+    col = torch.arange(1, f + 1, device=cand.device)
+    width = ((cand >= 0) * col).amax(1).tolist() if f else [0] * q
+    blocks, i = [], 0
+    while i < q:
+        j, w = i, 0
+        while j < q and (j == i or max(w, width[j]) * cap * (j + 1 - i)
+                         <= budget):
+            w = max(w, width[j])
+            j += 1
+        if w:
+            blocks.append((slice(i, j), w))
+        i = j
+    return blocks
+
+
+def plain_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor,
+                   cand: torch.Tensor, cboxes: torch.Tensor | None = None, *,
+                   alive: torch.Tensor | None = None,
+                   budget: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of both hit lists, on any device: the ``ref``
+    table of each of ``hit_table_blocks(cand, cap, budget)``, then its
+    ``nonzero``; ``cboxes`` selects the chunk-masked table."""
+    qboxes = qboxes.float()
+    parts = []
+    for rows, w in hit_table_blocks(cand, tiles.shape[1], budget):
+        cd = cand[rows, :w]
+        galive = None if alive is None else gathered_alive(alive, cd)
+        if cboxes is None:
+            mask = ref.gathered_mask(qboxes[rows], gathered_rows(tiles, cd),
+                                     galive)
+        else:
+            mask = ref.gathered_mask_skip(
+                qboxes[rows], gathered_rows(tiles, cd),
+                gathered_chunk_boxes(cboxes, cd), galive)
+        bq, bf, bs = mask.nonzero(as_tuple=True)     # -1 columns are empty
+        parts.append((bq + rows.start, cd[bq, bf].long(), bs))
+    if not parts:
+        empty = torch.zeros(0, dtype=torch.int64, device=qboxes.device)
+        return empty, empty, empty
+    return tuple(torch.cat(x) for x in zip(*parts))
 
 
 def chunk_skip_rate(qboxes: torch.Tensor, cboxes: torch.Tensor,

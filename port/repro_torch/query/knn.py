@@ -247,8 +247,9 @@ def pruned_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,
     the nearest tile not in the frontier, from
     ``serve.router.candidate_knn``.  ``chunk_boxes`` selects the
     chunk-skipping kernels (same bits); ``extent``, the ``live_extent``
-    of ``alive``, lets the deepening's count kernels stop at each tile's
-    last alive slot.  ``overflow`` flags a query
+    of ``alive``, lets the deepening's count kernels and the
+    refinement's hit-list kernels stop at each tile's last alive slot.
+    ``overflow`` flags a query
     whose refinement box held more than ``max_cand`` candidates or
     whose refinement radius reached ``excluded``.  Rows whose
     candidates are all ``-1`` start at the covering radius.
@@ -271,7 +272,8 @@ def pruned_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,
     re = r * _SQRT2_F32
     nn_ids, nn_d2, n_cand = knn_partial(pts, canon_tiles, ids, cand, re, k,
                                         max_cand=max_cand,
-                                        chunk_boxes=chunk_boxes, alive=alive)
+                                        chunk_boxes=chunk_boxes, alive=alive,
+                                        extent=extent)
     overflow = (n_cand > max_cand) | (excluded <= re)
     return nn_ids, nn_d2, r, overflow, rounds
 
@@ -280,7 +282,8 @@ def knn_partial(pts: torch.Tensor, canon_tiles: torch.Tensor,
                 ids: torch.Tensor, cand: torch.Tensor, re: torch.Tensor,
                 k: int, max_cand: int = 1024,
                 chunk_boxes: torch.Tensor | None = None,
-                alive: torch.Tensor | None = None
+                alive: torch.Tensor | None = None, *,
+                extent: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Refinement over candidate tiles: top-k within ``[pt ± re]``.
 
@@ -288,11 +291,12 @@ def knn_partial(pts: torch.Tensor, canon_tiles: torch.Tensor,
     ``(nn_ids[Q, k], nn_d2[Q, k], n_cand[Q])``, ``n_cand`` the hits
     with an id ``>= 0``.  The reference gathers ``(Q, F·cap, 4)``
     member boxes (17.7 GB at Q = 1024, F = 8, cap = 135,296); here the
-    gathered mask is built in ``range.hit_table_blocks`` and boxes and
-    ids are gathered for the hit slots only.
+    hits come from ``range.gathered_hits`` (on the card without the
+    gathered mask; ``extent`` as there) and boxes and ids are gathered
+    for the hit slots only.
     """
     qi, ti, si = range_mod.gathered_hits(_qboxes(pts, re), canon_tiles, cand,
-                                         chunk_boxes, alive)
+                                         chunk_boxes, alive, extent=extent)
     return _refine_topk(k, pts, qi, ti, si, canon_tiles, ids, max_cand)
 
 

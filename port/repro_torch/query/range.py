@@ -11,10 +11,13 @@ unique counts and id sets with no dedup work.  Two executors:
 - pruned (``pruned_range_counts``, ``pruned_range_ids``): each query's
   routed ``(Q, F)`` candidate tiles only, O(Q·F·cap).
 
-Both id executors build their hit tables in blocks of at most
-``_HIT_TABLE_BYTES`` and keep only the hits, as ``(query, tile, slot)``
+Both id executors keep only the hits, as ``(query, tile, slot)``
 triples in the reference's flat order (``dense_hits``,
-``gathered_hits``); ``query.knn`` refines from the same triples.
+``gathered_hits``); ``query.knn`` refines from the same triples.  The
+dense one builds its hit table in blocks of at most
+``_HIT_TABLE_BYTES``; the pruned one takes the routed hit lists, which
+on the card count, scan and emit the hits with no table (the plain
+version builds it in ``ops.hit_table_blocks``).
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from ..kernels.range_probe import ops as rops
 
 _BIG_ID = 2**30
-_HIT_TABLE_BYTES = 1 << 31   # bytes of (query, candidate, slot) hit table
+_HIT_TABLE_BYTES = 1 << 31   # bytes of (query, tile, slot) dense hit table
 
 
 def range_query_ref(mbrs: np.ndarray, qboxes: np.ndarray) -> list[np.ndarray]:
@@ -81,25 +84,20 @@ def dense_hits(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
 def gathered_hits(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
                   cand: torch.Tensor,
                   chunk_boxes: torch.Tensor | None = None,
-                  alive: torch.Tensor | None = None
+                  alive: torch.Tensor | None = None, *,
+                  extent: torch.Tensor | None = None
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every hit of the routed probe -> int64 ``(query, tile, slot)``, in
     (query, candidate, slot) order: the order of the reference's
     flattened ``(Q, F·cap)`` gathered hit table (a ``-1`` candidate
-    holds no hits).  The table is built in ``hit_table_blocks``."""
-    cap = canon_tiles.shape[1]
-    parts = []
-    for rows, w in hit_table_blocks(cand, cap):
-        cd = cand[rows, :w]
-        if chunk_boxes is None:
-            mask = rops.gathered_mask(qboxes[rows], canon_tiles, cd,
-                                      alive=alive)
-        else:
-            mask = rops.gathered_mask_skip(qboxes[rows], canon_tiles,
-                                           chunk_boxes, cd, alive=alive)
-        bq, bf, bs = mask.nonzero(as_tuple=True)   # -1 columns are empty
-        parts.append((bq + rows.start, cd[bq, bf].long(), bs))
-    return _cat_hits(parts, qboxes.device)
+    holds no hits).  ``ops.gathered_hit_list{,_skip}``: on the card no
+    table is built and ``extent``, the ``live_extent`` of ``alive``,
+    lets the kernels stop at each tile's last alive slot."""
+    if chunk_boxes is None:
+        return rops.gathered_hit_list(qboxes, canon_tiles, cand, alive=alive,
+                                      extent=extent)
+    return rops.gathered_hit_list_skip(qboxes, canon_tiles, chunk_boxes,
+                                       cand, alive=alive, extent=extent)
 
 
 def ids_answer(qi: torch.Tensor, hid: torch.Tensor, q: int, max_hits: int
@@ -165,46 +163,19 @@ def pruned_range_counts(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
     return per.sum(1, dtype=torch.int32)
 
 
-def hit_table_blocks(cand: torch.Tensor, cap: int
-                     ) -> list[tuple[slice, int]]:
-    """How ``gathered_hits`` cuts one batch into launches of the
-    gathered hit-table kernel -> ``[(query rows, width), ...]``.
-
-    The full (Q, F, cap) table can exceed the card (1024 x 448 x 135k
-    is 62 GB); ``F`` is the batch's widest fan-out, ratcheted, so most
-    columns are -1 padding, which has no hits.  Each block of
-    consecutive queries keeps only the candidate columns up to its last
-    live one, and holds at most ``_HIT_TABLE_BYTES`` of table (at least
-    one query).  Blocks whose queries have no live candidate are left
-    out: they hit nothing.
-    """
-    q, f = cand.shape
-    col = torch.arange(1, f + 1, device=cand.device)
-    width = ((cand >= 0) * col).amax(1).tolist() if f else [0] * q
-    blocks, i = [], 0
-    while i < q:
-        j, w = i, 0
-        while j < q and (j == i or max(w, width[j]) * cap * (j + 1 - i)
-                         <= _HIT_TABLE_BYTES):
-            w = max(w, width[j])
-            j += 1
-        if w:
-            blocks.append((slice(i, j), w))
-        i = j
-    return blocks
-
-
 def pruned_range_ids(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
                      ids: torch.Tensor, cand: torch.Tensor, max_hits: int,
                      chunk_boxes: torch.Tensor | None = None,
-                     alive: torch.Tensor | None = None
+                     alive: torch.Tensor | None = None, *,
+                     extent: torch.Tensor | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact per-query unique hit-id sets from candidate tiles only.
 
     ids: (T, cap) int32 (-1 padding); cand: (Q, F) int32 (-1 padding)
     -> ``(hit_ids[Q, max_hits] int32, counts[Q] int32, overflow[Q])``:
-    as ``ids_answer``.  The reference's (Q, F, cap) table is built in
-    the blocks of ``hit_table_blocks``.
+    as ``ids_answer``.  The hits come from ``gathered_hits`` (``extent``
+    as there): on the card without the reference's (Q, F, cap) table.
     """
-    qi, ti, si = gathered_hits(qboxes, canon_tiles, cand, chunk_boxes, alive)
+    qi, ti, si = gathered_hits(qboxes, canon_tiles, cand, chunk_boxes, alive,
+                               extent=extent)
     return ids_answer(qi, ids[ti, si], qboxes.shape[0], max_hits)

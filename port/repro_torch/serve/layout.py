@@ -216,9 +216,9 @@ class ReplicatedTiles:
         # the executors read canonical data only: drop the all-copies
         # member tiles instead of keeping (T, cap, 4) bytes resident
         self.staged = dataclasses.replace(layout, tiles=None)
-        # (T,) int32 live extent of the alive mask: the routed count
-        # kernels stop each tile's walk there (ingest must keep it in
-        # step with ``alive``)
+        # (T,) int32 live extent of the alive mask: the routed count and
+        # hit-list kernels stop each tile's walk there (ingest must keep
+        # it in step with ``alive``)
         self.extent = rops.live_extent(layout.alive)
         self.stats = dict(stats, placement=config.placement,
                           probe=config.probe, restages=0, compactions=0,
@@ -248,7 +248,7 @@ class ReplicatedTiles:
         lay = self.staged
         hit_ids, counts, overflow = range_mod.pruned_range_ids(
             qboxes, lay.canon_tiles, lay.ids, cand, max_hits,
-            chunk_boxes=lay.chunk_boxes, alive=lay.alive)
+            chunk_boxes=lay.chunk_boxes, alive=lay.alive, extent=self.extent)
         return hit_ids, counts, overflow, dict(skew=1.0)
 
     def knn_attempt(self, pts, k: int, max_cand: int, f: int):

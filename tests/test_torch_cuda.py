@@ -124,6 +124,55 @@ def test_count_kernels_runs_padding_and_empty_tiles(cap, alive):
     assert torch.equal(got.cpu(), torch.zeros((7, f), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("boxes", [None, "bounding", "arbitrary"])
+@pytest.mark.parametrize("alive", [None, "random"])
+@pytest.mark.parametrize("cap", [257, 20_000])
+def test_hit_list_kernels_match_plain_version(cap, alive, boxes):
+    """The routed hit lists (count, scan, emit) at their edges, bit-equal
+    to the plain version and to the nonzeros of the mask kernel's
+    table: 280 queries on one tile (three runs of up to 128), a query
+    whose box holds all of that tile (hits far past a warp, and across
+    the 8,192-slot segments at 20,000 slots), all -1 rows, tiles whose
+    extent is 0, below cap and cap; with and without the extent."""
+    _need_cuda()
+    t, f = 5, 6
+    qb, tiles, cand, al, cb = _case(300, t, cap, f, alive, boxes or
+                                    "bounding")
+    cb = None if boxes is None else cb
+    cand[:, 0] = 0                     # every query probes tile 0
+    cand[40:60] = -1                   # all -1 rows
+    qb[0] = torch.tensor([-1.0, -1.0, 2.0, 2.0])   # holds all of tile 0
+    if al is not None:
+        al[2] = False                  # extent 0
+        al[3, cap // 2:] = False       # extent below cap
+        al[1, cap - 1] = True          # extent == cap
+    ext = None if al is None else ops.live_extent(al)
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    name = "gather_hits" if cb is None else "gather_hits_skip"
+    extra = () if cb is None else (cb,)
+    fn = "gathered_hit_list" + ("" if cb is None else "_skip")
+    want = getattr(ops, fn)(qb, tiles, *extra, cand, alive=al)
+    assert int((want[0] == 0).sum()) > (8192 if cap > 8192 else 32)
+    table = getattr(kernel, name.replace("hits", "mask"))(
+        dev(qb), dev(tiles), *map(dev, extra), dev(cand), alive=dev(al))
+    bq, bf, bs = table.nonzero(as_tuple=True)
+    for w, x in zip(want, (bq, dev(cand)[bq, bf].long(), bs)):
+        assert torch.equal(x.cpu(), w)
+    for e in (None, ext):
+        kernel.reset_launches()
+        got = getattr(ops, fn)(dev(qb), dev(tiles), *map(dev, extra),
+                               dev(cand), alive=dev(al), extent=dev(e))
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == dict(
+            {k: 0 for k in kernel.LAUNCHES}, **{name: 1})
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int64 and torch.equal(g.cpu(), w)
+    empty = torch.full((7, f), -1, dtype=torch.int32)
+    got = getattr(ops, fn)(dev(qb[:7]), dev(tiles), *map(dev, extra),
+                           dev(empty), alive=dev(al), extent=dev(ext))
+    assert all(g.shape == (0,) for g in got)
+
+
 @pytest.mark.parametrize("alive", [None, "random"])
 @pytest.mark.parametrize("boxes", ["bounding", "arbitrary"])
 @pytest.mark.parametrize("q,t,cap", [(1, 1, 1), (7, 2, 1024), (130, 5, 257),

@@ -22,6 +22,7 @@ from repro.serve import router as jrouter, stage_tiles as jstage
 from repro.serve import ServeConfig as JConfig
 from repro_torch.core.fma import sqrt32
 from repro_torch.core.partition import api as tapi
+from repro_torch.kernels.range_probe import ops as tops
 from repro_torch.query import knn as tknn, range as trange
 from repro_torch.serve import router as trouter
 from repro_torch.serve.layout import staged_from_numpy
@@ -237,7 +238,7 @@ def test_knn_partial_matches_repro(data, staged, li, blocked, monkeypatch):
     _, jl, _, tl = staged["bsp", li]
     ja, ta = _alive(jl, "random")
     if blocked:
-        monkeypatch.setattr(trange, "_HIT_TABLE_BYTES",
+        monkeypatch.setattr(tops, "_HIT_TABLE_BYTES",
                             3 * 2 * tl.ids.shape[1])
     pts = _pts(13)
     (jc, _), (tc, _) = _frontier(jl, pts, 6)

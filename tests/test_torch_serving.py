@@ -24,6 +24,7 @@ from repro.query import knn as jknn
 from repro.serve import router as jrouter
 from repro_torch.core.partition import api as tapi
 from repro_torch.data import spatial_gen as tgen
+from repro_torch.kernels.range_probe import ops as tops
 from repro_torch.query import range as trange
 from repro_torch.serve import PlacementPolicy
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
@@ -96,7 +97,7 @@ def test_range_ids_in_small_hit_table_blocks_match_repro(
     live candidate columns, give repro's answer bit for bit."""
     js, ts = servers[local_index]
     cap = ts.stats["cap"]
-    monkeypatch.setattr(trange, "_HIT_TABLE_BYTES", 3 * 2 * cap)
+    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES", 3 * 2 * cap)
     qb = _qboxes(6, NQ, 0.02)
     want = js.range_ids(jnp.asarray(qb), max_hits=8)
     got = ts.range_ids(qb, max_hits=8)
@@ -105,12 +106,12 @@ def test_range_ids_in_small_hit_table_blocks_match_repro(
 
 
 def test_hit_table_blocks_cover_live_candidates_within_budget(monkeypatch):
-    monkeypatch.setattr(trange, "_HIT_TABLE_BYTES", 1000)
+    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES", 1000)
     rng = np.random.default_rng(7)
     cand = np.where(rng.random((50, 12)) < 0.3,
                     rng.integers(0, 9, (50, 12)), -1).astype(np.int32)
     cand[5] = -1                                   # a query with no tile
-    blocks = trange.hit_table_blocks(torch.from_numpy(cand), cap=40)
+    blocks = tops.hit_table_blocks(torch.from_numpy(cand), cap=40)
     seen = np.zeros(50, bool)
     for rows, w in blocks:
         seen[rows] = True
