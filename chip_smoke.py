@@ -38,33 +38,41 @@ before each path and read just after it) and its wall seconds:
    differently, so its answer is the staging's own.  The gathered
    kernels' launch counts are read right after (hit lists launched, no
    hit table).
-4. dense  -- the dense oracle (``pruned=False``) on the "x" server:
-   range_counts on the first counts batch (Q = 4096), range_ids and
-   knn on the first 256 boxes / points of the first ids and kNN
-   batches (each row's (T, cap) hit table is 277 MB, so the dense id
-   and kNN paths are kept to 256 rows).  Each must equal the pruned
-   answer bit for bit (kNN: on every point that neither side flags).
-   The dense kernels' launch counts are read right after.
+4. dense  -- the dense oracle (``pruned=False``) on the "x" server,
+   on whole batches: range_counts on the first counts batch (Q =
+   4096), range_ids and knn on the first ids and kNN batches (1024
+   rows each), three timed calls each plus one profiled (device time,
+   the five largest items, peak memory), and range_ids and knn on
+   their first 256 rows as well (the size earlier runs timed).  Each
+   must equal the pruned answer bit for bit (kNN: on every point that
+   neither side flags) and the on-card brute force (1024 counts, every
+   ids query, 256 kNN points the dense side does not flag): the oracle
+   and the pruned path share the tile-major probe.  The launch counts
+   are read right after: ``dense_counts`` and ``dense_hits`` must have
+   launched, the block-per-tile ``count`` and ``mask`` not at all.
 5. kernels -- each of the range-probe kernels against its plain
    PyTorch version on the card, at the shapes its path gives it
    (routed counts: a routed counts batch; routed hit lists: the ids
    batch whole and one kNN refinement call at its own radii; routed
-   tables: the old ids executor's largest hit-table block; dense: the
-   Q = 4096 counts batch, the dense executor's hit-table block): the
-   path's own inputs (staged alive mask, bounding chunk boxes), then
-   ``alive`` None and a random mask and, for the skip kernels, chunk
-   boxes that do not bound their members; the routed count and hit
-   list kernels take the live extent of each alive mask.  Results must
-   be bit-equal.  The hit lists' rows give each stage's time
-   (grouping, count, scan, emit) and the old extraction's on the same
-   inputs (the table kernel and ``nonzero`` over ``hit_table_blocks``,
-   which must give the same list), beside the table kernel's time.  Kernel times come from CUDA
-   events, plain times from the host clock.  The routed count kernels
-   are also timed without the extent (bit-equal), and their rows give
-   the grouping pass's time, the live pairs, the -1 share, the extents
-   and the bound over all of cap beside the bound at the extent.  The dense skip pair has no serving caller (repro
-   launches it from tests only), so it is launched from this phase
-   only and its row says so.
+   tables: the old ids executor's largest hit-table block; dense
+   counts: the Q = 4096 counts batch; the dense hit list: the ids
+   batch whole and the dense kNN's refinement; dense tables: the old
+   dense executor's hit-table block): the path's own inputs (staged
+   alive mask, bounding chunk boxes), then ``alive`` None and a random
+   mask and, for the skip kernels, chunk boxes that do not bound their
+   members; the count and hit list kernels take the live extent of
+   each alive mask.  Results must be bit-equal.  The hit lists' rows
+   give each stage's time (grouping, count, scan, emit) and the old
+   extraction's on the same inputs (the table kernel and ``nonzero``
+   over its blocks, which must give the same list), beside the table
+   kernel's time.  Kernel times come from CUDA events, plain times
+   from the host clock.  The count kernels are also timed without the
+   extent (bit-equal), the dense ones with cp.async staging and in the
+   old block-per-(tile, query block) design (``count``, bit-equal), and
+   their rows give the grouping pass's time and the bound over all of
+   cap beside the bound at the extent.  The dense skip pair has no
+   serving caller (repro launches it from tests only), so it is
+   launched from this phase only and its row says so.
 6. partition -- the six Table-1 partitioners on the join's merged pi
    input (8 M objects) at payload 4096: seconds, k, and the paper's
    lambda, balance stddev, skew and coverage; hc's encode launches.
@@ -140,7 +148,7 @@ BATCHES, ID_BATCHES = 20, 5
 CHECK_Q = 1024         # queries of the first counts batch brute-forced
 Q_KNN, KNN_BATCHES, K, MAX_CAND = 1024, 5, 10, 1024
 CHECK_KNN = 256        # points of the first kNN batch brute-forced
-DENSE_ROWS = 256       # rows of the dense range_ids and knn calls
+DENSE_ROWS = 256       # rows of the dense calls earlier runs timed
 STAGINGS = ("x", "off", "hilbert")
 INDEXED = ("x", "hilbert")  # stagings probed by the *_skip kernels
 METHODS = ("fg", "bsp", "slc", "bos", "str", "hc")
@@ -165,10 +173,14 @@ HIT_BYTES = 3 * 8      # a hit's (query, tile, slot), int64
 PLAIN_TABLE = 80_000_000   # table bytes a block of the plain hit list (its
                            # gathered boxes and temporaries about 25x that)
 DENSE_CASES = {  # dense entry point -> the TPU kernel it replaces
-    "count": f"{TPU}:106",
-    "mask": f"{TPU}:126",
+    "dense_counts": f"{TPU}:106",
+    "dense_hits": f"{TPU}:126",
     "count_skip": f"{TPU}:329",
     "mask_skip": f"{TPU}:354",
+}
+DENSE_OLD = {  # dense path entry -> the block-per-tile kernel it replaced
+    "dense_counts": "count",
+    "dense_hits": "mask",
 }
 BF16_FLOPS_PER_S = 989e12     # H100 SXM, dense bf16 tensor cores
 LM_ARCH = "mamba2_1p3b"
@@ -453,52 +465,82 @@ def knn_phase(torch, servers, mbrs, dev):
     return batches[0], answers["x"][0], launches
 
 
-def dense_phase(torch, srv, qc, qi, pts, pruned_x, pruned_knn):
-    """The dense oracle against the pruned answers of the same inputs
-    -> the dense kernels' launches and each call's wall ms."""
+def dense_phase(torch, srv, mbrs, qc, qi, pts, pruned_x, pruned_knn):
+    """The dense oracle on whole batches against the pruned answers of
+    the same inputs and the on-card brute force -> the dense kernels'
+    launches."""
+    from repro_torch.core import geometry
     from repro_torch.kernels.range_probe import kernel
+    from repro_torch.query import knn as knn_mod
 
     kernel.reset_launches()
-    torch.cuda.reset_peak_memory_stats()
     calls = {}
 
-    def timed(name, fn):
+    def timed(name, fn, reps=3):
+        """``reps`` timed calls and one profiled -> the first answer."""
         before = dict(kernel.LAUNCHES)
-        t0 = time.perf_counter()
-        out = fn()
         torch.cuda.synchronize()
-        calls[name] = dict(ms=(time.perf_counter() - t0) * 1e3, launches={
-            k: v - before[k] for k, v in kernel.LAUNCHES.items()
-            if v != before[k]})
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        ms, out = [], None
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out = got if out is None else out
+        peak = torch.cuda.max_memory_allocated()
+        dev_ms, top = device_busy(torch, fn, 1)
+        calls[name] = dict(
+            ms=ms, p50_ms=median(ms), device_ms=dev_ms, top_device=top,
+            idle_share=1 - dev_ms / median(ms), peak_bytes=peak,
+            peak_above_resident=peak - resident,
+            launches_per_call={k: (v - before[k]) / (reps + 1)
+                               for k, v in kernel.LAUNCHES.items()
+                               if v != before[k]})
         return out
 
     counts, _ = timed("range_counts", lambda: srv.range_counts(
         qc, pruned=False))
     if not torch.equal(counts, pruned_x["counts"][0]):
         raise AssertionError("dense range_counts differ from pruned")
-    qd = qi[:DENSE_ROWS]
+    check_counts(torch, geometry, mbrs, qc[:CHECK_Q], counts[:CHECK_Q])
     ids = timed("range_ids", lambda: srv.range_ids(
-        qd, max_hits=MAX_HITS, pruned=False))
-    want = [x[:DENSE_ROWS] for x in pruned_x["ids"][0]]
-    if not all(torch.equal(u, v) for u, v in zip(ids[:3], want)):
+        qi, max_hits=MAX_HITS, pruned=False))
+    if not all(torch.equal(u, v) for u, v in zip(ids[:3],
+                                                 pruned_x["ids"][0])):
         raise AssertionError("dense range_ids differ from pruned")
+    check_ids(torch, geometry, mbrs, qi, *ids[:3], MAX_HITS)
+    timed("range_ids_256", lambda: srv.range_ids(
+        qi[:DENSE_ROWS], max_hits=MAX_HITS, pruned=False))
     nn_ids, nn_d2, ovf, st = timed("knn", lambda: srv.knn(
-        pts[:DENSE_ROWS], K, max_cand=MAX_CAND, pruned=False))
-    p_ids, p_d2, p_ovf = (x[:DENSE_ROWS] for x in pruned_knn)
+        pts, K, max_cand=MAX_CAND, pruned=False))
+    p_ids, p_d2, p_ovf = pruned_knn
     ok = ~(ovf | p_ovf)
     if not (torch.equal(nn_ids[ok], p_ids[ok])
             and torch.equal(nn_d2[ok], p_d2[ok])):
         raise AssertionError("dense kNN differs from pruned")
+    want_ids, want_d2 = knn_brute(torch, knn_mod, mbrs, pts[:CHECK_KNN], K)
+    mine = ~ovf[:CHECK_KNN]
+    if not (torch.equal(nn_ids[:CHECK_KNN][mine], want_ids[mine])
+            and torch.equal(nn_d2[:CHECK_KNN][mine], want_d2[mine])):
+        raise AssertionError("dense kNN disagrees with the brute force")
+    timed("knn_256", lambda: srv.knn(pts[:DENSE_ROWS], K, max_cand=MAX_CAND,
+                                     pruned=False))
     launches = dict(kernel.LAUNCHES)
-    for name in ("count", "mask"):
+    for name in DENSE_OLD:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the dense "
                                  f"path: {launches}")
-    emit(dict(phase="dense", counts_q=qc.shape[0], ids_q=DENSE_ROWS,
-              knn_q=DENSE_ROWS, calls=calls, knn_rounds=st["rounds"],
-              knn_flagged=int((~ok).sum()),
-              equal_to_pruned=True, launches=launches,
-              max_memory_allocated=torch.cuda.max_memory_allocated()))
+    for name in DENSE_OLD.values():
+        if launches[name]:
+            raise AssertionError(f"{name} was launched on the dense path: "
+                                 f"{launches}")
+    emit(dict(phase="dense", counts_q=qc.shape[0], ids_q=qi.shape[0],
+              knn_q=pts.shape[0], calls=calls, knn_rounds=st["rounds"],
+              knn_flagged=int((~ok).sum()), equal_to_pruned=True,
+              brute_force_counts=CHECK_Q, brute_force_ids=qi.shape[0],
+              brute_force_knn=int(mine.sum()), launches=launches))
     return launches
 
 
@@ -899,12 +941,13 @@ def timed_cases(torch, name, k_of, plain_of, alives, boxes):
     return cases, worst
 
 
-def dense_kernel_phase(torch, srv, qc, qi, launches):
-    """The four dense kernels on the "x" staging: counts at the dense
-    counts batch (Q = 4096), masks at the dense executor's hit-table
-    block of the ids batch."""
-    from repro_torch.kernels.range_probe import kernel, ref
-    from repro_torch.query import range as range_mod
+def dense_kernel_phase(torch, srv, qc, qi, pts, launches):
+    """The dense kernels on the "x" staging: the tile-major counts at the
+    dense counts batch (Q = 4096), the dense hit list on the ids batch
+    and the dense kNN's refinement, and the chunk-skipping pair as
+    before (counts at Q = 4096, the table at the old dense executor's
+    hit-table block of the ids batch)."""
+    from repro_torch.kernels.range_probe import kernel, ops, ref
 
     lay = srv.layout
     tiles, alive, cbs = lay.canon_tiles, lay.alive, lay.chunk_boxes
@@ -914,74 +957,289 @@ def dense_kernel_phase(torch, srv, qc, qi, launches):
     jitter = torch.rand(cbs.shape, generator=gen, device=qc.device) * 0.02
     bad = torch.cat([cbs[..., :2] + jitter[..., :2],
                      cbs[..., 2:] - jitter[..., 2:]], dim=-1).contiguous()
-    rows = range_mod.dense_blocks(qi.shape[0], t * cap)[0]
-    entries = []
-    for name, replaces in DENSE_CASES.items():
-        skip, mask_out = name.endswith("_skip"), name.startswith("mask")
+    alives = (("staged", (alive, srv.tiles.extent)), ("none", (None, None)),
+              ("random", (rand_alive, ops.live_extent(rand_alive))))
+    entries = [
+        dense_count_entry(torch, kernel, ref, qc, tiles, alives, launches),
+        dense_hits_entry(torch, kernel, ops, ref, srv, qi, pts, tiles,
+                         alives, launches)]
+    rows = ops.dense_blocks(qi.shape[0], t * cap)[0]
+    for name in ("count_skip", "mask_skip"):
+        mask_out = name == "mask_skip"
         q = qi[rows] if mask_out else qc
         kfn = getattr(kernel, name)
         plain = getattr(ref, "probe_" + name.replace("count", "counts"))
 
         def k_of(al, cb):
-            return kfn(q, tiles, *((cb,) if skip else ()), alive=al)
+            return kfn(q, tiles, cb, alive=al[0])
 
         def plain_of(al, cb, block=8):
-            extra = (cb,) if skip else ()
             if mask_out:
-                return plain(q, tiles, *extra, al).transpose(0, 1)
-            return torch.cat([plain(q[i:i + block], tiles, *extra, al)
+                return plain(q, tiles, cb, al[0]).transpose(0, 1)
+            return torch.cat([plain(q[i:i + block], tiles, cb, al[0])
                               for i in range(0, q.shape[0], block)])
 
         cases, worst = timed_cases(
-            torch, name, k_of, plain_of,
-            (("staged", alive), ("none", None), ("random", rand_alive)),
-            (("bounding", cbs), ("non_bounding", bad)) if skip
-            else (("none", None),))
+            torch, name, k_of, plain_of, alives,
+            (("bounding", cbs), ("non_bounding", bad)))
         main = cases[0]
-        bytes_, ops_ = dense_bound_work(torch, ref, q, tiles, alive,
-                                        cbs if skip else None, mask_out)
-        b_ms = bytes_ / HBM_BYTES_PER_S * 1e3
-        o_ms = ops_ / FP32_OPS_PER_S * 1e3
+        work = dense_bound_work(torch, ref, q, tiles, alive, cbs, mask_out)
         entries.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=replaces,
-            launches=launches[name], max_abs_err=worst, ms=main["ms"],
-            plain_ms=main["plain_ms"], bound_ms=max(b_ms, o_ms),
-            bound_by="bytes" if b_ms >= o_ms else "operations",
-            library_ms=None, bit_equal=worst == 0,
-            on_serving_path=not skip,
-            launched_by="dense phase" if not skip else
-            "this phase only (repro launches it from tests only)",
+            name=name, route="cuda", source=SOURCE,
+            replaces=DENSE_CASES[name], launches=launches[name],
+            max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
+            bound_ms=work["bound_ms"], bound_by=work["bound_by"],
+            library_ms=None, bit_equal=worst == 0, on_serving_path=False,
+            launched_by="this phase only (repro launches it from tests "
+                        "only)",
             shape=dict(q=q.shape[0], t=t, cap=cap, c=cbs.shape[1]),
             cases=cases))
     return entries
 
 
+def plain_dense_counts(torch, ref, q, tiles, alive, block=8):
+    return torch.cat([ref.probe_counts(q[i:i + block], tiles, alive)
+                      for i in range(0, q.shape[0], block)])
+
+
+def dense_count_entry(torch, kernel, ref, q, tiles, alives, launches):
+    """Row 5: the tile-major dense counts (four queries a thread, to each
+    tile's extent) on the dense counts batch, in every alive case, held
+    to the plain version; beside them on the same inputs, each held to
+    it too: the same kernel without the extent, with cp.async staging,
+    and the old block-per-(tile, query block) ``count``."""
+    t, cap = tiles.shape[:2]
+    cases, worst = [], 0
+    for alive_name, (al, ext) in alives:
+        t0 = time.perf_counter()
+        want = plain_dense_counts(torch, ref, q, tiles, al)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+
+        def new(e=ext, al=al):
+            return kernel.dense_counts(q, tiles, alive=al, extent=e)
+
+        def old(al=al):
+            return kernel.count(q, tiles, alive=al)
+
+        case = dict(alive=alive_name, plain_ms=plain_ms)
+        for key, fn, reps in (("ms", new, 10),
+                              ("full_cap_ms", lambda: new(None), 10),
+                              ("old_design_ms", old, 3)):
+            if not torch.equal(fn(), want):
+                raise AssertionError(f"dense counts ({key}, alive="
+                                     f"{alive_name}) differ from the plain "
+                                     f"version")
+            case[key] = cuda_ms(torch, fn, reps)
+        kernel.ASYNC_COPY = True
+        try:
+            if not torch.equal(new(), want):
+                raise AssertionError(f"dense counts with cp.async (alive="
+                                     f"{alive_name}) differ")
+            case["async_ms"] = cuda_ms(torch, new, 10)
+        finally:
+            kernel.ASYNC_COPY = False
+        cases.append(case)
+    main = cases[0]
+    al, ext = alives[0][1]
+    work = dense_bound_work(torch, ref, q, tiles, al, None, False, ext)
+    return dict(
+        name="dense_counts", route="cuda", source=SOURCE,
+        replaces=DENSE_CASES["dense_counts"],
+        launches=launches["dense_counts"], max_abs_err=worst, ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=work["bound_ms"],
+        bound_by=work["bound_by"], library_ms=None, bit_equal=True,
+        design="tile-major, four queries a thread, to the extent",
+        old_design="count", old_design_ms=main["old_design_ms"],
+        old_launches=launches["count"],
+        bound_ms_full_cap=work["bound_ms_full_cap"],
+        group_ms=cuda_ms(torch, lambda: kernel.dense_group(tiles, ext), 10),
+        extent_sum=int(ext.long().sum()), alive_slots=int(al.sum()),
+        shape=dict(q=q.shape[0], t=t, cap=cap), cases=cases)
+
+
+def dense_refinement(torch, srv, pts):
+    """The query boxes of the dense kNN's refinement of ``pts``."""
+    from repro_torch.kernels.range_probe import ops
+    orig, seen = ops.dense_hit_list, []
+
+    def capture(qb, *args, **kw):
+        seen.append(qb)
+        return orig(qb, *args, **kw)
+
+    ops.dense_hit_list = capture
+    try:
+        srv.knn(pts, K, max_cand=MAX_CAND, pruned=False)
+    finally:
+        ops.dense_hit_list = orig
+    return seen[-1].float().contiguous()
+
+
+def old_dense_extraction(torch, kernel, ops, q, tiles, alive):
+    """The dense extraction before the hit list: ``mask``'s table over
+    ``dense_blocks`` (2 GiB each), then ``nonzero`` -> (3, H) int64."""
+    t, cap = tiles.shape[:2]
+    parts = []
+    for rows in ops.dense_blocks(q.shape[0], t * cap):
+        m = kernel.mask(q[rows].contiguous(), tiles, alive=alive)
+        bq, bt, bs = m.nonzero(as_tuple=True)
+        parts.append(torch.stack([bq + rows.start, bt, bs]))
+    return torch.cat(parts, 1)
+
+
+def dense_hit_stages(torch, kernel, q, tiles, alive, extent):
+    """CUDA-event ms of each stage of the dense hit list (one block), on
+    the path's own inputs, and the sizes that set them."""
+    t = tiles.shape[0]
+    kw = dict(alive=alive, extent=extent)
+    scratch = kernel.dense_group(tiles, extent)
+    seg = kernel.dense_hit_counts(q, tiles, scratch, **kw)
+    incl = seg.view(-1).cumsum(0)
+
+    def count():
+        return kernel.dense_hit_counts(q, tiles, scratch, **kw)
+
+    out = dict(
+        group_ms=cuda_ms(torch, lambda: kernel.dense_group(tiles, extent),
+                         10),
+        count_ms=cuda_ms(torch, count, 10),
+        scan_ms=cuda_ms(torch, lambda: seg.view(-1).cumsum(0), 10),
+        emit_ms=cuda_ms(torch, lambda: kernel.dense_emit_hits(
+            q, tiles, scratch, seg, incl, **kw), 10),
+        hits=int(incl[-1]), segments=seg.shape[2],
+        units=int(scratch[3 * t]), count_cells_bytes=seg.numel() * 4)
+    kernel.ASYNC_COPY = True
+    try:
+        if not torch.equal(count(), seg):
+            raise AssertionError("the dense hit count with cp.async "
+                                 "differs")
+        out["count_async_ms"] = cuda_ms(torch, count, 10)
+    finally:
+        kernel.ASYNC_COPY = False
+    return out
+
+
+def dense_hits_entry(torch, kernel, ops, ref, srv, qi, pts, tiles, alives,
+                     launches):
+    """Row 6: the dense hit list (count, scan, emit to each tile's
+    extent) held to its plain version (the reference's table in blocks,
+    then ``nonzero``) on the ids batch whole and on the dense kNN's
+    refinement, in every alive case; its stages; the old extraction on
+    the same inputs; and the old table kernel ``mask`` held to its
+    plain version on the old executor's table block."""
+    t, cap = tiles.shape[:2]
+    al0, ext0 = alives[0][1]
+
+    def pipeline(qq):
+        cases, worst = [], 0
+        for alive_name, (al, ext) in alives:
+            def fn(al=al, ext=ext):
+                return torch.stack(ops.dense_hit_list(qq, tiles, alive=al,
+                                                      extent=ext))
+            got = fn()
+            t0 = time.perf_counter()
+            want = torch.stack(ops.plain_dense_hit_list(qq, tiles, alive=al))
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(got, want):
+                raise AssertionError(f"dense_hits (alive={alive_name}) "
+                                     f"differs from its plain version")
+            full = torch.stack(ops.dense_hit_list(qq, tiles, alive=al))
+            if not torch.equal(full, want):
+                raise AssertionError("dense_hits differs without the extent")
+            cases.append(dict(alive=alive_name, ms=cuda_ms(torch, fn, 10),
+                              plain_ms=plain_ms, hits=got.shape[1]))
+        main = torch.stack(ops.dense_hit_list(qq, tiles, alive=al0,
+                                              extent=ext0))
+        old = old_dense_extraction(torch, kernel, ops, qq, tiles, al0)
+        if not torch.equal(old, main):
+            raise AssertionError("dense_hits: the old extraction gives "
+                                 "another list")
+        stages = dense_hit_stages(torch, kernel, qq, tiles, al0, ext0)
+        work = dense_bound_work(torch, ref, qq, tiles, al0, None, False, ext0,
+                                out_bytes=stages["hits"] * HIT_BYTES)
+        return dict(
+            ms=cases[0]["ms"], plain_ms=cases[0]["plain_ms"],
+            max_abs_err=worst, bound_ms=work["bound_ms"],
+            bound_by=work["bound_by"],
+            bound_ms_full_cap=work["bound_ms_full_cap"],
+            old_extraction_ms=cuda_ms(torch, lambda: old_dense_extraction(
+                torch, kernel, ops, qq, tiles, al0), 3),
+            stages=stages, q=qq.shape[0], cases=cases)
+
+    ids = pipeline(qi)
+    ids_256 = pipeline(qi[:DENSE_ROWS].contiguous())
+    knn = pipeline(dense_refinement(torch, srv, pts))
+
+    # the old table kernel, on the old dense executor's first table block
+    rows = ops.dense_blocks(qi.shape[0], t * cap)[0]
+    tq = qi[rows].contiguous()
+
+    def t_of(al, cb):
+        return kernel.mask(tq, tiles, alive=al[0])
+
+    def tplain_of(al, cb):
+        return ref.probe_mask(tq, tiles, al[0]).transpose(0, 1)
+
+    tcases, tworst = timed_cases(torch, "mask", t_of, tplain_of, alives,
+                                 (("none", None),))
+    twork = dense_bound_work(torch, ref, tq, tiles, al0, None, True)
+    return dict(
+        name="dense_hits", route="cuda", source=SOURCE,
+        replaces=DENSE_CASES["dense_hits"], launches=launches["dense_hits"],
+        max_abs_err=tworst, ms=ids["ms"], plain_ms=ids["plain_ms"],
+        bound_ms=ids["bound_ms"], bound_by=ids["bound_by"], library_ms=None,
+        bit_equal=tworst == 0, design="count, scan, emit, to the extent",
+        bound_ms_full_cap=ids["bound_ms_full_cap"],
+        old_design="mask + nonzero", old_design_ms=ids["old_extraction_ms"],
+        old_extraction_ms=ids["old_extraction_ms"], table_kernel="mask",
+        table_ms=tcases[0]["ms"], table_plain_ms=tcases[0]["plain_ms"],
+        table_bound_ms=twork["bound_ms"], table_launches=launches["mask"],
+        table_shape=dict(q=tq.shape[0], t=t, cap=cap), table_cases=tcases,
+        ids=ids, ids_256=ids_256, knn_refinement=knn)
+
+
 def dense_bound_work(torch, ref, q, tiles, alive, cboxes, mask_out,
-                     rows=16):
+                     extent=None, out_bytes=None, rows=16):
     """Least bytes and operations of one dense call on these inputs.
 
-    bytes: the queries, the alive flags, the boxes of alive slots (and
-    the chunk boxes), each read once, and the output written once.
-    operations: four float compares per (query, alive slot); with chunk
-    boxes, only the alive slots of chunks the query hits, plus four per
-    (query, chunk) test.
+    bytes: the queries, the alive flags (each tile's up to its
+    ``extent`` when given: no slot past it is alive; ``bound_ms_full_cap``
+    counts all of cap), the boxes of alive slots (and the chunk boxes),
+    each read once, and the output written once: (Q, T) counts, the
+    (Q, T, cap) table (``mask_out``) or, given ``out_bytes``, a hit
+    list's.  operations: four float compares per (query, alive slot);
+    with chunk boxes, only the alive slots of chunks the query hits,
+    plus four per (query, chunk) test.
     """
     t, cap = tiles.shape[:2]
     n_alive = int(alive.sum())
-    out_bytes = q.shape[0] * t * (cap if mask_out else 4)
-    bytes_ = q.numel() * 4 + t * cap + n_alive * 16 + out_bytes
-    if cboxes is None:
-        return bytes_, 4 * q.shape[0] * n_alive
-    n_chunks = cboxes.shape[1]
-    slot_alive = torch.cat([alive, alive.new_zeros(
-        t, n_chunks * 128 - cap)], dim=1)
-    per_chunk = slot_alive.reshape(t, n_chunks, 128).sum(2)
-    live_slots = 0
-    for i in range(0, q.shape[0], rows):
-        hit = ref.chunk_hits(q[i:i + rows], cboxes)       # (B, T, C)
-        live_slots += int((hit * per_chunk).sum())
-    return (bytes_ + cboxes.numel() * 4,
-            4 * live_slots + 4 * q.shape[0] * cboxes.shape[0] * n_chunks)
+    if out_bytes is None:
+        out_bytes = q.shape[0] * t * (cap if mask_out else 4)
+    flags = t * cap if extent is None else int(extent.long().sum())
+    fixed = q.numel() * 4 + n_alive * 16 + out_bytes
+    ops_ = 4 * q.shape[0] * n_alive
+    if cboxes is not None:
+        n_chunks = cboxes.shape[1]
+        slot_alive = torch.cat([alive, alive.new_zeros(
+            t, n_chunks * 128 - cap)], dim=1)
+        per_chunk = slot_alive.reshape(t, n_chunks, 128).sum(2)
+        live_slots = 0
+        for i in range(0, q.shape[0], rows):
+            hit = ref.chunk_hits(q[i:i + rows], cboxes)       # (B, T, C)
+            live_slots += int((hit * per_chunk).sum())
+        fixed += cboxes.numel() * 4
+        ops_ = 4 * live_slots + 4 * q.shape[0] * cboxes.shape[0] * n_chunks
+
+    def bound(b):
+        return max(b / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+
+    bytes_ = fixed + flags
+    return dict(
+        bytes=bytes_, ops=ops_, bound_ms=bound(bytes_),
+        bound_by=("bytes" if bytes_ / HBM_BYTES_PER_S >= ops_ / FP32_OPS_PER_S
+                  else "operations"),
+        bound_ms_full_cap=bound(fixed + t * cap))
 
 
 def median(xs):
@@ -1522,11 +1780,12 @@ def main() -> int:
     t1 = time.perf_counter()
     pts, pruned_knn, knn_launches = knn_phase(torch, servers, mbrs, dev)
     t2 = time.perf_counter()
-    dense_launches = dense_phase(torch, servers["x"], qc, qi, pts, pruned_x,
-                                 pruned_knn)
+    dense_launches = dense_phase(torch, servers["x"], mbrs, qc, qi, pts,
+                                 pruned_x, pruned_knn)
     t3 = time.perf_counter()
     entries = kernel_phase(torch, servers, qc, qi, pts, launches, calls)
-    entries += dense_kernel_phase(torch, servers["x"], qc, qi, dense_launches)
+    entries += dense_kernel_phase(torch, servers["x"], qc, qi, pts,
+                                  dense_launches)
     for e in entries:
         if e["name"] in CASES:
             e["knn_launches"] = knn_launches[e["name"]]
@@ -1579,7 +1838,8 @@ def main() -> int:
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         **{k: e[k] for k in ("bit_equal", "tolerance", "bound_ms_full_cap",
                              "design", "table_kernel", "table_ms",
-                             "old_extraction_ms") if k in e})
+                             "old_extraction_ms", "old_design",
+                             "old_design_ms") if k in e})
         for e in entries]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

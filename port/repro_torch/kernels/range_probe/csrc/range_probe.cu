@@ -12,14 +12,18 @@
 //   gather_mask_skip_pallas   (_gather_mask_skip_kernel, ..._alive_kernel)
 // Routed masks, a warp per pair (rp_gathered_mask): the same two TPU
 // kernels' (Q, F, cap) table itself, with no serving caller.
-// Dense (all-tile) entry points, rp_dense_probe:
+// Dense (all-tile) counts and hit lists, tile-major (rp_dense_group,
+// then rp_dense_tiles), the dense oracle's path, from:
 //   count_pallas              (_count_kernel, _count_alive_kernel)
 //   mask_pallas               (_mask_kernel, _mask_alive_kernel)
+// Dense entry points a block per (tile, 128-query block), rp_dense_probe:
 //   count_skip_pallas         (_count_skip_kernel, _count_skip_alive_kernel)
 //   mask_skip_pallas          (_mask_skip_kernel, _mask_skip_alive_kernel)
+//   and, off the serving path, count_pallas's counts and mask_pallas's
+//   (Q, T, cap) table themselves.
 // Three templated kernels, instantiated for skip/no-skip x alive/none
-// (and count/mask for the dense one, pair count/segment count/emit for
-// the tile-major one), compute what
+// (and count/mask for the dense one, pair count/segment count/emit and
+// routed/dense for the tile-major one), compute what
 // repro/kernels/range_probe/ref.py computes (gathered_* and probe_*
 // with their chunk-masked *_skip twins).
 //
@@ -80,9 +84,28 @@
 //      __popc prefix placing each hit after the pair's earlier ones, so
 //      the output is deterministic and in ascending slot order.
 // Both passes decide a hit by the same code on the same compacted
-// boxes, so a cell's count is exactly the number of hits it emits.
+// boxes, so a cell's count is exactly the number of hits it emits.  The
+// emit pass leaves a work item, and a pair, as soon as every hit its
+// cells counted is written, so items and steps without hits cost one
+// read of their cells.
 // Bound on the H100: bytes, the count pass's reads at the extent once
 // plus the hits written (3 x 8 bytes each).
+//
+// Dense counts and hit lists.  The dense oracle needs, for every query
+// and every tile, the tile's hit count (Q, T) or its hits as (query,
+// tile, slot) in flat order, not the (Q, T, cap) table.  Every tile is
+// a candidate of every query, so the routed passes run with F = T and
+// candidate f = tile f, and the routed flat (query, candidate, slot)
+// order is the dense (query, tile, slot) order.  The grouping is
+// implicit: the pairs of tile t are queries 0..Q-1 in order, so one
+// block's scan over the tiles' extents lists the (tile, segment) units
+// and each work item is (unit, run of queries), with no histogram, no
+// ranks and no scatter.  Each walk stops at its tile's live extent.
+// The count passes hold kDenseR queries a thread (runs of kDenseR x
+// 128 queries), so one shared-memory box read serves kDenseR tests.
+// Bound on the H100: counts by operations (four compares per (query,
+// alive slot)); the hit list by the larger of those compares and the
+// count pass's reads plus 24 B a hit.
 //
 // Routed masks.  One warp owns one (query, candidate) pair: lane c
 // tests chunk box c, a ballot gives the warp-uniform set of live
@@ -91,11 +114,14 @@
 // (Q, F, cap) output, written in full, skipped chunks included, so the
 // wrapper allocates it with torch.empty.
 //
-// Dense design.  The TPU grid streams one tile against one 128-query
-// block per cell; here one thread block owns one (tile, 128-query
-// block) and one thread owns one query, so a tile is read once per
-// query block instead of once per query.  The block walks the tile a
-// chunk (128 slots) at a time:
+// The block-per-(tile, query block) dense design (rp_dense_probe) is
+// what the chunk-skipping dense entries (count_skip, mask_skip) run,
+// and what the plain dense counts and (Q, T, cap) table run as
+// yardsticks beside the tile-major dense passes.  The TPU grid streams
+// one tile against one 128-query block per cell; here one thread block
+// owns one (tile, 128-query block) and one thread owns one query, so a
+// tile is read once per query block instead of once per query.  The
+// block walks the tile a chunk (128 slots) at a time:
 //   1. (skip) each thread tests its query against chunk box c; a chunk
 //      that no query of the block hits is skipped whole, and a query
 //      that misses it takes no hits from it (per-query predication);
@@ -328,6 +354,7 @@ constexpr int kRun = 128;                      // pairs per run, threads a block
 constexpr int kStep = 16 * kRun;               // slots per block step
 constexpr int kStepChunks = kStep / kChunk;    // 16
 constexpr int kSegSlots = 4 * kStep;           // slots per work item
+constexpr int kDenseR = 4;                     // dense counts: queries a thread
 constexpr int kGroupThreads = 256;
 constexpr int kGroupBlocks = 4096;
 constexpr int kScanThreads = 1024;
@@ -361,15 +388,17 @@ __device__ int block_exclusive_scan(int v, int* s_warp, int* total) {
   return excl;
 }
 
-// The grouping's scratch, int32, carved from one buffer.
+// The grouping's scratch, int32, carved from one buffer.  The dense
+// grouping lists (tile, segment) units in place of work items and needs
+// no hist, ranks or order.
 struct Groups {
   int32_t* hist;       // (T,) live pairs per tile
   int32_t* pair_off;   // (T,) first position of each tile's pairs in order
-  int32_t* item_off;   // (T,) first work item of each tile
-  int32_t* n_items;    // (1,) work items in all
+  int32_t* item_off;   // (T,) first work item (dense: unit) of each tile
+  int32_t* n_items;    // (1,) work items (dense: units) in all
   int32_t* rank;       // (pairs,) a pair's rank among its tile's, -1: padding
   int32_t* order;      // (pairs,) live pair indices in tile order
-  int32_t* item_tile;  // (max_items,) the tile of each work item
+  int32_t* item_tile;  // (max_items,) the tile of each work item (unit)
 };
 
 // A tile's slot walk ends at its live extent (with an alive mask and an
@@ -389,6 +418,13 @@ int64_t max_items(int T, int64_t pairs, int cap) {
 
 int64_t scratch_ints(int T, int64_t pairs, int cap) {
   return 3LL * T + 1 + 2 * pairs + max_items(T, pairs, cap);
+}
+
+int segments(int cap) { return (cap + kSegSlots - 1) / kSegSlots; }
+
+// The dense grouping: at most T * segments(cap) units, no pairs.
+int64_t dense_scratch_ints(int T, int cap) {
+  return 3LL * T + 1 + static_cast<int64_t>(T) * segments(cap);
 }
 
 Groups carve(void* scratch, int T, int64_t pairs) {
@@ -419,17 +455,20 @@ group_rank(const int32_t* __restrict__ cand, int64_t pairs, int T, Groups g,
 }
 
 // 2. one block: exclusive scans of pairs and work items over the tiles,
-//    and the tile of every work item
+//    and the tile of every work item.  Dense: every tile's pairs are all
+//    the queries, so only its (tile, segment) units up to its extent are
+//    listed; a work item is a unit and a run of queries.
 __global__ void __launch_bounds__(kScanThreads)
-group_scan(int T, const int32_t* __restrict__ extent, int cap, Groups g) {
+group_scan(int T, const int32_t* __restrict__ extent, int cap, Groups g,
+           bool dense) {
   __shared__ int s_warp[kScanThreads / 32];
   int pairs_before = 0, items_before = 0;
   for (int t0 = 0; t0 < T; t0 += kScanThreads) {
     const int t = t0 + threadIdx.x;
-    const int h = t < T ? g.hist[t] : 0;
+    const int h = t >= T ? 0 : dense ? 1 : g.hist[t];
     const int segs =
         h ? (slot_limit(extent, t, cap) + kSegSlots - 1) / kSegSlots : 0;
-    const int items = (h + kRun - 1) / kRun * segs;
+    const int items = dense ? segs : (h + kRun - 1) / kRun * segs;
     int pairs_sum, items_sum;
     const int po = block_exclusive_scan(h, s_warp, &pairs_sum);
     const int io = block_exclusive_scan(items, s_warp, &items_sum);
@@ -506,6 +545,72 @@ __device__ __forceinline__ int count_rotated(const float4 qb,
   return acc;
 }
 
+// acc += hit(q, s): four chained compares into one predicate and one
+// predicated add (the compiler's own form of `acc += hit` spends two
+// instructions on the add).
+__device__ __forceinline__ void add_hit(int& acc, const float4 q,
+                                        const float4 s) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.le.f32 p, %1, %2;\n\t"
+      "setp.le.and.f32 p, %3, %4, p;\n\t"
+      "setp.le.and.f32 p, %5, %6, p;\n\t"
+      "setp.le.and.f32 p, %7, %8, p;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(acc)
+      : "f"(q.x), "f"(s.z), "f"(s.x), "f"(q.z), "f"(q.y), "f"(s.w),
+        "f"(s.y), "f"(q.w));
+}
+
+// Hits of the R query boxes qr among every stride-th box of s_box[beg,
+// end), added to acc: one shared-memory box read serves R tests, four
+// boxes an iteration so the loads overlap.
+template <int R>
+__device__ __forceinline__ void count_block(const float4 (&qr)[R],
+                                            int (&acc)[R],
+                                            const float4* s_box, int beg,
+                                            int end, int stride) {
+  int i = beg;
+  for (; i + 3 * stride < end; i += 4 * stride) {
+    float4 b[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) b[u] = s_box[i + u * stride];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int k = 0; k < R; ++k) add_hit(acc[k], qr[k], b[u]);
+  }
+  for (; i < end; i += stride) {
+    const float4 b = s_box[i];
+#pragma unroll
+    for (int k = 0; k < R; ++k) add_hit(acc[k], qr[k], b);
+  }
+}
+
+// A query box that hits nothing (every compare with NaN is false): the
+// unused query slots of a register-blocked thread.
+__device__ __forceinline__ float4 no_query() {
+  const float n = __int_as_float(0x7fffffff);
+  return make_float4(n, n, n, n);
+}
+
+// cp.async: 16 bytes from global to shared memory, past the registers.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's newest copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // What a tile-major pass does with the hits it finds.
 enum Mode {
   kPairCount = 0,  // add them to the pair's count, (Q, F)
@@ -513,7 +618,8 @@ enum Mode {
   kEmit = 2,       // write them as (query, tile, slot) at the cell's offset
 };
 
-// The arguments of one tile-major pass.
+// The arguments of one tile-major pass.  Dense passes take F = T: the
+// pair of query j and tile t is j * T + t.
 struct Probe {
   const float4* q;       // (Q, 4) query boxes
   const float4* tiles;   // (T, cap, 4) member boxes
@@ -521,6 +627,7 @@ struct Probe {
   const uint8_t* alive;  // (T, cap) alive flags, or null
   const int32_t* extent; // (T,) live extents, or null
   Groups g;
+  int64_t Q;             // queries
   int F, cap, C, S;      // S = ceil(cap / kSegSlots)
   bool vec_alive;        // alive rows 16-byte aligned: one load a thread
   int32_t* counts;       // kPairCount: (Q, F); kSegCount and kEmit: (Q, F, S)
@@ -551,14 +658,80 @@ __device__ __forceinline__ int64_t emit_range(
   return cur;
 }
 
+// This thread's 16 slots of the step at `base`: their alive flags as
+// 0x01 bytes, kept where the slots' chunk is live (bit tid / 8 of
+// `live`) and the slot lies below `end`.
+template <bool ALIVE>
+__device__ __forceinline__ void load_flags(const Probe& p,
+                                           const uint8_t* arow, int base,
+                                           int end, unsigned live,
+                                           uint32_t (&f)[4]) {
+  const int tid = threadIdx.x;
+  const int s0 = base + 16 * tid;
+  const int n_in = end - s0;
+  f[0] = f[1] = f[2] = f[3] = 0u;
+  if (n_in <= 0 || !((live >> (tid >> 3)) & 1u)) return;
+  if (!ALIVE) {
+#pragma unroll
+    for (int w = 0; w < 4; ++w) f[w] = low_bytes(n_in - 4 * w);
+  } else if (p.vec_alive) {
+    const uint4 v = *reinterpret_cast<const uint4*>(arow + s0);
+    f[0] = v.x & low_bytes(n_in);
+    f[1] = v.y & low_bytes(n_in - 4);
+    f[2] = v.z & low_bytes(n_in - 8);
+    f[3] = v.w & low_bytes(n_in - 12);
+  } else {
+#pragma unroll
+    for (int w = 0; w < 4; ++w)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (4 * w + k < n_in)
+          f[w] |= static_cast<uint32_t>(arow[s0 + 4 * w + k] != 0) << (8 * k);
+  }
+}
+
+// Place this thread's flagged slots (step-relative) into s_slot from
+// position pos on, in slot order.
+__device__ __forceinline__ void write_slots(const uint32_t (&f)[4], int pos,
+                                            uint16_t* s_slot) {
+  const int tid = threadIdx.x;
+#pragma unroll
+  for (int w = 0; w < 4; ++w)
+    for (uint32_t m = f[w]; m; m &= m - 1u)
+      s_slot[pos++] = static_cast<uint16_t>(16 * tid + 4 * w +
+                                            ((__ffs(m) - 1) >> 3));
+}
+
+// ASYNC: compact the alive slots of the step at `base` into s_slot and
+// start copying their boxes into dst with cp.async, as one commit group
+// -> the step's box count.  Every thread of the block calls it.
+template <bool ALIVE>
+__device__ int stage_async(const Probe& p, const uint8_t* arow,
+                           const float4* trow, int base, int end,
+                           uint16_t* s_slot, int* s_warp, float4* dst) {
+  uint32_t f[4];
+  load_flags<ALIVE>(p, arow, base, end, 0xffffffffu, f);
+  int n;
+  const int pos = block_exclusive_scan(
+      __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]), s_warp, &n);
+  write_slots(f, pos, s_slot);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n; i += kRun)
+    cp_async16(dst + i, trow + base + s_slot[i]);
+  cp_async_commit();
+  return n;
+}
+
 // 4. blocks stride over the work items.  An item is (tile, run of up to
 //    128 pairs, segment of kSegSlots slots), so no block walks a long
-//    tile alone.  The block walks the segment kStep slots at a time.  A
+//    tile alone; dense, it is ((tile, segment) unit, run of queries),
+//    unit-major.  The block walks the segment kStep slots at a time.  A
 //    thread holds 16 slots' alive flags (one 16-byte load where the row
 //    is aligned), so a dead 512-slot stretch costs one warp load; a
 //    block scan compacts the alive slots of the step's live chunks, and
 //    their boxes are read once into shared memory, coalesced, in slot
-//    order.
+//    order (ASYNC: with cp.async into the other of two buffers while
+//    the previous step is probed).
 //    - Counting with chunk boxes, thread i tests the run's i-th query
 //      against the step's chunk boxes, and the same scan lists every
 //      (query, chunk) the query reaches; threads take the list's entries
@@ -566,64 +739,96 @@ __device__ __forceinline__ int64_t emit_range(
 //      warp never walks a chunk that only some of its queries reach.
 //      Hits gather per query in shared memory.
 //    - Counting without, every query meets every alive box: a run of n
-//      pairs takes parts = 128 / n' threads a pair (n' = n rounded up to
-//      a power of two, at least 32), each counting every parts-th box,
-//      so short runs still fill the block's warps.
+//      pairs takes parts = 128 / n' threads a pair (n' = n / R rounded up
+//      to a power of two, at least 32), each counting every parts-th box
+//      for its R queries (R = kDenseR dense, else 1), so short runs
+//      still fill the block's warps.
 //    - Emitting, warp w takes the run's pairs w, w + 4, ... and walks the
 //      boxes of the chunks its query reaches (all of them without chunk
 //      boxes) in order; each pair's next output position stays in
-//      shared memory from step to step.
+//      shared memory from step to step.  A pair whose cell is written
+//      out is passed over, and the item ends once all of its are.
 //    Counts are added with integer atomics.
-template <int MODE, bool SKIP, bool ALIVE>
+template <int MODE, bool SKIP, bool ALIVE, bool DENSE, bool ASYNC>
 __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   constexpr bool EMIT = MODE == kEmit;
   constexpr bool LIST = SKIP && !EMIT;  // the (query, chunk) work list
   constexpr bool SHARED_Q = SKIP || EMIT;
+  constexpr int R = DENSE && !EMIT ? kDenseR : 1;  // queries a thread
+  constexpr int kRunQ = kRun * R;                  // queries a run
   constexpr int kList = LIST ? kStep : 1;
   constexpr int kQueries = SHARED_Q ? kRun : 1;
   constexpr int kPairs = EMIT ? kRun : 1;
-  __shared__ float4 s_box[kStep];          // the step's compacted boxes
+  static_assert(!ASYNC || (DENSE && !SKIP && !EMIT),
+                "cp.async staging is for the dense count passes");
+  __shared__ float4 s_box[ASYNC ? 1 : kStep];  // the step's compacted boxes
   __shared__ uint16_t s_slot[kStep];       // their slots, step-relative
   __shared__ uint16_t s_list[kList];       // (query << 4 | chunk) entries
   __shared__ float4 s_q[kQueries];         // the run's query boxes
   __shared__ int s_hits[LIST ? kRun : 1];  // and their hits in this item
   __shared__ int64_t s_cur[kPairs];        // emit: each pair's next position
+  __shared__ int64_t s_end[kPairs];        // and the end of its cell
   __shared__ int32_t s_query[kPairs];      // emit: each pair's query
   __shared__ unsigned s_qlive[SKIP && EMIT ? kRun : 1];  // its live chunks
   __shared__ int s_coff[kStepChunks + 1];  // each chunk's first box
   __shared__ int s_warp[kRun / 32];
   __shared__ unsigned s_live[2][kRun / 32];
+  extern __shared__ float4 s_dyn[];        // ASYNC: two kStep-box buffers
 
   const Groups& g = p.g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n_items = *g.n_items;
+  const int runs = DENSE ? static_cast<int>((p.Q + kRunQ - 1) / kRunQ) : 1;
+  const int n_items = *g.n_items * runs;
   int step = 0;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    const int t = g.item_tile[item];
+    int t, r, seg, len;
+    if (DENSE) {
+      const int u = item / runs;
+      r = item - u * runs;
+      t = g.item_tile[u];
+      seg = u - g.item_off[t];
+      len = static_cast<int>(min(static_cast<int64_t>(kRunQ),
+                                 p.Q - static_cast<int64_t>(r) * kRunQ));
+    } else {
+      t = g.item_tile[item];
+      const int segs =
+          (slot_limit(p.extent, t, p.cap) + kSegSlots - 1) / kSegSlots;
+      const int local = item - g.item_off[t];
+      r = local / segs;
+      seg = local - r * segs;
+      len = min(kRun, g.hist[t] - r * kRun);
+    }
     const int lim = slot_limit(p.extent, t, p.cap);
-    const int segs = (lim + kSegSlots - 1) / kSegSlots;
-    const int local = item - g.item_off[t];
-    const int r = local / segs;
-    const int seg = local - r * segs;
     const int seg_begin = seg * kSegSlots;
     const int seg_end = min(seg_begin + kSegSlots, lim);
-    const int len = min(kRun, g.hist[t] - r * kRun);
-    int span = SHARED_Q ? kRun : 32;  // len rounded up to a power of two
-    while (span < len) span <<= 1;
+    int span = SHARED_Q ? kRun : 32;  // len / R rounded up to a power of 2
+    while (span * R < len) span <<= 1;
     const int parts = kRun / span, part = tid / span, qi = tid % span;
     const bool valid = qi < len;
     int pair = 0;
     float4 qb = make_float4(0.f, 0.f, 0.f, 0.f);
     if (valid) {
-      pair = g.order[g.pair_off[t] + r * kRun + qi];
+      pair = DENSE ? (r * kRunQ + qi) * p.F + t
+                   : g.order[g.pair_off[t] + r * kRun + qi];
       qb = p.q[pair / p.F];
+    }
+    // register-blocked: this thread's queries r * kRunQ + qi + k * span
+    float4 qr[R];
+    int accr[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int qk = qi + k * span;
+      qr[k] = R > 1 && qk < len ? p.q[r * kRunQ + qk] : no_query();
+      accr[k] = 0;
     }
     // each thread's own slots, read by others only after a step's barrier
     if (SHARED_Q) s_q[tid] = qb;
     if (LIST) s_hits[tid] = 0;
     if (EMIT && valid) {
       const int64_t cell = static_cast<int64_t>(pair) * p.S + seg;
-      s_cur[tid] = p.incl[cell] - p.counts[cell];
+      const int64_t end = p.incl[cell];
+      s_end[tid] = end;
+      s_cur[tid] = end - p.counts[cell];
       s_query[tid] = pair / p.F;
     }
     const float4* trow = p.tiles + static_cast<int64_t>(t) * p.cap;
@@ -633,147 +838,172 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
         SKIP ? p.cboxes + static_cast<int64_t>(t) * p.C : nullptr;
 
     int acc = 0;
-    for (int base = seg_begin; base < seg_end; base += kStep, ++step) {
-      const int c0 = base / kChunk;
-      const int nc = min(kStepChunks, (seg_end - base + kChunk - 1) / kChunk);
-      // bit j of qlive: this query reaches chunk c0 + j; of live: some
-      // query of the run does
-      unsigned qlive, live;
-      if (SKIP) {
-        qlive = 0u;
-        if (valid) {
-#pragma unroll
-          for (int j = 0; j < kStepChunks; ++j)  // independent loads
-            if (j < nc)
-              qlive |= static_cast<unsigned>(hit(qb, crow[c0 + j])) << j;
-        }
-        if (EMIT) s_qlive[tid] = qlive;
-        const unsigned w = __reduce_or_sync(0xffffffffu, qlive);
-        unsigned* sl = s_live[step & 1];  // two buffers: a skipped step
-        if (lane == 0) sl[warp] = w;      // needs no closing barrier
-        __syncthreads();
-        live = sl[0] | sl[1] | sl[2] | sl[3];
-        if (!live) continue;  // block-uniform
-      } else {
-        qlive = valid ? 0xffffffffu : 0u;
-        live = 0xffffffffu;
+    if constexpr (ASYNC) {
+      int n = stage_async<ALIVE>(p, arow, trow, seg_begin, seg_end, s_slot,
+                                 s_warp, s_dyn);
+      for (int base = seg_begin, k = 0; base < seg_end; base += kStep, ++k) {
+        int n_next = 0;
+        if (base + kStep < seg_end)
+          n_next = stage_async<ALIVE>(p, arow, trow, base + kStep, seg_end,
+                                      s_slot, s_warp,
+                                      s_dyn + ((k + 1) & 1) * kStep);
+        else
+          cp_async_commit();  // empty: the wait below is for this step
+        cp_async_wait<1>();
+        __syncthreads();      // every thread's copies of this step landed
+        count_block<R>(qr, accr, s_dyn + (k & 1) * kStep, part, n, parts);
+        n = n_next;
       }
-
-      // this thread's 16 slots: their alive flags (0x01 bytes), kept
-      // where the chunk is live and the slot below the segment's end
-      const int s0 = base + 16 * tid;
-      const int n_in = seg_end - s0;
-      uint32_t f[4] = {0u, 0u, 0u, 0u};
-      if (n_in > 0 && ((live >> (tid >> 3)) & 1u)) {
-        if (!ALIVE) {
+    } else {
+      for (int base = seg_begin; base < seg_end; base += kStep, ++step) {
+        // emit: leave once every pair of the run has written its cell
+        if (EMIT && !__syncthreads_or(valid && s_cur[tid] < s_end[tid]))
+          break;
+        const int c0 = base / kChunk;
+        const int nc =
+            min(kStepChunks, (seg_end - base + kChunk - 1) / kChunk);
+        // bit j of qlive: this query reaches chunk c0 + j; of live: some
+        // query of the run does
+        unsigned qlive, live;
+        if (SKIP) {
+          qlive = 0u;
+          if (valid) {
 #pragma unroll
-          for (int w = 0; w < 4; ++w) f[w] = low_bytes(n_in - 4 * w);
-        } else if (p.vec_alive) {
-          const uint4 v = *reinterpret_cast<const uint4*>(arow + s0);
-          f[0] = v.x & low_bytes(n_in);
-          f[1] = v.y & low_bytes(n_in - 4);
-          f[2] = v.z & low_bytes(n_in - 8);
-          f[3] = v.w & low_bytes(n_in - 12);
-        } else {
-#pragma unroll
-          for (int w = 0; w < 4; ++w)
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              if (4 * w + k < n_in)
-                f[w] |= static_cast<uint32_t>(arow[s0 + 4 * w + k] != 0)
-                        << (8 * k);
-        }
-      }
-      // one scan places both this thread's alive boxes (low half) and
-      // its (query, chunk) entries (high half); each total <= kStep
-      const int cnt =
-          __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]);
-      const int ent = LIST ? __popc(qlive) : 0;
-      int total;
-      const int packed = block_exclusive_scan(cnt | (ent << 16), s_warp,
-                                              &total);
-      int pos = packed & 0xffff, epos = packed >> 16;
-      const int n = total & 0xffff, n_list = total >> 16;
-      if ((tid & 7) == 0) s_coff[tid >> 3] = pos;  // 8 threads a chunk
-      if (tid == 0) s_coff[kStepChunks] = n;
-#pragma unroll
-      for (int w = 0; w < 4; ++w)
-        for (uint32_t m = f[w]; m; m &= m - 1u)
-          s_slot[pos++] = static_cast<uint16_t>(16 * tid + 4 * w +
-                                                ((__ffs(m) - 1) >> 3));
-      if (LIST)
-        for (unsigned m = qlive; m; m &= m - 1u)
-          s_list[epos++] = static_cast<uint16_t>((tid << 4) |
-                                                 (__ffs(m) - 1));
-      __syncthreads();
-      for (int i0 = tid; i0 < n; i0 += 4 * kRun) {  // four loads in flight
-        float4 b[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * kRun;
-          if (i < n) b[u] = trow[base + s_slot[i]];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * kRun;
-          if (i < n) s_box[i] = b[u];
-        }
-      }
-      __syncthreads();
-      if (EMIT) {
-        for (int i = warp; i < len; i += kRun / 32) {  // warp-uniform
-          const float4 qq = s_q[i];
-          int64_t cur = s_cur[i];
-          if (SKIP) {
-            for (unsigned m = s_qlive[i]; m; m &= m - 1u) {
-              const int j = __ffs(m) - 1;
-              cur = emit_range(qq, s_box, s_slot, s_coff[j], s_coff[j + 1],
-                               lane, base, s_query[i], t, cur, p);
-            }
-          } else {
-            cur = emit_range(qq, s_box, s_slot, 0, n, lane, base,
-                             s_query[i], t, cur, p);
+            for (int j = 0; j < kStepChunks; ++j)  // independent loads
+              if (j < nc)
+                qlive |= static_cast<unsigned>(hit(qb, crow[c0 + j])) << j;
           }
-          if (lane == 0) s_cur[i] = cur;
+          if (EMIT) s_qlive[tid] = qlive;
+          const unsigned w = __reduce_or_sync(0xffffffffu, qlive);
+          unsigned* sl = s_live[step & 1];  // two buffers: a skipped step
+          if (lane == 0) sl[warp] = w;      // needs no closing barrier
+          __syncthreads();
+          live = sl[0] | sl[1] | sl[2] | sl[3];
+          if (!live) continue;  // block-uniform
+        } else {
+          qlive = valid ? 0xffffffffu : 0u;
+          live = 0xffffffffu;
         }
-      } else if (LIST) {
-        for (int e = tid; e < n_list; e += kRun) {
-          const int w = s_list[e], j = w & 15;
-          const float4 qq = s_q[w >> 4];
-          const int beg = s_coff[j], end = s_coff[j + 1];
-          // start each lane at its own box: fewer shared-memory conflicts
-          const int mid = beg + (end > beg ? lane % (end - beg) : 0);
-          const int h = count_rotated(qq, s_box, beg, mid, end);
-          if (h) atomicAdd(&s_hits[w >> 4], h);
+
+        uint32_t f[4];
+        load_flags<ALIVE>(p, arow, base, seg_end, live, f);
+        // one scan places both this thread's alive boxes (low half) and
+        // its (query, chunk) entries (high half); each total <= kStep
+        const int cnt =
+            __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]);
+        const int ent = LIST ? __popc(qlive) : 0;
+        int total;
+        const int packed = block_exclusive_scan(cnt | (ent << 16), s_warp,
+                                                &total);
+        const int pos = packed & 0xffff;
+        int epos = packed >> 16;
+        const int n = total & 0xffff, n_list = total >> 16;
+        if ((tid & 7) == 0) s_coff[tid >> 3] = pos;  // 8 threads a chunk
+        if (tid == 0) s_coff[kStepChunks] = n;
+        write_slots(f, pos, s_slot);
+        if (LIST)
+          for (unsigned m = qlive; m; m &= m - 1u)
+            s_list[epos++] = static_cast<uint16_t>((tid << 4) |
+                                                   (__ffs(m) - 1));
+        __syncthreads();
+        for (int i0 = tid; i0 < n; i0 += 4 * kRun) {  // four loads in flight
+          float4 b[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = i0 + u * kRun;
+            if (i < n) b[u] = trow[base + s_slot[i]];
+          }
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int i = i0 + u * kRun;
+            if (i < n) s_box[i] = b[u];
+          }
         }
-      } else if (valid) {
-        acc += count_range(qb, s_box, part, n, parts);
+        __syncthreads();
+        if (EMIT) {
+          for (int i = warp; i < len; i += kRun / 32) {  // warp-uniform
+            int64_t cur = s_cur[i];
+            if (cur == s_end[i]) continue;  // its cell is written out
+            const float4 qq = s_q[i];
+            if (SKIP) {
+              for (unsigned m = s_qlive[i]; m; m &= m - 1u) {
+                const int j = __ffs(m) - 1;
+                cur = emit_range(qq, s_box, s_slot, s_coff[j], s_coff[j + 1],
+                                 lane, base, s_query[i], t, cur, p);
+              }
+            } else {
+              cur = emit_range(qq, s_box, s_slot, 0, n, lane, base,
+                               s_query[i], t, cur, p);
+            }
+            if (lane == 0) s_cur[i] = cur;
+          }
+        } else if (LIST) {
+          for (int e = tid; e < n_list; e += kRun) {
+            const int w = s_list[e], j = w & 15;
+            const float4 qq = s_q[w >> 4];
+            const int beg = s_coff[j], end = s_coff[j + 1];
+            // start each lane at its own box: fewer shared-memory conflicts
+            const int mid = beg + (end > beg ? lane % (end - beg) : 0);
+            const int h = count_rotated(qq, s_box, beg, mid, end);
+            if (h) atomicAdd(&s_hits[w >> 4], h);
+          }
+        } else if (R > 1) {
+          count_block<R>(qr, accr, s_box, part, n, parts);
+        } else if (valid) {
+          acc += count_range(qb, s_box, part, n, parts);
+        }
+        __syncthreads();  // the shared arrays are reused next step
       }
-      __syncthreads();  // the shared arrays are reused next step
     }
     if (!EMIT) {
-      if (LIST) acc = s_hits[tid];
-      if (acc)
-        atomicAdd(MODE == kSegCount
-                      ? p.counts + static_cast<int64_t>(pair) * p.S + seg
-                      : p.counts + pair,
-                  acc);
+      if (R > 1) {
+#pragma unroll
+        for (int k = 0; k < R; ++k) {
+          const int qk = qi + k * span;
+          if (qk < len && accr[k]) {
+            const int pk = (r * kRunQ + qk) * p.F + t;
+            atomicAdd(MODE == kSegCount
+                          ? p.counts + static_cast<int64_t>(pk) * p.S + seg
+                          : p.counts + pk,
+                      accr[k]);
+          }
+        }
+      } else {
+        if (LIST) acc = s_hits[tid];
+        if (acc)
+          atomicAdd(MODE == kSegCount
+                        ? p.counts + static_cast<int64_t>(pair) * p.S + seg
+                        : p.counts + pair,
+                    acc);
+      }
     }
   }
 }
 
-template <int MODE, bool SKIP, bool ALIVE>
-void launch_probe(const Probe& p, int64_t items, cudaStream_t stream) {
+template <int MODE, bool SKIP, bool ALIVE, bool DENSE, bool ASYNC>
+cudaError_t launch_probe(const Probe& p, int64_t items, cudaStream_t stream) {
+  constexpr int kDyn = ASYNC ? 2 * kStep * static_cast<int>(sizeof(float4))
+                             : 0;
+  const auto kern = tile_probe<MODE, SKIP, ALIVE, DENSE, ASYNC>;
+  if (ASYNC) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kDyn);
+    if (err != cudaSuccess) return err;
+  }
   // a persistent grid: as many blocks as the card holds at once, or fewer
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tile_probe<MODE, SKIP, ALIVE>, kRun, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kRun, kDyn);
   const int64_t grid = std::max<int64_t>(
       1, std::min<int64_t>(items, static_cast<int64_t>(sms) * per_sm));
-  tile_probe<MODE, SKIP, ALIVE>
-      <<<static_cast<unsigned>(grid), kRun, 0, stream>>>(p);
+  kern<<<static_cast<unsigned>(grid), kRun, kDyn, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool aligned_alive(const Probe& p) {
+  return p.alive != nullptr && p.cap % 16 == 0 &&
+         reinterpret_cast<uintptr_t>(p.alive) % 16 == 0;
 }
 
 // One tile-major pass in MODE over the grouping in `scratch`, for the
@@ -787,21 +1017,49 @@ int run_probe(int device, Probe p, long long Q, int T, void* scratch,
   if (pairs == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   p.g = carve(scratch, T, pairs);
-  p.vec_alive = p.alive != nullptr && p.cap % 16 == 0 &&
-                reinterpret_cast<uintptr_t>(p.alive) % 16 == 0;
+  p.vec_alive = aligned_alive(p);
   const int64_t items = max_items(T, pairs, p.cap);
   if (p.cboxes != nullptr) {
     if (p.alive != nullptr)
-      launch_probe<MODE, true, true>(p, items, s);
+      err = launch_probe<MODE, true, true, false, false>(p, items, s);
     else
-      launch_probe<MODE, true, false>(p, items, s);
+      err = launch_probe<MODE, true, false, false, false>(p, items, s);
   } else {
     if (p.alive != nullptr)
-      launch_probe<MODE, false, true>(p, items, s);
+      err = launch_probe<MODE, false, true, false, false>(p, items, s);
     else
-      launch_probe<MODE, false, false>(p, items, s);
+      err = launch_probe<MODE, false, false, false, false>(p, items, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
+}
+
+// One dense tile-major pass in MODE over the dense grouping in
+// `scratch` (p.F == T); the count passes stage boxes with cp.async when
+// `async_copy` is set.
+template <int MODE>
+int run_dense(int device, Probe p, int T, void* scratch, bool async_copy,
+              void* stream) {
+  constexpr bool kAsync = MODE != kEmit;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (p.Q == 0 || T == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  p.g = carve(scratch, T, 0);
+  p.vec_alive = aligned_alive(p);
+  const int64_t items =
+      static_cast<int64_t>(T) * p.S * ((p.Q + kRun - 1) / kRun);
+  if (p.alive != nullptr) {
+    if (async_copy)
+      err = launch_probe<MODE, false, true, true, kAsync>(p, items, s);
+    else
+      err = launch_probe<MODE, false, true, true, false>(p, items, s);
+  } else {
+    if (async_copy)
+      err = launch_probe<MODE, false, false, true, kAsync>(p, items, s);
+    else
+      err = launch_probe<MODE, false, false, true, false>(p, items, s);
+  }
+  return static_cast<int>(err);
 }
 
 Probe probe_args(const void* q, const void* tiles, const void* cboxes,
@@ -816,7 +1074,7 @@ Probe probe_args(const void* q, const void* tiles, const void* cboxes,
   p.F = F;
   p.cap = cap;
   p.C = C;
-  p.S = (cap + kSegSlots - 1) / kSegSlots;
+  p.S = segments(cap);
   p.counts = static_cast<int32_t*>(counts);
   return p;
 }
@@ -886,7 +1144,7 @@ extern "C" int rp_group_pairs(int device, const void* cand,
   group_rank<<<blocks, kGroupThreads, 0, s>>>(c, pairs, T, g,
                                               static_cast<int32_t*>(counts));
   group_scan<<<1, kScanThreads, 0, s>>>(
-      T, static_cast<const int32_t*>(extent), cap, g);
+      T, static_cast<const int32_t*>(extent), cap, g, false);
   group_scatter<<<blocks, kGroupThreads, 0, s>>>(c, pairs, g);
   return static_cast<int>(cudaGetLastError());
 }
@@ -908,9 +1166,7 @@ extern "C" int rp_tile_counts(int device, const void* q, const void* tiles,
 }
 
 // Slot segments a pair's hits are counted in: ceil(cap / kSegSlots).
-extern "C" int rp_hit_segments(int cap) {
-  return (cap + kSegSlots - 1) / kSegSlots;
-}
+extern "C" int rp_hit_segments(int cap) { return segments(cap); }
 
 // After rp_group_pairs on the same scratch and extent (arguments as for
 // rp_tile_counts), one pass of the routed hit list.  emit == 0: add each
@@ -933,6 +1189,58 @@ extern "C" int rp_tile_hits(int device, int emit, const void* q,
   p.out = static_cast<int64_t*>(out);
   p.total = total;
   return run_probe<kEmit>(device, p, Q, T, scratch, stream);
+}
+
+// Int32 scratch that rp_dense_group needs for T tiles of cap slots.
+extern "C" long long rp_dense_scratch(int T, int cap) {
+  return dense_scratch_ints(T, cap);
+}
+
+// The dense passes' grouping into `scratch` (rp_dense_scratch(T, cap)
+// int32): the (tile, segment) units of every tile up to its extent
+// (extent (T,) int32, or null: cap).  One block; launches on `stream`
+// (no synchronisation) and returns cudaGetLastError().
+extern "C" int rp_dense_group(int device, const void* extent, int T, int cap,
+                              void* scratch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T == 0) return 0;
+  group_scan<<<1, kScanThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      T, static_cast<const int32_t*>(extent), cap, carve(scratch, T, 0),
+      true);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// After rp_dense_group on the same scratch and extent, one dense pass
+// over every (query, tile) pair, tile-major.  q (Q, 4) f32; tiles
+// (T, cap, 4) f32; alive (T, cap) bool or null; extent (T,) int32 or
+// null (always null without alive): no slot at or past extent[t] is
+// alive.  mode 0: add each pair's hits to counts (Q, T) int32, zeroed
+// by the caller.  mode 1: add each (pair, segment)'s hits to counts
+// (Q, T, S) int32, zeroed (S = rp_hit_segments(cap)).  mode 2: with
+// that counts array, incl (Q * T * S,) int64 its inclusive scan and
+// total its last element, write each hit to out (3, total) int64 as
+// (query, tile, slot) rows, in flat (query, tile, slot) order.
+// async_copy: the count passes stage boxes with cp.async.  Launches on
+// `stream` (no synchronisation) and returns cudaGetLastError().
+extern "C" int rp_dense_tiles(int device, int mode, int async_copy,
+                              const void* q, const void* tiles,
+                              const void* alive, const void* extent,
+                              long long Q, int T, int cap, void* scratch,
+                              void* counts, const void* incl, void* out,
+                              long long total, void* stream) {
+  Probe p = probe_args(q, tiles, nullptr, alive, extent, T, cap,
+                       (cap + kChunk - 1) / kChunk, counts);
+  p.Q = Q;
+  if (mode == 0)
+    return run_dense<kPairCount>(device, p, T, scratch, async_copy, stream);
+  if (mode == 1)
+    return run_dense<kSegCount>(device, p, T, scratch, async_copy, stream);
+  if (total == 0) return static_cast<int>(cudaSetDevice(device));
+  p.incl = static_cast<const int64_t*>(incl);
+  p.out = static_cast<int64_t*>(out);
+  p.total = total;
+  return run_dense<kEmit>(device, p, T, scratch, false, stream);
 }
 
 // Launch one dense probe on `stream` (no synchronisation) and return

@@ -8,9 +8,10 @@ loaded when this module is imported.
 Eight launch wrappers are the port's counterparts of the
 ``pl.pallas_call`` entry points in ``repro.kernels.range_probe.kernel``:
 four gathered (``gather_*``, routed candidates) and four dense
-(``count``, ``mask`` and their ``*_skip`` twins, all tiles); two more,
-``gather_hits{,_skip}``, give the serving path the nonzeros of the
-routed masks without their table.  Each checks device, dtype, shape,
+(``count``, ``mask`` and their ``*_skip`` twins, all tiles); four more,
+``gather_hits{,_skip}``, ``dense_counts`` and ``dense_hits``, give the
+serving path and the dense oracle the counts and the nonzeros of the
+masks without their tables.  Each checks device, dtype, shape,
 contiguity and alignment, allocates its output with ``torch.empty``
 (the kernels write every element) or ``torch.zeros`` (count cells),
 launches on the current stream without synchronising, raises if the
@@ -26,6 +27,14 @@ given (``ops.live_extent``).  The routed hit lists (``gather_hits``,
 and ``emit_hits`` writes them as (query, tile, slot) in the
 reference's flat order; no (Q, F, cap) table exists.  The routed masks
 give each (query, candidate) pair a warp.
+
+The dense oracle's path runs the same tile-major probe with every tile
+a candidate of every query: ``dense_group`` lists each tile's slot
+segments up to its extent (the pairs of a tile are all the queries, so
+there is nothing else to group), ``dense_counts`` counts (Q, T) with
+four queries a thread, and ``dense_hits`` counts, scans and emits the
+dense hit list a block of queries at a time.  ``count`` and ``mask``
+(a block per tile and 128 queries) stay as yardsticks off that path.
 """
 from __future__ import annotations
 
@@ -46,7 +55,11 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "range_probe.cu"
 LAUNCHES = {"gather_count": 0, "gather_mask": 0,
             "gather_count_skip": 0, "gather_mask_skip": 0,
             "gather_hits": 0, "gather_hits_skip": 0,
+            "dense_counts": 0, "dense_hits": 0,
             "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0}
+# the dense count passes stage each step's boxes with cp.async into a
+# second shared-memory buffer while the previous step is probed
+ASYNC_COPY = False
 
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cuda_build.Library(SOURCE, {
@@ -60,6 +73,10 @@ LIB = cuda_build.Library(SOURCE, {
     "rp_hit_segments": ([_ci], _ci),
     "rp_tile_hits": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci,
                       _ci, _vp, _vp, _vp, _vp, _cll, _vp], _ci),
+    "rp_dense_scratch": ([_ci, _ci], _cll),
+    "rp_dense_group": ([_ci, _vp, _ci, _ci, _vp, _vp], _ci),
+    "rp_dense_tiles": ([_ci, _ci, _ci, _vp, _vp, _vp, _vp, _cll, _ci, _ci,
+                        _vp, _vp, _vp, _vp, _cll, _vp], _ci),
     "rp_dense_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                         _ci, _ci, _ci, _vp, _vp, _vp], _ci),
 }, "rp_error_string")
@@ -220,6 +237,128 @@ def _hits(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
     out = emit_hits(qboxes, tiles, cand, scratch, seg, incl, **kw)
     LAUNCHES[name] += 1
     return out
+
+
+def _dense_args(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
+                alive: torch.Tensor | None, extent: torch.Tensor | None):
+    """Checks of the dense tile-major wrappers -> ``(device, T, cap, Q,
+    extent)``; the extent is kept only beside an alive mask."""
+    dev, t, cap, _ = _inputs(name, qboxes, tiles, None, alive)
+    q = qboxes.shape[0]
+    if max(t, cap, q * t) >= 2**31:
+        raise ValueError(f"{name}: T, cap and Q*T must fit in int32")
+    if alive is None:
+        extent = None
+    elif extent is not None:
+        _check("extent", extent, torch.int32, (t,), dev)
+    return dev, t, cap, q, extent
+
+
+def dense_group(tiles: torch.Tensor,
+                extent: torch.Tensor | None = None) -> torch.Tensor:
+    """The dense passes' grouping on ``tiles``' device: each tile's slot
+    segments up to ``extent`` (else cap) -> the int32 scratch the passes
+    read.  It depends on the tiles and the extent only, so one serves
+    every query block of a call."""
+    dev = tiles.device
+    t, cap = tiles.shape[:2]
+    lib = LIB.get()
+    scratch = torch.empty(lib.rp_dense_scratch(t, cap), dtype=torch.int32,
+                          device=dev)
+    err = lib.rp_dense_group(_index(dev), _ptr(extent), t, cap,
+                             _ptr(scratch), cuda_build.stream(dev))
+    LIB.check("dense_group", err)
+    return scratch
+
+
+def _dense_pass(name: str, mode: int, qboxes, tiles, scratch, counts, *,
+                alive, extent, incl=None, out=None, total=0) -> int:
+    dev, t, cap, q, extent = _dense_args(name, qboxes, tiles, alive, extent)
+    return LIB.get().rp_dense_tiles(
+        _index(dev), mode, int(ASYNC_COPY), _ptr(qboxes), _ptr(tiles),
+        _ptr(alive), _ptr(extent), q, t, cap, _ptr(scratch), _ptr(counts),
+        _ptr(incl), _ptr(out), total, cuda_build.stream(dev))
+
+
+def dense_counts(qboxes, tiles, *, alive=None, extent=None) -> torch.Tensor:
+    """Dense probe counts, tile-major: (Q, 4), (T, cap, 4) -> (Q, T)
+    int32; ``extent`` as for ``gather_count``."""
+    dev, t, cap, q, extent = _dense_args("dense_counts", qboxes, tiles,
+                                         alive, extent)
+    counts = torch.zeros((q, t), dtype=torch.int32, device=dev)
+    if q * t == 0:
+        return counts
+    scratch = dense_group(tiles, extent)
+    err = _dense_pass("dense_counts", 0, qboxes, tiles, scratch, counts,
+                      alive=alive, extent=extent)
+    LIB.launched("dense_counts", err, LAUNCHES)
+    return counts
+
+
+def dense_row_bytes(t: int, cap: int) -> int:
+    """Bytes of one query's cells in a dense hit list block: its int32
+    count and int64 scan for each (tile, slot segment)."""
+    return t * LIB.get().rp_hit_segments(cap) * 12
+
+
+def dense_hit_counts(qboxes, tiles, scratch, *, alive=None,
+                     extent=None) -> torch.Tensor:
+    """The dense hit list's count pass, after ``dense_group`` on the same
+    ``tiles`` and ``extent``: -> (Q, T, S) int32, each (query, tile,
+    slot segment)'s hits, ``S = ceil(cap / 8192)``."""
+    dev, t, cap = tiles.device, *tiles.shape[:2]
+    seg = torch.zeros((qboxes.shape[0], t, LIB.get().rp_hit_segments(cap)),
+                      dtype=torch.int32, device=dev)
+    err = _dense_pass("dense_hit_counts", 1, qboxes, tiles, scratch, seg,
+                      alive=alive, extent=extent)
+    LIB.check("dense_hit_counts", err)
+    return seg
+
+
+def dense_emit_hits(qboxes, tiles, scratch, seg, incl, *, alive=None,
+                    extent=None) -> torch.Tensor:
+    """The dense hit list's emit pass, after ``dense_hit_counts`` ->
+    ``seg`` and ``incl``, the inclusive scan of ``seg`` flattened
+    (int64): -> (3, incl[-1]) int64 rows (query, tile, slot), in flat
+    (query, tile, slot) order.  Reads ``incl[-1]`` on the host."""
+    total = int(incl[-1]) if incl.numel() else 0     # the one host read
+    out = torch.empty((3, total), dtype=torch.int64, device=tiles.device)
+    err = _dense_pass("dense_emit_hits", 2, qboxes, tiles, scratch, seg,
+                      alive=alive, extent=extent, incl=incl, out=out,
+                      total=total)
+    LIB.check("dense_emit_hits", err)
+    return out
+
+
+def dense_hits(qboxes, tiles, *, alive=None, extent=None,
+               blocks: list[slice] | None = None) -> torch.Tensor:
+    """Dense probe hit list: (Q, 4), (T, cap, 4) -> (3, H) int64 rows
+    (query, tile, slot), the nonzeros of ``mask``'s table in flat
+    (query, tile, slot) order.  The queries go through in ``blocks``
+    (consecutive slices, default one): each block counts its (query,
+    tile, segment) cells, scans them, reads its total once and emits.
+    ``extent`` as for ``gather_count``."""
+    dev, t, cap, q, extent = _dense_args("dense_hits", qboxes, tiles,
+                                         alive, extent)
+    parts = []
+    if q * t:
+        scratch = dense_group(tiles, extent)
+        for rows in blocks or [slice(0, q)]:
+            qb = qboxes[rows]
+            seg = dense_hit_counts(qb, tiles, scratch, alive=alive,
+                                   extent=extent)
+            incl = seg.view(-1).cumsum(0)
+            out = dense_emit_hits(qb, tiles, scratch, seg, incl, alive=alive,
+                                  extent=extent)
+            LAUNCHES["dense_hits"] += 1
+            if rows.start:
+                out[0] += rows.start
+            parts.append(out)
+    if len(parts) == 1:
+        return parts[0]
+    if not parts:
+        return torch.empty((3, 0), dtype=torch.int64, device=dev)
+    return torch.cat(parts, 1)
 
 
 def _dense(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,

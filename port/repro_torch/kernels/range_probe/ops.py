@@ -1,6 +1,7 @@
 """Public surface of the range probe (twin of
-``repro.kernels.range_probe.ops``): dense (``probe_*``, every tile)
-and routed (``gathered_*``, each query's candidate tiles).
+``repro.kernels.range_probe.ops``): dense (``probe_*`` and
+``dense_hit_list``, every tile) and routed (``gathered_*``, each
+query's candidate tiles).
 
 Dispatch: tensors on the CPU go to the plain versions in ``ref``;
 tensors on a CUDA device go to the Hopper kernel in ``kernel``, which
@@ -17,17 +18,19 @@ Local-index contract (``*_skip``): ``cboxes`` is the staging's
 Tombstone contract (keyword-only ``alive``): an optional (T, cap) bool
 per-slot alive mask; a hit counts only if its slot is alive.
 
-Live-extent contract (keyword-only ``extent``, routed counts and
-routed hit lists): an optional (T,) int32 ``live_extent(alive)`` (any
-larger value will do): no slot at or past ``extent[t]`` is alive, so
-the kernel stops there.  It is read only beside ``alive`` and only by
-the kernel; the plain versions need no bound.
+Live-extent contract (keyword-only ``extent``: routed and dense
+counts, routed and dense hit lists): an optional (T,) int32
+``live_extent(alive)`` (any larger value will do): no slot at or past
+``extent[t]`` is alive, so the kernel stops there.  It is read only
+beside ``alive`` and only by the kernel; the plain versions need no
+bound.
 
-Hit lists (``gathered_hit_list*``): the nonzeros of the routed masks
-as int64 ``(query, tile, slot)``, in the order of ``nonzero`` over the
-flattened ``(Q, F·cap)`` table (a ``-1`` candidate holds no hits).
-The kernels count, scan and emit without the table; the plain version
-builds it in ``hit_table_blocks``.
+Hit lists (``gathered_hit_list*``, ``dense_hit_list``): the nonzeros
+of the routed or dense masks as int64 ``(query, tile, slot)``, in the
+order of ``nonzero`` over the flattened ``(Q, F·cap)`` or ``(Q,
+T·cap)`` table (a ``-1`` candidate holds no hits).  The kernels count,
+scan and emit without the table; the plain versions build it in
+``hit_table_blocks`` or ``dense_blocks``.
 """
 from __future__ import annotations
 
@@ -38,7 +41,10 @@ from . import kernel, ref
 from .kernel import CHUNK  # noqa: F401  (re-export: staging chunks on this)
 
 _SKIP_RATE_BLOCK = 1 << 24   # (query, candidate, chunk) tests per block
-_HIT_TABLE_BYTES = 1 << 31   # bytes of the plain hit list's table block
+_HIT_TABLE_BYTES = 1 << 31   # bytes of the plain hit lists' table block
+_DENSE_CELL_BYTES = 1 << 29  # bytes of a dense hit list block's count cells
+                             # and scan on the card (1,254 queries at
+                             # T = 2048, cap = 135,296)
 
 
 def _gather(table: torch.Tensor, cand: torch.Tensor, pad_value
@@ -88,17 +94,21 @@ def _kargs(qboxes: torch.Tensor, cand: torch.Tensor):
 
 
 def probe_counts(qboxes: torch.Tensor, tiles: torch.Tensor, *,
-                 alive: torch.Tensor | None = None) -> torch.Tensor:
+                 alive: torch.Tensor | None = None,
+                 extent: torch.Tensor | None = None) -> torch.Tensor:
     """Per-(query, tile) hit counts: (Q, 4), (T, cap, 4) -> (Q, T)
-    int32.  ``alive``: (T, cap) bool, dead slots never count."""
+    int32.  ``alive``: (T, cap) bool, dead slots never count;
+    ``extent``: its ``live_extent``, where the kernel may stop."""
     if tiles.is_cuda:
-        return kernel.count(qboxes.float().contiguous(), tiles, alive=alive)
+        return kernel.dense_counts(qboxes.float().contiguous(), tiles,
+                                   alive=alive, extent=extent)
     return ref.probe_counts(qboxes.float(), tiles.float(), alive)
 
 
 def probe_mask(qboxes: torch.Tensor, tiles: torch.Tensor, *,
                alive: torch.Tensor | None = None) -> torch.Tensor:
-    """Full hit table for id extraction -> (Q, T, cap) bool."""
+    """Full hit table -> (Q, T, cap) bool (no executor needs it: the
+    dense ids take ``dense_hit_list``)."""
     if tiles.is_cuda:
         return kernel.mask(qboxes.float().contiguous(), tiles, alive=alive)
     return ref.probe_mask(qboxes.float(), tiles.float(), alive).transpose(0, 1)
@@ -212,6 +222,60 @@ def gathered_hit_list_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
     return plain_hit_list(qboxes, tiles, cand, cboxes, alive=alive)
 
 
+def dense_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor, *,
+                   alive: torch.Tensor | None = None,
+                   extent: torch.Tensor | None = None,
+                   budget: int | None = None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Every hit of the dense probe: (Q, 4), (T, cap, 4) -> int64
+    ``(query, tile, slot)``, the nonzeros of ``probe_mask`` in flat
+    (query, tile, slot) order.  The queries go in ``dense_blocks`` of
+    at most ``budget`` bytes of scratch: on the card the blocks' count
+    cells and their scan (default ``_DENSE_CELL_BYTES``), in the plain
+    version their hit table (default ``_HIT_TABLE_BYTES``)."""
+    if tiles.is_cuda:
+        t, cap = tiles.shape[:2]
+        blocks = dense_blocks(qboxes.shape[0], kernel.dense_row_bytes(t, cap),
+                              _DENSE_CELL_BYTES if budget is None else budget)
+        return tuple(kernel.dense_hits(qboxes.float().contiguous(), tiles,
+                                       alive=alive, extent=extent,
+                                       blocks=blocks))
+    return plain_dense_hit_list(qboxes, tiles, alive=alive, budget=budget)
+
+
+def dense_blocks(q: int, row_bytes: int, budget: int | None = None
+                 ) -> list[slice]:
+    """Consecutive query blocks of a dense call, each holding at most
+    ``budget`` bytes (default ``_HIT_TABLE_BYTES``) at ``row_bytes`` a
+    query, and at least one query."""
+    budget = _HIT_TABLE_BYTES if budget is None else budget
+    rows = max(1, budget // max(row_bytes, 1))
+    return [slice(i, min(i + rows, q)) for i in range(0, q, rows)]
+
+
+def plain_dense_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor, *,
+                         alive: torch.Tensor | None = None,
+                         budget: int | None = None
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of ``dense_hit_list``, on any device: the
+    ``ref`` table of each of ``dense_blocks(Q, T·cap, budget)``, then
+    its ``nonzero``."""
+    t, cap = tiles.shape[:2]
+    parts = []
+    for rows in dense_blocks(qboxes.shape[0], t * cap, budget):
+        mask = ref.probe_mask(qboxes[rows].float(), tiles.float(), alive)
+        bq, bt, bs = mask.transpose(0, 1).nonzero(as_tuple=True)
+        parts.append((bq + rows.start, bt, bs))
+    return _cat_triples(parts, qboxes.device)
+
+
+def _cat_triples(parts: list, device) -> tuple[torch.Tensor, ...]:
+    if not parts:
+        empty = torch.zeros(0, dtype=torch.int64, device=device)
+        return empty, empty, empty
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
 def hit_table_blocks(cand: torch.Tensor, cap: int, budget: int | None = None
                      ) -> list[tuple[slice, int]]:
     """How the plain hit list cuts one batch into routed hit tables ->
@@ -264,10 +328,7 @@ def plain_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor,
                 gathered_chunk_boxes(cboxes, cd), galive)
         bq, bf, bs = mask.nonzero(as_tuple=True)     # -1 columns are empty
         parts.append((bq + rows.start, cd[bq, bf].long(), bs))
-    if not parts:
-        empty = torch.zeros(0, dtype=torch.int64, device=qboxes.device)
-        return empty, empty, empty
-    return tuple(torch.cat(x) for x in zip(*parts))
+    return _cat_triples(parts, qboxes.device)
 
 
 def chunk_skip_rate(qboxes: torch.Tensor, cboxes: torch.Tensor,

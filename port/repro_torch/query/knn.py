@@ -206,28 +206,32 @@ def batched_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,
                 ids: torch.Tensor, uni: torch.Tensor,
                 r0: float | None = None, max_rounds: int = 32,
                 max_cand: int = 1024, n_live=None,
-                alive: torch.Tensor | None = None):
+                alive: torch.Tensor | None = None, *,
+                extent: torch.Tensor | None = None):
     """Exact batched kNN against a staged layout, probing every tile.
 
     pts: (Q, 2); canon_tiles/ids: the staging's canonical tiles and
     ids; uni: (4,) universe; ``n_live``: live canonical member count
     the initial radius is sized from (None: ``T·cap``); ``alive``:
-    (T, cap) tombstone mask.  Returns ``(nn_ids[Q, k] int32, nn_d2[Q, k]
-    f32, radius[Q] f32, overflow[Q] bool, rounds[Q] int32)``; overflow
-    marks queries whose refinement box held more than ``max_cand``
-    candidates.  The refinement's (Q, T, cap) hit table is built in
-    ``range.dense_blocks``.
+    (T, cap) tombstone mask; ``extent``: its ``live_extent``, where the
+    deepening's count kernels and the refinement's hit-list kernels may
+    stop.  Returns ``(nn_ids[Q, k] int32, nn_d2[Q, k] f32, radius[Q]
+    f32, overflow[Q] bool, rounds[Q] int32)``; overflow marks queries
+    whose refinement box held more than ``max_cand`` candidates.  The
+    refinement's hits come from ``range.dense_hits``: on the card
+    without the (Q, T, cap) table.
     """
     r_init, r_cover = _deepening_start(pts, k, canon_tiles, uni, r0, n_live)
 
     def counts_at(r, rows):
         return range_mod.range_counts(_qboxes(pts[rows], r), canon_tiles,
-                                      alive)
+                                      alive, extent=extent)
 
     r = r_init.expand(pts.shape[0]).clone()
     r, rounds = _deepen(counts_at, r, r_cover, k, max_rounds)
     re = r * _SQRT2_F32
-    qi, ti, si = range_mod.dense_hits(_qboxes(pts, re), canon_tiles, alive)
+    qi, ti, si = range_mod.dense_hits(_qboxes(pts, re), canon_tiles, alive,
+                                      extent=extent)
     nn_ids, nn_d2, n_cand = _refine_topk(k, pts, qi, ti, si, canon_tiles,
                                          ids, max_cand)
     return nn_ids, nn_d2, r, n_cand > max_cand, rounds

@@ -13,11 +13,12 @@ unique counts and id sets with no dedup work.  Two executors:
 
 Both id executors keep only the hits, as ``(query, tile, slot)``
 triples in the reference's flat order (``dense_hits``,
-``gathered_hits``); ``query.knn`` refines from the same triples.  The
-dense one builds its hit table in blocks of at most
-``_HIT_TABLE_BYTES``; the pruned one takes the routed hit lists, which
-on the card count, scan and emit the hits with no table (the plain
-version builds it in ``ops.hit_table_blocks``).
+``gathered_hits``); ``query.knn`` refines from the same triples.  They
+take the dense and routed hit lists, which on the card count, scan and
+emit the hits with no table (the plain versions build it in
+``ops.dense_blocks`` and ``ops.hit_table_blocks``).  Every executor
+takes ``extent``, the ``live_extent`` of ``alive``: the card's kernels
+stop each tile's walk there.
 """
 from __future__ import annotations
 
@@ -27,7 +28,6 @@ import torch
 from ..kernels.range_probe import ops as rops
 
 _BIG_ID = 2**30
-_HIT_TABLE_BYTES = 1 << 31   # bytes of (query, tile, slot) dense hit table
 
 
 def range_query_ref(mbrs: np.ndarray, qboxes: np.ndarray) -> list[np.ndarray]:
@@ -41,44 +41,29 @@ def range_query_ref(mbrs: np.ndarray, qboxes: np.ndarray) -> list[np.ndarray]:
 
 
 def range_counts(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
-                 alive: torch.Tensor | None = None) -> torch.Tensor:
+                 alive: torch.Tensor | None = None, *,
+                 extent: torch.Tensor | None = None) -> torch.Tensor:
     """Exact per-query unique hit counts over every tile.
 
     qboxes: (Q, 4); canon_tiles: (T, cap, 4) canonical member boxes
-    -> (Q,) int32.  ``alive``: (T, cap) tombstone mask.
+    -> (Q,) int32.  ``alive``: (T, cap) tombstone mask; ``extent``: its
+    ``live_extent``, where the kernel may stop.
     """
-    return rops.probe_counts(qboxes, canon_tiles, alive=alive).sum(
-        1, dtype=torch.int32)
-
-
-def dense_blocks(q: int, row_bytes: int) -> list[slice]:
-    """Query blocks of a dense ``(rows, T, cap)`` hit table, each at most
-    ``_HIT_TABLE_BYTES`` (at least one query)."""
-    rows = max(1, _HIT_TABLE_BYTES // max(row_bytes, 1))
-    return [slice(i, min(i + rows, q)) for i in range(0, q, rows)]
-
-
-def _cat_hits(parts: list, device) -> tuple[torch.Tensor, ...]:
-    if not parts:
-        empty = torch.zeros(0, dtype=torch.int64, device=device)
-        return empty, empty, empty
-    return tuple(torch.cat(x) for x in zip(*parts))
+    return rops.probe_counts(qboxes, canon_tiles, alive=alive,
+                             extent=extent).sum(1, dtype=torch.int32)
 
 
 def dense_hits(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
-               alive: torch.Tensor | None = None
+               alive: torch.Tensor | None = None, *,
+               extent: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every (query, tile, slot) hit of the dense probe -> int64
     ``(query, tile, slot)``, in (query, tile, slot) order: the order of
-    the reference's flattened ``(Q, T·cap)`` hit table.  The table is
-    built ``dense_blocks`` rows at a time."""
-    t, cap = canon_tiles.shape[:2]
-    parts = []
-    for rows in dense_blocks(qboxes.shape[0], t * cap):
-        mask = rops.probe_mask(qboxes[rows], canon_tiles, alive=alive)
-        bq, bt, bs = mask.nonzero(as_tuple=True)
-        parts.append((bq + rows.start, bt, bs))
-    return _cat_hits(parts, qboxes.device)
+    the reference's flattened ``(Q, T·cap)`` hit table.
+    ``ops.dense_hit_list``: on the card no table is built and
+    ``extent`` lets the kernels stop at each tile's last alive slot."""
+    return rops.dense_hit_list(qboxes, canon_tiles, alive=alive,
+                               extent=extent)
 
 
 def gathered_hits(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
@@ -127,16 +112,18 @@ def ids_answer(qi: torch.Tensor, hid: torch.Tensor, q: int, max_hits: int
 
 def range_ids(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
               ids: torch.Tensor, max_hits: int,
-              alive: torch.Tensor | None = None
+              alive: torch.Tensor | None = None, *,
+              extent: torch.Tensor | None = None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Exact per-query unique hit-id sets over every tile.
 
     ids: (T, cap) int32 member ids (-1 padding) -> ``(hit_ids[Q,
     max_hits] int32, counts[Q] int32, overflow[Q])`` as
-    ``ids_answer``.  The reference's (Q, T, cap) table (277 MB a query
-    at T = 2048, cap = 135,296) is built in ``dense_blocks``.
+    ``ids_answer``.  The hits come from ``dense_hits`` (``extent`` as
+    there): on the card without the reference's (Q, T, cap) table (277
+    MB a query at T = 2048, cap = 135,296).
     """
-    qi, ti, si = dense_hits(qboxes, canon_tiles, alive)
+    qi, ti, si = dense_hits(qboxes, canon_tiles, alive, extent=extent)
     return ids_answer(qi, ids[ti, si], qboxes.shape[0], max_hits)
 
 

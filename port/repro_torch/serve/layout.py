@@ -204,7 +204,8 @@ class ReplicatedTiles:
     """The full staging on one device.  Each routed batch probes its
     candidate tiles with the gathered kernels (chunk-skipping when the
     staging carries a local index); the dense oracle probes every tile
-    with the dense kernels.  Every probe passes the alive mask.  Stats
+    with the dense kernels.  Every probe passes the alive mask and its
+    live extent.  Stats
     dicts equal the reference's with ``mesh=None``."""
 
     mode = "pruned"
@@ -216,9 +217,9 @@ class ReplicatedTiles:
         # the executors read canonical data only: drop the all-copies
         # member tiles instead of keeping (T, cap, 4) bytes resident
         self.staged = dataclasses.replace(layout, tiles=None)
-        # (T,) int32 live extent of the alive mask: the routed count and
-        # hit-list kernels stop each tile's walk there (ingest must keep
-        # it in step with ``alive``)
+        # (T,) int32 live extent of the alive mask: the routed and dense
+        # count and hit-list kernels stop each tile's walk there (ingest
+        # must keep it in step with ``alive``)
         self.extent = rops.live_extent(layout.alive)
         self.stats = dict(stats, placement=config.placement,
                           probe=config.probe, restages=0, compactions=0,
@@ -267,20 +268,22 @@ class ReplicatedTiles:
 
     def dense_range_counts(self, qboxes):
         lay = self.staged
-        counts = range_mod.range_counts(qboxes, lay.canon_tiles, lay.alive)
+        counts = range_mod.range_counts(qboxes, lay.canon_tiles, lay.alive,
+                                        extent=self.extent)
         return counts, dict(skew=1.0)
 
     def dense_range_ids(self, qboxes, max_hits: int):
         lay = self.staged
         hit_ids, counts, overflow = range_mod.range_ids(
-            qboxes, lay.canon_tiles, lay.ids, max_hits, lay.alive)
+            qboxes, lay.canon_tiles, lay.ids, max_hits, lay.alive,
+            extent=self.extent)
         return hit_ids, counts, overflow, dict(skew=1.0)
 
     def dense_knn(self, pts, k: int, max_cand: int):
         lay = self.staged
         nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn(
             pts, k, lay.canon_tiles, lay.ids, lay.uni, max_cand=max_cand,
-            n_live=self.stats["n"], alive=lay.alive)
+            n_live=self.stats["n"], alive=lay.alive, extent=self.extent)
         return nn_ids, nn_d2, overflow, dict(rounds=_max_rounds(rounds),
                                              skew=1.0)
 

@@ -194,6 +194,66 @@ def test_dense_kernels_match_plain_versions(q, t, cap, alive, boxes):
         want = getattr(ops, fn)(qb, tiles, *extra, alive=al)
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want), fn
+    # the block-per-(tile, query block) counts, off the dense path
+    got = kernel.count(dev(qb), dev(tiles), alive=dev(al))
+    assert torch.equal(got.cpu(), ops.probe_counts(qb, tiles, alive=al))
+
+
+@pytest.mark.parametrize("async_copy", [False, True])
+@pytest.mark.parametrize("alive", [None, "random", "staged"])
+@pytest.mark.parametrize("q,t,cap", [(1, 1, 1), (700, 5, 257),
+                                     (130, 4, 20_000)])
+def test_dense_tile_kernels_match_plain_version(q, t, cap, alive, async_copy,
+                                                monkeypatch):
+    """The tile-major dense counts and hit list bit-equal their plain
+    versions: Q not a multiple of 4 x 128 (runs of 512 and fewer), cap
+    not a multiple of 128 and past one 8,192-slot segment, a query that
+    holds every box (hits past a warp and across segments), a tile
+    whose extent is 0 and one whose last slot is alive, with and
+    without the extent; then the hit list in several query blocks."""
+    _need_cuda()
+    monkeypatch.setattr(kernel, "ASYNC_COPY", async_copy)
+    rng = np.random.default_rng(q + t + cap)
+    qb = _boxes(rng, q, 0.2)
+    tiles = _boxes(rng, t * cap, 0.1).reshape(t, cap, 4)
+    tiles[torch.from_numpy(rng.random((t, cap)) < 0.2)] = torch.tensor(
+        [9e9, 9e9, -9e9, -9e9])
+    qb[0] = torch.tensor([-1.0, -1.0, 2.0, 2.0])   # holds every box
+    al = None
+    if alive == "random":
+        al = torch.from_numpy(rng.random((t, cap)) < 0.7)
+    elif alive == "staged":                        # a prefix of each tile
+        n = torch.from_numpy(rng.integers(0, cap + 1, t))
+        n[0] = cap
+        al = torch.arange(cap)[None, :] < n[:, None]
+    if al is not None and t > 2:
+        al[1] = False                  # extent 0
+        al[2, cap - 1] = True          # extent == cap
+    ext = None if al is None else ops.live_extent(al)
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    want_c = ops.probe_counts(qb, tiles, alive=al)
+    want_h = ops.dense_hit_list(qb, tiles, alive=al)
+    assert int((want_h[0] == 0).sum()) > (8192 if cap > 8192 else 32) or (
+        q == 1)
+    for e in (None, ext):
+        kernel.reset_launches()
+        got_c = ops.probe_counts(dev(qb), dev(tiles), alive=dev(al),
+                                 extent=dev(e))
+        got_h = ops.dense_hit_list(dev(qb), dev(tiles), alive=dev(al),
+                                   extent=dev(e))
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == dict({k: 0 for k in kernel.LAUNCHES},
+                                       dense_counts=1, dense_hits=1)
+        assert torch.equal(got_c.cpu(), want_c), e is None
+        for g, w in zip(got_h, want_h):
+            assert g.dtype == torch.int64 and torch.equal(g.cpu(), w)
+    budget = 3 * kernel.dense_row_bytes(t, cap)    # three queries a block
+    kernel.reset_launches()
+    got_h = ops.dense_hit_list(dev(qb), dev(tiles), alive=dev(al),
+                               extent=dev(ext), budget=budget)
+    assert kernel.LAUNCHES["dense_hits"] == -(-q // 3)
+    for g, w in zip(got_h, want_h):
+        assert torch.equal(g.cpu(), w)
 
 
 def test_wrappers_count_launches_and_reject_bad_inputs():

@@ -142,7 +142,7 @@ def test_dense_range_ids_match_repro(staged, method, max_hits, blocked,
     the (Q, T, cap) table built whole or three queries at a time."""
     jl, tl = staged[method]
     if blocked:
-        monkeypatch.setattr(trange, "_HIT_TABLE_BYTES", 3 * tl.ids.numel())
+        monkeypatch.setattr(tops, "_HIT_TABLE_BYTES", 3 * tl.ids.numel())
     al = np.asarray(jl.alive) & (
         np.random.default_rng(3).random(jl.alive.shape) < 0.9)
     qb = _qboxes(4)
@@ -155,9 +155,9 @@ def test_dense_range_ids_match_repro(staged, method, max_hits, blocked,
 
 
 def test_dense_blocks_cover_every_query_within_budget(monkeypatch):
-    monkeypatch.setattr(trange, "_HIT_TABLE_BYTES", 1000)
+    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES", 1000)
     for q, row in [(0, 10), (1, 5000), (17, 300), (40, 1000), (9, 1)]:
-        blocks = trange.dense_blocks(q, row)
+        blocks = tops.dense_blocks(q, row)
         rows = [i for b in blocks for i in range(q)[b]]
         assert rows == list(range(q))
         assert all((b.stop - b.start) * row <= 1000 or b.stop - b.start == 1

@@ -259,9 +259,9 @@ def test_blocked_dense_knn_equals_unblocked(data, staged, monkeypatch):
     pts = torch.from_numpy(_pts(14))
     args = (pts, K, tl.canon_tiles, tl.ids, tl.uni)
     want = tknn.batched_knn(*args, max_cand=16, n_live=stats["n"])
-    monkeypatch.setattr(trange, "_HIT_TABLE_BYTES",
+    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES",
                         2 * tl.ids.numel() + 1)
-    assert len(trange.dense_blocks(NQ, tl.ids.numel())) == NQ // 2
+    assert len(tops.dense_blocks(NQ, tl.ids.numel())) == NQ // 2
     got = tknn.batched_knn(*args, max_cand=16, n_live=stats["n"])
     for g, w in zip(got, want):
         assert torch.equal(g, w)

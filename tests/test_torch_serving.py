@@ -335,7 +335,7 @@ def test_dense_executors_in_small_blocks_match_repro(data, servers,
                                                      monkeypatch):
     """Dense id and kNN hit tables built two queries at a time."""
     js, ts = servers["off"]
-    monkeypatch.setattr(trange, "_HIT_TABLE_BYTES",
+    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES",
                         2 * ts.layout.ids.numel())
     qb = _qboxes(28, NQ)
     want = js.range_ids(jnp.asarray(qb), max_hits=16, pruned=False)
