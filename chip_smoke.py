@@ -67,8 +67,8 @@ before each path and read just after it) and its wall seconds:
    over its blocks, which must give the same list), beside the table
    kernel's time.  Kernel times come from CUDA events, plain times
    from the host clock.  The count kernels are also timed without the
-   extent (bit-equal), the dense ones with cp.async staging and in the
-   old block-per-(tile, query block) design (``count``, bit-equal), and
+   extent (bit-equal), the dense counts also in the old
+   block-per-(tile, query block) design (``count``, bit-equal), and
    their rows give the grouping pass's time and the bound over all of
    cap beside the bound at the extent.  The dense skip pair has no
    serving caller (repro launches it from tests only), so it is
@@ -1006,8 +1006,8 @@ def dense_count_entry(torch, kernel, ref, q, tiles, alives, launches):
     """Row 5: the tile-major dense counts (four queries a thread, to each
     tile's extent) on the dense counts batch, in every alive case, held
     to the plain version; beside them on the same inputs, each held to
-    it too: the same kernel without the extent, with cp.async staging,
-    and the old block-per-(tile, query block) ``count``."""
+    it too: the same kernel without the extent and the old
+    block-per-(tile, query block) ``count``."""
     t, cap = tiles.shape[:2]
     cases, worst = [], 0
     for alive_name, (al, ext) in alives:
@@ -1031,14 +1031,6 @@ def dense_count_entry(torch, kernel, ref, q, tiles, alives, launches):
                                      f"{alive_name}) differ from the plain "
                                      f"version")
             case[key] = cuda_ms(torch, fn, reps)
-        kernel.ASYNC_COPY = True
-        try:
-            if not torch.equal(new(), want):
-                raise AssertionError(f"dense counts with cp.async (alive="
-                                     f"{alive_name}) differ")
-            case["async_ms"] = cuda_ms(torch, new, 10)
-        finally:
-            kernel.ASYNC_COPY = False
         cases.append(case)
     main = cases[0]
     al, ext = alives[0][1]
@@ -1096,27 +1088,16 @@ def dense_hit_stages(torch, kernel, q, tiles, alive, extent):
     seg = kernel.dense_hit_counts(q, tiles, scratch, **kw)
     incl = seg.view(-1).cumsum(0)
 
-    def count():
-        return kernel.dense_hit_counts(q, tiles, scratch, **kw)
-
-    out = dict(
+    return dict(
         group_ms=cuda_ms(torch, lambda: kernel.dense_group(tiles, extent),
                          10),
-        count_ms=cuda_ms(torch, count, 10),
+        count_ms=cuda_ms(torch, lambda: kernel.dense_hit_counts(
+            q, tiles, scratch, **kw), 10),
         scan_ms=cuda_ms(torch, lambda: seg.view(-1).cumsum(0), 10),
         emit_ms=cuda_ms(torch, lambda: kernel.dense_emit_hits(
             q, tiles, scratch, seg, incl, **kw), 10),
         hits=int(incl[-1]), segments=seg.shape[2],
         units=int(scratch[3 * t]), count_cells_bytes=seg.numel() * 4)
-    kernel.ASYNC_COPY = True
-    try:
-        if not torch.equal(count(), seg):
-            raise AssertionError("the dense hit count with cp.async "
-                                 "differs")
-        out["count_async_ms"] = cuda_ms(torch, count, 10)
-    finally:
-        kernel.ASYNC_COPY = False
-    return out
 
 
 def dense_hits_entry(torch, kernel, ops, ref, srv, qi, pts, tiles, alives,

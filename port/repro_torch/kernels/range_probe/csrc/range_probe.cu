@@ -102,10 +102,18 @@
 // and each work item is (unit, run of queries), with no histogram, no
 // ranks and no scatter.  Each walk stops at its tile's live extent.
 // The count passes hold kDenseR queries a thread (runs of kDenseR x
-// 128 queries), so one shared-memory box read serves kDenseR tests.
+// 128 queries), so one shared-memory box read serves kDenseR tests, and
+// a test is four chained compares and one predicated add.
 // Bound on the H100: counts by operations (four compares per (query,
 // alive slot)); the hit list by the larger of those compares and the
-// count pass's reads plus 24 B a hit.
+// count pass's reads plus 24 B a hit.  The CUDA programming guide
+// lists compare, minimum and maximum at 64 results per SM a clock on
+// sm_90: a quarter of the 67 T/s float32 rate the bound uses (which
+// counts an FMA as two operations), so the practical floor is about
+// four times the stated bound.
+// Staging the next step's boxes with cp.async into a second buffer
+// measured no faster (its 64 KB halve the blocks an SM holds), so the
+// steps load synchronously.
 //
 // Routed masks.  One warp owns one (query, candidate) pair: lane c
 // tests chunk box c, a ballot gives the warp-uniform set of live
@@ -593,24 +601,6 @@ __device__ __forceinline__ float4 no_query() {
   return make_float4(n, n, n, n);
 }
 
-// cp.async: 16 bytes from global to shared memory, past the registers.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's newest copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // What a tile-major pass does with the hits it finds.
 enum Mode {
   kPairCount = 0,  // add them to the pair's count, (Q, F)
@@ -702,26 +692,6 @@ __device__ __forceinline__ void write_slots(const uint32_t (&f)[4], int pos,
                                             ((__ffs(m) - 1) >> 3));
 }
 
-// ASYNC: compact the alive slots of the step at `base` into s_slot and
-// start copying their boxes into dst with cp.async, as one commit group
-// -> the step's box count.  Every thread of the block calls it.
-template <bool ALIVE>
-__device__ int stage_async(const Probe& p, const uint8_t* arow,
-                           const float4* trow, int base, int end,
-                           uint16_t* s_slot, int* s_warp, float4* dst) {
-  uint32_t f[4];
-  load_flags<ALIVE>(p, arow, base, end, 0xffffffffu, f);
-  int n;
-  const int pos = block_exclusive_scan(
-      __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]), s_warp, &n);
-  write_slots(f, pos, s_slot);
-  __syncthreads();
-  for (int i = threadIdx.x; i < n; i += kRun)
-    cp_async16(dst + i, trow + base + s_slot[i]);
-  cp_async_commit();
-  return n;
-}
-
 // 4. blocks stride over the work items.  An item is (tile, run of up to
 //    128 pairs, segment of kSegSlots slots), so no block walks a long
 //    tile alone; dense, it is ((tile, segment) unit, run of queries),
@@ -730,8 +700,7 @@ __device__ int stage_async(const Probe& p, const uint8_t* arow,
 //    is aligned), so a dead 512-slot stretch costs one warp load; a
 //    block scan compacts the alive slots of the step's live chunks, and
 //    their boxes are read once into shared memory, coalesced, in slot
-//    order (ASYNC: with cp.async into the other of two buffers while
-//    the previous step is probed).
+//    order.
 //    - Counting with chunk boxes, thread i tests the run's i-th query
 //      against the step's chunk boxes, and the same scan lists every
 //      (query, chunk) the query reaches; threads take the list's entries
@@ -749,7 +718,7 @@ __device__ int stage_async(const Probe& p, const uint8_t* arow,
 //      shared memory from step to step.  A pair whose cell is written
 //      out is passed over, and the item ends once all of its are.
 //    Counts are added with integer atomics.
-template <int MODE, bool SKIP, bool ALIVE, bool DENSE, bool ASYNC>
+template <int MODE, bool SKIP, bool ALIVE, bool DENSE>
 __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   constexpr bool EMIT = MODE == kEmit;
   constexpr bool LIST = SKIP && !EMIT;  // the (query, chunk) work list
@@ -759,9 +728,7 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   constexpr int kList = LIST ? kStep : 1;
   constexpr int kQueries = SHARED_Q ? kRun : 1;
   constexpr int kPairs = EMIT ? kRun : 1;
-  static_assert(!ASYNC || (DENSE && !SKIP && !EMIT),
-                "cp.async staging is for the dense count passes");
-  __shared__ float4 s_box[ASYNC ? 1 : kStep];  // the step's compacted boxes
+  __shared__ float4 s_box[kStep];          // the step's compacted boxes
   __shared__ uint16_t s_slot[kStep];       // their slots, step-relative
   __shared__ uint16_t s_list[kList];       // (query << 4 | chunk) entries
   __shared__ float4 s_q[kQueries];         // the run's query boxes
@@ -773,7 +740,6 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   __shared__ int s_coff[kStepChunks + 1];  // each chunk's first box
   __shared__ int s_warp[kRun / 32];
   __shared__ unsigned s_live[2][kRun / 32];
-  extern __shared__ float4 s_dyn[];        // ASYNC: two kStep-box buffers
 
   const Groups& g = p.g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -838,122 +804,103 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
         SKIP ? p.cboxes + static_cast<int64_t>(t) * p.C : nullptr;
 
     int acc = 0;
-    if constexpr (ASYNC) {
-      int n = stage_async<ALIVE>(p, arow, trow, seg_begin, seg_end, s_slot,
-                                 s_warp, s_dyn);
-      for (int base = seg_begin, k = 0; base < seg_end; base += kStep, ++k) {
-        int n_next = 0;
-        if (base + kStep < seg_end)
-          n_next = stage_async<ALIVE>(p, arow, trow, base + kStep, seg_end,
-                                      s_slot, s_warp,
-                                      s_dyn + ((k + 1) & 1) * kStep);
-        else
-          cp_async_commit();  // empty: the wait below is for this step
-        cp_async_wait<1>();
-        __syncthreads();      // every thread's copies of this step landed
-        count_block<R>(qr, accr, s_dyn + (k & 1) * kStep, part, n, parts);
-        n = n_next;
-      }
-    } else {
-      for (int base = seg_begin; base < seg_end; base += kStep, ++step) {
-        // emit: leave once every pair of the run has written its cell
-        if (EMIT && !__syncthreads_or(valid && s_cur[tid] < s_end[tid]))
-          break;
-        const int c0 = base / kChunk;
-        const int nc =
-            min(kStepChunks, (seg_end - base + kChunk - 1) / kChunk);
-        // bit j of qlive: this query reaches chunk c0 + j; of live: some
-        // query of the run does
-        unsigned qlive, live;
-        if (SKIP) {
-          qlive = 0u;
-          if (valid) {
+    for (int base = seg_begin; base < seg_end; base += kStep, ++step) {
+      // emit: leave once every pair of the run has written its cell
+      if (EMIT && !__syncthreads_or(valid && s_cur[tid] < s_end[tid]))
+        break;
+      const int c0 = base / kChunk;
+      const int nc = min(kStepChunks, (seg_end - base + kChunk - 1) / kChunk);
+      // bit j of qlive: this query reaches chunk c0 + j; of live: some
+      // query of the run does
+      unsigned qlive, live;
+      if (SKIP) {
+        qlive = 0u;
+        if (valid) {
 #pragma unroll
-            for (int j = 0; j < kStepChunks; ++j)  // independent loads
-              if (j < nc)
-                qlive |= static_cast<unsigned>(hit(qb, crow[c0 + j])) << j;
-          }
-          if (EMIT) s_qlive[tid] = qlive;
-          const unsigned w = __reduce_or_sync(0xffffffffu, qlive);
-          unsigned* sl = s_live[step & 1];  // two buffers: a skipped step
-          if (lane == 0) sl[warp] = w;      // needs no closing barrier
-          __syncthreads();
-          live = sl[0] | sl[1] | sl[2] | sl[3];
-          if (!live) continue;  // block-uniform
-        } else {
-          qlive = valid ? 0xffffffffu : 0u;
-          live = 0xffffffffu;
+          for (int j = 0; j < kStepChunks; ++j)  // independent loads
+            if (j < nc)
+              qlive |= static_cast<unsigned>(hit(qb, crow[c0 + j])) << j;
         }
+        if (EMIT) s_qlive[tid] = qlive;
+        const unsigned w = __reduce_or_sync(0xffffffffu, qlive);
+        unsigned* sl = s_live[step & 1];  // two buffers: a skipped step
+        if (lane == 0) sl[warp] = w;      // needs no closing barrier
+        __syncthreads();
+        live = sl[0] | sl[1] | sl[2] | sl[3];
+        if (!live) continue;  // block-uniform
+      } else {
+        qlive = valid ? 0xffffffffu : 0u;
+        live = 0xffffffffu;
+      }
 
-        uint32_t f[4];
-        load_flags<ALIVE>(p, arow, base, seg_end, live, f);
-        // one scan places both this thread's alive boxes (low half) and
-        // its (query, chunk) entries (high half); each total <= kStep
-        const int cnt =
-            __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]);
-        const int ent = LIST ? __popc(qlive) : 0;
-        int total;
-        const int packed = block_exclusive_scan(cnt | (ent << 16), s_warp,
-                                                &total);
-        const int pos = packed & 0xffff;
-        int epos = packed >> 16;
-        const int n = total & 0xffff, n_list = total >> 16;
-        if ((tid & 7) == 0) s_coff[tid >> 3] = pos;  // 8 threads a chunk
-        if (tid == 0) s_coff[kStepChunks] = n;
-        write_slots(f, pos, s_slot);
-        if (LIST)
-          for (unsigned m = qlive; m; m &= m - 1u)
-            s_list[epos++] = static_cast<uint16_t>((tid << 4) |
-                                                   (__ffs(m) - 1));
-        __syncthreads();
-        for (int i0 = tid; i0 < n; i0 += 4 * kRun) {  // four loads in flight
-          float4 b[4];
+      uint32_t f[4];
+      load_flags<ALIVE>(p, arow, base, seg_end, live, f);
+      // one scan places both this thread's alive boxes (low half) and
+      // its (query, chunk) entries (high half); each total <= kStep
+      const int cnt =
+          __popc(f[0]) + __popc(f[1]) + __popc(f[2]) + __popc(f[3]);
+      const int ent = LIST ? __popc(qlive) : 0;
+      int total;
+      const int packed = block_exclusive_scan(cnt | (ent << 16), s_warp,
+                                              &total);
+      const int pos = packed & 0xffff;
+      int epos = packed >> 16;
+      const int n = total & 0xffff, n_list = total >> 16;
+      if ((tid & 7) == 0) s_coff[tid >> 3] = pos;  // 8 threads a chunk
+      if (tid == 0) s_coff[kStepChunks] = n;
+      write_slots(f, pos, s_slot);
+      if (LIST)
+        for (unsigned m = qlive; m; m &= m - 1u)
+          s_list[epos++] = static_cast<uint16_t>((tid << 4) |
+                                                 (__ffs(m) - 1));
+      __syncthreads();
+      for (int i0 = tid; i0 < n; i0 += 4 * kRun) {  // four loads in flight
+        float4 b[4];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = i0 + u * kRun;
-            if (i < n) b[u] = trow[base + s_slot[i]];
-          }
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kRun;
+          if (i < n) b[u] = trow[base + s_slot[i]];
+        }
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const int i = i0 + u * kRun;
-            if (i < n) s_box[i] = b[u];
-          }
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u * kRun;
+          if (i < n) s_box[i] = b[u];
         }
-        __syncthreads();
-        if (EMIT) {
-          for (int i = warp; i < len; i += kRun / 32) {  // warp-uniform
-            int64_t cur = s_cur[i];
-            if (cur == s_end[i]) continue;  // its cell is written out
-            const float4 qq = s_q[i];
-            if (SKIP) {
-              for (unsigned m = s_qlive[i]; m; m &= m - 1u) {
-                const int j = __ffs(m) - 1;
-                cur = emit_range(qq, s_box, s_slot, s_coff[j], s_coff[j + 1],
-                                 lane, base, s_query[i], t, cur, p);
-              }
-            } else {
-              cur = emit_range(qq, s_box, s_slot, 0, n, lane, base,
-                               s_query[i], t, cur, p);
-            }
-            if (lane == 0) s_cur[i] = cur;
-          }
-        } else if (LIST) {
-          for (int e = tid; e < n_list; e += kRun) {
-            const int w = s_list[e], j = w & 15;
-            const float4 qq = s_q[w >> 4];
-            const int beg = s_coff[j], end = s_coff[j + 1];
-            // start each lane at its own box: fewer shared-memory conflicts
-            const int mid = beg + (end > beg ? lane % (end - beg) : 0);
-            const int h = count_rotated(qq, s_box, beg, mid, end);
-            if (h) atomicAdd(&s_hits[w >> 4], h);
-          }
-        } else if (R > 1) {
-          count_block<R>(qr, accr, s_box, part, n, parts);
-        } else if (valid) {
-          acc += count_range(qb, s_box, part, n, parts);
-        }
-        __syncthreads();  // the shared arrays are reused next step
       }
+      __syncthreads();
+      if (EMIT) {
+        for (int i = warp; i < len; i += kRun / 32) {  // warp-uniform
+          int64_t cur = s_cur[i];
+          if (cur == s_end[i]) continue;  // its cell is written out
+          const float4 qq = s_q[i];
+          if (SKIP) {
+            for (unsigned m = s_qlive[i]; m; m &= m - 1u) {
+              const int j = __ffs(m) - 1;
+              cur = emit_range(qq, s_box, s_slot, s_coff[j], s_coff[j + 1],
+                               lane, base, s_query[i], t, cur, p);
+            }
+          } else {
+            cur = emit_range(qq, s_box, s_slot, 0, n, lane, base,
+                             s_query[i], t, cur, p);
+          }
+          if (lane == 0) s_cur[i] = cur;
+        }
+      } else if (LIST) {
+        for (int e = tid; e < n_list; e += kRun) {
+          const int w = s_list[e], j = w & 15;
+          const float4 qq = s_q[w >> 4];
+          const int beg = s_coff[j], end = s_coff[j + 1];
+          // start each lane at its own box: fewer shared-memory conflicts
+          const int mid = beg + (end > beg ? lane % (end - beg) : 0);
+          const int h = count_rotated(qq, s_box, beg, mid, end);
+          if (h) atomicAdd(&s_hits[w >> 4], h);
+        }
+      } else if (R > 1) {
+        count_block<R>(qr, accr, s_box, part, n, parts);
+      } else if (valid) {
+        acc += count_range(qb, s_box, part, n, parts);
+      }
+      __syncthreads();  // the shared arrays are reused next step
     }
     if (!EMIT) {
       if (R > 1) {
@@ -980,25 +927,18 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   }
 }
 
-template <int MODE, bool SKIP, bool ALIVE, bool DENSE, bool ASYNC>
-cudaError_t launch_probe(const Probe& p, int64_t items, cudaStream_t stream) {
-  constexpr int kDyn = ASYNC ? 2 * kStep * static_cast<int>(sizeof(float4))
-                             : 0;
-  const auto kern = tile_probe<MODE, SKIP, ALIVE, DENSE, ASYNC>;
-  if (ASYNC) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kDyn);
-    if (err != cudaSuccess) return err;
-  }
+template <int MODE, bool SKIP, bool ALIVE, bool DENSE>
+void launch_probe(const Probe& p, int64_t items, cudaStream_t stream) {
   // a persistent grid: as many blocks as the card holds at once, or fewer
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kRun, kDyn);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, tile_probe<MODE, SKIP, ALIVE, DENSE>, kRun, 0);
   const int64_t grid = std::max<int64_t>(
       1, std::min<int64_t>(items, static_cast<int64_t>(sms) * per_sm));
-  kern<<<static_cast<unsigned>(grid), kRun, kDyn, stream>>>(p);
-  return cudaGetLastError();
+  tile_probe<MODE, SKIP, ALIVE, DENSE>
+      <<<static_cast<unsigned>(grid), kRun, 0, stream>>>(p);
 }
 
 bool aligned_alive(const Probe& p) {
@@ -1021,25 +961,22 @@ int run_probe(int device, Probe p, long long Q, int T, void* scratch,
   const int64_t items = max_items(T, pairs, p.cap);
   if (p.cboxes != nullptr) {
     if (p.alive != nullptr)
-      err = launch_probe<MODE, true, true, false, false>(p, items, s);
+      launch_probe<MODE, true, true, false>(p, items, s);
     else
-      err = launch_probe<MODE, true, false, false, false>(p, items, s);
+      launch_probe<MODE, true, false, false>(p, items, s);
   } else {
     if (p.alive != nullptr)
-      err = launch_probe<MODE, false, true, false, false>(p, items, s);
+      launch_probe<MODE, false, true, false>(p, items, s);
     else
-      err = launch_probe<MODE, false, false, false, false>(p, items, s);
+      launch_probe<MODE, false, false, false>(p, items, s);
   }
-  return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // One dense tile-major pass in MODE over the dense grouping in
-// `scratch` (p.F == T); the count passes stage boxes with cp.async when
-// `async_copy` is set.
+// `scratch` (p.F == T).
 template <int MODE>
-int run_dense(int device, Probe p, int T, void* scratch, bool async_copy,
-              void* stream) {
-  constexpr bool kAsync = MODE != kEmit;
+int run_dense(int device, Probe p, int T, void* scratch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.Q == 0 || T == 0) return 0;
@@ -1048,18 +985,11 @@ int run_dense(int device, Probe p, int T, void* scratch, bool async_copy,
   p.vec_alive = aligned_alive(p);
   const int64_t items =
       static_cast<int64_t>(T) * p.S * ((p.Q + kRun - 1) / kRun);
-  if (p.alive != nullptr) {
-    if (async_copy)
-      err = launch_probe<MODE, false, true, true, kAsync>(p, items, s);
-    else
-      err = launch_probe<MODE, false, true, true, false>(p, items, s);
-  } else {
-    if (async_copy)
-      err = launch_probe<MODE, false, false, true, kAsync>(p, items, s);
-    else
-      err = launch_probe<MODE, false, false, true, false>(p, items, s);
-  }
-  return static_cast<int>(err);
+  if (p.alive != nullptr)
+    launch_probe<MODE, false, true, true>(p, items, s);
+  else
+    launch_probe<MODE, false, false, true>(p, items, s);
+  return static_cast<int>(cudaGetLastError());
 }
 
 Probe probe_args(const void* q, const void* tiles, const void* cboxes,
@@ -1221,11 +1151,11 @@ extern "C" int rp_dense_group(int device, const void* extent, int T, int cap,
 // that counts array, incl (Q * T * S,) int64 its inclusive scan and
 // total its last element, write each hit to out (3, total) int64 as
 // (query, tile, slot) rows, in flat (query, tile, slot) order.
-// async_copy: the count passes stage boxes with cp.async.  Launches on
-// `stream` (no synchronisation) and returns cudaGetLastError().
-extern "C" int rp_dense_tiles(int device, int mode, int async_copy,
-                              const void* q, const void* tiles,
-                              const void* alive, const void* extent,
+// Launches on `stream` (no synchronisation) and returns
+// cudaGetLastError().
+extern "C" int rp_dense_tiles(int device, int mode, const void* q,
+                              const void* tiles, const void* alive,
+                              const void* extent,
                               long long Q, int T, int cap, void* scratch,
                               void* counts, const void* incl, void* out,
                               long long total, void* stream) {
@@ -1233,14 +1163,14 @@ extern "C" int rp_dense_tiles(int device, int mode, int async_copy,
                        (cap + kChunk - 1) / kChunk, counts);
   p.Q = Q;
   if (mode == 0)
-    return run_dense<kPairCount>(device, p, T, scratch, async_copy, stream);
+    return run_dense<kPairCount>(device, p, T, scratch, stream);
   if (mode == 1)
-    return run_dense<kSegCount>(device, p, T, scratch, async_copy, stream);
+    return run_dense<kSegCount>(device, p, T, scratch, stream);
   if (total == 0) return static_cast<int>(cudaSetDevice(device));
   p.incl = static_cast<const int64_t*>(incl);
   p.out = static_cast<int64_t*>(out);
   p.total = total;
-  return run_dense<kEmit>(device, p, T, scratch, false, stream);
+  return run_dense<kEmit>(device, p, T, scratch, stream);
 }
 
 // Launch one dense probe on `stream` (no synchronisation) and return

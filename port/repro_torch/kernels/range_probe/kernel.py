@@ -57,9 +57,6 @@ LAUNCHES = {"gather_count": 0, "gather_mask": 0,
             "gather_hits": 0, "gather_hits_skip": 0,
             "dense_counts": 0, "dense_hits": 0,
             "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0}
-# the dense count passes stage each step's boxes with cp.async into a
-# second shared-memory buffer while the previous step is probed
-ASYNC_COPY = False
 
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cuda_build.Library(SOURCE, {
@@ -75,8 +72,8 @@ LIB = cuda_build.Library(SOURCE, {
                       _ci, _vp, _vp, _vp, _vp, _cll, _vp], _ci),
     "rp_dense_scratch": ([_ci, _ci], _cll),
     "rp_dense_group": ([_ci, _vp, _ci, _ci, _vp, _vp], _ci),
-    "rp_dense_tiles": ([_ci, _ci, _ci, _vp, _vp, _vp, _vp, _cll, _ci, _ci,
-                        _vp, _vp, _vp, _vp, _cll, _vp], _ci),
+    "rp_dense_tiles": ([_ci, _ci, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _vp,
+                        _vp, _vp, _vp, _cll, _vp], _ci),
     "rp_dense_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                         _ci, _ci, _ci, _vp, _vp, _vp], _ci),
 }, "rp_error_string")
@@ -275,7 +272,7 @@ def _dense_pass(name: str, mode: int, qboxes, tiles, scratch, counts, *,
                 alive, extent, incl=None, out=None, total=0) -> int:
     dev, t, cap, q, extent = _dense_args(name, qboxes, tiles, alive, extent)
     return LIB.get().rp_dense_tiles(
-        _index(dev), mode, int(ASYNC_COPY), _ptr(qboxes), _ptr(tiles),
+        _index(dev), mode, _ptr(qboxes), _ptr(tiles),
         _ptr(alive), _ptr(extent), q, t, cap, _ptr(scratch), _ptr(counts),
         _ptr(incl), _ptr(out), total, cuda_build.stream(dev))
 
@@ -354,11 +351,8 @@ def dense_hits(qboxes, tiles, *, alive=None, extent=None,
             if rows.start:
                 out[0] += rows.start
             parts.append(out)
-    if len(parts) == 1:
-        return parts[0]
-    if not parts:
-        return torch.empty((3, 0), dtype=torch.int64, device=dev)
-    return torch.cat(parts, 1)
+    return (torch.cat(parts, 1) if parts
+            else torch.empty((3, 0), dtype=torch.int64, device=dev))
 
 
 def _dense(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,

@@ -224,23 +224,22 @@ def gathered_hit_list_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
 
 def dense_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor, *,
                    alive: torch.Tensor | None = None,
-                   extent: torch.Tensor | None = None,
-                   budget: int | None = None
+                   extent: torch.Tensor | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Every hit of the dense probe: (Q, 4), (T, cap, 4) -> int64
     ``(query, tile, slot)``, the nonzeros of ``probe_mask`` in flat
-    (query, tile, slot) order.  The queries go in ``dense_blocks`` of
-    at most ``budget`` bytes of scratch: on the card the blocks' count
-    cells and their scan (default ``_DENSE_CELL_BYTES``), in the plain
-    version their hit table (default ``_HIT_TABLE_BYTES``)."""
+    (query, tile, slot) order.  The queries go in ``dense_blocks``: on
+    the card of at most ``_DENSE_CELL_BYTES`` of count cells and their
+    scan, in the plain version of at most ``_HIT_TABLE_BYTES`` of hit
+    table."""
     if tiles.is_cuda:
         t, cap = tiles.shape[:2]
         blocks = dense_blocks(qboxes.shape[0], kernel.dense_row_bytes(t, cap),
-                              _DENSE_CELL_BYTES if budget is None else budget)
+                              _DENSE_CELL_BYTES)
         return tuple(kernel.dense_hits(qboxes.float().contiguous(), tiles,
                                        alive=alive, extent=extent,
                                        blocks=blocks))
-    return plain_dense_hit_list(qboxes, tiles, alive=alive, budget=budget)
+    return plain_dense_hit_list(qboxes, tiles, alive=alive)
 
 
 def dense_blocks(q: int, row_bytes: int, budget: int | None = None
@@ -254,15 +253,14 @@ def dense_blocks(q: int, row_bytes: int, budget: int | None = None
 
 
 def plain_dense_hit_list(qboxes: torch.Tensor, tiles: torch.Tensor, *,
-                         alive: torch.Tensor | None = None,
-                         budget: int | None = None
+                         alive: torch.Tensor | None = None
                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain version of ``dense_hit_list``, on any device: the
-    ``ref`` table of each of ``dense_blocks(Q, T·cap, budget)``, then
-    its ``nonzero``."""
+    ``ref`` table of each of ``dense_blocks(Q, T·cap)``, then its
+    ``nonzero``."""
     t, cap = tiles.shape[:2]
     parts = []
-    for rows in dense_blocks(qboxes.shape[0], t * cap, budget):
+    for rows in dense_blocks(qboxes.shape[0], t * cap):
         mask = ref.probe_mask(qboxes[rows].float(), tiles.float(), alive)
         bq, bt, bs = mask.transpose(0, 1).nonzero(as_tuple=True)
         parts.append((bq + rows.start, bt, bs))

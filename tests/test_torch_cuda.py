@@ -199,11 +199,10 @@ def test_dense_kernels_match_plain_versions(q, t, cap, alive, boxes):
     assert torch.equal(got.cpu(), ops.probe_counts(qb, tiles, alive=al))
 
 
-@pytest.mark.parametrize("async_copy", [False, True])
 @pytest.mark.parametrize("alive", [None, "random", "staged"])
 @pytest.mark.parametrize("q,t,cap", [(1, 1, 1), (700, 5, 257),
                                      (130, 4, 20_000)])
-def test_dense_tile_kernels_match_plain_version(q, t, cap, alive, async_copy,
+def test_dense_tile_kernels_match_plain_version(q, t, cap, alive,
                                                 monkeypatch):
     """The tile-major dense counts and hit list bit-equal their plain
     versions: Q not a multiple of 4 x 128 (runs of 512 and fewer), cap
@@ -212,7 +211,6 @@ def test_dense_tile_kernels_match_plain_version(q, t, cap, alive, async_copy,
     whose extent is 0 and one whose last slot is alive, with and
     without the extent; then the hit list in several query blocks."""
     _need_cuda()
-    monkeypatch.setattr(kernel, "ASYNC_COPY", async_copy)
     rng = np.random.default_rng(q + t + cap)
     qb = _boxes(rng, q, 0.2)
     tiles = _boxes(rng, t * cap, 0.1).reshape(t, cap, 4)
@@ -247,10 +245,11 @@ def test_dense_tile_kernels_match_plain_version(q, t, cap, alive, async_copy,
         assert torch.equal(got_c.cpu(), want_c), e is None
         for g, w in zip(got_h, want_h):
             assert g.dtype == torch.int64 and torch.equal(g.cpu(), w)
-    budget = 3 * kernel.dense_row_bytes(t, cap)    # three queries a block
+    monkeypatch.setattr(ops, "_DENSE_CELL_BYTES",     # three queries a block
+                        3 * kernel.dense_row_bytes(t, cap))
     kernel.reset_launches()
     got_h = ops.dense_hit_list(dev(qb), dev(tiles), alive=dev(al),
-                               extent=dev(ext), budget=budget)
+                               extent=dev(ext))
     assert kernel.LAUNCHES["dense_hits"] == -(-q // 3)
     for g, w in zip(got_h, want_h):
         assert torch.equal(g.cpu(), w)

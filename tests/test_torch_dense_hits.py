@@ -71,12 +71,12 @@ def _j(x):
     return None if x is None else jnp.asarray(x)
 
 
-def _lists(qb, tiles, al, **kw):
+def _lists(qb, tiles, al):
     """The port's list without and with the live extent of ``al``."""
     extents = [None] if al is None else [None, tops.live_extent(_t(al))]
     for ext in extents:
         yield tops.dense_hit_list(_t(qb), _t(tiles), alive=_t(al),
-                                  extent=ext, **kw)
+                                  extent=ext)
 
 
 def _assert_triples(got, want):
@@ -134,18 +134,16 @@ def test_dense_blocks_cover_every_query_in_order(q, row, budget):
 
 @pytest.mark.parametrize("alive", [None, "random"])
 def test_blocked_dense_hit_list_equals_one_block(alive, monkeypatch):
-    """The plain version's tables a few queries at a time (budget patched,
-    and passed) give the one-block list."""
+    """The plain version's tables a few queries at a time (budget
+    patched) give the one-block list."""
     qb, tiles, al = _case(40, 5, 70, alive)
     whole = tops.dense_hit_list(_t(qb), _t(tiles), alive=_t(al))
-    assert len(tops.dense_blocks(40, 5 * 70, 3 * 5 * 70)) > 10
-    got = tops.dense_hit_list(_t(qb), _t(tiles), alive=_t(al),
-                              budget=3 * 5 * 70)
-    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES", 2 * 5 * 70)
-    patched = tops.dense_hit_list(_t(qb), _t(tiles), alive=_t(al))
+    monkeypatch.setattr(tops, "_HIT_TABLE_BYTES", 3 * 5 * 70)
+    assert len(tops.dense_blocks(40, 5 * 70)) > 10
+    got = tops.dense_hit_list(_t(qb), _t(tiles), alive=_t(al))
     assert whole[0].numel() > 0
-    for g, p, w in zip(got, patched, whole):
-        assert torch.equal(g, w) and torch.equal(p, w)
+    for g, w in zip(got, whole):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("name", ["dense_counts", "dense_hits"])
