@@ -43,7 +43,7 @@ from .kernel import CHUNK  # noqa: F401  (re-export: staging chunks on this)
 _SKIP_RATE_BLOCK = 1 << 24   # (query, candidate, chunk) tests per block
 _HIT_TABLE_BYTES = 1 << 31   # bytes of the plain hit lists' table block
 _DENSE_CELL_BYTES = 1 << 29  # bytes of a dense hit list block's count cells
-                             # and scan on the card (1,254 queries at
+                             # and scan on the card (1,285 queries at
                              # T = 2048, cap = 135,296)
 
 
