@@ -83,7 +83,14 @@ before each path and read just after it) and its wall seconds:
    3; the raw MASJ count comes from ``run_join_count(dedup="none")``'s
    per-tile counts, whose largest value sets ``max_pairs_per_tile``,
    so no tile's pairs are truncated; the MASJ pair path runs for every
-   layout.  The kernels' launches are read right after.
+   layout.  Each ``spatial_join_count`` must launch the batched rp count
+   once (fg, bsp, slc, bos) or the batched pair list once (str, hc),
+   and neither the ``mask`` table kernel nor ``count``.  On the bsp and
+   hc plans the per-tile table join (``mask``, ``rp_own_mask``, a sum or
+   ``nonzero``) runs as a yardstick, timed beside the new one and held
+   to the same count; its launches are not counted.  The kernels'
+   launches are read right after: ``count``, ``rp_counts`` and
+   ``pair_list`` must have launched, ``mask`` not at all.
 8. join_check -- fails unless, on each input, all six exact counts are
    equal, rp equals MASJ pairs for the non-overlapping layouts, the
    exact count equals one unpartitioned ``join_count`` of the whole
@@ -91,10 +98,14 @@ before each path and read just after it) and its wall seconds:
    4096 sampled R objects in the deduplicated bsp pair list equal a
    plain brute force against all of S, the raw count is at least the
    exact count, and no tile was truncated.
-9. kernels -- encode over the 8 M merged pi centroids, and the count
-   and mask kernels on the largest live tile of the pi and the osm bsp
-   joins, each against its plain version (bit-equal), CUDA-event ms
-   over 10 launches beside the plain ms and the bound.
+9. kernels -- encode over the 8 M merged pi centroids, the count and
+   mask kernels on the largest live tile of the pi and the osm bsp
+   joins, the batched rp count on the whole pi and osm bsp plans and
+   the batched pair list on the whole pi and osm hc plans, each against
+   its plain version (bit-equal) and the batched passes also against
+   the per-tile path (the same counts, the same pair list), CUDA-event
+   ms over 10 launches beside the plain ms, the old design's ms and the
+   bound (four compares a live (r, s) test at 67 T/s, or the bytes).
 
 10. lm_prefill -- the spatial phases' tensors freed, the published
    Mamba2-1.3B configuration (48 SSD blocks, d_model 2048, 64 heads of
@@ -115,11 +126,13 @@ before each path and read just after it) and its wall seconds:
    teacher-forced logits through the kernel equal 200 ``decode_step``
    calls through the recurrence (which launch no kernel) within 1e-4,
    greedy tokens agreeing wherever the top-two margin exceeds it; (c)
-   the prefill path launched the kernel once a layer.  Then the
-   kernel's CUDA-event ms over 10 launches at the prefill shape, its
-   plain ms and its bound.
+   the prefill path launched the kernel once a layer, and the FFMA
+   design never.  Then the kernel's CUDA-event ms over 10 launches at
+   the prefill shape, timed in turns with the FFMA design on the same
+   inputs, its plain ms and its bound.
 
-Then one ``{"kernels": [...]}`` line (all twelve kernels), the card's
+Then one ``{"kernels": [...]}`` line (all twelve kernels and the
+join's two batched passes), the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
 exits non-zero.
@@ -191,11 +204,18 @@ SSD_TOL = 2e-5                     # the reference's kernel tolerance
 LM_TOL = 1e-4                      # tests/test_models_smoke.py's
 SSD_SOURCE = "port/repro_torch/kernels/ssd/csrc/ssd.cu"
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:41"
-NEW_CASES = {  # this slice's kernels -> the TPU kernel each replaces
+NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
     "mbr_count": "src/repro/kernels/mbr_join/kernel.py:49",
     "mbr_mask": "src/repro/kernels/mbr_join/kernel.py:67",
+    "mbr_rp_counts": "src/repro/kernels/mbr_join/kernel.py:67",
+    "mbr_pair_list": "src/repro/kernels/mbr_join/kernel.py:67",
 }
+BATCHED = {  # the join's batched passes -> the layout whose plan drives it
+    "mbr_rp_counts": "bsp",
+    "mbr_pair_list": "hc",
+}
+PAIR_BYTES = 2 * 4     # a listed pair's (r_id, s_id), int32
 
 
 def emit(obj) -> None:
@@ -1271,16 +1291,50 @@ def partition_phase(torch, r, s):
     return launches
 
 
+def old_join(torch, plan, overlapping, max_pairs):
+    """The per-tile table join on the same plan, a yardstick: tile by tile, the
+    ``mask`` table kernel, then ``rp_own_mask``, ``&`` and a sum (rp), or
+    ``nonzero`` (MASJ) and ``unique_pairs`` over the concatenation ->
+    ``(count, per-tile counts or (rid, sid))``."""
+    from repro_torch.query import dedup, engine, join
+
+    tiles = list(engine._live_tiles(plan, None))
+
+    def args(j, nr, ns):
+        return (plan.r_tiles[0, j, :nr], plan.s_tiles[0, j, :ns])
+
+    if not overlapping:
+        out = torch.zeros(plan.r_tiles.shape[1], dtype=torch.int64,
+                          device=plan.r_tiles.device)
+        for j, nr, ns in tiles:
+            out[j] = join.tile_join_count(*args(j, nr, ns),
+                                          plan.tile_boxes[0, j],
+                                          plan.universe)
+        return int(out.sum()), out
+    prs, pss = [], []
+    for j, nr, ns in tiles:
+        pr, ps, _ = join.tile_pairs(*args(j, nr, ns), plan.r_ids[0, j, :nr],
+                                    plan.s_ids[0, j, :ns],
+                                    plan.tile_boxes[0, j], plan.universe,
+                                    max_pairs)
+        prs.append(pr)
+        pss.append(ps)
+    rid, sid = torch.cat(prs), torch.cat(pss)
+    return int(dedup.unique_pairs(rid, sid)[0]), (rid, sid)
+
+
 def join_phase(torch, dev, inputs):
     """plan_join + spatial_join_count for six layouts on each input ->
-    ``(results, launches, bsp plans' largest tiles, bsp pair lists)``."""
+    ``(results, launches, bsp plans' largest tiles, bsp pair lists, the
+    bsp and hc plans)``.  The per-tile table join runs on the bsp and hc
+    plans as a yardstick; its launches are not counted."""
     from repro_torch.kernels.hilbert import kernel as hkernel
     from repro_torch.kernels.mbr_join import kernel as mkernel
     from repro_torch.query import engine
 
     hkernel.reset_launches()
     mkernel.reset_launches()
-    results, tiles, pairs = {}, {}, {}
+    results, tiles, pairs, plans = {}, {}, {}, {}
     for name, (r, s) in inputs.items():
         for method in METHODS:
             torch.cuda.reset_peak_memory_stats()
@@ -1300,14 +1354,23 @@ def join_phase(torch, dev, inputs):
                     plan, max_pairs_per_tile=max_n))
                 join_s.append(secs)
             m2 = dict(mkernel.LAUNCHES)
+            per_join = {k: (m2[k] - m1[k]) / 3 for k in m2}
+            st = plan.stats
+            want = ({"pair_list": 1, "rp_counts": 0} if st["overlapping"]
+                    else {"pair_list": 0, "rp_counts": 1})
+            if any(per_join[k] != v for k, v in dict(want, mask=0,
+                                                     count=0).items()):
+                raise AssertionError(f"{name} {method}: spatial_join_count "
+                                     f"launched {per_join}, want {want} "
+                                     f"and no mask or count")
             mstats = {}
             rid, sid, uniq = engine.masj_pairs(plan, max_pairs_per_tile=max_n,
                                                stats=mstats)
             masj = int(uniq.sum())
-            st = plan.stats
             tpd = plan.r_tiles.shape[1]
+            live = plan.live_r * plan.live_s
             results[name, method] = dict(
-                exact=exact, raw=raw, masj=masj,
+                exact=exact, raw=raw, masj=masj, max_n=max_n,
                 overlapping=st["overlapping"],
                 truncated_tiles=mstats["truncated_tiles"])
             emit(dict(
@@ -1320,30 +1383,51 @@ def join_phase(torch, dev, inputs):
                 skew=st["skew"], exact=exact, raw=raw, masj_pairs=masj,
                 max_tile_pairs=max_n, gathered_pairs=mstats["pairs"],
                 truncated_tiles=mstats["truncated_tiles"],
+                live_tests=int(live.sum()), live_tiles=int((live > 0).sum()),
                 padded_pair_table_bytes=2 * 4 * tpd * max_n,
-                launches_per_join={k: (m2[k] - m1[k]) / 3 for k in m2},
+                launches_per_join=per_join,
                 raw_count_launches={k: m1[k] - m0[k] for k in m1},
                 max_memory_allocated=torch.cuda.max_memory_allocated()))
             if method in ("bsp", "hc"):
+                # a window of about 0.2 s: one call of a few ms is too
+                # short for the profiler to report its device work
+                reps = max(1, min(40, int(0.2 / median(join_s)) + 1))
                 dev_ms, top = device_busy(torch, lambda: (
                     engine.spatial_join_count(plan,
-                                              max_pairs_per_tile=max_n)), 1)
+                                              max_pairs_per_tile=max_n)),
+                                          reps)
+                counted = dict(mkernel.LAUNCHES)
+                old_s = []
+                for _ in range(3):
+                    (old, _), secs = timed_s(torch, lambda: old_join(
+                        torch, plan, st["overlapping"], max_n))
+                    old_s.append(secs)
+                mkernel.LAUNCHES.update(counted)     # the yardstick's
+                if old != exact:
+                    raise AssertionError(f"{name} {method}: the per-tile "
+                                         f"join counts {old}, not {exact}")
                 emit(dict(phase="join_device", input=name, method=method,
-                          device_ms_per_join=dev_ms, top_device=top))
+                          device_ms_per_join=dev_ms, profiled_joins=reps,
+                          top_device=top,
+                          join_s=median(join_s), old_join_s=median(old_s),
+                          old_join_s_all=old_s))
+                plans[name, method] = plan
             if method == "bsp":
-                j = int(torch.from_numpy(plan.live_r * plan.live_s)[0]
-                        .argmax())
+                j = int(torch.from_numpy(live)[0].argmax())
                 nr, ns = int(plan.live_r[0, j]), int(plan.live_s[0, j])
                 tiles[name] = (plan.r_tiles[0, j, :nr].clone(),
                                plan.s_tiles[0, j, :ns].clone())
                 pairs[name] = (rid[uniq], sid[uniq])
             del plan, rid, sid, uniq
     launches = dict(mkernel.LAUNCHES, encode=hkernel.LAUNCHES["encode"])
-    for k in ("count", "mask", "encode"):
+    for k in ("count", "rp_counts", "pair_list", "encode"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on the join path: "
                                  f"{launches}")
-    return results, launches, tiles, pairs
+    if launches["mask"]:
+        raise AssertionError(f"the table kernel was launched on the join "
+                             f"path: {launches}")
+    return results, launches, tiles, pairs, plans
 
 
 def join_check_phase(torch, inputs, results, pairs):
@@ -1388,10 +1472,11 @@ def join_check_phase(torch, inputs, results, pairs):
                   sampled_partners=int(want.sum()), truncated_tiles=0))
 
 
-def new_kernel_phase(torch, inputs, tiles, launches):
+def new_kernel_phase(torch, inputs, tiles, plans, results, launches):
     """encode on the 8 M merged pi centroids; count and mask on the
-    largest live tile of each bsp join.  Bit-equal to the plain
-    versions, else raise."""
+    largest live tile of each bsp join; the batched rp count on the bsp
+    plans and the batched pair list on the hc plans, whole.  Bit-equal
+    to the plain versions, else raise."""
     from repro_torch.core import geometry, hilbert
     from repro_torch.kernels.hilbert import kernel as hkernel
     from repro_torch.kernels.hilbert import ref as href
@@ -1455,7 +1540,90 @@ def new_kernel_phase(torch, inputs, tiles, launches):
                                     v["ops"] / FP32_OPS_PER_S) * 1e3)
             for k, v in cases.items()}
         entries.append(e)
+    for name, method in BATCHED.items():
+        cases = {inp: batched_case(torch, name, plans[inp, method],
+                                   results[inp, method])
+                 for inp in JOIN_INPUTS}
+        main = cases["pi"]
+        e = entry(name, MBR_SOURCE, main, main["bytes"], main["ops"],
+                  main["shape"])
+        e.update(old_design=main["old_design"],
+                 old_design_ms=main["old_design_ms"],
+                 cases={k: dict(v, bound_ms=max(
+                     v["bytes"] / HBM_BYTES_PER_S,
+                     v["ops"] / FP32_OPS_PER_S) * 1e3)
+                     for k, v in cases.items()})
+        entries.append(e)
     return entries
+
+
+def batched_case(torch, name, plan, result):
+    """One batched join pass on a whole plan against its plain version
+    (bit-equal) and the per-tile table path on the same plan (the same
+    counts, or the same pair list) -> its case row: kernel ms (CUDA
+    events over 10 launches; the pair list's host read included, its
+    stages apart), plain and old ms (host clock), bytes and operations
+    of its bound."""
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.kernels.mbr_join import ref as mref
+    from repro_torch.query import engine
+
+    meta = engine._meta(plan)
+    rt, st, rid, sid = (a[0] for a in (plan.r_tiles, plan.s_tiles,
+                                       plan.r_ids, plan.s_ids))
+    lr, ls = plan.live_r[0], plan.live_s[0]
+    live = lr * ls
+    tests = int(live.sum())
+    box_bytes = 16 * int(lr[live > 0].sum() + ls[live > 0].sum())
+    counted = dict(mkernel.LAUNCHES)
+    if name == "mbr_rp_counts":
+        tb, uni = plan.tile_boxes[0], plan.universe
+        k = lambda: mkernel.rp_counts(rt, st, tb, uni, meta)  # noqa: E731
+        plain = lambda: mref.tile_rp_counts(rt, st, tb, uni, lr, ls)  # noqa
+        got = k()
+        want, plain_s = timed_s(torch, plain)
+        (_, old), old_s = timed_s(torch, lambda: old_join(torch, plan, False,
+                                                          0))
+        if not (torch.equal(got, want) and torch.equal(got, old)):
+            raise AssertionError(f"{name} differs from its plain version or "
+                                 f"the per-tile path")
+        out_bytes, stages = 8 * rt.shape[0], {}
+        listed = None
+    else:
+        max_pairs = result["max_n"]
+        k = lambda: mkernel.pair_list(rt, st, rid, sid, meta,  # noqa: E731
+                                      max_pairs)
+        got = k()
+        want, plain_s = timed_s(torch, lambda: mref.tile_pair_list(
+            rt, st, rid, sid, lr, ls, max_pairs))
+        (_, old), old_s = timed_s(torch, lambda: old_join(torch, plan, True,
+                                                          max_pairs))
+        if not (all(torch.equal(g, w) for g, w in zip(got, want))
+                and torch.equal(got[0], old[0])
+                and torch.equal(got[1], old[1])):
+            raise AssertionError(f"{name} differs from its plain version or "
+                                 f"the per-tile path")
+        listed = int(got[0].shape[0])
+        cells = mkernel.pair_row_counts(rt, st, rid, sid, meta)
+        stages = dict(
+            count_ms=cuda_ms(torch, lambda: mkernel.pair_row_counts(
+                rt, st, rid, sid, meta), 10),
+            scan_emit_ms=cuda_ms(torch, lambda: mkernel.emit_pairs(
+                rt, st, rid, sid, meta, cells, max_pairs), 10))
+        out_bytes = PAIR_BYTES * listed
+        box_bytes += 4 * int(lr[live > 0].sum() + ls[live > 0].sum())
+    ms = cuda_ms(torch, k, 10)
+    mkernel.LAUNCHES.update(counted)      # the comparison's launches
+    del got, want, old
+    return dict(ms=ms, plain_ms=plain_s * 1e3, bytes=box_bytes + out_bytes,
+                ops=4 * tests, old_design="per tile: the mask table "
+                "kernel, then rp_own_mask and a sum, or nonzero",
+                old_design_ms=old_s * 1e3, **stages,
+                shape=dict(tiles=int(rt.shape[0]),
+                           live_tiles=int((live > 0).sum()),
+                           work_items=meta.items, row_cells=meta.rows,
+                           live_tests=tests, pairs=listed,
+                           cap_r=int(rt.shape[1]), cap_s=int(st.shape[1])))
 
 
 def lm_model(torch, dev):
@@ -1495,6 +1663,8 @@ def lm_prefill_phase(torch, dev, cfg, model, params):
         logits, t = timed_s(torch, lambda: step(params, batch))
         secs.append(t)
     launches = skernel.LAUNCHES["intra_chunk"]
+    if skernel.LAUNCHES["intra_chunk_v1"]:
+        raise AssertionError("the prefill launched the FFMA SSD kernel")
     peak = torch.cuda.max_memory_allocated()
     if not (logits.shape == (PREFILL_B, cfg.vocab_padded)
             and torch.isfinite(logits[:, :cfg.vocab]).all()
@@ -1648,17 +1818,28 @@ def lm_check_phase(torch, dev, cfg, model, params, launches):
     for name, args in sets.items():
         with torch.no_grad():
             got = skernel.intra_chunk(*args, chunk)
+            got_v1 = skernel.intra_chunk_v1(*args, chunk)
             want, plain_s = timed_s(torch, lambda: ssd_plain_blocked(
                 torch, sref, *args, chunk))
         err = (got - want).abs()
         ok = bool((err <= SSD_TOL + SSD_TOL * want.abs()).all())
+        ms, ms_v1 = [], []
+        for _ in range(2):                     # in turns: new, old, ...
+            ms.append(cuda_ms(torch, lambda: skernel.intra_chunk(
+                *args, chunk), 10))
+            ms_v1.append(cuda_ms(torch, lambda: skernel.intra_chunk_v1(
+                *args, chunk), 10))
         cases[name] = dict(max_abs_err=float(err.max()), ok=ok,
                            max_abs=float(want.abs().max()),
-                           plain_ms=plain_s * 1e3,
-                           ms=cuda_ms(torch, lambda: skernel.intra_chunk(
-                               *args, chunk), 10),
-                           shape=list(args[0].shape))
-        del got, want, err
+                           max_abs_err_v1=float((got_v1 - want).abs().max()),
+                           plain_ms=plain_s * 1e3, ms=min(ms), ms_all=ms,
+                           v1_ms=min(ms_v1), v1_ms_all=ms_v1,
+                           shape=list(args[0].shape),
+                           inputs={k: dict(std=float(a.std()),
+                                           max_abs=float(a.abs().max()))
+                                   for k, a in zip(("x", "dt", "cl", "b",
+                                                    "c"), args)})
+        del got, got_v1, want, err
         if not ok:
             raise AssertionError(f"SSD kernel ({name}) differs from its "
                                  f"plain version beyond {SSD_TOL}: "
@@ -1718,6 +1899,8 @@ def lm_check_phase(torch, dev, cfg, model, params, launches):
         ms=main["ms"], plain_ms=main["plain_ms"], bound_ms=max(b_ms, o_ms),
         bound_by="bytes" if b_ms >= o_ms else "operations",
         library_ms=None, tolerance=SSD_TOL,
+        old_design="ssd_intra_chunk_v1 (scalar FFMA, one block an SM)",
+        old_design_ms=main["v1_ms"],
         launches_per_prefill=launches // 3, bytes=bytes_, flops=flops,
         shape=dict(zip("blhp", main["shape"]), q=chunk), cases=cases)
 
@@ -1779,14 +1962,18 @@ def main() -> int:
     inputs = join_inputs(torch, dev)
     part_encode = partition_phase(torch, *inputs["pi"])
     t5 = time.perf_counter()
-    results, join_launches, tiles, pairs = join_phase(torch, dev, inputs)
+    results, join_launches, tiles, pairs, plans = join_phase(torch, dev,
+                                                             inputs)
     t6 = time.perf_counter()
     join_check_phase(torch, inputs, results, pairs)
     t7 = time.perf_counter()
     main_launches = dict(
         hilbert_encode=serve_encode + part_encode + join_launches["encode"],
-        mbr_count=join_launches["count"], mbr_mask=join_launches["mask"])
-    new_entries = new_kernel_phase(torch, inputs, tiles, main_launches)
+        mbr_count=join_launches["count"], mbr_mask=join_launches["mask"],
+        mbr_rp_counts=join_launches["rp_counts"],
+        mbr_pair_list=join_launches["pair_list"])
+    new_entries = new_kernel_phase(torch, inputs, tiles, plans, results,
+                                   main_launches)
     for e in new_entries:
         e["launches_by_path"] = (
             dict(serve_hilbert_staging=serve_encode, partition=part_encode,
@@ -1798,7 +1985,7 @@ def main() -> int:
     t8 = time.perf_counter()
     wall.update(partition_s=t5 - t4, join_s=t6 - t5, join_check_s=t7 - t6,
                 new_kernels_s=t8 - t7)
-    del inputs, results, tiles, pairs
+    del inputs, results, tiles, pairs, plans
     torch.cuda.empty_cache()
 
     cfg, model, params = lm_model(torch, dev)

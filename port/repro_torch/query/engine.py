@@ -12,9 +12,12 @@ Phases, as the reference's:
 ``plan_join`` builds the reference's ``JoinPlan`` bit for bit for any
 ``n_devices`` (planning is host work), from the O(nnz) membership
 pairs instead of the reference's ``(N, kmax)`` rank table.  Execution
-runs a one-device plan tile by tile on the card where the reference
-``lax.map``s inside ``shard_map``: it sums where the reference
-``psum``s and concatenates where it ``all_gather``s.  A plan for more
+runs a one-device plan's tiles together where the reference ``lax.map``s
+inside ``shard_map``: one launch counts every tile's rp-owned pairs
+(``mbr_join.ops.tile_rp_counts``), and count, scan and emit list every
+tile's pairs (``tile_pair_list``), concatenated in slot order where the
+reference ``all_gather``s.  The raw count (``dedup="none"``) still goes
+tile by tile through the ``count`` kernel.  A plan for more
 devices, or a ``mesh``, raises (ROADMAP Queue 1 item 10).
 
 Live sizes.  The reference joins every tile at the global padded
@@ -36,6 +39,7 @@ from ..core import geometry
 from ..core.partition import api
 from ..core.partition.assign import assign_from_pairs, membership, round_up
 from ..device import not_ported, resolve
+from ..kernels.mbr_join import ops as mops
 from . import balance, join
 from . import dedup as dd
 
@@ -54,6 +58,9 @@ class JoinPlan:
     stats: dict
     live_r: np.ndarray        # (D, Tpd) int64
     live_s: np.ndarray
+    # the card's layout of the batched tile passes, built at first use
+    meta: mops.kernel.TileMeta | None = dataclasses.field(
+        default=None, repr=False, compare=False)
 
 
 def _boxes(x, dev: torch.device) -> torch.Tensor:
@@ -153,23 +160,45 @@ def plan_join(method: str, r, s, payload: int, n_devices: int,
 # execution
 # --------------------------------------------------------------------------
 
-def _live_tiles(plan: JoinPlan, mesh):
-    """The one device's tiles that hold members of both sides ->
-    ``(slot, live_r, live_s)``; raises for what is not ported."""
+def _one_device(plan: JoinPlan, mesh) -> None:
+    """Raise for what is not ported: a mesh, or a plan for more than one
+    device."""
     if mesh is not None:
         raise not_ported("mesh", "Queue 1 item 10")
     if plan.r_tiles.shape[0] > 1:
         raise not_ported("multi-device join", "Queue 1 item 10")
+
+
+def _live_tiles(plan: JoinPlan, mesh):
+    """The one device's tiles that hold members of both sides ->
+    ``(slot, live_r, live_s)``; raises for what is not ported."""
+    _one_device(plan, mesh)
     for j in range(plan.r_tiles.shape[1]):
         nr, ns = int(plan.live_r[0, j]), int(plan.live_s[0, j])
         if nr and ns:
             yield j, nr, ns
 
 
+def _meta(plan: JoinPlan):
+    """The batched passes' work items on the plan's card (None on the
+    CPU), laid out once a plan."""
+    if plan.meta is None and plan.r_tiles.device.type == "cuda":
+        plan.meta = mops.kernel.tile_meta(plan.live_r[0], plan.live_s[0],
+                                          plan.r_tiles.device)
+    return plan.meta
+
+
 def tile_counts(plan: JoinPlan, mesh=None, axis: str | None = None,
                 dedup: str = "rp") -> torch.Tensor:
     """Per-tile pair counts of a one-device plan -> (Tpd,) int64 (0 for
-    tiles with no live pair); ``dedup`` as in ``run_join_count``."""
+    tiles with no live pair); ``dedup`` as in ``run_join_count``.  The
+    rp count is one batched pass over every tile; the raw count goes
+    tile by tile."""
+    if dedup == "rp":
+        _one_device(plan, mesh)
+        return mops.tile_rp_counts(
+            plan.r_tiles[0], plan.s_tiles[0], plan.tile_boxes[0],
+            plan.universe, plan.live_r[0], plan.live_s[0], _meta(plan))
     out = torch.zeros(plan.r_tiles.shape[1], dtype=torch.int64,
                       device=plan.r_tiles.device)
     for j, nr, ns in _live_tiles(plan, mesh):
@@ -215,26 +244,16 @@ def masj_pairs(plan: JoinPlan, mesh=None, axis: str | None = None,
     reference pads every tile's list to ``max_pairs_per_tile`` with
     (-1, -1), which ``unique_pairs`` never counts.
     """
-    prs, pss, ns = [], [], []
-    for j, nr, n_s in _live_tiles(plan, mesh):
-        pr, ps, n = join.tile_pairs(
-            plan.r_tiles[0, j, :nr], plan.s_tiles[0, j, :n_s],
-            plan.r_ids[0, j, :nr], plan.s_ids[0, j, :n_s],
-            plan.tile_boxes[0, j], plan.universe, max_pairs_per_tile,
-            dedup="none")
-        prs.append(pr)
-        pss.append(ps)
-        ns.append(n)
-    dev = plan.r_ids.device
-    empty = torch.zeros(0, dtype=torch.int32, device=dev)
-    rid = torch.cat(prs) if prs else empty
-    sid = torch.cat(pss) if pss else empty
+    _one_device(plan, mesh)
+    rid, sid, n = mops.tile_pair_list(
+        plan.r_tiles[0], plan.s_tiles[0], plan.r_ids[0], plan.s_ids[0],
+        plan.live_r[0], plan.live_s[0], max_pairs_per_tile, _meta(plan))
     uniq = dd.unique_pairs(rid, sid)[1]
     if stats is not None:
-        n = torch.stack(ns) if ns else empty
-        stats.update(truncated_tiles=int((n > max_pairs_per_tile).sum()),
-                     max_tile_pairs=int(n.max()) if ns else 0,
-                     pairs=rid.shape[0])
+        stats.update(
+            truncated_tiles=int((n > max_pairs_per_tile).sum()),
+            max_tile_pairs=int(n.max()) if n.numel() else 0,
+            pairs=rid.shape[0])
     return rid, sid, uniq
 
 

@@ -14,26 +14,19 @@ Hit tables larger than ``TABLE_BYTES`` are built in blocks of R rows,
 and ``rp_own_mask`` and the ``&`` run on the same block, so no tile's
 table is ever whole in memory.  Blocks keep row-major order, so pair
 lists come out in the reference's ``nonzero`` order.
+
+These per-tile functions keep the reference's API.  The engine joins a
+plan's tiles all at once instead (``mbr_join.ops.tile_rp_counts`` and
+``tile_pair_list``), with the same answers.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.mbr_join import ops as mops
+from ..kernels.mbr_join.ref import rp_own_mask
 
 TABLE_BYTES = 1 << 29        # one (rows, M) bool hit-table block
-
-
-def rp_own_mask(r: torch.Tensor, s: torch.Tensor, tile_box: torch.Tensor,
-                uni: torch.Tensor) -> torch.Tensor:
-    """(N, 4), (M, 4), (4,), (4,) -> (N, M) reference-point ownership."""
-    rpx = torch.maximum(r[:, None, 0], s[None, :, 0])
-    rpy = torch.maximum(r[:, None, 1], s[None, :, 1])
-    hi_x = torch.where(tile_box[2] >= uni[2], rpx <= tile_box[2],
-                       rpx < tile_box[2])
-    hi_y = torch.where(tile_box[3] >= uni[3], rpy <= tile_box[3],
-                       rpy < tile_box[3])
-    return (rpx >= tile_box[0]) & hi_x & (rpy >= tile_box[1]) & hi_y
 
 
 def _row_blocks(n: int, m: int):

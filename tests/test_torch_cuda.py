@@ -375,7 +375,8 @@ def test_mbr_join_kernels_match_plain_versions(n, m, br, bs):
 def test_partition_and_join_on_cuda_match_cpu(method):
     """The slice on the card equals the plain versions on the CPU:
     partition boxes, the plan, the exact count and the raw count; hc
-    launches encode, every rp or MASJ join launches mask."""
+    launches encode, an rp join the batched rp count, a MASJ join the
+    batched pair list, and none the mask table kernel."""
     _need_cuda()
     r = spatial_gen.osm_like(6000, seed=0, device="cpu")
     s = spatial_gen.osm_like(5000, seed=1, device="cpu")
@@ -395,7 +396,70 @@ def test_partition_and_join_on_cuda_match_cpu(method):
                lambda p: join_engine.run_join_count(p, dedup="none")):
         assert fn(plans["cuda"]) == fn(plans["cpu"])
     assert (hkernel.LAUNCHES["encode"] > 0) == (method == "hc")
-    assert mkernel.LAUNCHES["mask"] > 0 and mkernel.LAUNCHES["count"] > 0
+    assert mkernel.LAUNCHES["count"] > 0 and mkernel.LAUNCHES["mask"] == 0
+    assert mkernel.LAUNCHES["pair_list" if plans["cuda"].stats["overlapping"]
+                            else "rp_counts"] > 0
+
+
+def _skewed_plan(method):
+    """A plan of osm-like hotspots with tiles of more than one work item
+    (512 rows, 1,024 columns), on the card."""
+    r = spatial_gen.osm_like(40_000, seed=0, device="cpu")
+    s = spatial_gen.osm_like(30_000, seed=1, device="cpu")
+    plan = join_engine.plan_join(method, r, s, 3000, 1, device="cuda")
+    assert (plan.live_r > 512).any() and (plan.live_s > 1024).any()
+    return plan
+
+
+@pytest.mark.parametrize("max_pairs", [1, 37, 10**8])
+@pytest.mark.parametrize("method", ["bsp", "hc", "fg"])
+def test_batched_join_kernels_match_plain_versions(method, max_pairs):
+    """The rp count and the pair list over a whole skewed plan, bit for
+    bit against their plain versions on the CPU: tiles spanning several
+    work items, tiles emptied on one side, live slots with id -1, and
+    truncation."""
+    _need_cuda()
+    plan = _skewed_plan(method)
+    lr, ls = plan.live_r[0].copy(), plan.live_s[0].copy()
+    lr[1], ls[2] = 0, 0                        # empty on one side
+    rt, st, rid, sid, tb = (a[0].clone() for a in (
+        plan.r_tiles, plan.s_tiles, plan.r_ids, plan.s_ids,
+        plan.tile_boxes))
+    rid[3, :lr[3]:7] = -1
+    sid[4, :ls[4]:5] = -1
+    meta = mkernel.tile_meta(lr, ls, rt.device)
+    assert meta.items > int(((lr > 0) & (ls > 0)).sum())
+    cpu = [a.cpu() for a in (rt, st, rid, sid, tb, plan.universe)]
+    mkernel.reset_launches()
+    got = mkernel.rp_counts(rt, st, tb, plan.universe, meta)
+    torch.cuda.synchronize()
+    want = mops.tile_rp_counts(cpu[0], cpu[1], cpu[4], cpu[5], lr, ls)
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+    got = mkernel.pair_list(rt, st, rid, sid, meta, max_pairs)
+    torch.cuda.synchronize()
+    want = mops.tile_pair_list(*cpu[:4], lr, ls, max_pairs)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert (want[2] > max_pairs).any() == (max_pairs < 10**8)
+    assert mkernel.LAUNCHES == {"count": 0, "mask": 0, "rp_counts": 1,
+                                "pair_list": 1}
+
+
+def test_join_launches_do_not_grow_with_the_tiles():
+    """One rp-count launch a run_join_count(dedup="rp"), one pair list a
+    MASJ join, and no table kernel on spatial_join_count."""
+    _need_cuda()
+    for method, name in (("bsp", "rp_counts"), ("hc", "pair_list")):
+        plan = _skewed_plan(method)
+        assert plan.r_tiles.shape[1] > 8
+        mkernel.reset_launches()
+        if name == "rp_counts":
+            join_engine.run_join_count(plan, dedup="rp")
+            assert mkernel.LAUNCHES == {"count": 0, "mask": 0,
+                                        "rp_counts": 1, "pair_list": 0}
+        join_engine.spatial_join_count(plan, max_pairs_per_tile=10**8)
+        assert mkernel.LAUNCHES["mask"] == 0
+        assert mkernel.LAUNCHES[name] == (2 if name == "rp_counts" else 1)
 
 
 def test_hilbert_local_index_on_cuda_matches_cpu():
@@ -415,12 +479,14 @@ def test_hilbert_local_index_on_cuda_matches_cpu():
 @pytest.mark.parametrize("h,g,chunk,p,s", [
     (64, 1, 128, 64, 128),      # Mamba2-1.3B's widths
     (4, 2, 128, 32, 64), (6, 3, 64, 16, 32), (8, 1, 128, 128, 128),
-    (4, 4, 8, 4, 4)])
+    (4, 4, 8, 4, 4), (4, 2, 8, 36, 20), (2, 1, 64, 100, 124)])
 @pytest.mark.parametrize("batch,l", [(1, 256), (2, 1024)])
 def test_ssd_intra_chunk_kernel_matches_plain_version(h, g, chunk, p, s,
                                                       batch, l):
     """Grouped heads, every chunk width and run split the wrapper picks
-    (1,024 chunks keep whole groups a block; 2 chunks split them)."""
+    (1,024 chunks keep whole groups a block; 2 chunks split them), widths
+    that are not multiples of the tensor-core tiles (chunk 8, P 36 and
+    100, S 20 and 124), and the FFMA design beside it."""
     _need_cuda()
     rng = np.random.default_rng(h + g + chunk + p + s + l)
     x = torch.from_numpy(rng.standard_normal((batch, l, h, p)).astype(
@@ -439,11 +505,17 @@ def test_ssd_intra_chunk_kernel_matches_plain_version(h, g, chunk, p, s,
     torch.cuda.synchronize()
     assert skernel.LAUNCHES["intra_chunk"] == 1
     torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
+    got = skernel.intra_chunk_v1(*(t.cuda() for t in (x, dt, cl, b, c)),
+                                 chunk)
+    torch.cuda.synchronize()
+    assert skernel.LAUNCHES == {"intra_chunk": 1, "intra_chunk_v1": 1}
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-5, atol=2e-5)
     y = sops.ssd_forward(*(t.cuda() for t in (x, dt, a, b, c)), chunk=chunk)
     torch.testing.assert_close(
         y.cpu(), sops.ssd_forward(x, dt, a, b, c, chunk=chunk),
         rtol=1e-5, atol=1e-5)
     assert skernel.LAUNCHES["intra_chunk"] == 2
+    assert skernel.LAUNCHES["intra_chunk_v1"] == 1
     with pytest.raises(ValueError):
         skernel.intra_chunk(*(t.cuda() for t in (x, dt, cl, b, c)), 12)
     with pytest.raises(NotImplementedError, match="14b"):

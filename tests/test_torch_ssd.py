@@ -174,11 +174,84 @@ def test_kernel_route_refuses_cpu_tensors_and_gradients():
 
 def test_heads_per_block_keeps_the_grid_full():
     # 132 resident blocks: one a block an SM of an H100 SXM at Q = S = 128
+    # (the FFMA design); the tensor-core design holds two an SM, 264
     assert kernel.heads_per_block(1024, 64, 132) == 64  # Mamba2 prefill
+    assert kernel.heads_per_block(1024, 64, 264) == 64
     assert kernel.heads_per_block(4, 64, 132) == 1
     assert kernel.heads_per_block(16, 64, 132) == 4     # 16 x 16 >= 132
     assert kernel.heads_per_block(16, 64, 264) == 2     # 16 x 32 >= 264
     assert kernel.heads_per_block(2, 3, 132) == 3       # odd: not split
+
+
+def _tf32(v):
+    """``cvt.rna.tf32.f32``: round to 10 mantissa bits, ties away from
+    zero, on the float32 bit pattern."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32x3(a, b):
+    """The kernel's tensor-core product a @ b: each factor split as hi =
+    tf32(v), lo = tf32(v - hi), and a_lo b_hi + a_hi b_lo + a_hi b_hi
+    summed in float32 (a product of two TF32 values is exact in float32);
+    ``terms=1`` would be a_hi b_hi, plain TF32."""
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _intra_chunk_tf32(x, dt, cl, b, c, three=True):
+    """The intra-chunk block with both products as the kernel forms them
+    (flat (I, Q, .) contract): G = C . B^T and Y = M . X in three TF32
+    terms, or in one (plain TF32) if not ``three``."""
+    mm = _mm_tf32x3 if three else (lambda u, v: _tf32(u) @ _tf32(v))
+    g = mm(c, b.transpose(1, 2))
+    return mm(ref._masked(g, cl, dt), x)
+
+
+def _layer0_scale(seed, inst, q, p, s):
+    """Magnitudes of Mamba2-1.3B's layer-0 SSD inputs at prefill on the
+    card (random weights, bf16 activations; chip_smoke.py's lm_check
+    reports them): x, B and C of standard deviation about 0.018, dt about
+    0.47 (up to 4.4), cl down to about -126 within a chunk."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((inst, q, p)) * 0.018
+    dt = _softplus(rng.standard_normal((inst, q))) * 0.5
+    cl = np.cumsum(-dt * np.exp(rng.standard_normal((inst, 1)) * 0.7),
+                   axis=1)
+    b = rng.standard_normal((inst, q, s)) * 0.018
+    c = rng.standard_normal((inst, q, s)) * 0.018
+    return [a.astype(np.float32) for a in (x, dt, cl, b, c)]
+
+
+@pytest.mark.parametrize("scale", ["reference", "layer0"])
+@pytest.mark.parametrize("q,p,s", [(128, 64, 128), (64, 16, 32)])
+def test_three_term_tf32_product_holds_the_kernel_tolerance(scale, q, p, s):
+    """The tensor-core kernel's arithmetic, modelled in plain torch: both
+    products in three TF32 terms stay within the reference's 2e-5 of the
+    float32 plain version, on tests/test_kernels_ssd.py's distributions
+    and at layer-0 magnitudes (where the error is also held relative to
+    the output's own scale); one term (plain TF32) is not within 2e-5
+    on the reference's distributions."""
+    draw = _flat_inputs if scale == "reference" else _layer0_scale
+    x, dt, cl, b, c = _t(*draw(q + s, 8, q, p, s))
+    want = ref.intra_chunk_ref(x, dt, cl, b, c)
+    got = _intra_chunk_tf32(x, dt, cl, b, c)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    rel = float((got - want).abs().max() / want.abs().max())
+    assert rel < 2e-5
+    if scale == "reference":
+        one = _intra_chunk_tf32(x, dt, cl, b, c, three=False)
+        assert not torch.allclose(one, want, rtol=2e-5, atol=2e-5)
+
+
+def test_tf32_rounding_is_round_to_nearest_away():
+    v = torch.tensor([1.0, 1.0 + 2.0**-11, 1.0 + 2.0**-10 + 2.0**-11,
+                      -(1.0 + 2.0**-11), 1.0 + 2.0**-12, 1.0 - 2.0**-24],
+                     dtype=torch.float32)
+    want = torch.tensor([1.0, 1.0 + 2.0**-10, 1.0 + 2.0**-9,
+                         -(1.0 + 2.0**-10), 1.0, 1.0], dtype=torch.float32)
+    assert torch.equal(_tf32(v), want)
 
 
 def _mixer_params(cfg, seed):
