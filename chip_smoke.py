@@ -80,17 +80,24 @@ before each path and read just after it) and its wall seconds:
    six layouts on two inputs at payload 4096: pi |><| pi (4 M + 4 M
    ``pi_like``, seeds 0 and 1) and osm |><| osm (1 M + 1 M
    ``osm_like``, seeds 0 and 1).  Plan and join seconds are medians of
-   3; the raw MASJ count comes from ``run_join_count(dedup="none")``'s
-   per-tile counts, whose largest value sets ``max_pairs_per_tile``,
-   so no tile's pairs are truncated; the MASJ pair path runs for every
+   3; the raw MASJ count comes from ``tile_counts(dedup="none")``'s
+   per-tile counts, which must be one batched raw count launch and no
+   ``count`` launch, and whose largest value sets
+   ``max_pairs_per_tile``, so no tile's pairs are truncated; the raw
+   count is also timed (median of 3 ``run_join_count(dedup="none")``)
+   and held, tile for tile, to the per-tile path it replaced (the
+   ``count`` kernel a tile, ``join.tile_join_count(dedup="none")``),
+   whose launches are not counted.  The MASJ pair path runs for every
    layout.  Each ``spatial_join_count`` must launch the batched rp count
    once (fg, bsp, slc, bos) or the batched pair list once (str, hc),
    and neither the ``mask`` table kernel nor ``count``.  On the bsp and
    hc plans the per-tile table join (``mask``, ``rp_own_mask``, a sum or
-   ``nonzero``) runs as a yardstick, timed beside the new one and held
-   to the same count; its launches are not counted.  The kernels'
-   launches are read right after: ``count``, ``rp_counts`` and
-   ``pair_list`` must have launched, ``mask`` not at all.
+   ``nonzero``) and the per-tile raw count run as yardsticks, timed
+   (median of 3) beside the new ones and held to the same counts; their
+   launches are not counted.  The kernels' launches are read right
+   after: ``raw_counts``, ``rp_counts``, ``pair_list`` and ``encode``
+   must have launched, ``count``, ``mask`` and ``encode_v1`` not at
+   all.
 8. join_check -- fails unless, on each input, all six exact counts are
    equal, rp equals MASJ pairs for the non-overlapping layouts, the
    exact count equals one unpartitioned ``join_count`` of the whole
@@ -98,14 +105,20 @@ before each path and read just after it) and its wall seconds:
    4096 sampled R objects in the deduplicated bsp pair list equal a
    plain brute force against all of S, the raw count is at least the
    exact count, and no tile was truncated.
-9. kernels -- encode over the 8 M merged pi centroids, the count and
-   mask kernels on the largest live tile of the pi and the osm bsp
-   joins, the batched rp count on the whole pi and osm bsp plans and
-   the batched pair list on the whole pi and osm hc plans, each against
-   its plain version (bit-equal) and the batched passes also against
-   the per-tile path (the same counts, the same pair list), CUDA-event
-   ms over 10 launches beside the plain ms, the old design's ms and the
-   bound (four compares a live (r, s) test at 67 T/s, or the bytes).
+9. kernels -- encode over the 8 M merged pi centroids and over 2^25
+   seeded grid points (a "hilbert" staging's launch size), timed in
+   turns with the plane-loop design (``encode_v1``) on the same inputs,
+   both bit-equal to the plain version; its operation count per point
+   from the built kernel's SASS (``cuobjdump``, the vector loop's
+   instructions over its four points).  The count and mask kernels on
+   the largest live tile of the pi and the osm bsp joins, the batched
+   rp and raw counts on the whole pi and osm bsp plans and the batched
+   pair list on the whole pi and osm hc plans, each against its plain
+   version (bit-equal) and the batched passes also against the per-tile
+   path (the same counts, the same pair list), CUDA-event ms over 10
+   launches beside the plain ms, the old design's ms and the bound
+   (four compares a live (r, s) test at 67 T/s, integer instructions at
+   33.5 T/s, or the bytes).
 
 10. lm_prefill -- the spatial phases' tensors freed, the published
    Mamba2-1.3B configuration (48 SSD blocks, d_model 2048, 64 heads of
@@ -140,6 +153,7 @@ exits non-zero.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -150,10 +164,9 @@ sys.path.insert(0, str(ROOT / "port"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
-# no scalar integer peak is published beside the float32 one: the float32
-# rate is used for the Hilbert encode's integer operations, which can
-# only understate the bound
-INT_OPS_PER_S = FP32_OPS_PER_S
+# H100 SXM5, INT32 outside the tensor cores (NVIDIA's H100 white paper):
+# the Hilbert encode's integer instructions are counted against it
+INT_OPS_PER_S = 33.5e12
 PAYLOAD, MAX_HITS, SEED = 4096, 1024, 0
 N = 8_000_000          # osm-like objects served
 Q, Q_IDS = 4096, 1024  # boxes per range_counts / range_ids batch
@@ -167,7 +180,7 @@ INDEXED = ("x", "hilbert")  # stagings probed by the *_skip kernels
 METHODS = ("fg", "bsp", "slc", "bos", "str", "hc")
 JOIN_INPUTS = {"pi": 4_000_000, "osm": 1_000_000}   # objects per side
 JOIN_SAMPLE = 4096     # R objects whose partners are brute-forced
-HILBERT_OPS = 21       # integer operations per point and bit plane
+HILBERT_SLOTS = 1 << 25   # slots a "hilbert" staging encodes a launch
 SOURCE = "port/repro_torch/kernels/range_probe/csrc/range_probe.cu"
 HILBERT_SOURCE = "port/repro_torch/kernels/hilbert/csrc/hilbert.cu"
 MBR_SOURCE = "port/repro_torch/kernels/mbr_join/csrc/mbr_join.cu"
@@ -209,10 +222,12 @@ NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "mbr_count": "src/repro/kernels/mbr_join/kernel.py:49",
     "mbr_mask": "src/repro/kernels/mbr_join/kernel.py:67",
     "mbr_rp_counts": "src/repro/kernels/mbr_join/kernel.py:67",
+    "mbr_raw_counts": "src/repro/kernels/mbr_join/kernel.py:49",
     "mbr_pair_list": "src/repro/kernels/mbr_join/kernel.py:67",
 }
 BATCHED = {  # the join's batched passes -> the layout whose plan drives it
     "mbr_rp_counts": "bsp",
+    "mbr_raw_counts": "bsp",
     "mbr_pair_list": "hc",
 }
 PAIR_BYTES = 2 * 4     # a listed pair's (r_id, s_id), int32
@@ -1291,14 +1306,38 @@ def partition_phase(torch, r, s):
     return launches
 
 
+def live_tiles(plan):
+    """(slot, live_r, live_s) of a one-device plan's tiles with members
+    on both sides."""
+    for j, (nr, ns) in enumerate(zip(plan.live_r[0], plan.live_s[0])):
+        if nr and ns:
+            yield j, int(nr), int(ns)
+
+
+def old_raw_counts(torch, plan):
+    """The per-tile raw count the batched one replaced, a yardstick: tile
+    by tile, ``join.tile_join_count(dedup="none")`` (``pad_cm`` and the
+    ``count`` kernel's block sums) -> (T,) int64."""
+    from repro_torch.query import join
+
+    out = torch.zeros(plan.r_tiles.shape[1], dtype=torch.int64,
+                      device=plan.r_tiles.device)
+    for j, nr, ns in live_tiles(plan):
+        out[j] = join.tile_join_count(plan.r_tiles[0, j, :nr],
+                                      plan.s_tiles[0, j, :ns],
+                                      plan.tile_boxes[0, j], plan.universe,
+                                      dedup="none")
+    return out
+
+
 def old_join(torch, plan, overlapping, max_pairs):
     """The per-tile table join on the same plan, a yardstick: tile by tile, the
     ``mask`` table kernel, then ``rp_own_mask``, ``&`` and a sum (rp), or
     ``nonzero`` (MASJ) and ``unique_pairs`` over the concatenation ->
     ``(count, per-tile counts or (rid, sid))``."""
-    from repro_torch.query import dedup, engine, join
+    from repro_torch.query import dedup, join
 
-    tiles = list(engine._live_tiles(plan, None))
+    tiles = list(live_tiles(plan))
 
     def args(j, nr, ns):
         return (plan.r_tiles[0, j, :nr], plan.s_tiles[0, j, :ns])
@@ -1348,6 +1387,22 @@ def join_phase(torch, dev, inputs):
             raw = int(per_tile.sum())
             max_n = max(int(per_tile.max()), 1)
             m1 = dict(mkernel.LAUNCHES)
+            raw_launches = {k: m1[k] - m0[k] for k in m1}
+            if raw_launches["raw_counts"] != 1 or raw_launches["count"]:
+                raise AssertionError(f"{name} {method}: the raw count "
+                                     f"launched {raw_launches}, want one "
+                                     f"raw_counts and no count")
+            raw_s = []
+            for _ in range(3):
+                _, secs = timed_s(torch, lambda: engine.run_join_count(
+                    plan, dedup="none"))
+                raw_s.append(secs)
+            m1 = dict(mkernel.LAUNCHES)
+            old_raw = old_raw_counts(torch, plan)
+            mkernel.LAUNCHES.update(m1)              # the yardstick's
+            if not torch.equal(old_raw, per_tile):
+                raise AssertionError(f"{name} {method}: the per-tile raw "
+                                     f"count differs from the batched one")
             join_s = []
             for _ in range(3):
                 exact, secs = timed_s(torch, lambda: engine.spatial_join_count(
@@ -1378,6 +1433,7 @@ def join_phase(torch, dev, inputs):
                 n_r=r.shape[0], n_s=s.shape[0], payload=PAYLOAD,
                 plan_s=median(plan_s), join_s=median(join_s),
                 plan_s_all=plan_s, join_s_all=join_s,
+                raw_count_s=median(raw_s), raw_count_s_all=raw_s,
                 k=st["k"], cap_r=st["cap_r"], cap_s=st["cap_s"],
                 lambda_r=st["lambda_r"], lambda_s=st["lambda_s"],
                 skew=st["skew"], exact=exact, raw=raw, masj_pairs=masj,
@@ -1386,7 +1442,7 @@ def join_phase(torch, dev, inputs):
                 live_tests=int(live.sum()), live_tiles=int((live > 0).sum()),
                 padded_pair_table_bytes=2 * 4 * tpd * max_n,
                 launches_per_join=per_join,
-                raw_count_launches={k: m1[k] - m0[k] for k in m1},
+                raw_count_launches=raw_launches,
                 max_memory_allocated=torch.cuda.max_memory_allocated()))
             if method in ("bsp", "hc"):
                 # a window of about 0.2 s: one call of a few ms is too
@@ -1397,12 +1453,15 @@ def join_phase(torch, dev, inputs):
                                               max_pairs_per_tile=max_n)),
                                           reps)
                 counted = dict(mkernel.LAUNCHES)
-                old_s = []
+                old_s, old_raw_s = [], []
                 for _ in range(3):
                     (old, _), secs = timed_s(torch, lambda: old_join(
                         torch, plan, st["overlapping"], max_n))
                     old_s.append(secs)
-                mkernel.LAUNCHES.update(counted)     # the yardstick's
+                    _, secs = timed_s(torch, lambda: old_raw_counts(
+                        torch, plan))
+                    old_raw_s.append(secs)
+                mkernel.LAUNCHES.update(counted)     # the yardsticks'
                 if old != exact:
                     raise AssertionError(f"{name} {method}: the per-tile "
                                          f"join counts {old}, not {exact}")
@@ -1410,7 +1469,9 @@ def join_phase(torch, dev, inputs):
                           device_ms_per_join=dev_ms, profiled_joins=reps,
                           top_device=top,
                           join_s=median(join_s), old_join_s=median(old_s),
-                          old_join_s_all=old_s))
+                          old_join_s_all=old_s, raw_count_s=median(raw_s),
+                          old_raw_count_s=median(old_raw_s),
+                          old_raw_count_s_all=old_raw_s))
                 plans[name, method] = plan
             if method == "bsp":
                 j = int(torch.from_numpy(live)[0].argmax())
@@ -1419,14 +1480,15 @@ def join_phase(torch, dev, inputs):
                                plan.s_tiles[0, j, :ns].clone())
                 pairs[name] = (rid[uniq], sid[uniq])
             del plan, rid, sid, uniq
-    launches = dict(mkernel.LAUNCHES, encode=hkernel.LAUNCHES["encode"])
-    for k in ("count", "rp_counts", "pair_list", "encode"):
+    launches = dict(mkernel.LAUNCHES, **hkernel.LAUNCHES)
+    for k in ("raw_counts", "rp_counts", "pair_list", "encode"):
         if launches[k] <= 0:
             raise AssertionError(f"{k} was not launched on the join path: "
                                  f"{launches}")
-    if launches["mask"]:
-        raise AssertionError(f"the table kernel was launched on the join "
-                             f"path: {launches}")
+    for k in ("count", "mask", "encode_v1"):
+        if launches[k]:
+            raise AssertionError(f"{k} was launched on the join path: "
+                                 f"{launches}")
     return results, launches, tiles, pairs, plans
 
 
@@ -1472,6 +1534,52 @@ def join_check_phase(torch, inputs, results, pairs):
                   sampled_partners=int(want.sum()), truncated_tiles=0))
 
 
+def encode_sass_ops() -> dict:
+    """The built encode kernel's SASS (``cuobjdump -sass``): the
+    instructions of ``encode_vec_kernel``'s grid-stride loop (the span of
+    its widest backward branch), NOPs left out, over the four points an
+    iteration encodes -> ops per point, the loop's length and its
+    opcodes."""
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.hilbert import kernel as hkernel
+
+    tool = Path(cuda_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(hkernel.build())],
+                          capture_output=True, text=True, check=True).stdout
+    body = next(f for f in re.split(r"\n\s*Function : ", sass)[1:]
+                if "encode_vec_kernel" in f.split("\n", 1)[0])
+    ops, at, labels = [], {}, {}
+    for line in body.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        ins = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if lab:
+            labels[lab.group(1)] = len(ops)
+        elif ins:
+            at[int(ins.group(1), 16)] = len(ops)
+            ops.append(ins.group(2))
+    loops = []
+    for i, op in enumerate(ops):
+        jump = re.search(r"\bBRA\b.*?(\.L_x_\d+|0x[0-9a-f]+)", op)
+        if jump:
+            tgt = jump.group(1)
+            j = labels.get(tgt) if tgt.startswith(".L") else at.get(
+                int(tgt, 16))
+            if j is not None and j <= i:
+                loops.append((i - j, j, i))
+    if not loops:
+        raise AssertionError("no loop found in encode_vec_kernel's SASS")
+    _, j, i = max(loops)
+    loop = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0]
+            for op in ops[j:i + 1]]
+    loop = [op for op in loop if not op.startswith("NOP")]
+    counts: dict[str, int] = {}
+    for op in loop:
+        counts[op] = counts.get(op, 0) + 1
+    return dict(ops_per_point=len(loop) / 4, loop_instructions=len(loop),
+                points_per_iteration=4, kernel_instructions=len(ops),
+                opcodes=dict(sorted(counts.items(), key=lambda kv: -kv[1])))
+
+
 def new_kernel_phase(torch, inputs, tiles, plans, results, launches):
     """encode on the 8 M merged pi centroids; count and mask on the
     largest live tile of each bsp join; the batched rp count on the bsp
@@ -1502,14 +1610,46 @@ def new_kernel_phase(torch, inputs, tiles, plans, results, launches):
 
     r, s = inputs["pi"]
     merged = torch.cat([r, s])
-    gx, gy = (g.contiguous() for g in hilbert.quantize(
-        geometry.centroids(merged), geometry.universe(merged)))
-    n, order = gx.shape[0], hilbert.DEFAULT_ORDER
-    case = compare("hilbert_encode", lambda: hkernel.encode(gx, gy, order),
-                   lambda: href.encode(gx, gy, order))
-    entries = [entry("hilbert_encode", HILBERT_SOURCE, case, 16 * n,
-                     HILBERT_OPS * order * n, dict(n=n, order=order),
-                     INT_OPS_PER_S)]
+    order = hilbert.DEFAULT_ORDER
+    sass = encode_sass_ops()
+    g = torch.Generator(device=r.device).manual_seed(SEED + 4)
+    grids = {
+        "pi_centroids": [c.contiguous() for c in hilbert.quantize(
+            geometry.centroids(merged), geometry.universe(merged))],
+        "staging_launch": [torch.randint(0, 1 << order, (HILBERT_SLOTS,),
+                                         generator=g, device=r.device,
+                                         dtype=torch.int32)
+                           for _ in range(2)]}
+    cases = {}
+    for inp, (gx, gy) in grids.items():
+        n = gx.shape[0]
+        case = compare("hilbert_encode", lambda: hkernel.encode(gx, gy, order),
+                       lambda: href.encode(gx, gy, order))
+        if not torch.equal(hkernel.encode_v1(gx, gy, order),
+                           hkernel.encode(gx, gy, order)):
+            raise AssertionError("encode_v1 differs from encode")
+        turns = [cuda_ms(torch, fn, 10) for fn in (
+            lambda: hkernel.encode_v1(gx, gy, order),
+            lambda: hkernel.encode(gx, gy, order),
+            lambda: hkernel.encode(gx, gy, order),
+            lambda: hkernel.encode_v1(gx, gy, order))]
+        cases[inp] = dict(
+            case, ms=(turns[1] + turns[2]) / 2,
+            v1_ms=(turns[0] + turns[3]) / 2,
+            turns_ms=turns, bytes=16 * n, ops=sass["ops_per_point"] * n,
+            shape=dict(n=n, order=order))
+    hkernel.LAUNCHES["encode_v1"] = 0     # the yardstick's
+    main = cases["pi_centroids"]
+    e = entry("hilbert_encode", HILBERT_SOURCE, main, main["bytes"],
+              main["ops"], main["shape"], INT_OPS_PER_S)
+    e.update(old_design="encode_v1 (one thread a point, one bit plane a "
+             "step)", old_design_ms=main["v1_ms"], sass=sass,
+             cases={k: dict(v, bound_ms=max(
+                 v["bytes"] / HBM_BYTES_PER_S,
+                 v["ops"] / INT_OPS_PER_S) * 1e3)
+                 for k, v in cases.items()})
+    entries = [e]
+    del grids
     for name in ("mbr_count", "mbr_mask"):
         cases = {}
         for inp, (rt, st) in tiles.items():
@@ -1554,6 +1694,10 @@ def new_kernel_phase(torch, inputs, tiles, plans, results, launches):
                      v["ops"] / FP32_OPS_PER_S) * 1e3)
                      for k, v in cases.items()})
         entries.append(e)
+    by_name = {e["name"]: e for e in entries}
+    raw, rp = by_name["mbr_raw_counts"], by_name["mbr_rp_counts"]
+    raw["rp_counts_ms_same_plans"] = {k: rp["cases"][k]["ms"]
+                                      for k in JOIN_INPUTS}
     return entries
 
 
@@ -1589,6 +1733,17 @@ def batched_case(torch, name, plan, result):
                                  f"the per-tile path")
         out_bytes, stages = 8 * rt.shape[0], {}
         listed = None
+    elif name == "mbr_raw_counts":
+        k = lambda: mkernel.raw_counts(rt, st, meta)  # noqa: E731
+        got = k()
+        want, plain_s = timed_s(torch, lambda: mref.tile_raw_counts(
+            rt, st, lr, ls))
+        old, old_s = timed_s(torch, lambda: old_raw_counts(torch, plan))
+        if not (torch.equal(got, want) and torch.equal(got, old)):
+            raise AssertionError(f"{name} differs from its plain version or "
+                                 f"the per-tile path")
+        out_bytes, stages = 8 * rt.shape[0], {}
+        listed = None
     else:
         max_pairs = result["max_n"]
         k = lambda: mkernel.pair_list(rt, st, rid, sid, meta,  # noqa: E731
@@ -1615,9 +1770,11 @@ def batched_case(torch, name, plan, result):
     ms = cuda_ms(torch, k, 10)
     mkernel.LAUNCHES.update(counted)      # the comparison's launches
     del got, want, old
+    old_design = ("per tile: pad_cm and the count kernel's block sums"
+                  if name == "mbr_raw_counts" else "per tile: the mask "
+                  "table kernel, then rp_own_mask and a sum, or nonzero")
     return dict(ms=ms, plain_ms=plain_s * 1e3, bytes=box_bytes + out_bytes,
-                ops=4 * tests, old_design="per tile: the mask table "
-                "kernel, then rp_own_mask and a sum, or nonzero",
+                ops=4 * tests, old_design=old_design,
                 old_design_ms=old_s * 1e3, **stages,
                 shape=dict(tiles=int(rt.shape[0]),
                            live_tiles=int((live > 0).sum()),
@@ -1971,6 +2128,7 @@ def main() -> int:
         hilbert_encode=serve_encode + part_encode + join_launches["encode"],
         mbr_count=join_launches["count"], mbr_mask=join_launches["mask"],
         mbr_rp_counts=join_launches["rp_counts"],
+        mbr_raw_counts=join_launches["raw_counts"],
         mbr_pair_list=join_launches["pair_list"])
     new_entries = new_kernel_phase(torch, inputs, tiles, plans, results,
                                    main_launches)

@@ -50,6 +50,10 @@
 //     half-open on the high edge and closed where it reaches the
 //     universe's, the test made only on hits; each block adds its sum
 //     to out[tile] (int64 atomics: exact and order-free).
+//   join_raw_counts: per tile, every hit of its live prefixes (the raw
+//     MASJ count: count_pallas's block sums over one tile, whose
+//     sentinel padding never matches), by the row counts' loop below
+//     and the rp counts' reduction.
 //   join_row_counts: per live (tile, row), the hits with both ids >= 0
 //     (a negative id makes its box NaN, which no compare passes), added
 //     to the row's int32 cell.  The wrapper scans the cells, reads the
@@ -179,7 +183,7 @@ constexpr int kRowsPerThread = 4;
 constexpr int kItemRows = kItemThreads * kRowsPerThread;   // 512
 constexpr int kItemCols = 1024;                            // 16 KB staged
 
-enum ItemMode { kRpCount = 0, kRowCount = 1 };
+enum ItemMode { kRpCount = 0, kRowCount = 1, kRawCount = 2 };
 
 __device__ __forceinline__ float4 nan_box() {
   const float n = __int_as_float(0x7fffffff);
@@ -199,6 +203,24 @@ __device__ __forceinline__ void add_hit(int& acc, const float4& r,
       : "+r"(acc)
       : "f"(r.x), "f"(s.z), "f"(s.x), "f"(r.z), "f"(r.y), "f"(s.w),
         "f"(s.y), "f"(r.w));
+}
+
+// Adds the block's sum of acc to *dst (int64 atomics: exact and
+// order-free); every thread of the block calls it.
+__device__ __forceinline__ void add_block_sum(int acc, int* wsum,
+                                              long long* dst) {
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_down_sync(0xffffffffu, acc, off);
+  if ((threadIdx.x & 31) == 0) wsum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+#pragma unroll
+    for (int w = 0; w < kItemThreads / 32; ++w) sum += wsum[w];
+    if (sum)
+      atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+                static_cast<unsigned long long>(sum));
+  }
 }
 
 // Reference-point ownership of a hit, as query/join.py rp_own_mask.
@@ -281,18 +303,7 @@ join_items(TileArgs a, long long* __restrict__ tile_out,
           if (hit(rb[k].x, rb[k].y, rb[k].z, rb[k].w, s))
             acc += owned(rb[k], s, tb, cx, cy);
       }
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, off);
-      if ((tid & 31) == 0) wsum[tid >> 5] = acc;
-      __syncthreads();
-      if (tid == 0) {
-        int sum = 0;
-#pragma unroll
-        for (int w = 0; w < kItemThreads / 32; ++w) sum += wsum[w];
-        if (sum)
-          atomicAdd(reinterpret_cast<unsigned long long*>(tile_out + t),
-                    static_cast<unsigned long long>(sum));
-      }
+      add_block_sum(acc, wsum, tile_out + t);
     } else {
       int acc[kRowsPerThread] = {};
       int j = 0;
@@ -310,11 +321,15 @@ join_items(TileArgs a, long long* __restrict__ tile_out,
 #pragma unroll
         for (int k = 0; k < kRowsPerThread; ++k) add_hit(acc[k], rb[k], s);
       }
+      if (MODE == kRawCount) {
+        add_block_sum(acc[0] + acc[1] + acc[2] + acc[3], wsum, tile_out + t);
+      } else {
 #pragma unroll
-      for (int k = 0; k < kRowsPerThread; ++k)
-        if (acc[k])
-          atomicAdd(row_out + a.row_base[t] + r0 + tid + k * kItemThreads,
-                    acc[k]);
+        for (int k = 0; k < kRowsPerThread; ++k)
+          if (acc[k])
+            atomicAdd(row_out + a.row_base[t] + r0 + tid + k * kItemThreads,
+                      acc[k]);
+      }
     }
   }
 }
@@ -466,7 +481,8 @@ extern "C" int mbr_join_mask(int device, const void* r4, const void* s4,
 // (T), item_start (T + 1), row_base (T + 1)], every pointer 16-byte
 // aligned.  mode 0 adds each tile's rp-owned hits to tile_out (T) int64
 // (zeroed by the caller); mode 1 adds each live row's hits with both ids
-// >= 0 to row_out (row_base[T]) int32 (zeroed).  Returns
+// >= 0 to row_out (row_base[T]) int32 (zeroed); mode 2 adds each tile's
+// hits to tile_out, ids and ownership untested.  Returns
 // cudaGetLastError().
 extern "C" int mbr_join_tiles(int device, int mode, const void* r_tiles,
                               const void* s_tiles, const void* r_ids,
@@ -475,7 +491,7 @@ extern "C" int mbr_join_tiles(int device, int mode, const void* r_tiles,
                               long long cap_r, long long cap_s, int tiles,
                               long long items, void* tile_out,
                               void* row_out, void* stream) {
-  if ((mode != kRpCount && mode != kRowCount) || tiles < 1)
+  if (mode < kRpCount || mode > kRawCount || tiles < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -487,9 +503,12 @@ extern "C" int mbr_join_tiles(int device, int mode, const void* r_tiles,
   if (mode == kRpCount)
     join_items<kRpCount><<<grid, kItemThreads, 0, st>>>(
         a, static_cast<long long*>(tile_out), nullptr);
-  else
+  else if (mode == kRowCount)
     join_items<kRowCount><<<grid, kItemThreads, 0, st>>>(
         a, nullptr, static_cast<int*>(row_out));
+  else
+    join_items<kRawCount><<<grid, kItemThreads, 0, st>>>(
+        a, static_cast<long long*>(tile_out), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

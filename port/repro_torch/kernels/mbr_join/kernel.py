@@ -6,10 +6,10 @@ is built at first use (``kernels/cuda_build.py``).  ``count`` and
 ``mask`` take component-major ``(4, N)`` float32 boxes, padded by the
 caller to block multiples with the inverted sentinel box.  The join's
 path takes a one-device plan's tiles whole instead: ``rp_counts`` (the
-reference-point-owned count of every tile, one launch) and
-``pair_list`` (every tile's (r_id, s_id) pairs: count, scan, one host
-read, emit), over the work items that ``tile_meta`` lays out from the
-live sizes.  Each wrapper checks its inputs, launches on the current
+reference-point-owned count of every tile, one launch), ``raw_counts``
+(every tile's hits, duplicates included, one launch) and ``pair_list``
+(every tile's (r_id, s_id) pairs: count, scan, one host read, emit),
+over the work items that ``tile_meta`` lays out from the live sizes.  Each wrapper checks its inputs, launches on the current
 stream, raises if the launch returned an error, and adds one to its
 count in ``LAUNCHES`` (``pair_list`` one a list, its two passes
 together).
@@ -29,7 +29,8 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "mbr_join.cu"
 MAX_BS = 2048          # S boxes a count block stages (32 KB of float4)
 
 # kernel launches per entry point since the last reset_launches()
-LAUNCHES = {"count": 0, "mask": 0, "rp_counts": 0, "pair_list": 0}
+LAUNCHES = {"count": 0, "mask": 0, "rp_counts": 0, "raw_counts": 0,
+            "pair_list": 0}
 
 _vp, _ll, _ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _pi = ctypes.POINTER(_ci)
@@ -166,6 +167,22 @@ def rp_counts(r_tiles: torch.Tensor, s_tiles: torch.Tensor,
         uni.data_ptr(), meta.data.data_ptr(), cap_r, cap_s, t, meta.items,
         out.data_ptr(), None, cuda_build.stream(dev))
     LIB.launched("rp_counts", err, LAUNCHES)
+    return out
+
+
+def raw_counts(r_tiles: torch.Tensor, s_tiles: torch.Tensor, meta: TileMeta
+               ) -> torch.Tensor:
+    """(T, cap_r, 4), (T, cap_s, 4) float32 -> (T,) int64, each tile's
+    intersecting pairs of its live prefixes (``ref.tile_raw_counts``),
+    over the live extents in ``meta``."""
+    dev, t, cap_r, cap_s = _tile_inputs("raw_counts", r_tiles, s_tiles, meta)
+    out = torch.zeros(t, dtype=torch.int64, device=dev)
+    err = LIB.get().mbr_join_tiles(
+        cuda_build.device_index(dev), 2, r_tiles.data_ptr(),
+        s_tiles.data_ptr(), None, None, None, None, meta.data.data_ptr(),
+        cap_r, cap_s, t, meta.items, out.data_ptr(), None,
+        cuda_build.stream(dev))
+    LIB.launched("raw_counts", err, LAUNCHES)
     return out
 
 

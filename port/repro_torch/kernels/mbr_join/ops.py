@@ -7,10 +7,10 @@ tensor runs the plain version (``ref``), a CUDA tensor launches the
 kernel, which raises rather than falls back.  ``br``/``bs`` are the
 reference's block shape (256 x 128): ``join_count`` sums the count
 kernel's ``(N/br, M/bs)`` block counts, and both pad to them.
-``tile_rp_counts`` and ``tile_pair_list`` take a one-device plan's
-tiles whole (the join's path); their ``meta`` is the card's layout of
-the work items (``kernel.tile_meta``, built if not given; the CPU needs
-none).
+``tile_rp_counts``, ``tile_raw_counts`` and ``tile_pair_list`` take a
+one-device plan's tiles whole (the join's path); their ``meta`` is the
+card's layout of the work items (``kernel.tile_meta``, built if not
+given; the CPU needs none).
 """
 from __future__ import annotations
 
@@ -69,6 +69,17 @@ def tile_rp_counts(r_tiles: torch.Tensor, s_tiles: torch.Tensor,
                                   live_s)
     meta = meta or kernel.tile_meta(live_r, live_s, r_tiles.device)
     return kernel.rp_counts(r_tiles, s_tiles, tile_boxes, uni, meta)
+
+
+def tile_raw_counts(r_tiles: torch.Tensor, s_tiles: torch.Tensor, live_r,
+                    live_s, meta: kernel.TileMeta | None = None
+                    ) -> torch.Tensor:
+    """(T, cap_r, 4), (T, cap_s, 4) float32, live sizes (T,) on the host
+    -> (T,) int64 raw pair counts (duplicates included)."""
+    if r_tiles.device.type == "cpu":
+        return ref.tile_raw_counts(r_tiles, s_tiles, live_r, live_s)
+    meta = meta or kernel.tile_meta(live_r, live_s, r_tiles.device)
+    return kernel.raw_counts(r_tiles, s_tiles, meta)
 
 
 def tile_pair_list(r_tiles: torch.Tensor, s_tiles: torch.Tensor,

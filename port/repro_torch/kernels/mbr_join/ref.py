@@ -1,10 +1,10 @@
 """Plain PyTorch versions of the mbr_join kernels (twin of
 ``repro.kernels.mbr_join.ref``), plus the kernels' own contracts on
 component-major ``(4, N)`` inputs, which the CPU path and the card's
-checks use, and of the join's batched passes: ``tile_rp_counts`` and
-``tile_pair_list`` loop over a plan's live tiles with the reference's
-table path (``query/join.py``), in row blocks of at most
-``TABLE_BYTES`` of table."""
+checks use, and of the join's batched passes: ``tile_rp_counts``,
+``tile_raw_counts`` and ``tile_pair_list`` loop over a plan's live
+tiles with the reference's table path (``query/join.py``), in row
+blocks of at most ``TABLE_BYTES`` of table."""
 from __future__ import annotations
 
 import torch
@@ -74,6 +74,18 @@ def tile_rp_counts(r_tiles: torch.Tensor, s_tiles: torch.Tensor,
         r, s = r_tiles[j, rows], s_tiles[j, :ns]
         out[j] += (intersect_mask(r, s)
                    & rp_own_mask(r, s, tile_boxes[j], uni)).sum()
+    return out
+
+
+def tile_raw_counts(r_tiles: torch.Tensor, s_tiles: torch.Tensor, live_r,
+                    live_s) -> torch.Tensor:
+    """The ``raw_counts`` kernel's function: (T, cap_r, 4), (T, cap_s, 4),
+    live sizes (T,) -> (T,) int64, each tile's intersecting pairs of its
+    live prefixes, duplicates included (the raw MASJ count)."""
+    out = torch.zeros(r_tiles.shape[0], dtype=torch.int64,
+                      device=r_tiles.device)
+    for j, rows, ns in _live_row_blocks(live_r, live_s):
+        out[j] += intersect_mask(r_tiles[j, rows], s_tiles[j, :ns]).sum()
     return out
 
 

@@ -14,11 +14,11 @@ Phases, as the reference's:
 pairs instead of the reference's ``(N, kmax)`` rank table.  Execution
 runs a one-device plan's tiles together where the reference ``lax.map``s
 inside ``shard_map``: one launch counts every tile's rp-owned pairs
-(``mbr_join.ops.tile_rp_counts``), and count, scan and emit list every
-tile's pairs (``tile_pair_list``), concatenated in slot order where the
-reference ``all_gather``s.  The raw count (``dedup="none"``) still goes
-tile by tile through the ``count`` kernel.  A plan for more
-devices, or a ``mesh``, raises (ROADMAP Queue 1 item 10).
+(``mbr_join.ops.tile_rp_counts``) or, for the raw count
+(``dedup="none"``), every tile's pairs (``tile_raw_counts``), and
+count, scan and emit list every tile's pairs (``tile_pair_list``),
+concatenated in slot order where the reference ``all_gather``s.  A plan
+for more devices, or a ``mesh``, raises (ROADMAP Queue 1 item 10).
 
 Live sizes.  The reference joins every tile at the global padded
 ``cap_r x cap_s``, which under skew is quadratic waste (one hotspot
@@ -40,7 +40,7 @@ from ..core.partition import api
 from ..core.partition.assign import assign_from_pairs, membership, round_up
 from ..device import not_ported, resolve
 from ..kernels.mbr_join import ops as mops
-from . import balance, join
+from . import balance
 from . import dedup as dd
 
 
@@ -169,16 +169,6 @@ def _one_device(plan: JoinPlan, mesh) -> None:
         raise not_ported("multi-device join", "Queue 1 item 10")
 
 
-def _live_tiles(plan: JoinPlan, mesh):
-    """The one device's tiles that hold members of both sides ->
-    ``(slot, live_r, live_s)``; raises for what is not ported."""
-    _one_device(plan, mesh)
-    for j in range(plan.r_tiles.shape[1]):
-        nr, ns = int(plan.live_r[0, j]), int(plan.live_s[0, j])
-        if nr and ns:
-            yield j, nr, ns
-
-
 def _meta(plan: JoinPlan):
     """The batched passes' work items on the plan's card (None on the
     CPU), laid out once a plan."""
@@ -191,21 +181,16 @@ def _meta(plan: JoinPlan):
 def tile_counts(plan: JoinPlan, mesh=None, axis: str | None = None,
                 dedup: str = "rp") -> torch.Tensor:
     """Per-tile pair counts of a one-device plan -> (Tpd,) int64 (0 for
-    tiles with no live pair); ``dedup`` as in ``run_join_count``.  The
-    rp count is one batched pass over every tile; the raw count goes
-    tile by tile."""
-    if dedup == "rp":
-        _one_device(plan, mesh)
-        return mops.tile_rp_counts(
-            plan.r_tiles[0], plan.s_tiles[0], plan.tile_boxes[0],
-            plan.universe, plan.live_r[0], plan.live_s[0], _meta(plan))
-    out = torch.zeros(plan.r_tiles.shape[1], dtype=torch.int64,
-                      device=plan.r_tiles.device)
-    for j, nr, ns in _live_tiles(plan, mesh):
-        out[j] = join.tile_join_count(
-            plan.r_tiles[0, j, :nr], plan.s_tiles[0, j, :ns],
-            plan.tile_boxes[0, j], plan.universe, dedup=dedup)
-    return out
+    tiles with no live pair); ``dedup`` as in ``run_join_count``.  Either
+    count is one batched pass over every tile."""
+    _one_device(plan, mesh)
+    if dedup == "none":
+        return mops.tile_raw_counts(plan.r_tiles[0], plan.s_tiles[0],
+                                    plan.live_r[0], plan.live_s[0],
+                                    _meta(plan))
+    return mops.tile_rp_counts(
+        plan.r_tiles[0], plan.s_tiles[0], plan.tile_boxes[0], plan.universe,
+        plan.live_r[0], plan.live_s[0], _meta(plan))
 
 
 def run_join_count(plan: JoinPlan, mesh=None, axis: str | None = None,
@@ -213,7 +198,7 @@ def run_join_count(plan: JoinPlan, mesh=None, axis: str | None = None,
     """Execute a planned join count.  With ``dedup='rp'`` the result is
     the exact duplicate-free pair count for non-overlapping layouts;
     ``dedup='none'`` returns the raw MASJ count (replicated pairs
-    included), through the ``count`` kernel."""
+    included)."""
     return int(tile_counts(plan, mesh, axis, dedup).sum())
 
 

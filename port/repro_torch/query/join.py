@@ -16,8 +16,9 @@ table is ever whole in memory.  Blocks keep row-major order, so pair
 lists come out in the reference's ``nonzero`` order.
 
 These per-tile functions keep the reference's API.  The engine joins a
-plan's tiles all at once instead (``mbr_join.ops.tile_rp_counts`` and
-``tile_pair_list``), with the same answers.
+plan's tiles all at once instead (``mbr_join.ops.tile_rp_counts``,
+``tile_raw_counts`` and ``tile_pair_list``), the raw count included,
+with the same answers.
 """
 from __future__ import annotations
 

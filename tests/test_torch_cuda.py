@@ -320,22 +320,33 @@ def test_knn_on_cuda_matches_cpu_and_bruteforce():
                                           want_ids[ok])
 
 
-@pytest.mark.parametrize("order", [1, 4, 8, 16])
-@pytest.mark.parametrize("n", [1, 255, 4097, 300_001])
+@pytest.mark.parametrize("order", [1, 4, 8, 16, 17, 31])
+@pytest.mark.parametrize("n", [1, 3, 255, 4097, 300_001, 2**22 + 3])
 def test_hilbert_encode_matches_plain_version(n, order):
-    """Ragged N (the grid masks the edge; 300k runs the grid-stride
-    loop), every order the callers use, and keys past 2**31."""
+    """Ragged N (a vector path's scalar tail; 300k and 4M run the
+    grid-stride loop), orders of both designs (all planes at once up to
+    16, the plane loop above), keys past 2**31, and a slice one element
+    in (not 16-byte aligned: the scalar path); the plane-loop design
+    (encode_v1) on the same inputs."""
     _need_cuda()
     rng = np.random.default_rng(n + order)
     gx, gy = (torch.from_numpy(rng.integers(0, 2**order, n).astype(np.int32))
               for _ in range(2))
     if order == 16:
         gx[0], gy[0] = 65535, 0                 # key >= 2**31
+    want = core_hilbert.xy2d(gx, gy, order)
+    cx, cy = gx.cuda(), gy.cuda()
     hkernel.reset_launches()
-    got = hops.encode(gx.cuda(), gy.cuda(), order)
+    got = hops.encode(cx, cy, order)
     torch.cuda.synchronize()
-    assert hkernel.LAUNCHES["encode"] == 1
-    assert torch.equal(got.cpu(), core_hilbert.xy2d(gx, gy, order))
+    assert hkernel.LAUNCHES == {"encode": 1, "encode_v1": 0}
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(hkernel.encode_v1(cx, cy, order).cpu(), want)
+    if n > 1:
+        assert cx[1:].data_ptr() % 16
+        got = hops.encode(cx[1:], cy[1:], order)
+        assert torch.equal(got.cpu(), core_hilbert.xy2d(gx[1:], gy[1:],
+                                                        order))
     with pytest.raises(TypeError):
         hkernel.encode(gx.cuda().long(), gy.cuda(), order)
 
@@ -364,7 +375,8 @@ def test_mbr_join_kernels_match_plain_versions(n, m, br, bs):
         got = mops.mask_cm(r4.cuda(), s_odd.contiguous().cuda())
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), mops.mask_cm(r4, s_odd))
-    assert mkernel.LAUNCHES == {"count": 1, "mask": 3}
+    assert mkernel.LAUNCHES == {"count": 1, "mask": 3, "rp_counts": 0,
+                                "raw_counts": 0, "pair_list": 0}
     assert int(mops.join_count(r.cuda(), s.cuda(), br, bs)) == int(
         mops.join_count(r, s, br, bs))
     with pytest.raises(ValueError):
@@ -376,7 +388,8 @@ def test_partition_and_join_on_cuda_match_cpu(method):
     """The slice on the card equals the plain versions on the CPU:
     partition boxes, the plan, the exact count and the raw count; hc
     launches encode, an rp join the batched rp count, a MASJ join the
-    batched pair list, and none the mask table kernel."""
+    batched pair list, the raw count one batched raw count, and none the
+    block-count or mask table kernels."""
     _need_cuda()
     r = spatial_gen.osm_like(6000, seed=0, device="cpu")
     s = spatial_gen.osm_like(5000, seed=1, device="cpu")
@@ -396,7 +409,8 @@ def test_partition_and_join_on_cuda_match_cpu(method):
                lambda p: join_engine.run_join_count(p, dedup="none")):
         assert fn(plans["cuda"]) == fn(plans["cpu"])
     assert (hkernel.LAUNCHES["encode"] > 0) == (method == "hc")
-    assert mkernel.LAUNCHES["count"] > 0 and mkernel.LAUNCHES["mask"] == 0
+    assert mkernel.LAUNCHES["raw_counts"] == 1
+    assert mkernel.LAUNCHES["count"] == 0 and mkernel.LAUNCHES["mask"] == 0
     assert mkernel.LAUNCHES["pair_list" if plans["cuda"].stats["overlapping"]
                             else "rp_counts"] > 0
 
@@ -414,10 +428,10 @@ def _skewed_plan(method):
 @pytest.mark.parametrize("max_pairs", [1, 37, 10**8])
 @pytest.mark.parametrize("method", ["bsp", "hc", "fg"])
 def test_batched_join_kernels_match_plain_versions(method, max_pairs):
-    """The rp count and the pair list over a whole skewed plan, bit for
-    bit against their plain versions on the CPU: tiles spanning several
-    work items, tiles emptied on one side, live slots with id -1, and
-    truncation."""
+    """The rp count, the raw count and the pair list over a whole skewed
+    plan, bit for bit against their plain versions on the CPU: tiles
+    spanning several work items, tiles emptied on one side, live slots
+    with id -1, and truncation."""
     _need_cuda()
     plan = _skewed_plan(method)
     lr, ls = plan.live_r[0].copy(), plan.live_s[0].copy()
@@ -435,6 +449,11 @@ def test_batched_join_kernels_match_plain_versions(method, max_pairs):
     torch.cuda.synchronize()
     want = mops.tile_rp_counts(cpu[0], cpu[1], cpu[4], cpu[5], lr, ls)
     assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+    got = mkernel.raw_counts(rt, st, meta)
+    torch.cuda.synchronize()
+    raw = mops.tile_raw_counts(cpu[0], cpu[1], lr, ls)
+    assert torch.equal(got.cpu(), raw) and (raw >= want).all()
+    assert not raw[1] and not raw[2]
     got = mkernel.pair_list(rt, st, rid, sid, meta, max_pairs)
     torch.cuda.synchronize()
     want = mops.tile_pair_list(*cpu[:4], lr, ls, max_pairs)
@@ -442,12 +461,13 @@ def test_batched_join_kernels_match_plain_versions(method, max_pairs):
         assert torch.equal(g.cpu(), w)
     assert (want[2] > max_pairs).any() == (max_pairs < 10**8)
     assert mkernel.LAUNCHES == {"count": 0, "mask": 0, "rp_counts": 1,
-                                "pair_list": 1}
+                                "raw_counts": 1, "pair_list": 1}
 
 
 def test_join_launches_do_not_grow_with_the_tiles():
-    """One rp-count launch a run_join_count(dedup="rp"), one pair list a
-    MASJ join, and no table kernel on spatial_join_count."""
+    """One rp-count launch a run_join_count(dedup="rp"), one raw-count
+    launch a run_join_count(dedup="none"), one pair list a MASJ join, and
+    no block-count or table kernel on either count."""
     _need_cuda()
     for method, name in (("bsp", "rp_counts"), ("hc", "pair_list")):
         plan = _skewed_plan(method)
@@ -455,8 +475,10 @@ def test_join_launches_do_not_grow_with_the_tiles():
         mkernel.reset_launches()
         if name == "rp_counts":
             join_engine.run_join_count(plan, dedup="rp")
+            join_engine.run_join_count(plan, dedup="none")
             assert mkernel.LAUNCHES == {"count": 0, "mask": 0,
-                                        "rp_counts": 1, "pair_list": 0}
+                                        "rp_counts": 1, "raw_counts": 1,
+                                        "pair_list": 0}
         join_engine.spatial_join_count(plan, max_pairs_per_tile=10**8)
         assert mkernel.LAUNCHES["mask"] == 0
         assert mkernel.LAUNCHES[name] == (2 if name == "rp_counts" else 1)

@@ -1,8 +1,10 @@
 """repro_torch's batched join passes (every live tile of a plan at once)
-against repro's ``jax.lax.map`` of ``tile_join_count`` and
+against repro's ``jax.lax.map`` of ``tile_join_count`` (rp and raw) and
 ``tile_join_pairs`` over the same planned tiles, through the passes'
-plain versions (``mbr_join.ref.tile_rp_counts``, ``tile_pair_list``)
-and the CPU route of ``mbr_join.ops``: bsp and hc plans of a dense
+plain versions (``mbr_join.ref.tile_rp_counts``, ``tile_raw_counts``,
+``tile_pair_list``) and the CPU route of ``mbr_join.ops``; the engine's
+counts against the per-tile functions and repro's
+``run_join_count``: bsp and hc plans of a dense
 join, truncation at 1, 37 and more pairs than any tile holds, and
 hand-made tiles with boxes on a tile's and on the universe's high edge,
 a tile with no R member and live slots with id -1.  The work-item
@@ -16,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from repro.query import engine as jengine, join as jjoin
 from repro_torch.kernels.mbr_join import kernel as tmk, ops as tmops
@@ -43,10 +46,10 @@ def _arrays(plan):
             (rid >= 0).sum(1), (sid >= 0).sum(1))
 
 
-def _repro_counts(rt, st, tb, uni):
+def _repro_counts(rt, st, tb, uni, dedup="rp"):
     u = jnp.asarray(uni)
     return np.asarray(jax.lax.map(
-        lambda a: jjoin.tile_join_count(a[0], a[1], a[2], u),
+        lambda a: jjoin.tile_join_count(a[0], a[1], a[2], u, dedup=dedup),
         (jnp.asarray(rt), jnp.asarray(st), jnp.asarray(tb))))
 
 
@@ -86,6 +89,19 @@ def test_rp_counts_match_repro_map(planned):
         tmops.tile_rp_counts(*args, lr, ls).numpy(), want)
 
 
+def test_raw_counts_match_repro_map(planned):
+    """The raw count, duplicates included: repro's tile_join_count with
+    dedup="none" over every padded tile (the sentinel never matches)."""
+    rt, st, _, _, tb, uni, lr, ls = planned
+    want = _repro_counts(rt, st, tb, uni, dedup="none")
+    assert (want > _repro_counts(rt, st, tb, uni)).any()
+    args = _t(rt, st)
+    np.testing.assert_array_equal(
+        tmref.tile_raw_counts(*args, lr, ls).numpy(), want)
+    np.testing.assert_array_equal(
+        tmops.tile_raw_counts(*args, lr, ls).numpy(), want)
+
+
 @pytest.mark.parametrize("max_pairs", [1, 37, BIG])
 def test_pair_list_matches_repro_map(planned, max_pairs):
     rt, st, rid, sid, tb, uni, lr, ls = planned
@@ -101,10 +117,14 @@ def test_row_blocked_loops_match(planned, monkeypatch):
     pairs, same truncation point."""
     rt, st, rid, sid, tb, uni, lr, ls = planned
     want_c = tmref.tile_rp_counts(*_t(rt, st, tb, uni), lr, ls)
+    want_r = tmref.tile_raw_counts(*_t(rt, st), lr, ls)
     want_p = tmref.tile_pair_list(*_t(rt, st, rid, sid), lr, ls, 37)
     monkeypatch.setattr(tmref, "TABLE_BYTES", 5 * int(ls.max()))
     assert torch.equal(tmref.tile_rp_counts(*_t(rt, st, tb, uni), lr, ls),
                        want_c)
+    assert torch.equal(tmref.tile_raw_counts(*_t(rt, st), lr, ls), want_r)
+    np.testing.assert_array_equal(
+        want_r.numpy(), _repro_counts(rt, st, tb, uni, dedup="none"))
     for g, w in zip(tmref.tile_pair_list(*_t(rt, st, rid, sid), lr, ls, 37),
                     want_p):
         assert torch.equal(g, w)
@@ -156,14 +176,18 @@ def test_cpu_tensors_take_the_plain_versions(monkeypatch):
     with pytest.raises(ValueError, match="cuda"):
         tmk.rp_counts(*_t(rt, st, tb, uni), meta)
     with pytest.raises(ValueError, match="cuda"):
+        tmk.raw_counts(*_t(rt, st), meta)
+    with pytest.raises(ValueError, match="cuda"):
         tmk.pair_list(*_t(rt, st, rid, sid), meta, 5)
 
     def launched(*a, **k):
         raise AssertionError("the kernel route took CPU tensors")
 
     monkeypatch.setattr(tmk, "rp_counts", launched)
+    monkeypatch.setattr(tmk, "raw_counts", launched)
     monkeypatch.setattr(tmk, "pair_list", launched)
     tmops.tile_rp_counts(*_t(rt, st, tb, uni), lr, ls)
+    tmops.tile_raw_counts(*_t(rt, st), lr, ls)
     tmops.tile_pair_list(*_t(rt, st, rid, sid), lr, ls, 5)
 
 
@@ -202,24 +226,35 @@ def test_work_items_cover_every_live_pair_once(shape):
 
 
 def test_engine_counts_and_pairs_equal_the_per_tile_path():
-    """The engine's batched rp count and MASJ pair list on a port plan
-    equal the per-tile functions it used to loop over."""
+    """The engine's batched rp and raw counts and MASJ pair list on a
+    port plan equal the per-tile functions it used to loop over, and the
+    raw total repro's run_join_count(dedup="none") on repro's plan."""
     from repro_torch.query import join as tjoin
     r, s = _boxes(700, 20, 0.03), _boxes(600, 21, 0.03)
     plan = tengine.plan_join("hc", r, s, 150, 1, device="cpu")
-    tiles = list(tengine._live_tiles(plan, None))
     want = torch.zeros(plan.r_tiles.shape[1], dtype=torch.int64)
+    raw = torch.zeros_like(want)
     prs, pss = [], []
-    for j, nr, ns in tiles:
+    for j, (nr, ns) in enumerate(zip(plan.live_r[0], plan.live_s[0])):
+        if not (nr and ns):
+            continue
         args = (plan.r_tiles[0, j, :nr], plan.s_tiles[0, j, :ns])
         want[j] = tjoin.tile_join_count(*args, plan.tile_boxes[0, j],
                                         plan.universe)
+        raw[j] = tjoin.tile_join_count(*args, plan.tile_boxes[0, j],
+                                       plan.universe, dedup="none")
         pr, ps, _ = tjoin.tile_pairs(*args, plan.r_ids[0, j, :nr],
                                      plan.s_ids[0, j, :ns],
                                      plan.tile_boxes[0, j], plan.universe, 16)
         prs.append(pr)
         pss.append(ps)
     assert torch.equal(tengine.tile_counts(plan), want)
+    assert torch.equal(tengine.tile_counts(plan, dedup="none"), raw)
+    assert (raw > want).any()
+    jplan = jengine.plan_join("hc", jnp.asarray(r), jnp.asarray(s), 150, 1)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("d",))
+    assert tengine.run_join_count(plan, dedup="none") == int(raw.sum()) == \
+        jengine.run_join_count(jplan, mesh, "d", dedup="none")
     stats = {}
     rid, sid, _ = tengine.masj_pairs(plan, max_pairs_per_tile=16,
                                      stats=stats)
