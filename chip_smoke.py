@@ -72,7 +72,12 @@ before each path and read just after it) and its wall seconds:
    their rows give the grouping pass's time and the bound over all of
    cap beside the bound at the extent.  The dense skip pair has no
    serving caller (repro launches it from tests only), so it is
-   launched from this phase only and its row says so.
+   launched from this phase only and its row says so; in all six cases
+   its new design (to the case's extent and without it) and its first
+   design (``count_skip_v1``, ``mask_skip_v1``) are held to the plain
+   version and timed in turns, the counts beside ``dense_counts`` on
+   the same inputs.  No dense kernel's row may read faster than its
+   own bound.
 6. partition -- the six Table-1 partitioners on the join's merged pi
    input (8 M objects) at payload 4096: seconds, k, and the paper's
    lambda, balance stddev, skew and coverage; hc's encode launches.
@@ -979,9 +984,9 @@ def timed_cases(torch, name, k_of, plain_of, alives, boxes):
 def dense_kernel_phase(torch, srv, qc, qi, pts, launches):
     """The dense kernels on the "x" staging: the tile-major counts at the
     dense counts batch (Q = 4096), the dense hit list on the ids batch
-    and the dense kNN's refinement, and the chunk-skipping pair as
-    before (counts at Q = 4096, the table at the old dense executor's
-    hit-table block of the ids batch)."""
+    and the dense kNN's refinement, and the chunk-skipping pair (counts
+    at Q = 4096, the table at the old dense executor's hit-table block
+    of the ids batch), each in both its designs."""
     from repro_torch.kernels.range_probe import kernel, ops, ref
 
     lay = srv.layout
@@ -1000,36 +1005,96 @@ def dense_kernel_phase(torch, srv, qc, qi, pts, launches):
                          alives, launches)]
     rows = ops.dense_blocks(qi.shape[0], t * cap)[0]
     for name in ("count_skip", "mask_skip"):
-        mask_out = name == "mask_skip"
-        q = qi[rows] if mask_out else qc
-        kfn = getattr(kernel, name)
-        plain = getattr(ref, "probe_" + name.replace("count", "counts"))
-
-        def k_of(al, cb):
-            return kfn(q, tiles, cb, alive=al[0])
-
-        def plain_of(al, cb, block=8):
-            if mask_out:
-                return plain(q, tiles, cb, al[0]).transpose(0, 1)
-            return torch.cat([plain(q[i:i + block], tiles, cb, al[0])
-                              for i in range(0, q.shape[0], block)])
-
-        cases, worst = timed_cases(
-            torch, name, k_of, plain_of, alives,
-            (("bounding", cbs), ("non_bounding", bad)))
-        main = cases[0]
-        work = dense_bound_work(torch, ref, q, tiles, alive, cbs, mask_out)
-        entries.append(dict(
-            name=name, route="cuda", source=SOURCE,
-            replaces=DENSE_CASES[name], launches=launches[name],
-            max_abs_err=worst, ms=main["ms"], plain_ms=main["plain_ms"],
-            bound_ms=work["bound_ms"], bound_by=work["bound_by"],
-            library_ms=None, bit_equal=worst == 0, on_serving_path=False,
-            launched_by="this phase only (repro launches it from tests "
-                        "only)",
-            shape=dict(q=q.shape[0], t=t, cap=cap, c=cbs.shape[1]),
-            cases=cases))
+        entries.append(dense_skip_entry(
+            torch, kernel, ref, name, qi[rows] if name == "mask_skip" else qc,
+            tiles, alive, cbs, bad, alives, launches))
+    for e in entries:    # a time below the bound would be a wrong bound
+        if e["ms"] < e["bound_ms"]:
+            raise AssertionError(f"{e['name']}: {e['ms']} ms is below its "
+                                 f"stated bound, {e['bound_ms']} ms")
     return entries
+
+
+def dense_skip_entry(torch, kernel, ref, name, q, tiles, alive, cbs, bad,
+                     alives, launches):
+    """Rows 7 and 8, the dense chunk-skipping pair (no serving caller):
+    in all six (alive, chunk box) cases the new design (to each case's
+    extent, and without it) and the first design (``_v1``) held to the
+    plain version, bit-equal else raise; the two designs timed in turns
+    (new, first, first, new), and for the counts the tile-major dense
+    counts on the same inputs in the same turns."""
+    mask_out = name == "mask_skip"
+    kfn, v1fn = getattr(kernel, name), getattr(kernel, name + "_v1")
+    plain = getattr(ref, "probe_" + name.replace("count", "counts"))
+    t, cap = tiles.shape[:2]
+
+    def plain_of(al, cb, block=8):
+        if mask_out:
+            return plain(q, tiles, cb, al).transpose(0, 1)
+        return torch.cat([plain(q[i:i + block], tiles, cb, al)
+                          for i in range(0, q.shape[0], block)])
+
+    cases = []
+    for alive_name, (al, ext) in alives:
+        for cb_name, cb in (("bounding", cbs), ("non_bounding", bad)):
+            designs = dict(
+                new=lambda al=al, ext=ext, cb=cb: kfn(q, tiles, cb, alive=al,
+                                                      extent=ext),
+                full_cap=lambda al=al, cb=cb: kfn(q, tiles, cb, alive=al),
+                v1=lambda al=al, cb=cb: v1fn(q, tiles, cb, alive=al))
+            got = {k: fn() for k, fn in designs.items()}
+            t0 = time.perf_counter()
+            want = plain_of(al, cb)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            for k, out in got.items():
+                if out.shape != want.shape or not torch.equal(out, want):
+                    raise AssertionError(
+                        f"{name} ({k}, alive={alive_name}, chunk boxes="
+                        f"{cb_name}) differs from its plain version")
+            turns = [("new", designs["new"]), ("v1", designs["v1"])]
+            if not mask_out and cb_name == "bounding":
+                def dense(al=al, ext=ext):
+                    return kernel.dense_counts(q, tiles, alive=al, extent=ext)
+                # chunk boxes that bound their members skip no hit
+                if not torch.equal(dense(), want):
+                    raise AssertionError("dense counts differ from the "
+                                         "skipping plain version on bounding "
+                                         "chunk boxes")
+                turns.append(("dense_counts", dense))
+            ms = {k: [] for k, _ in turns}
+            for k, fn in turns + turns[::-1]:
+                ms[k].append(cuda_ms(torch, fn, 10))
+            case = dict(alive=alive_name, chunk_boxes=cb_name,
+                        plain_ms=plain_ms,
+                        full_cap_ms=cuda_ms(torch, designs["full_cap"], 10),
+                        **{("ms" if k == "new" else f"{k}_ms"): sum(v) / 2
+                           for k, v in ms.items()},
+                        turns_ms=ms)
+            cases.append(case)
+    main = cases[0]      # staged alive mask, bounding chunk boxes
+    al0, ext0 = alives[0][1]
+    work = dense_bound_work(torch, ref, q, tiles, al0, cbs, mask_out, ext0)
+    entry = dict(
+        name=name, route="cuda", source=SOURCE,
+        replaces=DENSE_CASES[name], launches=launches[name],
+        max_abs_err=0, ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=work["bound_ms"], bound_by=work["bound_by"],
+        library_ms=None, bit_equal=True, on_serving_path=False,
+        launched_by="this phase only (repro launches it from tests only)",
+        design=("tile-major to the extent, Morton-ordered runs, live "
+                "(unit, run) items" if not mask_out else
+                "slot-parallel, 16 slots a thread, 16-byte stores"),
+        old_design=name + "_v1", old_design_ms=main["v1_ms"],
+        old_launches=launches[name + "_v1"],
+        bound_ms_full_cap=work["bound_ms_full_cap"],
+        bound_bytes=work["bytes"], bound_ops=work["ops"],
+        bound_share=work["bound_ms"] / main["ms"],
+        shape=dict(q=q.shape[0], t=t, cap=cap, c=cbs.shape[1]),
+        cases=cases)
+    if not mask_out:
+        entry["dense_counts_ms"] = main["dense_counts_ms"]
+    return entry
 
 
 def plain_dense_counts(torch, ref, q, tiles, alive, block=8):
@@ -1218,43 +1283,61 @@ def dense_bound_work(torch, ref, q, tiles, alive, cboxes, mask_out,
                      extent=None, out_bytes=None, rows=16):
     """Least bytes and operations of one dense call on these inputs.
 
-    bytes: the queries, the alive flags (each tile's up to its
-    ``extent`` when given: no slot past it is alive; ``bound_ms_full_cap``
-    counts all of cap), the boxes of alive slots (and the chunk boxes),
-    each read once, and the output written once: (Q, T) counts, the
+    bytes: the queries and the output written once ((Q, T) counts, the
     (Q, T, cap) table (``mask_out``) or, given ``out_bytes``, a hit
-    list's.  operations: four float compares per (query, alive slot);
-    with chunk boxes, only the alive slots of chunks the query hits,
-    plus four per (query, chunk) test.
+    list's), and each input read once: without chunk boxes every alive
+    flag and every alive slot's box; with them, the alive flags of the
+    chunks some query reaches, the boxes of their alive slots, and the
+    chunk boxes.  Given the ``extent`` (no slot past it is alive), flags
+    and chunk boxes count up to each tile's extent (``bound_ms``), else
+    over all of cap (``bound_ms_full_cap``, also computed with it).
+    operations: four float compares per (query, alive slot) and, with
+    chunk boxes, per (query, alive slot) of the chunks the query hits
+    plus per (query, chunk) test of the chunks that hold an alive slot
+    (all below the extent; a chunk with none adds nothing to any count,
+    tested or not).
     """
     t, cap = tiles.shape[:2]
+    qn = q.shape[0]
     n_alive = int(alive.sum())
     if out_bytes is None:
-        out_bytes = q.shape[0] * t * (cap if mask_out else 4)
-    flags = t * cap if extent is None else int(extent.long().sum())
-    fixed = q.numel() * 4 + n_alive * 16 + out_bytes
-    ops_ = 4 * q.shape[0] * n_alive
-    if cboxes is not None:
+        out_bytes = qn * t * (cap if mask_out else 4)
+    base = q.numel() * 4 + out_bytes
+    lim = (torch.full((t,), cap, dtype=torch.int64, device=q.device)
+           if extent is None else extent.long())
+    if cboxes is None:
+        ops_ = ops_full = 4 * qn * n_alive
+        bytes_ = base + n_alive * 16 + int(lim.sum())
+        bytes_full = base + n_alive * 16 + t * cap
+    else:
         n_chunks = cboxes.shape[1]
+        c0 = torch.arange(n_chunks, device=q.device) * 128
+        below = (lim[:, None] - c0[None, :]).clamp(0, 128)  # flags to read
+        in_cap = (cap - c0).clamp(max=128).expand(t, -1)
         slot_alive = torch.cat([alive, alive.new_zeros(
             t, n_chunks * 128 - cap)], dim=1)
         per_chunk = slot_alive.reshape(t, n_chunks, 128).sum(2)
+        reached = torch.zeros(t, n_chunks, dtype=torch.bool, device=q.device)
         live_slots = 0
-        for i in range(0, q.shape[0], rows):
+        for i in range(0, qn, rows):
             hit = ref.chunk_hits(q[i:i + rows], cboxes)       # (B, T, C)
+            reached |= hit.any(0)
             live_slots += int((hit * per_chunk).sum())
-        fixed += cboxes.numel() * 4
-        ops_ = 4 * live_slots + 4 * q.shape[0] * cboxes.shape[0] * n_chunks
+        boxes = int(per_chunk[reached].sum()) * 16
+        chunks_below = int((-(-lim // 128)).sum())
+        bytes_ = base + boxes + int(below[reached].sum()) + chunks_below * 16
+        bytes_full = (base + boxes + int(in_cap[reached].sum())
+                      + t * n_chunks * 16)
+        ops_ = ops_full = 4 * live_slots + 4 * qn * int((per_chunk > 0).sum())
 
-    def bound(b):
-        return max(b / HBM_BYTES_PER_S, ops_ / FP32_OPS_PER_S) * 1e3
+    def bound(b, o):
+        return max(b / HBM_BYTES_PER_S, o / FP32_OPS_PER_S) * 1e3
 
-    bytes_ = fixed + flags
     return dict(
-        bytes=bytes_, ops=ops_, bound_ms=bound(bytes_),
+        bytes=bytes_, ops=ops_, bound_ms=bound(bytes_, ops_),
         bound_by=("bytes" if bytes_ / HBM_BYTES_PER_S >= ops_ / FP32_OPS_PER_S
                   else "operations"),
-        bound_ms_full_cap=bound(fixed + t * cap))
+        bound_ms_full_cap=bound(bytes_full, ops_full))
 
 
 def median(xs):

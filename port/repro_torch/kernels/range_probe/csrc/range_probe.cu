@@ -16,14 +16,18 @@
 // then rp_dense_tiles), the dense oracle's path, from:
 //   count_pallas              (_count_kernel, _count_alive_kernel)
 //   mask_pallas               (_mask_kernel, _mask_alive_kernel)
-// Dense entry points a block per (tile, 128-query block), rp_dense_probe:
+// and the same tile-major dense counts with the routed skip's (query,
+// chunk) list, from:
 //   count_skip_pallas         (_count_skip_kernel, _count_skip_alive_kernel)
+// The dense chunk-skipping table, slot-parallel (rp_dense_table), from:
 //   mask_skip_pallas          (_mask_skip_kernel, _mask_skip_alive_kernel)
-//   and, off the serving path, count_pallas's counts and mask_pallas's
-//   (Q, T, cap) table themselves.
-// Three templated kernels, instantiated for skip/no-skip x alive/none
-// (and count/mask for the dense one, pair count/segment count/emit and
-// routed/dense for the tile-major one), compute what
+// Dense entry points a block per (tile, 128-query block), rp_dense_probe,
+// off every path (yardsticks): count_pallas's counts, mask_pallas's
+// (Q, T, cap) table and the first design of the two skip kernels.
+// Four templated kernels, instantiated for skip/no-skip x alive/none
+// (and count/mask for the block-per-tile one, pair count/segment
+// count/emit and routed/dense for the tile-major one, aligned or not
+// for the table), compute what
 // repro/kernels/range_probe/ref.py computes (gathered_* and probe_*
 // with their chunk-masked *_skip twins).
 //
@@ -112,8 +116,8 @@
 // counts an FMA as two operations), so the practical floor is about
 // four times the stated bound.
 // Staging the next step's boxes with cp.async into a second buffer
-// measured no faster (its 64 KB halve the blocks an SM holds), so the
-// steps load synchronously.
+// measured no faster (its 64 KB halve the blocks an SM holds), so each
+// step stages its own boxes, cp.async into the one buffer.
 //
 // Routed masks.  One warp owns one (query, candidate) pair: lane c
 // tests chunk box c, a ballot gives the warp-uniform set of live
@@ -122,10 +126,41 @@
 // (Q, F, cap) output, written in full, skipped chunks included, so the
 // wrapper allocates it with torch.empty.
 //
-// The block-per-(tile, query block) dense design (rp_dense_probe) is
-// what the chunk-skipping dense entries (count_skip, mask_skip) run,
-// and what the plain dense counts and (Q, T, cap) table run as
-// yardsticks beside the tile-major dense passes.  The TPU grid streams
+// Dense chunk-skipping counts.  The dense counts' units, with runs of
+// 128 queries, a query a thread, and the routed skip counts' steps: each
+// thread tests its query against the step's 16 chunk boxes, a step no
+// query of the run reaches ends there, and the (query, chunk) list takes
+// the rest.  Uniform queries would put a few queries that reach a tile
+// in every run, and every such run reads the tile's boxes again, so
+// three small kernels come first: the queries in Morton order of their
+// centres (one block's histogram, scan and scatter) with each run's
+// box, each unit's box (the union of its chunk boxes below the extent),
+// and the list of (unit, run) items whose boxes meet.  The probe takes
+// only those; a query that misses its unit's box tests no chunk box.
+// The boxes of a step go to shared memory by cp.async, all of a
+// thread's in flight at once.  Each walk stops at its tile's live
+// extent, so the chunk-box tests past it, most of the work without the
+// extent, are never made.  Bound on the H100: bytes (the alive flags of
+// the chunks some query reaches and the chunk boxes, both to the
+// extent, the boxes of those chunks' alive slots, the counts); the
+// chunk-box tests at 4 x Q x sum(ceil(extent / 128)) compares are below.
+// The items are latency-bound chains (item, tile, queries, chunk boxes,
+// flags, boxes), five blocks an SM.
+//
+// Dense chunk-skipping table.  Every byte of the (Q, T, cap) output is
+// written, so the table is bound by its stores.  A block takes a (tile,
+// 2,048-slot segment) at a time, a thread 16 consecutive slots; the
+// queries pass through shared memory with their live-chunk bits, and a
+// thread reads its alive flags and alive boxes once, only where a query
+// reaches its chunk below the extent, then writes 16 bytes a query in
+// one store (512 contiguous bytes of the row a warp).  Rows start
+// 16-byte aligned only when cap % 16 == 0; other caps take byte stores.
+// Bound on the H100: bytes, Q * T * cap written.
+//
+// The block-per-(tile, query block) dense design (rp_dense_probe) runs
+// the plain dense counts, the (Q, T, cap) table and the first design of
+// the chunk-skipping pair, as yardsticks beside the tile-major dense
+// passes and the slot-parallel table.  The TPU grid streams
 // one tile against one 128-query block per cell; here one thread block
 // owns one (tile, 128-query block) and one thread owns one query, so a
 // tile is read once per query block instead of once per query.  The
@@ -448,6 +483,36 @@ Groups carve(void* scratch, int T, int64_t pairs) {
   return g;
 }
 
+// The dense skip counts' scratch, carved from one int32 buffer: the
+// queries in run order, each run's box, each (tile, segment) unit's box,
+// the count of live (unit, run) items and their list.
+struct SkipScratch {
+  int32_t* order;   // (Q,)
+  float4* rbox;     // (runs,)
+  float4* ubox;     // (T * S,)
+  int32_t* n_live;  // (1,)
+  int32_t* live;    // (T * S * runs,)
+  int runs;
+};
+
+int64_t skip_scratch_ints(int64_t Q, int T, int cap) {
+  const int64_t runs = (Q + kRun - 1) / kRun;
+  const int64_t units = static_cast<int64_t>(T) * segments(cap);
+  return (Q + 3) / 4 * 4 + 4 * runs + 4 * units + 4 + units * runs;
+}
+
+SkipScratch carve_skip(void* scratch, int64_t Q, int T, int cap) {
+  SkipScratch k;
+  k.runs = static_cast<int>((Q + kRun - 1) / kRun);
+  const int64_t units = static_cast<int64_t>(T) * segments(cap);
+  k.order = static_cast<int32_t*>(scratch);
+  k.rbox = reinterpret_cast<float4*>(k.order + (Q + 3) / 4 * 4);
+  k.ubox = k.rbox + k.runs;
+  k.n_live = reinterpret_cast<int32_t*>(k.ubox + units);
+  k.live = k.n_live + 4;
+  return k;
+}
+
 // 1. each pair's rank among its tile's pairs, and a zero count where
 //    counts is given (the work items add their hits to it); a -1 (or
 //    out-of-range) candidate takes no probe work
@@ -601,6 +666,18 @@ __device__ __forceinline__ float4 no_query() {
   return make_float4(n, n, n, n);
 }
 
+// A 16-byte copy from global to shared memory that bypasses the
+// registers (cp.async), and the wait for all of this thread's.
+__device__ __forceinline__ void copy16_async(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void copy_async_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // What a tile-major pass does with the hits it finds.
 enum Mode {
   kPairCount = 0,  // add them to the pair's count, (Q, F)
@@ -616,6 +693,10 @@ struct Probe {
   const float4* cboxes;  // (T, C, 4) chunk boxes, or null
   const uint8_t* alive;  // (T, cap) alive flags, or null
   const int32_t* extent; // (T,) live extents, or null
+  const int32_t* qorder; // dense skip: (Q,) the queries in run order
+  const float4* uboxes;  // dense skip: each unit's box
+  const int32_t* live;   // dense skip: the live (unit, run) items, u * runs
+  const int32_t* n_live; //   + r, and how many there are
   Groups g;
   int64_t Q;             // queries
   int F, cap, C, S;      // S = ceil(cap / kSegSlots)
@@ -692,6 +773,155 @@ __device__ __forceinline__ void write_slots(const uint32_t (&f)[4], int pos,
                                             ((__ffs(m) - 1) >> 3));
 }
 
+__device__ __forceinline__ float4 box_union(float4 a, float4 b) {
+  return make_float4(fminf(a.x, b.x), fminf(a.y, b.y), fmaxf(a.z, b.z),
+                     fmaxf(a.w, b.w));
+}
+
+// The union of a warp's boxes b, in every lane.
+__device__ __forceinline__ float4 warp_union(float4 b) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    b.x = fminf(b.x, __shfl_xor_sync(0xffffffffu, b.x, o));
+    b.y = fminf(b.y, __shfl_xor_sync(0xffffffffu, b.y, o));
+    b.z = fmaxf(b.z, __shfl_xor_sync(0xffffffffu, b.z, o));
+    b.w = fmaxf(b.w, __shfl_xor_sync(0xffffffffu, b.w, o));
+  }
+  return b;
+}
+
+// A box no union grows from and no query hits.
+__device__ __forceinline__ float4 empty_box() {
+  const float inf = __int_as_float(0x7f800000);
+  return make_float4(inf, inf, -inf, -inf);
+}
+
+// Dense skip counts, before the probe: each (tile, segment) unit's box,
+// the union of its chunk boxes below the tile's limit, a warp a unit
+// (a chunk box with NaN misses every query and is left out).
+__global__ void __launch_bounds__(kGroupThreads)
+unit_boxes(const float4* __restrict__ cboxes,
+           const int32_t* __restrict__ extent, int cap, int C, Groups g,
+           float4* __restrict__ ubox) {
+  constexpr int kUnitChunks = kSegSlots / kChunk;
+  const int lane = threadIdx.x & 31;
+  const int u = blockIdx.x * (kGroupThreads / 32) + (threadIdx.x >> 5);
+  if (u >= *g.n_items) return;  // warp-uniform
+  const int t = g.item_tile[u];
+  const int c0 = (u - g.item_off[t]) * kUnitChunks;
+  const int c1 = min(c0 + kUnitChunks,
+                     (slot_limit(extent, t, cap) + kChunk - 1) / kChunk);
+  const float4* crow = cboxes + static_cast<int64_t>(t) * C;
+  float4 b = empty_box();
+  for (int c = c0 + lane; c < c1; c += 32) b = box_union(b, crow[c]);
+  b = warp_union(b);
+  if (lane == 0) ubox[u] = b;
+}
+
+constexpr int kOrderSide = 64;  // query order: a 64 x 64 grid of cells
+constexpr int kOrderBuckets = kOrderSide * kOrderSide;
+static_assert(kOrderBuckets == 4 * kScanThreads, "four cells a thread");
+
+// The cell of coordinate c along one side of the grid over [lo, lo +
+// kOrderSide / scale] (NaN -> 0).
+__device__ __forceinline__ int order_cell(float c, float lo, float scale) {
+  const float f = (c - lo) * scale;
+  return f >= 0.f ? (f < kOrderSide ? static_cast<int>(f) : kOrderSide - 1)
+                  : 0;
+}
+
+// The Morton (Z-order) bucket of a query's centre: its cell's x and y
+// bits interleaved, so consecutive buckets are near each other in both.
+__device__ __forceinline__ int order_bucket(const float4 b, const float4 lo,
+                                            const float4 scale) {
+  const int ix = order_cell(b.x + b.z, lo.x, scale.x);
+  const int iy = order_cell(b.y + b.w, lo.y, scale.y);
+  int m = 0;
+#pragma unroll
+  for (int k = 0; k < 6; ++k)
+    m |= (((ix >> k) & 1) << (2 * k)) | (((iy >> k) & 1) << (2 * k + 1));
+  return m;
+}
+
+// Dense skip counts, before the probe: the queries in run order, by the
+// Morton order of their centres on a 64 x 64 grid over their range, so
+// a run of 128 holds queries near each other and reaches few units and
+// chunks, and each run's box, the union of its queries.  One block: the
+// range, a histogram, a scan and a scatter (the order within a bucket is
+// the atomics'; no count depends on it), then a warp a run.
+__global__ void __launch_bounds__(kScanThreads)
+query_order(const float4* __restrict__ q, int64_t Q,
+            int32_t* __restrict__ order, float4* __restrict__ rbox) {
+  __shared__ int s_hist[kOrderBuckets];
+  __shared__ float4 s_range[kScanThreads / 32];
+  __shared__ int s_warp[kScanThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // the centres' range, as a box (x0, y0) - (x1, y1) of doubled centres
+  float4 range = empty_box();
+  for (int64_t i = tid; i < Q; i += kScanThreads) {
+    const float4 b = q[i];
+    const float cx = b.x + b.z, cy = b.y + b.w;
+    range = box_union(range, make_float4(cx, cy, cx, cy));
+  }
+  range = warp_union(range);
+  if (lane == 0) s_range[warp] = range;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s_hist[4 * tid + k] = 0;
+  __syncthreads();
+  for (int w = 0; w < kScanThreads / 32; ++w)
+    range = box_union(range, s_range[w]);
+  const float4 lo = range;
+  const float4 scale = make_float4(kOrderSide / (range.z - range.x),
+                                   kOrderSide / (range.w - range.y), 0.f,
+                                   0.f);
+  for (int64_t i = tid; i < Q; i += kScanThreads)
+    atomicAdd(&s_hist[order_bucket(q[i], lo, scale)], 1);
+  __syncthreads();
+  int h[4], sum = 0, total;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) sum += h[k] = s_hist[4 * tid + k];
+  int off = block_exclusive_scan(sum, s_warp, &total);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    s_hist[4 * tid + k] = off;
+    off += h[k];
+  }
+  __syncthreads();
+  for (int64_t i = tid; i < Q; i += kScanThreads)
+    order[atomicAdd(&s_hist[order_bucket(q[i], lo, scale)], 1)] =
+        static_cast<int32_t>(i);
+  __syncthreads();  // the order is written
+  const int64_t runs = (Q + kRun - 1) / kRun;
+  for (int64_t r = warp; r < runs; r += kScanThreads / 32) {
+    float4 b = empty_box();
+    for (int64_t i = r * kRun + lane; i < min(Q, (r + 1) * kRun); i += 32)
+      b = box_union(b, q[order[i]]);
+    b = warp_union(b);
+    if (lane == 0) rbox[r] = b;
+  }
+}
+
+// Dense skip counts, before the probe: the (unit, run) work items whose
+// boxes meet, listed in `live` (in the atomics' order) and counted in
+// *n_live, zeroed by the caller.  A run that misses a unit's box has no
+// query that reaches any of its chunks, so its item needs no probe.
+__global__ void __launch_bounds__(kGroupThreads)
+live_items(const float4* __restrict__ ubox, const float4* __restrict__ rbox,
+           Groups g, int runs, int32_t* __restrict__ live,
+           int32_t* __restrict__ n_live) {
+  const int lane = threadIdx.x & 31;
+  const int64_t k = static_cast<int64_t>(blockIdx.x) * kGroupThreads +
+                    threadIdx.x;
+  const int64_t u = k / runs;
+  const bool on = u < *g.n_items && hit(rbox[k - u * runs], ubox[u]);
+  const unsigned b = __ballot_sync(0xffffffffu, on);
+  int base = 0;
+  if (lane == 0 && b) base = atomicAdd(n_live, __popc(b));
+  base = __shfl_sync(0xffffffffu, base, 0);
+  if (on) live[base + __popc(b & ((1u << lane) - 1u))] =
+      static_cast<int32_t>(k);
+}
+
 // 4. blocks stride over the work items.  An item is (tile, run of up to
 //    128 pairs, segment of kSegSlots slots), so no block walks a long
 //    tile alone; dense, it is ((tile, segment) unit, run of queries),
@@ -701,7 +931,9 @@ __device__ __forceinline__ void write_slots(const uint32_t (&f)[4], int pos,
 //    block scan compacts the alive slots of the step's live chunks, and
 //    their boxes are read once into shared memory, coalesced, in slot
 //    order.
-//    - Counting with chunk boxes, thread i tests the run's i-th query
+//    - Counting with chunk boxes (routed or dense: a run is then 128
+//      queries, one a thread, in query_order's order, and the items
+//      are live_items' list), thread i tests the run's i-th query
 //      against the step's chunk boxes, and the same scan lists every
 //      (query, chunk) the query reaches; threads take the list's entries
 //      in turn and count one query against one chunk's boxes each, so a
@@ -723,7 +955,8 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   constexpr bool EMIT = MODE == kEmit;
   constexpr bool LIST = SKIP && !EMIT;  // the (query, chunk) work list
   constexpr bool SHARED_Q = SKIP || EMIT;
-  constexpr int R = DENSE && !EMIT ? kDenseR : 1;  // queries a thread
+  // queries a thread: the list's entries, s_hits and s_q hold one each
+  constexpr int R = DENSE && !SHARED_Q ? kDenseR : 1;
   constexpr int kRunQ = kRun * R;                  // queries a run
   constexpr int kList = LIST ? kStep : 1;
   constexpr int kQueries = SHARED_Q ? kRun : 1;
@@ -744,13 +977,14 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
   const Groups& g = p.g;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int runs = DENSE ? static_cast<int>((p.Q + kRunQ - 1) / kRunQ) : 1;
-  const int n_items = *g.n_items * runs;
+  const int n_items = SKIP && DENSE ? *p.n_live : *g.n_items * runs;
   int step = 0;
   for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
-    int t, r, seg, len;
+    int t, r, seg, len, u = 0;
     if (DENSE) {
-      const int u = item / runs;
-      r = item - u * runs;
+      const int k = SKIP ? p.live[item] : item;
+      u = k / runs;
+      r = k - u * runs;
       t = g.item_tile[u];
       seg = u - g.item_off[t];
       len = static_cast<int>(min(static_cast<int64_t>(kRunQ),
@@ -774,10 +1008,15 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
     int pair = 0;
     float4 qb = make_float4(0.f, 0.f, 0.f, 0.f);
     if (valid) {
-      pair = DENSE ? (r * kRunQ + qi) * p.F + t
+      const int j = r * kRunQ + qi;
+      pair = DENSE ? (SKIP ? p.qorder[j] : j) * p.F + t
                    : g.order[g.pair_off[t] + r * kRun + qi];
       qb = p.q[pair / p.F];
     }
+    // dense skip: a query that misses the unit's box reaches none of its
+    // chunks
+    const bool reach =
+        valid && (!(SKIP && DENSE) || hit(qb, p.uboxes[u]));
     // register-blocked: this thread's queries r * kRunQ + qi + k * span
     float4 qr[R];
     int accr[R];
@@ -815,7 +1054,7 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
       unsigned qlive, live;
       if (SKIP) {
         qlive = 0u;
-        if (valid) {
+        if (reach) {
 #pragma unroll
           for (int j = 0; j < kStepChunks; ++j)  // independent loads
             if (j < nc)
@@ -854,19 +1093,11 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
           s_list[epos++] = static_cast<uint16_t>((tid << 4) |
                                                  (__ffs(m) - 1));
       __syncthreads();
-      for (int i0 = tid; i0 < n; i0 += 4 * kRun) {  // four loads in flight
-        float4 b[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * kRun;
-          if (i < n) b[u] = trow[base + s_slot[i]];
-        }
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int i = i0 + u * kRun;
-          if (i < n) s_box[i] = b[u];
-        }
-      }
+      // the boxes straight into shared memory, all of a thread's in
+      // flight at once
+      for (int i = tid; i < n; i += kRun)
+        copy16_async(&s_box[i], &trow[base + s_slot[i]]);
+      copy_async_wait();
       __syncthreads();
       if (EMIT) {
         for (int i = warp; i < len; i += kRun / 32) {  // warp-uniform
@@ -886,13 +1117,23 @@ __global__ void __launch_bounds__(kRun) tile_probe(const Probe p) {
           if (lane == 0) s_cur[i] = cur;
         }
       } else if (LIST) {
-        for (int e = tid; e < n_list; e += kRun) {
+        // a short list spreads each entry over lp threads (a power of
+        // two, at most a warp), each counting every lp-th box
+        int lp = 1;
+        while (lp < 32 && 2 * lp * n_list <= kRun) lp <<= 1;
+        const int sub = tid & (lp - 1);
+        for (int e = tid / lp; e < n_list; e += kRun / lp) {
           const int w = s_list[e], j = w & 15;
           const float4 qq = s_q[w >> 4];
           const int beg = s_coff[j], end = s_coff[j + 1];
-          // start each lane at its own box: fewer shared-memory conflicts
-          const int mid = beg + (end > beg ? lane % (end - beg) : 0);
-          const int h = count_rotated(qq, s_box, beg, mid, end);
+          int h;
+          if (lp > 1) {
+            h = count_range(qq, s_box, beg + sub, end, lp);
+          } else {
+            // start each lane at its own box: fewer bank conflicts
+            const int mid = beg + (end > beg ? lane % (end - beg) : 0);
+            h = count_rotated(qq, s_box, beg, mid, end);
+          }
           if (h) atomicAdd(&s_hits[w >> 4], h);
         }
       } else if (R > 1) {
@@ -974,9 +1215,11 @@ int run_probe(int device, Probe p, long long Q, int T, void* scratch,
 }
 
 // One dense tile-major pass in MODE over the dense grouping in
-// `scratch` (p.F == T).
+// `scratch` (p.F == T); with chunk boxes (pair counts only), the
+// (query, chunk) list of the routed skip counts, a query a thread.
 template <int MODE>
-int run_dense(int device, Probe p, int T, void* scratch, void* stream) {
+int run_dense(int device, Probe p, int T, void* scratch, void* skip_scratch,
+              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.Q == 0 || T == 0) return 0;
@@ -985,11 +1228,179 @@ int run_dense(int device, Probe p, int T, void* scratch, void* stream) {
   p.vec_alive = aligned_alive(p);
   const int64_t items =
       static_cast<int64_t>(T) * p.S * ((p.Q + kRun - 1) / kRun);
+  if (p.cboxes != nullptr) {
+    if constexpr (MODE == kPairCount) {
+      const SkipScratch k = carve_skip(skip_scratch, p.Q, T, p.cap);
+      const int64_t units = static_cast<int64_t>(T) * p.S;
+      if (units == 0) return 0;
+      err = cudaMemsetAsync(k.n_live, 0, sizeof(int32_t), s);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      query_order<<<1, kScanThreads, 0, s>>>(p.q, p.Q, k.order, k.rbox);
+      const int per = kGroupThreads / 32;
+      unit_boxes<<<static_cast<unsigned>((units + per - 1) / per),
+                   kGroupThreads, 0, s>>>(p.cboxes, p.extent, p.cap, p.C,
+                                          p.g, k.ubox);
+      live_items<<<static_cast<unsigned>(
+                       (units * k.runs + kGroupThreads - 1) / kGroupThreads),
+                   kGroupThreads, 0, s>>>(k.ubox, k.rbox, p.g, k.runs,
+                                          k.live, k.n_live);
+      p.qorder = k.order;
+      p.uboxes = k.ubox;
+      p.live = k.live;
+      p.n_live = k.n_live;
+      if (p.alive != nullptr)
+        launch_probe<MODE, true, true, true>(p, items, s);
+      else
+        launch_probe<MODE, true, false, true>(p, items, s);
+      return static_cast<int>(cudaGetLastError());
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (p.alive != nullptr)
     launch_probe<MODE, false, true, true>(p, items, s);
   else
     launch_probe<MODE, false, false, true>(p, items, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// dense chunk-skipping table: a persistent grid over (tile, slot segment)
+// work items, a thread owning 16 consecutive slots of the segment
+// ---------------------------------------------------------------------------
+
+constexpr int kTableSlots = 16;                   // slots a thread
+constexpr int kTableSeg = kRun * kTableSlots;     // slots a work item
+constexpr int kTableChunks = kTableSeg / kChunk;  // 16 chunks a work item
+
+// 5. blocks stride over the (tile, segment) work items, tile-major.  The
+//    call's queries pass through shared memory 128 at a time, each with
+//    its live-chunk bits for the segment (tested once per (query,
+//    chunk), only for the chunks below the tile's limit).  A thread
+//    loads its 16 alive flags (one 16-byte load where the rows are
+//    aligned) and the boxes of its alive slots once, the first time a
+//    query of the call reaches its chunk; its dead slots, and all of
+//    them until then, hold a NaN box that hits nothing.  For each query
+//    it then writes its 16 result bytes, one 16-byte streaming store
+//    where rows are 16-byte aligned (VEC), so a warp writes 512
+//    contiguous bytes of the query's row; skipped chunks, dead slots
+//    and slots past the extent are written False without a test.
+template <bool ALIVE, bool VEC>
+__global__ void __launch_bounds__(kRun)
+dense_table(const float4* __restrict__ q, const float4* __restrict__ tiles,
+            const float4* __restrict__ cboxes,
+            const uint8_t* __restrict__ alive,
+            const int32_t* __restrict__ extent, int64_t Q, int T, int cap,
+            int C, int segs, uint8_t* __restrict__ mask) {
+  __shared__ float4 s_q[kRun];          // this batch's query boxes
+  __shared__ unsigned s_qlive[kRun];    // and their live chunks' bits
+  __shared__ unsigned s_any[kRun / 32]; // a warp's queries' live chunks
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = tid / (kChunk / kTableSlots);  // this thread's chunk
+  const int64_t items = static_cast<int64_t>(T) * segs;
+  for (int64_t item = blockIdx.x; item < items; item += gridDim.x) {
+    const int t = static_cast<int>(item / segs);
+    const int base =
+        static_cast<int>(item - static_cast<int64_t>(t) * segs) * kTableSeg;
+    const int lim = slot_limit(extent, t, cap);
+    const int s0 = base + kTableSlots * tid;
+    const int n_in = min(kTableSlots, cap - s0);   // slots to write
+    const int n_live = min(kTableSlots, lim - s0); // slots below the limit
+    const int nc = min(kTableChunks, (lim - base + kChunk - 1) / kChunk);
+    const float4* trow = tiles + static_cast<int64_t>(t) * cap;
+    const float4* crow =
+        cboxes + static_cast<int64_t>(t) * C + base / kChunk;
+    float4 box[kTableSlots];
+#pragma unroll
+    for (int k = 0; k < kTableSlots; ++k) box[k] = no_query();
+    bool loaded = false;
+    for (int64_t q0 = 0; q0 < Q; q0 += kRun) {
+      const int nb =
+          static_cast<int>(min(static_cast<int64_t>(kRun), Q - q0));
+      unsigned ql = 0u;
+      float4 qb = no_query();
+      if (tid < nb) {
+        qb = q[q0 + tid];
+#pragma unroll
+        for (int c = 0; c < kTableChunks; ++c)  // independent loads
+          if (c < nc) ql |= static_cast<unsigned>(hit(qb, crow[c])) << c;
+      }
+      __syncthreads();  // the last batch's s_q, s_qlive and s_any are read
+      s_q[tid] = qb;
+      s_qlive[tid] = ql;
+      const unsigned w = __reduce_or_sync(0xffffffffu, ql);
+      if (lane == 0) s_any[warp] = w;
+      __syncthreads();
+      const unsigned any = s_any[0] | s_any[1] | s_any[2] | s_any[3];
+      if (!loaded && n_live > 0 && ((any >> j) & 1u)) {
+        loaded = true;
+        uint32_t f[4];
+        if (!ALIVE) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) f[v] = low_bytes(n_live - 4 * v);
+        } else if (VEC) {
+          const uint4 a = *reinterpret_cast<const uint4*>(
+              alive + static_cast<int64_t>(t) * cap + s0);
+          f[0] = a.x & low_bytes(n_live);
+          f[1] = a.y & low_bytes(n_live - 4);
+          f[2] = a.z & low_bytes(n_live - 8);
+          f[3] = a.w & low_bytes(n_live - 12);
+        } else {
+          const uint8_t* arow = alive + static_cast<int64_t>(t) * cap + s0;
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            f[v] = 0u;
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (4 * v + k < n_live)
+                f[v] |= static_cast<uint32_t>(arow[4 * v + k] != 0)
+                        << (8 * k);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kTableSlots; ++k)
+          if ((f[k >> 2] >> (8 * (k & 3))) & 1u) box[k] = trow[s0 + k];
+      }
+      if (n_in <= 0) continue;  // past cap: nothing to write
+      for (int i = 0; i < nb; ++i) {
+        uint32_t r[4] = {0u, 0u, 0u, 0u};
+        if (loaded && ((s_qlive[i] >> j) & 1u)) {
+          const float4 qq = s_q[i];
+#pragma unroll
+          for (int k = 0; k < kTableSlots; ++k)
+            r[k >> 2] |= static_cast<uint32_t>(hit(qq, box[k]))
+                         << (8 * (k & 3));
+        }
+        uint8_t* row =
+            mask + ((q0 + i) * T + t) * static_cast<int64_t>(cap) + s0;
+        if (VEC) {  // cap % 16 == 0: every thread writes 16 whole bytes
+          __stcs(reinterpret_cast<uint4*>(row),
+                 make_uint4(r[0], r[1], r[2], r[3]));
+        } else {
+#pragma unroll
+          for (int k = 0; k < kTableSlots; ++k)
+            if (k < n_in)
+              row[k] = static_cast<uint8_t>(r[k >> 2] >> (8 * (k & 3)));
+        }
+      }
+    }
+  }
+}
+
+template <bool ALIVE, bool VEC>
+void launch_table(const float4* q, const float4* tiles, const float4* cboxes,
+                  const uint8_t* alive, const int32_t* extent, int64_t Q,
+                  int T, int cap, int C, uint8_t* mask, cudaStream_t stream) {
+  const int segs = (cap + kTableSeg - 1) / kTableSeg;
+  const int64_t items = static_cast<int64_t>(T) * segs;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, dense_table<ALIVE, VEC>, kRun, 0);
+  const int64_t grid = std::max<int64_t>(
+      1, std::min<int64_t>(items, static_cast<int64_t>(sms) * per_sm));
+  dense_table<ALIVE, VEC><<<static_cast<unsigned>(grid), kRun, 0, stream>>>(
+      q, tiles, cboxes, alive, extent, Q, T, cap, C, segs, mask);
 }
 
 Probe probe_args(const void* q, const void* tiles, const void* cboxes,
@@ -1126,6 +1537,12 @@ extern "C" long long rp_dense_scratch(int T, int cap) {
   return dense_scratch_ints(T, cap);
 }
 
+// Int32 scratch the dense chunk-skipping counts need beside the
+// grouping's for Q queries and T tiles of cap slots.
+extern "C" long long rp_dense_skip_scratch(long long Q, int T, int cap) {
+  return skip_scratch_ints(Q, T, cap);
+}
+
 // The dense passes' grouping into `scratch` (rp_dense_scratch(T, cap)
 // int32): the (tile, segment) units of every tile up to its extent
 // (extent (T,) int32, or null: cap).  One block; launches on `stream`
@@ -1143,7 +1560,9 @@ extern "C" int rp_dense_group(int device, const void* extent, int T, int cap,
 
 // After rp_dense_group on the same scratch and extent, one dense pass
 // over every (query, tile) pair, tile-major.  q (Q, 4) f32; tiles
-// (T, cap, 4) f32; alive (T, cap) bool or null; extent (T,) int32 or
+// (T, cap, 4) f32; cboxes (T, C, 4) f32 (mode 0 only: chunk-skipping
+// counts, with skip_scratch, rp_dense_skip_scratch(Q, T, cap) int32)
+// or null; alive (T, cap) bool or null; extent (T,) int32 or
 // null (always null without alive): no slot at or past extent[t] is
 // alive.  mode 0: add each pair's hits to counts (Q, T) int32, zeroed
 // by the caller.  mode 1: add each (pair, segment)'s hits to counts
@@ -1151,26 +1570,65 @@ extern "C" int rp_dense_group(int device, const void* extent, int T, int cap,
 // that counts array, incl (Q * T * S,) int64 its inclusive scan and
 // total its last element, write each hit to out (3, total) int64 as
 // (query, tile, slot) rows, in flat (query, tile, slot) order.
-// Launches on `stream` (no synchronisation) and returns
-// cudaGetLastError().
+// C == ceil(cap / 128).  Launches on `stream` (no synchronisation) and
+// returns cudaGetLastError().
 extern "C" int rp_dense_tiles(int device, int mode, const void* q,
-                              const void* tiles, const void* alive,
-                              const void* extent,
+                              const void* tiles, const void* cboxes,
+                              const void* alive, const void* extent,
                               long long Q, int T, int cap, void* scratch,
-                              void* counts, const void* incl, void* out,
-                              long long total, void* stream) {
-  Probe p = probe_args(q, tiles, nullptr, alive, extent, T, cap,
+                              void* skip_scratch, void* counts,
+                              const void* incl, void* out, long long total,
+                              void* stream) {
+  Probe p = probe_args(q, tiles, cboxes, alive, extent, T, cap,
                        (cap + kChunk - 1) / kChunk, counts);
   p.Q = Q;
   if (mode == 0)
-    return run_dense<kPairCount>(device, p, T, scratch, stream);
+    return run_dense<kPairCount>(device, p, T, scratch, skip_scratch,
+                                 stream);
   if (mode == 1)
-    return run_dense<kSegCount>(device, p, T, scratch, stream);
+    return run_dense<kSegCount>(device, p, T, scratch, nullptr, stream);
   if (total == 0) return static_cast<int>(cudaSetDevice(device));
   p.incl = static_cast<const int64_t*>(incl);
   p.out = static_cast<int64_t*>(out);
   p.total = total;
-  return run_dense<kEmit>(device, p, T, scratch, stream);
+  return run_dense<kEmit>(device, p, T, scratch, nullptr, stream);
+}
+
+// Launch the dense chunk-skipping table on `stream` (no
+// synchronisation) and return cudaGetLastError().  q (Q, 4) f32; tiles
+// (T, cap, 4) f32; cboxes (T, C, 4) f32; alive (T, cap) bool or null;
+// extent (T,) int32 or null (always null without alive): no slot at or
+// past extent[t] is alive; out: mask (Q, T, cap) bool, every byte
+// written.  C == ceil(cap / 128).
+extern "C" int rp_dense_table(int device, const void* q, const void* tiles,
+                              const void* cboxes, const void* alive,
+                              const void* extent, long long Q, int T,
+                              int cap, int C, void* mask, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (Q == 0 || T == 0 || cap == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* qq = static_cast<const float4*>(q);
+  const auto* tt = static_cast<const float4*>(tiles);
+  const auto* cb = static_cast<const float4*>(cboxes);
+  const auto* al = static_cast<const uint8_t*>(alive);
+  const auto* ex = static_cast<const int32_t*>(extent);
+  auto* m = static_cast<uint8_t*>(mask);
+  const bool vec = cap % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(mask) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(alive) % 16 == 0;
+  if (alive != nullptr) {
+    if (vec)
+      launch_table<true, true>(qq, tt, cb, al, ex, Q, T, cap, C, m, s);
+    else
+      launch_table<true, false>(qq, tt, cb, al, ex, Q, T, cap, C, m, s);
+  } else {
+    if (vec)
+      launch_table<false, true>(qq, tt, cb, al, ex, Q, T, cap, C, m, s);
+    else
+      launch_table<false, false>(qq, tt, cb, al, ex, Q, T, cap, C, m, s);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launch one dense probe on `stream` (no synchronisation) and return

@@ -35,6 +35,13 @@ there is nothing else to group), ``dense_counts`` counts (Q, T) with
 four queries a thread, and ``dense_hits`` counts, scans and emits the
 dense hit list a block of queries at a time.  ``count`` and ``mask``
 (a block per tile and 128 queries) stay as yardsticks off that path.
+
+The chunk-skipping dense pair has no serving caller.  ``count_skip``
+runs the dense tile-major probe to each tile's extent with the routed
+skip counts' (query, chunk) list; ``mask_skip`` writes the (Q, T, cap)
+table slot-parallel, a thread 16 slots, bound by its stores.  Their
+first, block-per-tile design stays as ``count_skip_v1`` and
+``mask_skip_v1``, yardsticks.
 """
 from __future__ import annotations
 
@@ -56,7 +63,8 @@ LAUNCHES = {"gather_count": 0, "gather_mask": 0,
             "gather_count_skip": 0, "gather_mask_skip": 0,
             "gather_hits": 0, "gather_hits_skip": 0,
             "dense_counts": 0, "dense_hits": 0,
-            "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0}
+            "count": 0, "mask": 0, "count_skip": 0, "mask_skip": 0,
+            "count_skip_v1": 0, "mask_skip_v1": 0}
 
 _vp, _ci, _cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 LIB = cuda_build.Library(SOURCE, {
@@ -72,8 +80,11 @@ LIB = cuda_build.Library(SOURCE, {
                       _ci, _vp, _vp, _vp, _vp, _cll, _vp], _ci),
     "rp_dense_scratch": ([_ci, _ci], _cll),
     "rp_dense_group": ([_ci, _vp, _ci, _ci, _vp, _vp], _ci),
-    "rp_dense_tiles": ([_ci, _ci, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _vp,
-                        _vp, _vp, _vp, _cll, _vp], _ci),
+    "rp_dense_skip_scratch": ([_cll, _ci, _ci], _cll),
+    "rp_dense_tiles": ([_ci, _ci, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci,
+                        _vp, _vp, _vp, _vp, _vp, _cll, _vp], _ci),
+    "rp_dense_table": ([_ci, _vp, _vp, _vp, _vp, _vp, _cll, _ci, _ci, _ci,
+                        _vp, _vp], _ci),
     "rp_dense_probe": ([_ci, _ci, _vp, _vp, _vp, _vp, ctypes.c_longlong,
                         _ci, _ci, _ci, _vp, _vp, _vp], _ci),
 }, "rp_error_string")
@@ -237,10 +248,11 @@ def _hits(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
 
 
 def _dense_args(name: str, qboxes: torch.Tensor, tiles: torch.Tensor,
-                alive: torch.Tensor | None, extent: torch.Tensor | None):
+                alive: torch.Tensor | None, extent: torch.Tensor | None,
+                cboxes: torch.Tensor | None = None):
     """Checks of the dense tile-major wrappers -> ``(device, T, cap, Q,
     extent)``; the extent is kept only beside an alive mask."""
-    dev, t, cap, _ = _inputs(name, qboxes, tiles, None, alive)
+    dev, t, cap, _ = _inputs(name, qboxes, tiles, cboxes, alive)
     q = qboxes.shape[0]
     if max(t, cap, q * t) >= 2**31:
         raise ValueError(f"{name}: T, cap and Q*T must fit in int32")
@@ -269,27 +281,41 @@ def dense_group(tiles: torch.Tensor,
 
 
 def _dense_pass(name: str, mode: int, qboxes, tiles, scratch, counts, *,
-                alive, extent, incl=None, out=None, total=0) -> int:
-    dev, t, cap, q, extent = _dense_args(name, qboxes, tiles, alive, extent)
+                alive, extent, cboxes=None, skip=None, incl=None,
+                out=None, total=0) -> int:
+    dev, t, cap, q, extent = _dense_args(name, qboxes, tiles, alive, extent,
+                                         cboxes)
     return LIB.get().rp_dense_tiles(
-        _index(dev), mode, _ptr(qboxes), _ptr(tiles),
-        _ptr(alive), _ptr(extent), q, t, cap, _ptr(scratch), _ptr(counts),
-        _ptr(incl), _ptr(out), total, cuda_build.stream(dev))
+        _index(dev), mode, _ptr(qboxes), _ptr(tiles), _ptr(cboxes),
+        _ptr(alive), _ptr(extent), q, t, cap, _ptr(scratch), _ptr(skip),
+        _ptr(counts), _ptr(incl), _ptr(out), total, cuda_build.stream(dev))
+
+
+def _dense_counts(name: str, qboxes, tiles, cboxes, alive,
+                  extent) -> torch.Tensor:
+    dev, t, cap, q, extent = _dense_args(name, qboxes, tiles, alive, extent,
+                                         cboxes)
+    counts = torch.zeros((q, t), dtype=torch.int32, device=dev)
+    if q * t == 0:
+        return counts
+    scratch = dense_group(tiles, extent)
+    skip = None
+    if cboxes is not None:   # query order, run and unit boxes, live items
+        lib = LIB.get()
+        if t * lib.rp_hit_segments(cap) * -(-q // 128) >= 2**31:
+            raise ValueError(f"{name}: (unit, run) items must fit in int32")
+        skip = torch.empty(lib.rp_dense_skip_scratch(q, t, cap),
+                           dtype=torch.int32, device=dev)
+    err = _dense_pass(name, 0, qboxes, tiles, scratch, counts, alive=alive,
+                      extent=extent, cboxes=cboxes, skip=skip)
+    LIB.launched(name, err, LAUNCHES)
+    return counts
 
 
 def dense_counts(qboxes, tiles, *, alive=None, extent=None) -> torch.Tensor:
     """Dense probe counts, tile-major: (Q, 4), (T, cap, 4) -> (Q, T)
     int32; ``extent`` as for ``gather_count``."""
-    dev, t, cap, q, extent = _dense_args("dense_counts", qboxes, tiles,
-                                         alive, extent)
-    counts = torch.zeros((q, t), dtype=torch.int32, device=dev)
-    if q * t == 0:
-        return counts
-    scratch = dense_group(tiles, extent)
-    err = _dense_pass("dense_counts", 0, qboxes, tiles, scratch, counts,
-                      alive=alive, extent=extent)
-    LIB.launched("dense_counts", err, LAUNCHES)
-    return counts
+    return _dense_counts("dense_counts", qboxes, tiles, None, alive, extent)
 
 
 def dense_row_bytes(t: int, cap: int) -> int:
@@ -432,11 +458,43 @@ def mask(qboxes, tiles, *, alive=None) -> torch.Tensor:
     return _dense("mask", qboxes, tiles, None, alive, True)
 
 
-def count_skip(qboxes, tiles, cboxes, *, alive=None) -> torch.Tensor:
-    """Chunk-skipping dense counts; cboxes (T, ceil(cap/128), 4)."""
-    return _dense("count_skip", qboxes, tiles, cboxes, alive, False)
+def count_skip(qboxes, tiles, cboxes, *, alive=None,
+               extent=None) -> torch.Tensor:
+    """Chunk-skipping dense counts, tile-major (a query a thread, the
+    routed skip counts' (query, chunk) list): (Q, 4), (T, cap, 4),
+    cboxes (T, ceil(cap/128), 4) -> (Q, T) int32; ``extent`` as for
+    ``gather_count``."""
+    return _dense_counts("count_skip", qboxes, tiles, cboxes, alive, extent)
 
 
-def mask_skip(qboxes, tiles, cboxes, *, alive=None) -> torch.Tensor:
-    """Chunk-skipping dense hit table -> (Q, T, cap) bool."""
-    return _dense("mask_skip", qboxes, tiles, cboxes, alive, True)
+def mask_skip(qboxes, tiles, cboxes, *, alive=None,
+              extent=None) -> torch.Tensor:
+    """Chunk-skipping dense hit table, slot-parallel (a thread 16 slots,
+    a 16-byte store a query where rows are aligned) -> (Q, T, cap) bool;
+    ``extent`` as for ``gather_count`` (slots past it are written
+    False without a read)."""
+    dev, t, cap, q, extent = _dense_args("mask_skip", qboxes, tiles, alive,
+                                         extent, cboxes)
+    out = torch.empty((q, t, cap), dtype=torch.bool, device=dev)
+    if out.numel() == 0:
+        return out
+    err = LIB.get().rp_dense_table(
+        _index(dev), _ptr(qboxes), _ptr(tiles), _ptr(cboxes), _ptr(alive),
+        _ptr(extent), q, t, cap, cboxes.shape[1], out.data_ptr(),
+        cuda_build.stream(dev))
+    LIB.launched("mask_skip", err, LAUNCHES)
+    return out
+
+
+def count_skip_v1(qboxes, tiles, cboxes, *, alive=None) -> torch.Tensor:
+    """``count_skip`` in its first design (``rp_dense_probe``: a block
+    per (tile, 128 queries) walking every chunk of cap): a yardstick off
+    every path."""
+    return _dense("count_skip_v1", qboxes, tiles, cboxes, alive, False)
+
+
+def mask_skip_v1(qboxes, tiles, cboxes, *, alive=None) -> torch.Tensor:
+    """``mask_skip`` in its first design (``rp_dense_probe``: a block
+    per (tile, 128 queries), each warp's rows a chunk at a time): a
+    yardstick off every path."""
+    return _dense("mask_skip_v1", qboxes, tiles, cboxes, alive, True)

@@ -19,7 +19,8 @@ Tombstone contract (keyword-only ``alive``): an optional (T, cap) bool
 per-slot alive mask; a hit counts only if its slot is alive.
 
 Live-extent contract (keyword-only ``extent``: routed and dense
-counts, routed and dense hit lists): an optional (T,) int32
+counts, routed and dense hit lists, the dense chunk-skipping counts
+and table): an optional (T,) int32
 ``live_extent(alive)`` (any larger value will do): no slot at or past
 ``extent[t]`` is alive, so the kernel stops there.  It is read only
 beside ``alive`` and only by the kernel; the plain versions need no
@@ -116,23 +117,25 @@ def probe_mask(qboxes: torch.Tensor, tiles: torch.Tensor, *,
 
 def probe_counts_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
                       cboxes: torch.Tensor, *,
-                      alive: torch.Tensor | None = None) -> torch.Tensor:
+                      alive: torch.Tensor | None = None,
+                      extent: torch.Tensor | None = None) -> torch.Tensor:
     """Dense counts with chunk skipping -> (Q, T) int32; equal to
     ``probe_counts`` whenever each chunk box bounds its members."""
     if tiles.is_cuda:
         return kernel.count_skip(qboxes.float().contiguous(), tiles, cboxes,
-                                 alive=alive)
+                                 alive=alive, extent=extent)
     return ref.probe_counts_skip(qboxes.float(), tiles.float(),
                                  cboxes.float(), alive)
 
 
 def probe_mask_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
                     cboxes: torch.Tensor, *,
-                    alive: torch.Tensor | None = None) -> torch.Tensor:
+                    alive: torch.Tensor | None = None,
+                    extent: torch.Tensor | None = None) -> torch.Tensor:
     """Dense hit table with chunk skipping -> (Q, T, cap) bool."""
     if tiles.is_cuda:
         return kernel.mask_skip(qboxes.float().contiguous(), tiles, cboxes,
-                                alive=alive)
+                                alive=alive, extent=extent)
     return ref.probe_mask_skip(qboxes.float(), tiles.float(), cboxes.float(),
                                alive).transpose(0, 1)
 

@@ -197,6 +197,16 @@ def test_dense_kernels_match_plain_versions(q, t, cap, alive, boxes):
     # the block-per-(tile, query block) counts, off the dense path
     got = kernel.count(dev(qb), dev(tiles), alive=dev(al))
     assert torch.equal(got.cpu(), ops.probe_counts(qb, tiles, alive=al))
+    # the chunk-skipping pair to the live extent, and its first design
+    ext = None if al is None else ops.live_extent(al)
+    for name in ("count_skip", "mask_skip"):
+        want = getattr(ops, "probe_" + name.replace("count", "counts"))(
+            qb, tiles, cb, alive=al)
+        for got in (getattr(kernel, name)(dev(qb), dev(tiles), dev(cb),
+                                          alive=dev(al), extent=dev(ext)),
+                    getattr(kernel, name + "_v1")(dev(qb), dev(tiles),
+                                                  dev(cb), alive=dev(al))):
+            assert torch.equal(got.cpu(), want), name
 
 
 @pytest.mark.parametrize("alive", [None, "random", "staged"])
@@ -253,6 +263,68 @@ def test_dense_tile_kernels_match_plain_version(q, t, cap, alive,
     assert kernel.LAUNCHES["dense_hits"] == -(-q // 3)
     for g, w in zip(got_h, want_h):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("alive", [None, "random", "staged"])
+@pytest.mark.parametrize("boxes", ["bounding", "arbitrary"])
+@pytest.mark.parametrize("q,t,cap", [(1, 1, 1), (7, 3, 4100), (130, 5, 257),
+                                     (700, 4, 20_000)])
+def test_dense_skip_kernels_match_plain_version(q, t, cap, alive, boxes):
+    """The chunk-skipping dense counts (tile-major, a query a thread) and
+    table (slot-parallel) bit-equal their plain versions and their first
+    design (``count_skip_v1``, ``mask_skip_v1``): Q = 1, 7, 130 and 700
+    (runs of 128 and fewer), ragged chunks, rows not 16-byte aligned
+    (cap % 16 != 0: 1 and 257; 4,100 takes the byte path too), caps past
+    one 2,048-slot table segment and one 8,192-slot count segment, a
+    query that holds every box, a tile whose extent is 0 and one whose
+    last slot is alive, chunk boxes that do not bound their members,
+    with and without the extent."""
+    _need_cuda()
+    rng = np.random.default_rng(q + t + cap)
+    qb = _boxes(rng, q, 0.2)
+    tiles = _boxes(rng, t * cap, 0.1).reshape(t, cap, 4)
+    tiles[torch.from_numpy(rng.random((t, cap)) < 0.2)] = torch.tensor(
+        [9e9, 9e9, -9e9, -9e9])
+    qb[0] = torch.tensor([-1.0, -1.0, 2.0, 2.0])   # holds every box
+    c = -(-cap // CHUNK)
+    if boxes == "bounding":
+        pad = torch.tensor([9e9, 9e9, -9e9, -9e9]).expand(t, c * CHUNK - cap, 4)
+        g = torch.cat([tiles, pad], 1).reshape(t, c, CHUNK, 4)
+        cb = torch.cat([g[..., :2].amin(2), g[..., 2:].amax(2)], -1)
+    else:
+        cb = _boxes(rng, t * c, 0.05).reshape(t, c, 4)
+    al = None
+    if alive == "random":
+        al = torch.from_numpy(rng.random((t, cap)) < 0.7)
+    elif alive == "staged":                        # a prefix of each tile
+        n = torch.from_numpy(rng.integers(0, cap + 1, t))
+        n[0] = cap
+        al = torch.arange(cap)[None, :] < n[:, None]
+    if al is not None and t > 2:
+        al[1] = False                  # extent 0
+        al[2, cap - 1] = True          # extent == cap
+    ext = None if al is None else ops.live_extent(al)
+    dev = lambda x: None if x is None else x.cuda()  # noqa: E731
+    want_c = ops.probe_counts_skip(qb, tiles, cb, alive=al)
+    want_m = ops.probe_mask_skip(qb, tiles, cb, alive=al)
+    assert int(want_c[0].sum()) > 0 or cap == 1
+    for e in (None, ext):
+        kernel.reset_launches()
+        got_c = ops.probe_counts_skip(dev(qb), dev(tiles), dev(cb),
+                                      alive=dev(al), extent=dev(e))
+        got_m = ops.probe_mask_skip(dev(qb), dev(tiles), dev(cb),
+                                    alive=dev(al), extent=dev(e))
+        torch.cuda.synchronize()
+        assert kernel.LAUNCHES == dict({k: 0 for k in kernel.LAUNCHES},
+                                       count_skip=1, mask_skip=1)
+        assert torch.equal(got_c.cpu(), want_c), e is None
+        assert torch.equal(got_m.cpu(), want_m), e is None
+    kernel.reset_launches()
+    v1_c = kernel.count_skip_v1(dev(qb), dev(tiles), dev(cb), alive=dev(al))
+    v1_m = kernel.mask_skip_v1(dev(qb), dev(tiles), dev(cb), alive=dev(al))
+    assert kernel.LAUNCHES == dict({k: 0 for k in kernel.LAUNCHES},
+                                   count_skip_v1=1, mask_skip_v1=1)
+    assert torch.equal(v1_c.cpu(), want_c) and torch.equal(v1_m.cpu(), want_m)
 
 
 def test_wrappers_count_launches_and_reject_bad_inputs():

@@ -86,19 +86,23 @@ def test_dense_probe_matches_repro(q, t, cap, fn, alive, interpret):
 def test_dense_probe_skip_matches_repro(q, t, cap, fn, alive, boxes,
                                         interpret):
     """Chunk boxes that do not bound their members: the port still
-    equals repro's chunk-masked semantics bit for bit."""
+    equals repro's chunk-masked semantics bit for bit, given the live
+    extent beside the alive mask (the plain versions ignore it)."""
     qb, tiles, al, cb = _case(q, t, cap, alive, boxes)
     want = getattr(jops, fn)(_j(qb), _j(tiles), _j(cb), interpret=interpret,
                              alive=_j(al))
-    got = getattr(tops, fn)(_t(qb), _t(tiles), _t(cb), alive=_t(al))
+    ext = None if al is None else tops.live_extent(_t(al))
+    got = getattr(tops, fn)(_t(qb), _t(tiles), _t(cb), alive=_t(al),
+                            extent=ext)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("fn", ["count", "mask", "count_skip", "mask_skip"])
+@pytest.mark.parametrize("fn", ["count", "mask", "count_skip", "mask_skip",
+                                "count_skip_v1", "mask_skip_v1"])
 def test_dense_kernel_wrappers_refuse_cpu_tensors(fn):
     """The CUDA wrappers launch or raise; they never compute on the CPU."""
     qb, tiles, _, cb = _case(4, 2, 30, None, "bounding")
-    extra = (_t(cb),) if fn.endswith("_skip") else ()
+    extra = (_t(cb),) if "_skip" in fn else ()
     with pytest.raises(ValueError, match="cuda"):
         getattr(tkernel, fn)(_t(qb), _t(tiles), *extra)
     assert tkernel.LAUNCHES[fn] == 0
