@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving, partitioning and join paths
-on one CUDA card.
+"""Drive the PyTorch/H100 port's serving, ingest, partitioning and join
+paths, and Mamba2 inference, on one CUDA card.
 
     python3 chip_smoke.py            # full size: 8 M osm-like objects served,
+                                     # 7 M staged + 1 M streamed in,
                                      # 4 M + 4 M pi and 1 M + 1 M osm joined,
                                      # Mamba2-1.3B prefill and decode
 
@@ -78,10 +79,38 @@ before each path and read just after it) and its wall seconds:
    version and timed in turns, the counts beside ``dense_counts`` on
    the same inputs.  No dense kernel's row may read faster than its
    own bound.
-6. partition -- the six Table-1 partitioners on the join's merged pi
+6. ingest -- the serve phase's 8,000,000 objects again (same seed):
+   ``bsp`` at payload 4096 over the first 7,000,000, staged with
+   ``local_index="x"`` and a slack that holds the held-out 1,000,000
+   (their fullest tile's copies, rounded up to 128).  With every launch
+   count at 0: 10 appends of 100,000 (none may re-stage), 4 deletes of
+   200,000 random live ids, a forced ``compact()``, 1 update of
+   100,000 ids (each box shifted by up to 1e-3; it may not re-stage),
+   a burst of cap + 1 coincident objects into tile 0 (which must
+   re-stage), 1 more delete
+   of 200,000 (leaving the extent stale-large), then a counts batch (Q
+   = 4096), an ids batch (1024), a kNN batch (1024 points, k = 10) and
+   the dense counts.  Fails unless the counts equal the brute force on
+   the live set and a fresh staging of it, the ids and kNN (ids, d2 bit
+   for bit, flags) equal the fresh staging's (its ids remapped through
+   the ascending live ids), the dense counts equal the pruned ones, 256
+   kNN points equal the brute force, and the extent covers every alive
+   slot after every step (tight after compact and re-stage).  Then two
+   shorter streams, ``"hilbert"`` and ``"off"``, on the same commands
+   (2 appends, 2 deletes, a forced compact, whose "hilbert" branch
+   must launch the encode), whose answers must be equal.  Prints each
+   operation's wall ms and bytes uploaded, the host mirrors' build
+   time, compact and re-stage seconds, peak memory, the tiles whose
+   extent is above tight, the p50 of a counts batch on the ingested
+   server and on the fresh staging (in turns, one clock), and the
+   launches of each kernel on the path, which must include every routed
+   count and hit list, ``dense_counts`` and the encode.  Alone (the
+   kernels build at first use): ``python3 -c "import torch, chip_smoke;
+   chip_smoke.ingest_phase(torch, torch.device('cuda'))"``.
+7. partition -- the six Table-1 partitioners on the join's merged pi
    input (8 M objects) at payload 4096: seconds, k, and the paper's
    lambda, balance stddev, skew and coverage; hc's encode launches.
-7. join   -- ``plan_join`` then ``spatial_join_count`` for each of the
+8. join   -- ``plan_join`` then ``spatial_join_count`` for each of the
    six layouts on two inputs at payload 4096: pi |><| pi (4 M + 4 M
    ``pi_like``, seeds 0 and 1) and osm |><| osm (1 M + 1 M
    ``osm_like``, seeds 0 and 1).  Plan and join seconds are medians of
@@ -103,14 +132,14 @@ before each path and read just after it) and its wall seconds:
    after: ``raw_counts``, ``rp_counts``, ``pair_list`` and ``encode``
    must have launched, ``count``, ``mask`` and ``encode_v1`` not at
    all.
-8. join_check -- fails unless, on each input, all six exact counts are
+9. join_check -- fails unless, on each input, all six exact counts are
    equal, rp equals MASJ pairs for the non-overlapping layouts, the
    exact count equals one unpartitioned ``join_count`` of the whole
    inputs (the count kernel over every pair), the partner counts of
    4096 sampled R objects in the deduplicated bsp pair list equal a
    plain brute force against all of S, the raw count is at least the
    exact count, and no tile was truncated.
-9. kernels -- encode over the 8 M merged pi centroids and over 2^25
+10. kernels -- encode over the 8 M merged pi centroids and over 2^25
    seeded grid points (a "hilbert" staging's launch size), timed in
    turns with the plane-loop design (``encode_v1``) on the same inputs,
    both bit-equal to the plain version; its operation count per point
@@ -125,7 +154,7 @@ before each path and read just after it) and its wall seconds:
    (four compares a live (r, s) test at 67 T/s, integer instructions at
    33.5 T/s, or the bytes).
 
-10. lm_prefill -- the spatial phases' tensors freed, the published
+11. lm_prefill -- the spatial phases' tensors freed, the published
    Mamba2-1.3B configuration (48 SSD blocks, d_model 2048, 64 heads of
    64, state 128, bf16 activations) with random float32 weights from a
    seeded generator on the card, TF32 off for matmuls (asserted):
@@ -134,10 +163,10 @@ before each path and read just after it) and its wall seconds:
    seconds, tokens/s, peak memory, the SSD launches (one a layer),
    device ms, idle share and the five largest device items from the
    profiler.  Layer 0's SSD inputs are kept for the kernel check.
-11. lm_decode -- the greedy loop of ``launch/serve.py`` at batch 128,
+12. lm_decode -- the greedy loop of ``launch/serve.py`` at batch 128,
    prompt 32, gen 32: tokens/s, p50 and p99 step ms, the idle share of
    a profiled step.
-12. lm_check -- fails unless (a) the SSD kernel equals its plain version
+13. lm_check -- fails unless (a) the SSD kernel equals its plain version
    (the einsum form, run in blocks of chunks) within rtol = atol =
    2e-5 on layer 0's prefill inputs and on a random set; (b) in
    float32 at full width and depth, B = 2, L = 200 (the pad path), the
@@ -236,6 +265,13 @@ BATCHED = {  # the join's batched passes -> the layout whose plan drives it
     "mbr_pair_list": "hc",
 }
 PAIR_BYTES = 2 * 4     # a listed pair's (r_id, s_id), int32
+INGEST_BASE = 7_000_000    # of the N served objects staged before ingest
+INGEST_BATCH = 100_000     # objects an append
+INGEST_APPENDS = 10        # the held-out N - INGEST_BASE objects
+INGEST_DELETE = 200_000    # ids a delete
+INGEST_DELETES = 4
+INGEST_UPDATE = 100_000    # ids the update moves
+SHORT_APPENDS, SHORT_DELETES = 2, 2    # the "hilbert" and "off" streams
 
 
 def emit(obj) -> None:
@@ -581,6 +617,276 @@ def dense_phase(torch, srv, mbrs, qc, qi, pts, pruned_x, pruned_knn):
               knn_flagged=int((~ok).sum()), equal_to_pruned=True,
               brute_force_counts=CHECK_Q, brute_force_ids=qi.shape[0],
               brute_force_knn=int(mine.sum()), launches=launches))
+    return launches
+
+
+def ingest_op(torch, log, kind, fn):
+    """One timed ingest call -> its report; ``log`` gets its wall ms
+    (ending in a synchronize), bytes uploaded, re-stage and
+    compaction."""
+    t0 = time.perf_counter()
+    rep = fn()
+    torch.cuda.synchronize()
+    log.append(dict(op=kind, ms=(time.perf_counter() - t0) * 1e3,
+                    bytes_transferred=rep["bytes_transferred"],
+                    restaged=rep["restaged"],
+                    compacted_tiles=rep.get("compacted_tiles", 0),
+                    n=rep["n"]))
+    return rep
+
+
+class LiveSet:
+    """The ingest stream's live set on the card: every id's current box
+    and whether it is live, for the brute force and the fresh staging."""
+
+    def __init__(self, torch, boxes, g):
+        self.torch, self.g = torch, g
+        self.boxes = boxes.clone()
+        self.alive = torch.ones(boxes.shape[0], dtype=torch.bool,
+                                device=boxes.device)
+
+    def append(self, boxes):
+        t = self.torch
+        self.boxes = t.cat([self.boxes, boxes])
+        self.alive = t.cat([self.alive, t.ones(boxes.shape[0],
+                                               dtype=t.bool,
+                                               device=boxes.device)])
+
+    def pick(self, k):
+        """``k`` random live ids, on the card."""
+        live = self.alive.nonzero().squeeze(1)
+        perm = self.torch.randperm(live.numel(), generator=self.g,
+                                   device=live.device)
+        return live[perm[:k]]
+
+    def live(self):
+        """-> (ascending live ids, their boxes)."""
+        ids = self.alive.nonzero().squeeze(1)
+        return ids, self.boxes[ids]
+
+
+def burst_boxes(torch, parts, m):
+    """``m`` coincident objects at the centre of tile 0's region."""
+    tb = parts.boxes[0]
+    ctr = torch.stack([(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2])
+    return torch.cat([ctr, ctr]).expand(m, 4).contiguous()
+
+
+def extent_slack(torch, ops, srv):
+    """Fail unless the live extent covers every alive slot -> the
+    tiles whose extent is larger than tight."""
+    ext, tight = srv.tiles.extent, ops.live_extent(srv.layout.alive)
+    if not bool((ext >= tight).all()):
+        raise AssertionError("an alive slot lies past its tile's extent")
+    return int((ext > tight).sum())
+
+
+def ingest_queries(srv, qc, qi, pts):
+    """A counts, an ids and a kNN batch and the dense counts."""
+    return dict(counts=srv.range_counts(qc)[0],
+                ids=srv.range_ids(qi, max_hits=MAX_HITS)[:3],
+                knn=srv.knn(pts, K, max_cand=MAX_CAND)[:3],
+                dense=srv.range_counts(qc, pruned=False)[0])
+
+
+def knn_agree(torch, a, b):
+    (ai, ad, ao), (bi, bd, bo) = a, b
+    return (torch.equal(ao, bo) and torch.equal(ai[~ao], bi[~bo])
+            and torch.equal(ad[~ao], bd[~bo]))
+
+
+def ingest_phase(torch, dev):
+    """Queue 1 item 9 on the card -> launches of each kernel on the
+    ingest path."""
+    from repro_torch.core import geometry
+    from repro_torch.core.partition import api
+    from repro_torch.core.partition.assign import membership, round_up
+    from repro_torch.data import spatial_gen
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.range_probe import kernel, ops
+    from repro_torch.query import knn as knn_mod
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    qc = qboxes(torch, g, Q, 0.03, dev)
+    qi = qboxes(torch, g, Q_IDS, 0.003, dev)
+    pts = torch.rand(Q_KNN, 2, generator=g, device=dev)
+    mbrs = spatial_gen.osm_like(N, seed=SEED, device=dev)
+    base, held = mbrs[:INGEST_BASE], mbrs[INGEST_BASE:]
+    t0 = time.perf_counter()
+    parts = api.partition("bsp", base, PAYLOAD)
+    torch.cuda.synchronize()
+    partition_s = time.perf_counter() - t0
+    # slack for the held-out objects' copies in their fullest tile
+    _, part = membership(parts, held)
+    slack = round_up(int(torch.bincount(part, minlength=parts.kmax).max()),
+                     128)
+    del part
+
+    kernel.reset_launches()
+    hkernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    log, model = [], LiveSet(torch, base, g)
+    t0 = time.perf_counter()
+    srv = SpatialServer(parts, base, ServeConfig(slack=slack), device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    cap0 = srv.stats["cap"]
+    t0 = time.perf_counter()
+    srv.tiles._ensure_mirror()         # the first mutation's host mirrors
+    mirror_s = [time.perf_counter() - t0]
+    for i in range(INGEST_APPENDS):
+        new = held[i * INGEST_BATCH:(i + 1) * INGEST_BATCH]
+        if ingest_op(torch, log, "append", lambda: srv.append(new))[
+                "restaged"]:
+            raise AssertionError("an append into the slack re-staged")
+        model.append(new)
+    for _ in range(INGEST_DELETES):
+        ids = model.pick(INGEST_DELETE)
+        ingest_op(torch, log, "delete", lambda: srv.delete(ids))
+        model.alive[ids] = False
+    # compaction reclaims the deleted objects' copies too: an update
+    # inserts 1 + lambda copies an object and frees only its canonical
+    # slot, so before it the update overflows the slack and re-stages
+    ingest_op(torch, log, "compact", srv.compact)
+    after_compact = extent_slack(torch, ops, srv)
+    ids = model.pick(INGEST_UPDATE)
+    shift = (torch.rand(ids.numel(), 2, generator=g, device=dev) - 0.5) * 2e-3
+    new = model.boxes[ids] + torch.cat([shift, shift], 1)
+    if ingest_op(torch, log, "update", lambda: srv.update(ids, new))[
+            "restaged"]:
+        raise AssertionError("the update after compaction re-staged")
+    model.boxes[ids] = new
+    new = burst_boxes(torch, parts, srv.stats["cap"] + 1)
+    if not ingest_op(torch, log, "burst", lambda: srv.append(new))[
+            "restaged"]:
+        raise AssertionError("the burst of cap + 1 objects did not re-stage")
+    model.append(new)
+    after_restage = extent_slack(torch, ops, srv)
+    t0 = time.perf_counter()
+    srv.tiles._ensure_mirror()         # rebuilt after the re-stage
+    mirror_s.append(time.perf_counter() - t0)
+    ids = model.pick(INGEST_DELETE)
+    ingest_op(torch, log, "delete", lambda: srv.delete(ids))
+    model.alive[ids] = False
+    stale = extent_slack(torch, ops, srv)
+    got = ingest_queries(srv, qc, qi, pts)
+    torch.cuda.synchronize()
+    launches = dict(kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if after_compact or after_restage:
+        raise AssertionError("the extent is not tight after compact or "
+                             "re-stage")
+
+    # the checks: brute force and a fresh staging of the live set
+    live_ids, live_boxes = model.live()
+    if srv.stats["n"] != live_ids.numel():
+        raise AssertionError("the server's n is not the live count")
+    check_counts(torch, geometry, live_boxes, qc, got["counts"])
+    if not torch.equal(got["dense"], got["counts"]):
+        raise AssertionError("dense counts differ from pruned after ingest")
+    t0 = time.perf_counter()
+    fresh = SpatialServer(parts, live_boxes, ServeConfig(), device=dev)
+    torch.cuda.synchronize()
+    fresh_stage_s = time.perf_counter() - t0
+    want = ingest_queries(fresh, qc, qi, pts)
+    remap = lambda a: torch.where(a >= 0, live_ids[a.clamp_min(0)].to(  # noqa
+        a.dtype), a)
+    hid, cnt, ovf = want["ids"]
+    if not (torch.equal(got["counts"], want["counts"])
+            and all(torch.equal(u, v) for u, v in zip(
+                got["ids"], (remap(hid), cnt, ovf)))):
+        raise AssertionError("ingested answers differ from a fresh staging")
+    nn, d2, kovf = want["knn"]
+    if not knn_agree(torch, got["knn"], (remap(nn), d2, kovf)):
+        raise AssertionError("ingested kNN differs from a fresh staging")
+    ok = ~kovf[:CHECK_KNN]
+    b_ids, b_d2 = knn_brute(torch, knn_mod, live_boxes, pts[:CHECK_KNN], K)
+    if not (torch.equal(got["knn"][0][:CHECK_KNN][ok], remap(b_ids)[ok])
+            and torch.equal(got["knn"][1][:CHECK_KNN][ok], b_d2[ok])):
+        raise AssertionError("ingested kNN disagrees with the brute force")
+    c_ms = {"ingested": [], "fresh": []}
+    for _ in range(7):                 # in turns, one clock
+        for name, s in (("ingested", srv), ("fresh", fresh)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.range_counts(qc)
+            torch.cuda.synchronize()
+            c_ms[name].append((time.perf_counter() - t0) * 1e3)
+    emit(dict(
+        phase="ingest", local_index="x", base=INGEST_BASE, held=N - INGEST_BASE,
+        payload=PAYLOAD, t=srv.stats["t"], slack=slack, cap_staged=cap0,
+        cap=srv.stats["cap"], n=srv.stats["n"], n_total=srv.stats["n_total"],
+        partition_s=partition_s, stage_s=stage_s, mirror_s=mirror_s,
+        ops=log, compact_s=[e["ms"] / 1e3 for e in log
+                            if e["op"] == "compact"][0],
+        restage_s=[e["ms"] / 1e3 for e in log if e["op"] == "burst"][0],
+        fresh_stage_s=fresh_stage_s, tiles_extent_above_tight=stale,
+        counts_p50_ms=dict(ingested=median(c_ms["ingested"]),
+                           fresh=median(c_ms["fresh"])),
+        counts_ms=c_ms, max_memory_allocated=peak,
+        equal_to_fresh_staging=True, brute_force_counts=Q,
+        brute_force_knn=int(ok.sum()), knn_flagged=int(kovf.sum()),
+        launches=launches))
+    del srv, fresh, got, want, model, live_boxes, live_ids
+    torch.cuda.empty_cache()
+
+    # shorter streams: "hilbert" (its compaction launches the encode)
+    # and "off" (the unindexed kernels), the same commands on each
+    kernel.reset_launches()
+    hkernel.reset_launches()
+    answers, short = {}, {}
+    for li in ("hilbert", "off"):
+        gs = torch.Generator(device=dev).manual_seed(SEED + 4)
+        log, model = [], LiveSet(torch, base, gs)
+        srv = SpatialServer(parts, base, ServeConfig(local_index=li,
+                                                     slack=slack),
+                            device=dev)
+        t0 = time.perf_counter()
+        srv.tiles._ensure_mirror()
+        mirror = time.perf_counter() - t0
+        for i in range(SHORT_APPENDS):
+            new = held[i * INGEST_BATCH:(i + 1) * INGEST_BATCH]
+            ingest_op(torch, log, "append", lambda: srv.append(new))
+            model.append(new)
+        for _ in range(SHORT_DELETES):
+            ids = model.pick(INGEST_DELETE)
+            ingest_op(torch, log, "delete", lambda: srv.delete(ids))
+            model.alive[ids] = False
+        before = hkernel.LAUNCHES["encode"]
+        ingest_op(torch, log, "compact", srv.compact)
+        compact_encode = hkernel.LAUNCHES["encode"] - before
+        if extent_slack(torch, ops, srv):
+            raise AssertionError("the extent is not tight after compact")
+        if li == "hilbert" and compact_encode <= 0:
+            raise AssertionError('"hilbert" compaction did not launch the '
+                                 'encode')
+        answers[li] = ingest_queries(srv, qc, qi, pts)
+        short[li] = dict(ops=log, mirror_s=mirror, n=srv.stats["n"],
+                         compact_encode_launches=compact_encode)
+        del srv
+    short_launches = dict(kernel.LAUNCHES)
+    encode = hkernel.LAUNCHES["encode"]
+    a, b = answers["hilbert"], answers["off"]
+    if not (torch.equal(a["counts"], b["counts"])
+            and torch.equal(a["dense"], b["counts"])
+            and all(torch.equal(u, v) for u, v in zip(a["ids"], b["ids"]))
+            and knn_agree(torch, a["knn"], b["knn"])):
+        raise AssertionError('"hilbert" and "off" answers differ after '
+                             'ingest')
+    check_counts(torch, geometry, model.live()[1], qc[:CHECK_Q],
+                 a["counts"][:CHECK_Q])
+    launches = {k: launches[k] + short_launches[k] for k in launches}
+    launches["encode"] = encode
+    for name in ("gather_count_skip", "gather_hits_skip", "gather_count",
+                 "gather_hits", "dense_counts", "encode"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the ingest "
+                                 f"path: {launches}")
+    emit(dict(phase="ingest_short", streams=short, hilbert_equals_off=True,
+              brute_force_counts=CHECK_Q, launches=launches))
+    del answers, model, mbrs, base, held
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -2199,6 +2505,13 @@ def main() -> int:
     del servers, mbrs, qc, qi, pruned_x, pts, pruned_knn
     torch.cuda.empty_cache()
 
+    ingest_launches = ingest_phase(torch, dev)
+    for e in entries:
+        e["launches_by_path"] = dict(ingest=ingest_launches[e["name"]])
+    t4b = time.perf_counter()
+    wall["ingest_s"] = t4b - t4
+    t4 = t4b
+
     inputs = join_inputs(torch, dev)
     part_encode = partition_phase(torch, *inputs["pi"])
     t5 = time.perf_counter()
@@ -2218,7 +2531,8 @@ def main() -> int:
     for e in new_entries:
         e["launches_by_path"] = (
             dict(serve_hilbert_staging=serve_encode, partition=part_encode,
-                 join=join_launches["encode"])
+                 join=join_launches["encode"],
+                 ingest=ingest_launches["encode"])
             if e["name"] == "hilbert_encode" else
             dict(join=join_launches[e["name"][4:]]))
         emit(dict(phase="kernel", **e))
@@ -2247,7 +2561,7 @@ def main() -> int:
         **{k: e[k] for k in ("bit_equal", "tolerance", "bound_ms_full_cap",
                              "design", "table_kernel", "table_ms",
                              "old_extraction_ms", "old_design",
-                             "old_design_ms") if k in e})
+                             "old_design_ms", "launches_by_path") if k in e})
         for e in entries]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

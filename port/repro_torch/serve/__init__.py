@@ -4,8 +4,9 @@
 - ``router``: probe-box and MINDIST routing, fixed-width ``(Q, F)``
   candidate lists, the region fan-out metric and ``HeatTracker``.
 - ``layout``: ``stage_tiles`` (MASJ tiles, canonical marks, probe
-  boxes, the ``"x"`` local index, the alive mask), ``StagedLayout``
-  and the replicated single-device executors.
+  boxes, the ``"x"`` and ``"hilbert"`` local indexes, the alive mask),
+  ``StagedLayout``, the replicated single-device executors and the
+  ingest lifecycle (``append``, ``delete``, ``update``, ``compact``).
 - ``engine``: ``SpatialServer`` and ``WidthPolicy``.
 """
 from . import config, engine, layout, router  # noqa: F401

@@ -19,8 +19,18 @@ widen the frontier until no query can have missed a neighbour (the
 widen-and-retry ladder).  ``probe="dense"`` or ``pruned=False`` runs
 the dense oracle instead: every tile, through the dense kernels.
 
-Features of the reference server not ported yet (ingest, rebalancing,
-sharded and heat placements, meshes) raise ``NotImplementedError``
+The dataset moves: ``append`` streams new objects into the slack
+slots staging reserved (``config.slack``), ``delete`` tombstones
+objects by id, ``update`` moves them, and the ``ServeConfig``
+compaction policy (or ``compact``) reclaims dead slots; each writes
+only the touched cells and rows to the device, and a tile overflow
+re-stages the layout at a grown capacity and resets the width cache.
+Answers after any ingest sequence equal a fresh staging of the live
+set.  ``rebalance`` is the reference's no-op report under the
+replicated placement.
+
+Features of the reference server not ported yet (sharded and heat
+placements, ``rebalance_every``, meshes) raise ``NotImplementedError``
 naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
@@ -85,6 +95,11 @@ class WidthPolicy:
 
     def observe(self, key, width: int) -> None:
         self._w[key] = self._clamp(max(self._w.get(key, 0), width))
+
+    def reset(self) -> None:
+        """Forget every cached width (the server calls it on every
+        re-stage, whose layout the widths no longer describe)."""
+        self._w.clear()
 
 
 def _check_ported(config: ServeConfig) -> None:
@@ -179,22 +194,51 @@ class SpatialServer:
         """Device bytes of the resident canonical tiles and ids."""
         return self.tiles.resident_tile_bytes()
 
-    # -- not ported yet ---------------------------------------------------
+    # -- streaming ---------------------------------------------------------
 
-    def append(self, mbrs):
-        raise not_ported("SpatialServer.append", "Queue 1 item 9")
+    def append(self, mbrs) -> dict:
+        """Stream new objects (M, 4) into the served layout; ids continue
+        the running numbering.  Inserts into each tile's slack (probe
+        and chunk boxes refresh in place); a tile overflow re-stages at
+        a grown capacity and resets the width cache.  Returns the
+        append report (``appended``, ``restaged``, ``n``, ``n_total``,
+        ``cap``, ``bytes_transferred``, ``free_slots_min``)."""
+        return self._after_maintenance(self.tiles.append(mbrs))
 
-    def delete(self, ids):
-        raise not_ported("SpatialServer.delete", "Queue 1 item 9")
+    def delete(self, ids) -> dict:
+        """Tombstone objects by id (their alive bits flip off; boxes stay
+        as routing supersets).  Unknown, repeated or already-deleted ids
+        raise ``ValueError`` naming them.  May trigger the compaction
+        policy; the report carries ``deleted``, ``n``, ``dead_frac``,
+        ``compacted_tiles`` and ``restaged``."""
+        return self._after_maintenance(self.tiles.delete(ids))
 
-    def update(self, ids, mbrs):
-        raise not_ported("SpatialServer.update", "Queue 1 item 9")
+    def update(self, ids, mbrs) -> dict:
+        """Move objects: tombstone each id's canonical slot and insert
+        its new MBR under the same id (one scatter).  Overflow re-stages
+        as ``append`` does; otherwise the compaction policy applies."""
+        return self._after_maintenance(self.tiles.update(ids, mbrs))
 
-    def compact(self):
-        raise not_ported("SpatialServer.compact", "Queue 1 item 9")
+    def compact(self) -> dict:
+        """Compact every tile holding dead slots, whatever the config's
+        thresholds (survivors re-sorted, probe and chunk boxes
+        tightened, dead counts zeroed)."""
+        return self._after_maintenance(self.tiles.compact())
 
-    def rebalance(self):
-        raise not_ported("SpatialServer.rebalance", "Queue 1 item 11")
+    def _after_maintenance(self, report: dict) -> dict:
+        """The live tile count may move (compaction empties tiles, a
+        re-stage rebuilds them), and a re-stage voids the width cache."""
+        self.widths.cap = self.stats["t_live"]
+        if report.get("restaged"):
+            self.widths.reset()
+        return report
+
+    def rebalance(self) -> dict:
+        """Snapshot the heat tracker and hand it to the layout: under the
+        replicated placement no tile has an owner to move, so the report
+        is the reference's no-op."""
+        heat, cooc = self.heat.snapshot()
+        return self.tiles.rebalance(heat, cooc)
 
     # -- routing (host side, per batch) -----------------------------------
 

@@ -1,5 +1,5 @@
-"""Staging and the replicated single-device tile layout (the parts of
-``repro.serve.layout`` the routed range path needs).
+"""Staging, the replicated single-device tile layout and its ingest
+lifecycle (the replicated half of ``repro.serve.layout``).
 
 ``stage_tiles`` MASJ-stages a dataset under a ``Partitioning`` into
 ``(T, cap, 4)`` member tiles: every object is copied to every tile
@@ -10,15 +10,21 @@ routing, and with a local index (``local_index="x"``: canonical xmin;
 slots are sorted and summarised by one chunk box per 128 slots for the
 chunk-skipping kernels.  ``ReplicatedTiles`` serves range and kNN
 batches against one such staging on one device, routed (pruned) or
-over every tile (the dense oracle).
+over every tile (the dense oracle), and streams ``append``,
+``delete``, ``update`` and ``compact`` into it as O(M) scatters, with
+an overflow re-stage of the live set.
 
 Membership is built blockwise over objects as (object, tile) pairs
 (``core.partition.assign.membership``): the reference's dense
-``(N, kmax)`` bool table would be 16 GB at 8 M objects and 2048 tiles.
+``(N, kmax)`` bool table would be 16 GB at 8 M objects and 2048 tiles,
+and appends and updates take the same pairs.  The reference pads each
+scatter to a power of two to bound JAX's recompiles; eager
+``index_put_`` compiles nothing, so the port scatters unpadded.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 
 import numpy as np
 import torch
@@ -35,6 +41,8 @@ from . import router
 from .config import ServeConfig
 
 _KEY_BLOCK_SLOTS = 1 << 25   # slots per block of Hilbert sort keys
+
+log = logging.getLogger(__name__)
 
 @dataclasses.dataclass(frozen=True)
 class StagedLayout:
@@ -128,7 +136,8 @@ def _local_sort_order(canon_tiles: torch.Tensor, ids: torch.Tensor,
 
 
 def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
-                config: ServeConfig | None = None
+                config: ServeConfig | None = None,
+                ids: torch.Tensor | None = None
                 ) -> tuple[StagedLayout, dict]:
     """MASJ-stage ``mbrs`` under ``parts`` per ``config``.
 
@@ -136,6 +145,9 @@ def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
     stats)``; raises on capacity overflow.  ``config.capacity=None``
     sizes capacity from the max tile count plus ``config.slack``,
     128-aligned.  ``stats['replication']`` is the paper's lambda.
+    ``ids`` ((N,) int32, optional) numbers the objects in place of
+    ``0..N-1``: a re-stage passes the surviving ids, so the running
+    numbering (and every answer) survives deletes.
     """
     config = config or ServeConfig()
     dev = mbrs.device
@@ -157,7 +169,8 @@ def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
 
     sentinel = geometry.sentinel(dev)
     tiles = torch.where(mask[..., None], mbrs[members.long()], sentinel)
-    ids = torch.where(mask, members, -1)
+    obj_ids = members if ids is None else ids.to(torch.int32)[members.long()]
+    ids = torch.where(mask, obj_ids, -1)
 
     # canonical mark: first copy of each id in tile-major order wins,
     # so every object has exactly one canonical slot
@@ -200,13 +213,77 @@ def stage_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
     return layout, stats
 
 
+_SENTINEL = np.array(geometry.SENTINEL_BOX, np.float32)
+_MIRRORS = ("_canon_np", "_ids_np", "_probe_np", "_chunk_np", "_alive_np",
+            "_uni_np", "_fill", "_dead", "_free", "_n_free", "_canon_slot",
+            "_live_np", "_eff_slack")
+
+
+def _fmt_ids(arr) -> str:
+    """Name the offending ids in an ingest error (first few + count)."""
+    vals = ", ".join(str(int(i)) for i in arr[:8])
+    if arr.size > 8:
+        vals += f", ... ({int(arr.size)} total)"
+    return vals
+
+
+def _merge_plans(a: dict, b: dict) -> dict:
+    """Concatenate two scatter plans key-wise.  Entries are ``(index,
+    values)`` pairs except ``"uni"`` (replace: the later plan wins) and
+    ``"rows"`` (whole-row rewrites; at most one producer a batch)."""
+    out = dict(a)
+    for key, val in b.items():
+        if key in out and key not in ("uni", "rows"):
+            val = tuple(np.concatenate(pair) for pair in zip(out[key], val))
+        out[key] = val
+    return out
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A writable host copy of ``t`` (never a view of a CPU staging, so
+    the device staging changes only through ``_scatter``)."""
+    a = t.detach().cpu().numpy()
+    return a.copy() if t.device.type == "cpu" else a
+
+
+def _host_np(x) -> np.ndarray:
+    """A caller's array-like or tensor (on any device) as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
 class ReplicatedTiles:
-    """The full staging on one device.  Each routed batch probes its
-    candidate tiles with the gathered kernels (chunk-skipping when the
-    staging carries a local index); the dense oracle probes every tile
-    with the dense kernels.  Every probe passes the alive mask and its
-    live extent.  Stats
-    dicts equal the reference's with ``mesh=None``."""
+    """The full staging on one device, and its ingest lifecycle.
+
+    Each routed batch probes its candidate tiles with the gathered
+    kernels (chunk-skipping when the staging carries a local index);
+    the dense oracle probes every tile with the dense kernels.  Every
+    probe passes the alive mask and its live extent.  Stats dicts equal
+    the reference's with ``mesh=None``.
+
+    Ingest (``append``, ``delete``, ``update``, ``compact``) is the
+    reference's ``_TilesBase`` lifecycle: host numpy mirrors of the
+    staging are the source of truth, each mutation emits a *scatter
+    plan* of the cells and rows it touched, and ``_scatter`` writes
+    exactly those into the resident staging with ``index_put_``.  The
+    mirrors are built from the device staging at the first mutation
+    (about 6 GB of host memory at 8 M objects, which a server that
+    never ingests never pays) and dropped on re-stage.  The live extent
+    follows ``alive``: it rises to cover every slot a plan writes alive,
+    stays on tombstones (a larger extent is still exact), and is
+    recomputed for compacted rows and on every install.
+
+    A scatter plan is a dict of optional entries, all host numpy:
+
+    - ``"boxes"`` / ``"ids"`` / ``"alive"``: ``((K, 2) [tile, slot]
+      cells, (K, ...) values)`` into canon_tiles / ids / alive;
+    - ``"probe"``: ``((P,) rows, (P, 4) boxes)``;
+    - ``"chunk"``: ``((C, 2) [tile, chunk] cells, (C, 4) boxes)``;
+    - ``"uni"``: ``(4,)`` replacement universe;
+    - ``"rows"``: compaction's full-row rewrites, ``dict(rows, boxes,
+      ids, alive, probe, chunk)`` with leading dim R.
+    """
 
     mode = "pruned"
 
@@ -214,16 +291,22 @@ class ReplicatedTiles:
                  stats: dict, config: ServeConfig):
         self.parts = parts
         self.config = config
+        self.stats = dict(stats, placement=config.placement,
+                          probe=config.probe, restages=0, compactions=0,
+                          n_total=stats["n"])
+        # the running id numbering: never decremented (deleted ids stay
+        # burned, appends continue past them)
+        self._n_total = stats["n"]
+        self._canon_np = None        # no host mirrors until a mutation
+        self._install(layout)
+
+    def _install(self, layout: StagedLayout) -> None:
         # the executors read canonical data only: drop the all-copies
         # member tiles instead of keeping (T, cap, 4) bytes resident
         self.staged = dataclasses.replace(layout, tiles=None)
         # (T,) int32 live extent of the alive mask: the routed and dense
-        # count and hit-list kernels stop each tile's walk there (ingest
-        # must keep it in step with ``alive``)
+        # count and hit-list kernels stop each tile's walk there
         self.extent = rops.live_extent(layout.alive)
-        self.stats = dict(stats, placement=config.placement,
-                          probe=config.probe, restages=0, compactions=0,
-                          n_total=stats["n"])
 
     @property
     def probe_boxes(self) -> torch.Tensor:
@@ -237,6 +320,514 @@ class ReplicatedTiles:
         lay = self.staged
         return (lay.canon_tiles.numel() * lay.canon_tiles.element_size()
                 + lay.ids.numel() * lay.ids.element_size())
+
+    # -- host mirrors (the ingest path's source of truth) ---------------
+
+    def _ensure_mirror(self) -> None:
+        """Build the host mirrors and their bookkeeping from the device
+        staging (the reference's ``_mirror``), unless they exist.  They
+        are missing only while the staging is fresh (constructed or
+        re-staged, untouched since), so canonical equals alive and the
+        ids absent from the staging are exactly the deleted ones."""
+        if self._canon_np is not None:
+            return
+        lay = self.staged
+        self._canon_np = _to_host(lay.canon_tiles)
+        self._ids_np = _to_host(lay.ids)
+        self._probe_np = _to_host(lay.probe_boxes)
+        self._chunk_np = (None if lay.chunk_boxes is None
+                          else _to_host(lay.chunk_boxes))
+        self._alive_np = _to_host(lay.alive)
+        self._uni_np = _to_host(lay.uni)
+        t = self._ids_np.shape[0]
+        self._fill = (self._ids_np >= 0).sum(axis=1).astype(np.int64)
+        # per-tile dead canonical slots (the compaction trigger) and
+        # their free lists, which inserts refill before fresh slack
+        self._dead = np.zeros(t, np.int64)
+        self._free: dict[int, list[int]] = {}
+        self._n_free = np.zeros(t, np.int64)
+        # id -> canonical (tile, slot), and which ids are live
+        tt, ss = np.nonzero(self._canon_np[..., 0] < 1e9)
+        idv = self._ids_np[tt, ss]
+        self._canon_slot = np.full((self._n_total, 2), -1, np.int64)
+        self._canon_slot[idv, 0] = tt
+        self._canon_slot[idv, 1] = ss
+        self._live_np = np.zeros(self._n_total, bool)
+        self._live_np[idv] = True
+        # the slack a re-stage re-reserves: the configured value, or the
+        # headroom an explicit capacity carried over the hottest tile
+        self._eff_slack = max(self.config.slack,
+                              int(self.stats["cap"] - self._fill.max()))
+
+    def _drop_mirror(self) -> None:
+        for name in _MIRRORS:
+            self.__dict__.pop(name, None)
+        self._canon_np = None
+
+    def _t_live(self) -> int:
+        return int((self._probe_np[:, 0] <= self._probe_np[:, 2]).sum())
+
+    def _free_slots_min(self) -> int:
+        """The tightest tile's remaining slack (read off the device
+        staging when a re-stage has just dropped the mirrors)."""
+        if self._canon_np is None:
+            fill = int((self.staged.ids >= 0).sum(1).max())
+        else:
+            fill = int(self._fill.max())
+        return int(self.stats["cap"] - fill)
+
+    def _membership(self, new: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """MASJ membership with nearest-tile adoption of ``new`` on the
+        staging device, as host (object, tile) pairs in object-major
+        order: the nonzeros of the reference's (M, kmax) table."""
+        dev = self.staged.ids.device
+        obj, part = membership(self.parts, torch.from_numpy(new).to(dev))
+        return obj.cpu().numpy(), part.cpu().numpy()
+
+    # -- streaming lifecycle --------------------------------------------
+
+    def append(self, mbrs) -> dict:
+        """Insert new objects into the staged layout.
+
+        mbrs: (M, 4) f32 MBRs (array-like or a tensor on any device);
+        ids continue the running numbering.  Returns the reference's
+        report: ``appended``, ``restaged`` (a tile overflowed and the
+        layout was rebuilt at a grown capacity), ``n``, ``n_total``,
+        ``cap``, ``bytes_transferred`` (the index and value tensors the
+        scatter uploaded, or the live dataset a re-stage uploaded) and
+        ``free_slots_min``.  Mutates ``stats`` in place.
+        """
+        new = _host_np(mbrs).astype(np.float32).reshape(-1, 4)
+        m = new.shape[0]
+        if m == 0:
+            return dict(appended=0, restaged=False, n=self.stats["n"],
+                        n_total=self._n_total, cap=self.stats["cap"],
+                        bytes_transferred=0,
+                        free_slots_min=self._free_slots_min())
+        self._ensure_mirror()
+        n_before = self.stats["n"]
+        new_ids = np.arange(self._n_total, self._n_total + m, dtype=np.int32)
+        self._n_total += m
+        self._live_np = np.concatenate([self._live_np, np.ones(m, bool)])
+        self._canon_slot = np.concatenate(
+            [self._canon_slot, np.full((m, 2), -1, np.int64)])
+        obj, part = self._membership(new)
+        hits = np.bincount(part, minlength=self._fill.shape[0])
+        need = self._fill + np.maximum(hits - self._n_free, 0)
+        restaged = bool(need.max() > self.stats["cap"])
+        if restaged:
+            log.info("append overflow: %d tile(s) past capacity %d -- "
+                     "re-staging %d objects",
+                     int((need > self.stats["cap"]).sum()),
+                     self.stats["cap"], n_before + m)
+            # the re-stage sets n, t_live and replication from the new
+            # staging (the reference's recount gives the same values)
+            nbytes = self._restage(new, new_ids)
+        else:
+            nbytes = self._scatter(self._insert(new, obj, part, new_ids))
+            self.stats["t_live"] = self._t_live()
+            self.stats["replication"] = (float(self._fill.sum())
+                                         / (n_before + m) - 1.0)
+        self.stats["n"] = n_before + m
+        self.stats["n_total"] = self._n_total
+        return dict(appended=m, restaged=restaged, n=self.stats["n"],
+                    n_total=self._n_total, cap=self.stats["cap"],
+                    bytes_transferred=nbytes,
+                    free_slots_min=self._free_slots_min())
+
+    def delete(self, ids) -> dict:
+        """Tombstone-delete objects by id: flip their canonical slots'
+        alive bits (box data stays, so probe and chunk boxes remain
+        exact supersets).  Raises ``ValueError`` naming the offending
+        ids on an unknown id, an id repeated in the batch, or an
+        already-deleted id.  Returns a report (``deleted``,
+        ``compacted_tiles``, ``restaged``, ``dead_frac``,
+        ``bytes_transferred``, ``n``, ``n_total``) and mutates
+        ``stats`` in place."""
+        req = _host_np(ids).reshape(-1).astype(np.int64)
+        m = int(req.size)
+        report = dict(deleted=m, restaged=False, compacted_tiles=0)
+        self._ensure_mirror()
+        if m == 0:
+            return self._maintain({}, report)
+        self._check_ids(req, "delete")
+        ts = self._canon_slot[req]
+        self._alive_np[ts[:, 0], ts[:, 1]] = False
+        self._live_np[req] = False
+        np.add.at(self._dead, ts[:, 0], 1)
+        self._add_free(ts)
+        self.stats["n"] -= m
+        return self._maintain({"alive": (ts.copy(), np.zeros(m, bool))},
+                              report)
+
+    def update(self, ids, mbrs) -> dict:
+        """Move objects: tombstone each id's canonical slot, then
+        slack-insert its new MBR under the same id.  The id contract of
+        ``delete`` applies; a tile overflow re-stages as ``append``
+        does.  Returns a report and mutates ``stats`` in place."""
+        req = _host_np(ids).reshape(-1).astype(np.int64)
+        new = _host_np(mbrs).astype(np.float32).reshape(-1, 4)
+        if int(req.size) != new.shape[0]:
+            raise ValueError("update ids/mbrs length mismatch: "
+                             f"{int(req.size)} ids, {new.shape[0]} MBRs")
+        m = int(req.size)
+        report = dict(updated=m, restaged=False, compacted_tiles=0)
+        self._ensure_mirror()
+        if m == 0:
+            return self._maintain({}, report)
+        self._check_ids(req, "update")
+        ts = self._canon_slot[req]
+        self._alive_np[ts[:, 0], ts[:, 1]] = False
+        np.add.at(self._dead, ts[:, 0], 1)
+        plan = {"alive": (ts.copy(), np.zeros(m, bool))}
+        obj, part = self._membership(new)
+        hits = np.bincount(part, minlength=self._fill.shape[0])
+        need = self._fill + np.maximum(hits - self._n_free, 0)
+        if bool(need.max() > self.stats["cap"]):
+            log.info("update overflow: re-staging %d objects",
+                     self.stats["n"])
+            nbytes = self._restage(new, req.astype(np.int32))
+            report.update(restaged=True, dead_frac=0.0, n=self.stats["n"],
+                          n_total=self._n_total, bytes_transferred=nbytes)
+            return report
+        plan = _merge_plans(plan, self._insert(new, obj, part,
+                                               req.astype(np.int32)))
+        # slots tombstoned by this call open for reuse only now: the
+        # insert above must not target them, or its cells would collide
+        # with the tombstone writes in one scatter
+        self._add_free(ts)
+        return self._maintain(plan, report)
+
+    def compact(self) -> dict:
+        """Compact every tile holding dead slots, whatever
+        ``config.compact_dead_frac`` says (the threshold-triggered path
+        runs inside ``delete`` and ``update``)."""
+        self._ensure_mirror()
+        report = dict(restaged=False, compacted_tiles=0)
+        tl = np.flatnonzero(self._dead > 0)
+        plan: dict = {}
+        if tl.size:
+            plan = self._compact_tiles(tl, plan)
+            report["compacted_tiles"] = int(tl.size)
+            self.stats["compactions"] += int(tl.size)
+        nbytes = self._scatter(plan)
+        self.stats["t_live"] = self._t_live()
+        report.update(n=self.stats["n"], n_total=self._n_total,
+                      dead_frac=0.0, bytes_transferred=nbytes)
+        return report
+
+    def rebalance(self, heat=None, cooc=None) -> dict:
+        """Replicated tiles have no owners to move: a no-op report."""
+        return dict(placement=self.config.placement, moved_tiles=0,
+                    replicated_tiles=0, bytes_transferred=0)
+
+    def _add_free(self, ts: np.ndarray) -> None:
+        """Open tombstoned canonical (tile, slot) cells for reuse by
+        inserts (``_insert`` drains each list ascending,
+        ``_compact_tiles`` voids it)."""
+        order = np.argsort(ts[:, 0], kind="stable")
+        tiles, first = np.unique(ts[order, 0], return_index=True)
+        for t, slots in zip(tiles.tolist(),
+                            np.split(ts[order, 1], first[1:])):
+            self._free.setdefault(t, []).extend(slots.tolist())
+        np.add.at(self._n_free, ts[:, 0], 1)
+
+    def _check_ids(self, req: np.ndarray, verb: str) -> None:
+        bad = np.unique(req[(req < 0) | (req >= self._n_total)])
+        if bad.size:
+            raise ValueError(
+                f"{verb} of unknown id(s): {_fmt_ids(bad)} — known ids "
+                f"are 0..{self._n_total - 1}")
+        uniq, cnt = np.unique(req, return_counts=True)
+        dup = uniq[cnt > 1]
+        if dup.size:
+            raise ValueError(
+                f"{verb} batch repeats id(s): {_fmt_ids(dup)}")
+        dead = np.unique(req[~self._live_np[req]])
+        if dead.size:
+            raise ValueError(
+                f"{verb} of already-deleted id(s): {_fmt_ids(dead)}")
+
+    def _maintain(self, plan: dict, report: dict) -> dict:
+        """Apply the compaction policy to a finished mutation, then
+        push its plan: a global dead fraction at
+        ``config.restage_dead_frac`` re-stages the live set; otherwise
+        tiles whose dead fraction reaches ``config.compact_dead_frac``
+        are compacted and ride along as full-row rewrites."""
+        cfg = self.config
+        total_dead = int(self._dead.sum())
+        dead_frac = total_dead / max(total_dead + self.stats["n"], 1)
+        if (cfg.restage_dead_frac is not None and total_dead
+                and self.stats["n"] > 0
+                and dead_frac >= cfg.restage_dead_frac):
+            nbytes = self._restage(None, None)
+            report.update(restaged=True, dead_frac=0.0,
+                          n=self.stats["n"], n_total=self._n_total,
+                          bytes_transferred=nbytes)
+            return report
+        if cfg.compact_dead_frac is not None and total_dead:
+            frac = self._dead / np.maximum(self._fill, 1)
+            tl = np.flatnonzero((self._dead > 0)
+                                & (frac >= cfg.compact_dead_frac))
+            if tl.size:
+                plan = self._compact_tiles(tl, plan)
+                report["compacted_tiles"] = int(tl.size)
+                self.stats["compactions"] += int(tl.size)
+        nbytes = self._scatter(plan)
+        self.stats["t_live"] = self._t_live()
+        total_dead = int(self._dead.sum())
+        report.update(
+            n=self.stats["n"], n_total=self._n_total,
+            dead_frac=total_dead / max(total_dead + self.stats["n"], 1),
+            bytes_transferred=nbytes)
+        return report
+
+    def _insert(self, new: np.ndarray, oi: np.ndarray, ti: np.ndarray,
+                new_ids: np.ndarray) -> dict:
+        """Slack insert into the host mirrors: each new object lands in
+        every member tile's next free slot, its canonical copy in its
+        lowest member tile (``stage_tiles``' first-copy rule), and the
+        probe and chunk boxes union the new canonical MBRs.  A tile's
+        first ``n_free`` insertions refill its tombstoned slots in
+        ascending slot order; the rest extend its fill prefix.
+
+        ``(oi, ti)`` are the membership pairs in object-major order.  A
+        pair's rank within its tile (the reference's running cumsum over
+        its (M, T) table) is its position after a stable sort by tile.
+        Returns the scatter plan of the touched cells."""
+        n_tiles = self._fill.shape[0]
+        hits = np.bincount(ti, minlength=n_tiles)
+        by_tile = np.argsort(ti, kind="stable")
+        start = np.cumsum(hits) - hits
+        r = np.empty(ti.shape[0], np.int64)
+        r[by_tile] = np.arange(ti.shape[0]) - start[ti[by_tile]]
+        nf0 = self._n_free[ti]
+        reuse = r < nf0
+        s = self._fill[ti] + (r - nf0)
+        used = np.zeros(n_tiles, np.int64)
+        if reuse.any():
+            # reusing pairs by tile, ranks 0..k-1 in order: ascending
+            # rank takes ascending free slot
+            rb = by_tile[reuse[by_tile]]
+            tiles, first, k = np.unique(ti[rb], return_index=True,
+                                        return_counts=True)
+            for t, a, kt in zip(tiles.tolist(), first.tolist(), k.tolist()):
+                free = sorted(self._free[t])
+                s[rb[a:a + kt]] = free[:kt]
+                self._free[t] = free[kt:]
+            used = np.bincount(ti[rb], minlength=n_tiles)
+            self._n_free -= used
+            self._dead -= used
+        ids_v = new_ids[oi].astype(np.int32)
+        self._ids_np[ti, s] = ids_v
+        first = np.r_[True, oi[1:] != oi[:-1]]     # lowest member tile
+        boxes_v = np.where(first[:, None], new[oi],
+                           _SENTINEL[None, :]).astype(np.float32)
+        self._canon_np[ti, s] = boxes_v
+        self._alive_np[ti, s] = first
+        tc, sc, boxes = ti[first], s[first], new[oi[first]]
+        self._canon_slot[ids_v[first], 0] = tc
+        self._canon_slot[ids_v[first], 1] = sc
+        self._live_np[ids_v[first]] = True
+        for c, ufunc in enumerate((np.minimum, np.minimum,
+                                   np.maximum, np.maximum)):
+            ufunc.at(self._probe_np[:, c], tc, boxes[:, c])
+            if self._chunk_np is not None:
+                ufunc.at(self._chunk_np[:, :, c], (tc, sc // rops.CHUNK),
+                         boxes[:, c])
+        self._fill += hits - used          # reused slots were filled
+        self._uni_np = np.concatenate(
+            [np.minimum(self._uni_np[:2], new[:, :2].min(axis=0)),
+             np.maximum(self._uni_np[2:], new[:, 2:].max(axis=0))]
+        ).astype(np.float32)
+        cells = np.stack([ti, s], axis=1)
+        prows = np.unique(tc)
+        plan = {
+            "boxes": (cells, boxes_v),
+            "ids": (cells, ids_v),
+            "alive": (cells, first.copy()),
+            "probe": (prows, self._probe_np[prows].copy()),
+            "uni": self._uni_np,
+        }
+        if self._chunk_np is not None:
+            ccells = np.unique(np.stack([tc, sc // rops.CHUNK], axis=1),
+                               axis=0)
+            plan["chunk"] = (ccells, self._chunk_np[ccells[:, 0],
+                                                    ccells[:, 1]].copy())
+        return plan
+
+    def _hilbert_order(self, rows: list[tuple[int, np.ndarray]]
+                       ) -> list[np.ndarray]:
+        """Each (tile, canonical slots) pair's slots in stable ascending
+        Hilbert key of their MBR centre over the current universe: one
+        encode over every tile's centres, on the staging device."""
+        sizes = [c.size for _, c in rows]
+        if not sum(sizes):
+            return [c for _, c in rows]
+        b = np.concatenate([self._canon_np[t, c] for t, c in rows])
+        dev = self.staged.ids.device
+        keys = hilbert_ops.hilbert_keys(
+            torch.from_numpy((b[:, :2] + b[:, 2:]) * 0.5).to(dev),
+            torch.from_numpy(self._uni_np).to(dev)).cpu().numpy()
+        parts = np.split(keys, np.cumsum(sizes)[:-1])
+        return [c[np.argsort(k, kind="stable")]
+                for (_, c), k in zip(rows, parts)]
+
+    def _compact_tiles(self, tl: np.ndarray, plan: dict) -> dict:
+        """Tile-local slot reclamation: rebuild each tile from its live
+        members, the alive canonical slots first in local sort order,
+        then the non-canonical copies of still-live ids; dead slots and
+        copies of dead ids go.  Probe rows and chunk boxes tighten to
+        the surviving canonical members.  Mutates the mirrors and adds
+        one full-row rewrite a tile to ``plan``."""
+        cap = self._ids_np.shape[1]
+        mode = self.config.local_index
+        keep = []
+        for t in tl.tolist():
+            ids_row = self._ids_np[t]
+            occ = ids_row >= 0
+            cmask = self._canon_np[t, :, 0] < 1e9
+            live_id = np.zeros(cap, bool)
+            live_id[occ] = self._live_np[ids_row[occ]]
+            cidx = np.flatnonzero(self._alive_np[t])
+            if cidx.size and mode == "x":
+                cidx = cidx[np.argsort(self._canon_np[t, cidx, 0],
+                                       kind="stable")]
+            keep.append((t, cidx, np.flatnonzero(occ & ~cmask & live_id)))
+        if mode == "hilbert":
+            order = self._hilbert_order([(t, c) for t, c, _ in keep])
+            keep = [(t, c, nc) for (t, _, nc), c in zip(keep, order)]
+        for t, cidx, ncidx in keep:
+            ids_row = self._ids_np[t]
+            nk, nc = cidx.size, ncidx.size
+            new_ids = np.full(cap, -1, np.int32)
+            new_canon = np.broadcast_to(_SENTINEL, (cap, 4)).copy()
+            new_ids[:nk] = ids_row[cidx]
+            new_ids[nk:nk + nc] = ids_row[ncidx]
+            new_canon[:nk] = self._canon_np[t, cidx]
+            self._ids_np[t] = new_ids
+            self._canon_np[t] = new_canon
+            self._alive_np[t] = np.arange(cap) < nk
+            self._canon_slot[new_ids[:nk], 0] = t
+            self._canon_slot[new_ids[:nk], 1] = np.arange(nk)
+            self._fill[t] = nk + nc
+            self._dead[t] = 0
+            self._free.pop(t, None)     # slots re-packed: stale offsets
+            self._n_free[t] = 0
+            self._probe_np[t] = (np.concatenate(
+                [new_canon[:nk, :2].min(axis=0),
+                 new_canon[:nk, 2:].max(axis=0)]) if nk else _SENTINEL)
+        rows = np.asarray(tl, np.int64)
+        boxes = self._canon_np[rows]
+        if self._chunk_np is not None:
+            self._chunk_np[rows] = self._chunk_rows(boxes)
+        plan = dict(plan)
+        plan["rows"] = dict(
+            rows=rows, boxes=boxes, ids=self._ids_np[rows],
+            alive=self._alive_np[rows], probe=self._probe_np[rows],
+            chunk=None if self._chunk_np is None else self._chunk_np[rows])
+        return plan
+
+    def _chunk_rows(self, canon: np.ndarray) -> np.ndarray:
+        """(R, cap, 4) canonical rows -> their (R, C, 4) chunk boxes (the
+        numpy mirror of ``_chunk_summary``; min and max are exact, so
+        reducing along the contiguous slot axis gives the same bits)."""
+        chunk = self.config.chunk
+        r, cap, _ = canon.shape
+        g = -(-cap // chunk)
+        ct = np.empty((4, r, g * chunk), np.float32)
+        ct[:, :, cap:] = _SENTINEL[:, None, None]
+        ct[:, :, :cap] = canon.transpose(2, 0, 1)
+        ct = ct.reshape(4, r, g, chunk)
+        boxes = np.concatenate([ct[:2].min(axis=3), ct[2:].max(axis=3)])
+        c128 = -(-cap // rops.CHUNK)
+        return np.repeat(boxes.transpose(1, 2, 0), chunk // rops.CHUNK,
+                         axis=1)[:, :c128]
+
+    def _dataset_np(self) -> tuple[np.ndarray, np.ndarray]:
+        """The live dataset ``(boxes, ids)`` off the alive slots (every
+        live object has exactly one alive canonical slot)."""
+        live = self._alive_np
+        return (self._canon_np[live].astype(np.float32),
+                self._ids_np[live].astype(np.int32))
+
+    def _restage(self, extra: np.ndarray | None,
+                 extra_ids: np.ndarray | None = None) -> int:
+        """Re-stage the live dataset plus the not-yet-inserted ``extra``
+        batch on the device at a fresh capacity (the max tile count
+        plus the effective slack), install it and drop the mirrors.
+        Reclaims every tombstoned slot, canonical and copies.  Returns
+        the bytes of the dataset uploaded."""
+        boxes, ids = self._dataset_np()
+        if extra is not None and len(extra):
+            boxes = np.concatenate([boxes, extra], axis=0)
+            ids = np.concatenate([ids, np.asarray(extra_ids, np.int32)])
+        dev = self.staged.ids.device
+        layout, stats = stage_tiles(
+            self.parts, torch.from_numpy(boxes).to(dev),
+            self.config.replace(capacity=None, slack=self._eff_slack),
+            ids=torch.from_numpy(ids).to(dev))
+        for key in ("n", "t", "cap", "t_live", "chunks", "replication"):
+            self.stats[key] = stats[key]
+        self.stats["restages"] += 1
+        self._drop_mirror()
+        self._install(layout)
+        return int(boxes.nbytes + ids.nbytes)
+
+    def _scatter(self, plan: dict) -> int:
+        """O(M) device refresh: ``index_put_`` the plan's cells and rows
+        into the resident staging, and keep the live extent in step with
+        ``alive``.  Returns the bytes of the index and value tensors
+        uploaded (each array once)."""
+        if not plan:
+            return 0
+        lay = self.staged
+        dev = lay.ids.device
+        sent: dict[int, torch.Tensor] = {}
+
+        def put(x: np.ndarray) -> torch.Tensor:
+            # the plan holds every array, so its id is stable meanwhile
+            if id(x) not in sent:
+                sent[id(x)] = torch.from_numpy(
+                    np.ascontiguousarray(x)).to(dev)
+            return sent[id(x)]
+
+        def cells(key):
+            idx, vals = plan[key]
+            c = put(idx)
+            return (c[:, 0], c[:, 1]), put(vals)
+
+        if "boxes" in plan:
+            lay.canon_tiles.index_put_(*cells("boxes"))
+        if "ids" in plan:
+            lay.ids.index_put_(*cells("ids"))
+        if "alive" in plan:
+            (t, s), v = cells("alive")
+            lay.alive.index_put_((t, s), v)
+            # the extent rises to cover each slot written alive; a
+            # tombstone leaves it (a larger extent is still exact)
+            self.extent.scatter_reduce_(0, t[v], (s[v] + 1).int(), "amax")
+        if "probe" in plan:
+            rows, vals = plan["probe"]
+            lay.probe_boxes[put(rows)] = put(vals)
+        if "chunk" in plan and lay.chunk_boxes is not None:
+            lay.chunk_boxes.index_put_(*cells("chunk"))
+        if "uni" in plan:
+            lay.uni.copy_(put(plan["uni"]))
+        if "rows" in plan:
+            e = plan["rows"]
+            rows = put(e["rows"])
+            lay.canon_tiles[rows] = put(e["boxes"])
+            lay.ids[rows] = put(e["ids"])
+            lay.alive[rows] = put(e["alive"])
+            lay.probe_boxes[rows] = put(e["probe"])
+            if e["chunk"] is not None and lay.chunk_boxes is not None:
+                lay.chunk_boxes[rows] = put(e["chunk"])
+            # compaction re-packed these rows: recompute their extent
+            self.extent[rows] = rops.live_extent(lay.alive[rows])
+        return int(sum(a.numel() * a.element_size() for a in sent.values()))
+
+    # -- routed executors ------------------------------------------------
 
     def range_counts(self, qboxes, cand, costs):
         lay = self.staged

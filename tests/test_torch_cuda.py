@@ -29,7 +29,7 @@ from repro_torch.kernels.ssd import ref as sref
 from repro_torch.query import engine as join_engine
 from repro_torch.query import knn as knn_mod
 from repro_torch.query import range as range_mod
-from repro_torch.serve import ServeConfig, SpatialServer
+from repro_torch.serve import ServeConfig, SpatialServer, router
 
 pytestmark = pytest.mark.cuda
 CHUNK = 128
@@ -568,6 +568,183 @@ def test_hilbert_local_index_on_cuda_matches_cpu():
     want = srv["cpu"].range_counts(qb)
     got = srv["cuda"].range_counts(qb)
     assert torch.equal(got[0].cpu(), want[0]) and got[1] == want[1]
+
+
+INGEST_FIELDS = ("canon_tiles", "ids", "alive", "probe_boxes",
+                 "chunk_boxes", "uni")
+
+
+def _centre_burst(parts, m):
+    """``m`` coincident objects at the centre of tile 0's region."""
+    tb = parts.boxes[0].cpu().numpy()
+    ctr = [(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2]
+    return np.tile(np.asarray(ctr + ctr, np.float32), (m, 1))
+
+
+@pytest.mark.parametrize("local_index", ["x", "hilbert", "off"])
+def test_ingest_stream_on_cuda_matches_cpu(local_index):
+    """Appends, deletes, updates, a forced compaction, an overflow
+    re-stage and churn after it on the card: after every command the
+    staging, the live extent, the report and the stats equal the plain
+    versions' on the CPU; the extent covers every alive slot, tightly
+    after compaction and re-stage; the answers equal the CPU's.  The
+    "hilbert" compaction launches the encode."""
+    _need_cuda()
+    mbrs = spatial_gen.osm_like(6000, seed=3, device="cpu")
+    parts = papi.partition("bsp", mbrs, 256)
+    cfg = ServeConfig(local_index=local_index, slack=128)
+    srv = {d: SpatialServer(parts, mbrs, cfg, device=d)
+           for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(4)
+    live = np.arange(6000)
+
+    def pick(k):
+        return rng.choice(live, size=k, replace=False)
+
+    stream = [("append", 500), ("delete", 800), ("update", 300),
+              ("append", 400), ("compact",), ("burst",), ("delete", 500),
+              ("update", 100)]
+    for op in stream:
+        if op[0] == "append":
+            nb = _boxes(rng, op[1], 0.004).numpy()
+            call = lambda s: s.append(nb)  # noqa: E731
+        elif op[0] == "delete":
+            ids = pick(op[1])
+            live = np.setdiff1d(live, ids)
+            call = lambda s: s.delete(ids)  # noqa: E731
+        elif op[0] == "update":
+            ids, nb = pick(op[1]), _boxes(rng, op[1], 0.004).numpy()
+            call = lambda s: s.update(ids, nb)  # noqa: E731
+        elif op[0] == "compact":
+            call = lambda s: s.compact()  # noqa: E731
+        else:
+            nb = _centre_burst(parts, srv["cpu"].stats["cap"] + 1)
+            call = lambda s: s.append(nb)  # noqa: E731
+        hkernel.reset_launches()
+        want, got = call(srv["cpu"]), call(srv["cuda"])
+        assert got == want and srv["cuda"].stats == srv["cpu"].stats
+        if op[0] == "append":
+            live = np.concatenate([live, np.arange(got["n_total"] - len(nb),
+                                                   got["n_total"])])
+        for name in INGEST_FIELDS:
+            w = getattr(srv["cpu"].layout, name)
+            g = getattr(srv["cuda"].layout, name)
+            assert (w is None and g is None) or torch.equal(g.cpu(), w), name
+        ext = srv["cuda"].tiles.extent
+        assert torch.equal(ext.cpu(), srv["cpu"].tiles.extent)
+        tight = ops.live_extent(srv["cuda"].layout.alive)
+        assert bool((ext >= tight).all())
+        if op[0] == "compact" or got["restaged"]:
+            assert torch.equal(ext, tight)
+        if local_index == "hilbert" and op[0] == "compact":
+            assert hkernel.LAUNCHES["encode"] == 1
+    qb = _boxes(np.random.default_rng(5), 64, 0.03)
+    pts = torch.from_numpy(
+        np.random.default_rng(6).random((32, 2)).astype(np.float32))
+    for fn in (lambda s: s.range_counts(qb),
+               lambda s: s.range_ids(qb, max_hits=64),
+               lambda s: s.knn(pts, 5, max_cand=8192)):
+        want, got = fn(srv["cpu"]), fn(srv["cuda"])
+        for g, w in zip(got[:-1], want[:-1]):
+            assert torch.equal(g.cpu(), w)
+        assert got[-1] == want[-1]
+
+
+def _plain(fn, *args, **kw):
+    """``fn`` on CPU copies of its tensor arguments: the plain version."""
+    cpu = lambda x: x.cpu() if isinstance(x, torch.Tensor) else x  # noqa
+    return fn(*map(cpu, args), **{k: cpu(v) for k, v in kw.items()})
+
+
+def test_delete_heavy_stream_keeps_probes_exact_past_a_stale_extent():
+    """Appends, then deletes of 70% of the ids with compaction off: the
+    extent stays stale-large on most tiles, and the routed, dense and
+    dense-skip counts and hit lists given it equal their plain versions,
+    the server's pruned and dense answers equal each other and the
+    brute force on the live set."""
+    _need_cuda()
+    mbrs = spatial_gen.osm_like(20_000, seed=5, device="cpu")
+    base, extra = mbrs[:16_000], mbrs[16_000:]
+    parts = papi.partition("bsp", base, 256)
+    srv = SpatialServer(parts, base, ServeConfig(slack=2048,
+                                                 compact_dead_frac=None),
+                        device="cuda")
+    for i in range(0, 4000, 1000):
+        assert not srv.append(extra[i:i + 1000])["restaged"]
+    rng = np.random.default_rng(6)
+    dead = rng.choice(20_000, 14_000, replace=False)
+    for chunk in np.array_split(dead, 4):
+        srv.delete(chunk)
+    live = np.setdiff1d(np.arange(20_000), dead)
+    lay, ext = srv.layout, srv.tiles.extent
+    tight = ops.live_extent(lay.alive)
+    assert bool((ext >= tight).all()) and int((ext > tight).sum()) > 0
+    q = _boxes(rng, 300, 0.03).cuda()
+    hit = router.probe_overlap(lay.probe_boxes, q)
+    cand = router.candidates_from_overlap(
+        hit, max(1, int(hit.sum(1).max())))[0].contiguous()
+    tiles, cb, alive = lay.canon_tiles, lay.chunk_boxes, lay.alive
+    for fn, args in [(ops.gathered_counts, (q, tiles, cand)),
+                     (ops.gathered_counts_skip, (q, tiles, cb, cand)),
+                     (ops.gathered_hit_list, (q, tiles, cand)),
+                     (ops.gathered_hit_list_skip, (q, tiles, cb, cand)),
+                     (ops.probe_counts, (q, tiles)),
+                     (ops.probe_counts_skip, (q, tiles, cb)),
+                     (ops.probe_mask_skip, (q, tiles, cb)),
+                     (ops.dense_hit_list, (q, tiles))]:
+        got = fn(*args, alive=alive, extent=ext)
+        want = _plain(fn, *args, alive=alive)
+        for g, w in zip(*((got, want) if isinstance(got, tuple)
+                          else ((got,), (want,)))):
+            assert torch.equal(g.cpu(), w), fn.__name__
+    counts = srv.range_counts(q)[0]
+    assert torch.equal(counts, srv.range_counts(q, pruned=False)[0])
+    live_boxes = mbrs[live].numpy()
+    ref = range_mod.range_query_ref(live_boxes, q.cpu().numpy())
+    assert counts.tolist() == [len(r) for r in ref]
+    hid, _, ovf, _ = srv.range_ids(q, max_hits=4096)
+    assert not ovf.any()
+    for row, r in zip(hid.cpu().numpy(), ref):
+        np.testing.assert_array_equal(row[row >= 0], np.sort(live[r]))
+
+
+def test_append_past_the_old_extent_needs_the_raise():
+    """An appended object lands past its tile's staged extent: the
+    maintained extent rose to cover it, and the count and hit-list
+    kernels given the staged (now stale-small) extent would miss it."""
+    _need_cuda()
+    mbrs = spatial_gen.osm_like(8000, seed=7, device="cpu")
+    parts = papi.partition("bsp", mbrs, 256)
+    srv = SpatialServer(parts, mbrs, ServeConfig(slack=256,
+                                                 local_index="off"),
+                        device="cuda")
+    old = srv.tiles.extent.clone()
+    new = _centre_burst(parts, 1)
+    new[:, 2:] += 1e-6
+    assert not srv.append(new)["restaged"]
+    t, s = (int(v) for v in srv.tiles._canon_slot[8000])
+    ext = srv.tiles.extent
+    assert s >= int(old[t]) and int(ext[t]) == s + 1
+    lay = srv.layout
+    q = torch.from_numpy(new).cuda()
+    cand = torch.tensor([[t]], dtype=torch.int32, device="cuda")
+    want = _plain(ops.gathered_counts, q, lay.canon_tiles, cand,
+                  alive=lay.alive)
+    assert torch.equal(ops.gathered_counts(q, lay.canon_tiles, cand,
+                                           alive=lay.alive,
+                                           extent=ext).cpu(), want)
+    stale = ops.gathered_counts(q, lay.canon_tiles, cand, alive=lay.alive,
+                                extent=old)
+    assert int(stale.sum()) == int(want.sum()) - 1
+    hits = ops.gathered_hit_list(q, lay.canon_tiles, cand, alive=lay.alive,
+                                 extent=ext)
+    assert (t, s) in set(zip(hits[1].tolist(), hits[2].tolist()))
+    stale = ops.gathered_hit_list(q, lay.canon_tiles, cand,
+                                  alive=lay.alive, extent=old)
+    assert (t, s) not in set(zip(stale[1].tolist(), stale[2].tolist()))
+    dense = ops.probe_counts(q, lay.canon_tiles, alive=lay.alive, extent=old)
+    assert int(dense.sum()) == int(srv.range_counts(q)[0].sum()) - 1
+    assert 8000 in set(srv.range_ids(q, max_hits=64)[0][0].tolist())
 
 
 @pytest.mark.parametrize("h,g,chunk,p,s", [

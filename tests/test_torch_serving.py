@@ -5,8 +5,9 @@ dense oracle) and every stat for local_index "x" and "off"; the six
 Table-1 layouts x local_index "off"/"x"/"hilbert"; the dense
 range oracle through ``pruned=False`` and ``probe="dense"``; the
 replicated executors fed a staging carried across from repro; the
-device rule and the unported features; and the generators' distribution
-against repro's.  Tolerance: exact equality for every answer and stat,
+ingest methods, the replicated rebalance, ``WidthPolicy.reset`` and
+explicit staging ids against repro's; the device rule and the unported
+features; and the generators' distribution against repro's.  Tolerance: exact equality for every answer and stat,
 float32 kNN distances bit for bit; the distribution checks state
 theirs."""
 import os, sys  # noqa: E401
@@ -235,14 +236,106 @@ def test_unported_configurations_raise(data, make):
         make(data)
 
 
+N_FRESH = 1000       # objects of the servers the ingest cases mutate
+
+
+def _fresh_servers(data, **cfg):
+    """A repro and a port server of their own (the module's ``servers``
+    are shared and must not be mutated), on repro's partitioning."""
+    mbrs = data[:N_FRESH]
+    js = JServer.from_method("bsp", jnp.asarray(mbrs), 120, JConfig(**cfg))
+    parts = tapi.Partitioning.from_numpy(js.parts.boxes, js.parts.valid,
+                                         "cpu")
+    return js, TServer(parts, mbrs, TConfig(**cfg), device="cpu",
+                       method="bsp")
+
+
+def _assert_same_layout(ts, js):
+    for name in ("ids", "canon_tiles", "probe_boxes", "chunk_boxes",
+                 "alive", "uni"):
+        want = getattr(js.layout, name)
+        np.testing.assert_array_equal(getattr(ts.layout, name).numpy(),
+                                      np.asarray(want), err_msg=name)
+
+
 @pytest.mark.parametrize("call", [
     lambda s, q: s.append(q),
-    lambda s, q: s.delete([0]), lambda s, q: s.update([0], q[:1]),
-    lambda s, q: s.compact(), lambda s, q: s.rebalance(),
-], ids=["append", "delete", "update", "compact", "rebalance"])
-def test_unported_server_methods_raise(servers, call):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        call(servers["x"][1], _qboxes(5, 4))
+    lambda s, q: s.delete(np.array([0, 17, 300])),
+    lambda s, q: s.update(np.array([5, 6]), q[:2]),
+    lambda s, q: s.compact(),
+], ids=["append", "delete", "update", "compact"])
+def test_ingest_methods_match_repro_on_a_fresh_server(data, call):
+    """append, delete, update and compact run under the replicated
+    placement: the same report (but the bytes each uploads), stats and
+    staging as repro's."""
+    js, ts = _fresh_servers(data, slack=64)
+    q = _qboxes(5, 4) * 0.5
+    want, got = call(js, jnp.asarray(q)), call(ts, q)
+    want.pop("bytes_transferred"), got.pop("bytes_transferred")
+    assert got == want and ts.stats == js.stats
+    _assert_same_layout(ts, js)
+    assert ts.widths.cap == js.widths.cap
+
+
+def test_replicated_rebalance_is_repros_noop_report(data):
+    """Under the replicated placement rebalance reports no move, as
+    repro's does, and leaves the answers and the heat as they were."""
+    js, ts = _fresh_servers(data)
+    qb = _qboxes(12, NQ)
+    js.range_counts(jnp.asarray(qb))
+    before = ts.range_counts(qb)[0]
+    assert ts.rebalance() == js.rebalance() == dict(
+        placement="replicated", moved_tiles=0, replicated_tiles=0,
+        bytes_transferred=0)
+    js.range_counts(jnp.asarray(qb))
+    assert torch.equal(ts.range_counts(qb)[0], before)
+    for got, want in zip(ts.heat.snapshot(), js.heat.snapshot()):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_width_policy_reset_matches_repro():
+    from repro.serve.engine import WidthPolicy as JWidths
+    from repro_torch.serve import WidthPolicy as TWidths
+    policies = (JWidths(cap=40), TWidths(cap=40))
+    for w in policies:
+        w.observe("range", 16)
+        w.observe(("knn", 4, 64), 72)          # clamped to the cap
+        w.at_least("range", 8)
+        w.reset()
+        w.start(("knn", 4, 64), 12)
+        w.observe("range", 24)
+    jw, tw = policies
+    assert tw._w == jw._w == {"range": 24}
+    assert (tw.hits, tw.misses) == (jw.hits, jw.misses)
+
+
+@pytest.mark.parametrize("local_index", ["x", "hilbert", "off"])
+def test_stage_tiles_with_explicit_ids_matches_repro(data, local_index):
+    """Explicit object ids (a re-stage's surviving ids, with holes)
+    replace 0..N-1 before the canonical mark: the same staging and stats
+    as repro's."""
+    from repro.serve import stage_tiles as jstage
+    mbrs = data[:N_FRESH]
+    ids = np.sort(np.random.default_rng(13).choice(
+        10 * N_FRESH, N_FRESH, replace=False)).astype(np.int32)
+    jparts = JServer.from_method("bsp", jnp.asarray(mbrs), 120).parts
+    cfg = dict(local_index=local_index, slack=32)
+    jlay, jstats = jstage(jparts, jnp.asarray(mbrs), JConfig(**cfg),
+                          ids=jnp.asarray(ids))
+    tparts = tapi.Partitioning.from_numpy(jparts.boxes, jparts.valid, "cpu")
+    tlay, tstats = tlayout.stage_tiles(tparts, torch.from_numpy(mbrs),
+                                       TConfig(**cfg),
+                                       ids=torch.from_numpy(ids))
+    assert tstats == jstats
+    for name in ("ids", "tiles", "canon_tiles", "probe_boxes",
+                 "chunk_boxes", "alive", "uni"):
+        want = getattr(jlay, name)
+        if want is None:
+            assert getattr(tlay, name) is None
+            continue
+        np.testing.assert_array_equal(getattr(tlay, name).numpy(),
+                                      np.asarray(want), err_msg=name)
+    assert set(tlay.ids[tlay.alive].tolist()) == set(ids.tolist())
 
 
 def _pts(seed, q=NQ):
