@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving, ingest, partitioning and join
-paths, and Mamba2 inference, on one CUDA card.
+"""Drive the PyTorch/H100 port's serving (replicated and sharded),
+ingest, partitioning and join paths, and Mamba2 inference, on one CUDA
+card.
 
     python3 chip_smoke.py            # full size: 8 M osm-like objects served,
+                                     # replicated and on 4 simulated owners,
                                      # 7 M staged + 1 M streamed in,
                                      # 4 M + 4 M pi and 1 M + 1 M osm joined,
                                      # Mamba2-1.3B prefill and decode
@@ -79,6 +81,35 @@ before each path and read just after it) and its wall seconds:
    version and timed in turns, the counts beside ``dense_counts`` on
    the same inputs.  No dense kernel's row may read faster than its
    own bound.
+5b. sharded -- the serve phase's objects and partitioning on
+   ``ServeConfig(placement="sharded", shards=4)``: the four owners
+   simulated on the card, their shards gathered from the staging on
+   the card while the replicated "x" staging stays resident.  The "x"
+   server runs all 20 counts, 5 ids and 5 kNN batches, "off" the first
+   4, 2 and 2; every counts and ids answer must equal the replicated
+   "x" server's bit for bit, and every kNN answer where neither flags
+   (an owner flags past max_cand of its own candidates, so the sharded
+   flags must be a subset of the replicated ones).  Each counts batch
+   must launch the routed count kernel once (the owners' probes are one
+   folded launch, not four).  On "x" the dense oracle runs the first
+   batch of each kind and must equal the pruned answers, and the first
+   batches are held to the brute force (1024 counts, every ids query,
+   256 kNN points).  Prints build seconds and peak memory, bytes a
+   device, p50/p99 a batch with device ms and the idle share,
+   ``owner_split``'s host ms a batch, the exchange's ``messages``,
+   ``m_per_pair``, ``f_local`` and ``probe_load_imbalance``, and the
+   launches.  Then a sharded ingest stream on a sharded "x" server of
+   the same objects with slack for 300,000 more: 3 appends of 100,000
+   (served objects resampled, each shifted by up to 1e-4; none may
+   re-stage), 2 deletes of 200,000, a
+   forced compact, a burst of cap + 1 objects (which must re-stage and
+   re-balance the owners); the extent of every shard row must cover
+   its alive slots throughout (tight after compact and re-stage), and
+   a counts, an ids and a kNN batch and the dense counts must equal a
+   fresh sharded staging of the live set (and the counts the brute
+   force).  Alone (the kernels build at first use): ``python3 -c
+   "import torch, chip_smoke; chip_smoke.sharded_alone(torch,
+   torch.device('cuda'))"``.
 6. ingest -- the serve phase's 8,000,000 objects again (same seed):
    ``bsp`` at payload 4096 over the first 7,000,000, staged with
    ``local_index="x"`` and a slack that holds the held-out 1,000,000
@@ -139,6 +170,13 @@ before each path and read just after it) and its wall seconds:
    4096 sampled R objects in the deduplicated bsp pair list equal a
    plain brute force against all of S, the raw count is at least the
    exact count, and no tile was truncated.
+9b. sharded_join -- the pi bsp and hc plans for 4 devices, run on the
+   card (one batched launch over every device row), must count what the
+   one-device plans count (which equals the unpartitioned count), raw
+   and exact; then
+   ``parallel_partition`` of the 8 M merged pi objects at payload 4096
+   over 4 simulated devices must drop nothing and cover every object
+   (one encode launch keys them all).
 10. kernels -- encode over the 8 M merged pi centroids and over 2^25
    seeded grid points (a "hilbert" staging's launch size), timed in
    turns with the plane-loop design (``encode_v1``) on the same inputs,
@@ -179,7 +217,8 @@ before each path and read just after it) and its wall seconds:
    inputs, its plain ms and its bound.
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
-join's two batched passes), the card's
+join's two batched passes; ``launches_by_path`` holds each row's
+launches on the ingest and the sharded paths), the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
 exits non-zero.
@@ -272,6 +311,10 @@ INGEST_DELETE = 200_000    # ids a delete
 INGEST_DELETES = 4
 INGEST_UPDATE = 100_000    # ids the update moves
 SHORT_APPENDS, SHORT_DELETES = 2, 2    # the "hilbert" and "off" streams
+SHARDS = 4                 # owners of the sharded servers, join plans and
+                           # parallel partitioning, simulated on the card
+SHARD_OFF_BATCHES = (4, 2, 2)   # counts, ids, kNN batches of sharded "off"
+SHARD_APPENDS, SHARD_DELETES = 3, 2    # the sharded ingest stream
 
 
 def emit(obj) -> None:
@@ -453,7 +496,8 @@ def serve_phase(torch, dev):
     # per server: warm-up + timed + profiled batches
     calls = dict(counts=1 + len(cbatches) + 3, ids=1 + len(ibatches) + 3)
     return (servers, mbrs, cbatches[0], ibatches[0], results["x"],
-            launches, calls, encode_launches)
+            launches, calls, encode_launches,
+            dict(counts=cbatches, ids=ibatches))
 
 
 def pct(xs, p):
@@ -538,7 +582,7 @@ def knn_phase(torch, servers, mbrs, dev):
               x_equals_hilbert_unflagged=True,
               brute_force_points=CHECK_KNN,
               flagged_in_checked=int((~ok).sum()), launches=launches))
-    return batches[0], answers["x"][0], launches
+    return batches[0], answers["x"][0], launches, batches, answers["x"]
 
 
 def dense_phase(torch, srv, mbrs, qc, qi, pts, pruned_x, pruned_knn):
@@ -888,6 +932,390 @@ def ingest_phase(torch, dev):
     del answers, model, mbrs, base, held
     torch.cuda.empty_cache()
     return launches
+
+
+def shard_extent_slack(torch, ops, srv):
+    """Fail unless every shard row's live extent covers its alive slots
+    -> the rows whose extent is larger than tight."""
+    ext = srv.tiles.extent
+    tight = ops.live_extent(srv.slayout.alive_shards.flatten(0, 1)).view(
+        ext.shape)
+    if not bool((ext >= tight).all()):
+        raise AssertionError("an alive slot lies past its shard row's "
+                             "extent")
+    return int((ext > tight).sum())
+
+
+def knn_within(torch, a, b):
+    """Sharded kNN ``a`` against the replicated ``b``: an owner flags
+    past max_cand of its own candidates, so ``a``'s flags are a subset
+    of ``b``'s; where neither flags, ids and d2 are equal."""
+    (ai, ad, ao), (bi, bd, bo) = a, b
+    both = ~ao & ~bo
+    return (not bool((ao & ~bo).any()) and torch.equal(ai[both], bi[both])
+            and torch.equal(ad[both], bd[both])), int((bo & ~ao).sum())
+
+
+def sharded_serve(torch, dev, parts, mbrs, li, batches, pruned_x, knn_x,
+                  sizes, checked):
+    """One sharded server (``SHARDS`` owners simulated on the card) over
+    the serve phase's batches -> its launches."""
+    from repro_torch.core import geometry
+    from repro_torch.kernels.range_probe import kernel
+    from repro_torch.query import knn as knn_mod
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    n_counts, n_ids, n_knn = sizes
+    count_kernel = "gather_count_skip" if li != "off" else "gather_count"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    srv = SpatialServer(parts, mbrs, ServeConfig(placement="sharded",
+                                                 shards=SHARDS,
+                                                 local_index=li), device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    xkeys = ("qpd", "skew", "messages", "m_per_pair", "f_local",
+             "probe_load_imbalance", "exchange_bytes", "probe_rows")
+    c_ms, split, xs, counts = [], [], [], []
+    for i, qb in enumerate(batches["counts"][:n_counts]):
+        before = kernel.LAUNCHES[count_kernel]
+        t0 = time.perf_counter()
+        cnt, st = srv.range_counts(qb)
+        torch.cuda.synchronize()
+        c_ms.append((time.perf_counter() - t0) * 1e3)
+        if kernel.LAUNCHES[count_kernel] - before != 1:
+            raise AssertionError(f"a sharded counts batch launched "
+                                 f"{count_kernel} "
+                                 f"{kernel.LAUNCHES[count_kernel] - before} "
+                                 f"times, not once")
+        if not torch.equal(cnt, pruned_x["counts"][i]):
+            raise AssertionError(f'sharded "{li}" counts differ from the '
+                                 f'replicated "x" server in batch {i}')
+        split.append(srv.tiles.split_ms)
+        xs.append({k: st[k] for k in xkeys})
+        counts.append(cnt)
+    i_ms, i_split, ids = [], [], []
+    for i, qb in enumerate(batches["ids"][:n_ids]):
+        t0 = time.perf_counter()
+        out = srv.range_ids(qb, max_hits=MAX_HITS)
+        torch.cuda.synchronize()
+        i_ms.append((time.perf_counter() - t0) * 1e3)
+        i_split.append(srv.tiles.split_ms)
+        if not all(torch.equal(u, v) for u, v in zip(out[:3],
+                                                      pruned_x["ids"][i])):
+            raise AssertionError(f'sharded "{li}" ids differ from the '
+                                 f'replicated "x" server in batch {i}')
+        ids.append(out[:3])
+    k_ms, k_split, knn, rounds, only_x = [], [], [], [], 0
+    for i, pts in enumerate(batches["knn"][:n_knn]):
+        t0 = time.perf_counter()
+        out = srv.knn(pts, K, max_cand=MAX_CAND)
+        torch.cuda.synchronize()
+        k_ms.append((time.perf_counter() - t0) * 1e3)
+        k_split.append(srv.tiles.split_ms)
+        ok, extra = knn_within(torch, out[:3], knn_x[i])
+        if not ok:
+            raise AssertionError(f'sharded "{li}" kNN differs from the '
+                                 f'replicated "x" server in batch {i}')
+        only_x += extra
+        rounds.append(out[3]["rounds"])
+        knn.append(out[:3])
+    launches = dict(kernel.LAUNCHES)
+    qc, qi, pts = (batches[k][0] for k in ("counts", "ids", "knn"))
+    dev_c, top_c = device_busy(torch, lambda: srv.range_counts(qc), 3)
+    dev_i, _ = device_busy(torch, lambda: srv.range_ids(
+        qi, max_hits=MAX_HITS), 3)
+    dev_k, top_k = device_busy(torch, lambda: srv.knn(
+        pts, K, max_cand=MAX_CAND), 3)
+    kernel.LAUNCHES.update(launches)            # the profiled repeats'
+    row = dict(phase="sharded", local_index=li, shards=SHARDS, n=N,
+               t=srv.stats["t"], t_local=srv.stats["t_local"],
+               cap=srv.stats["cap"], build_s=build_s,
+               build_peak_memory=build_peak,
+               resident_tile_bytes=srv.resident_tile_bytes(),
+               shard_bytes=srv.stats["shard_bytes"],
+               placement_skew=srv.stats["placement_skew"])
+    for name, ms, dms, sp in (("counts", c_ms, dev_c, split),
+                              ("ids", i_ms, dev_i, i_split),
+                              ("knn", k_ms, dev_k, k_split)):
+        row[name] = dict(batches=len(ms), batch_ms=ms, p50_ms=pct(ms, 0.5),
+                         p99_ms=pct(ms, 0.99), device_ms_per_batch=dms,
+                         idle_share=1.0 - dms / pct(ms, 0.5),
+                         owner_split_ms=sp,
+                         owner_split_p50_ms=pct(sp, 0.5))
+    row["counts"]["exchange"] = xs
+    row["counts"]["top_device"] = top_c
+    row["knn"].update(top_device=top_k, rounds=rounds,
+                      flagged_by_replicated_only=only_x)
+    if checked:
+        # the dense oracle on the first batch of each kind, and the
+        # brute force on the serve phase's checked sample
+        before = dict(kernel.LAUNCHES)
+        t0 = time.perf_counter()
+        dc = srv.range_counts(qc, pruned=False)[0]
+        di = srv.range_ids(qi, max_hits=MAX_HITS, pruned=False)[:3]
+        dk = srv.knn(pts, K, max_cand=MAX_CAND, pruned=False)[:3]
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        dense = {k: kernel.LAUNCHES[k] - before[k] for k in before}
+        if not (torch.equal(dc, counts[0])
+                and all(torch.equal(u, v) for u, v in zip(di, ids[0]))):
+            raise AssertionError("the sharded dense oracle differs from "
+                                 "the sharded pruned answers")
+        (ai, ad, ao), (bi, bd, bo) = knn[0], dk
+        both = ~ao & ~bo
+        if not (torch.equal(ai[both], bi[both])
+                and torch.equal(ad[both], bd[both])):
+            raise AssertionError("the sharded dense kNN differs from the "
+                                 "pruned kNN")
+        check_counts(torch, geometry, mbrs, qc[:CHECK_Q], counts[0][:CHECK_Q])
+        check_ids(torch, geometry, mbrs, qi, *ids[0], MAX_HITS)
+        ok = ~knn[0][2][:CHECK_KNN]
+        b_ids, b_d2 = knn_brute(torch, knn_mod, mbrs, pts[:CHECK_KNN], K)
+        if not (torch.equal(knn[0][0][:CHECK_KNN][ok], b_ids[ok])
+                and torch.equal(knn[0][1][:CHECK_KNN][ok], b_d2[ok])):
+            raise AssertionError("sharded kNN disagrees with the brute "
+                                 "force")
+        row.update(dense_s=dense_s, dense_launches=dense,
+                   brute_force_counts=CHECK_Q, brute_force_ids=Q_IDS,
+                   brute_force_knn=int(ok.sum()))
+        for name in ("dense_counts", "dense_hits"):
+            if dense[name] <= 0:
+                raise AssertionError(f"the sharded dense oracle did not "
+                                     f"launch {name}: {dense}")
+    launches = dict(kernel.LAUNCHES)
+    row.update(equal_to_replicated_x=True, launches=launches,
+               max_memory_allocated=torch.cuda.max_memory_allocated())
+    emit(row)
+    del srv
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_ingest(torch, dev, parts, mbrs, batches):
+    """A short stream on a sharded "x" server staged over the served
+    objects with slack for the appends; then one batch of each kind
+    against a fresh sharded staging of the live set -> launches."""
+    from repro_torch.core import geometry
+    from repro_torch.core.partition.assign import membership, round_up
+    from repro_torch.kernels.range_probe import kernel, ops
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    # the appends: served objects resampled and shifted by up to 1e-4, so
+    # they follow the served hotspots (a fresh osm_like draw puts its
+    # hotspots elsewhere: 112,512 slots of slack in one tile)
+    m = SHARD_APPENDS * INGEST_BATCH
+    pick = torch.randperm(mbrs.shape[0], generator=g, device=dev)[:m]
+    shift = (torch.rand(m, 2, generator=g, device=dev) - 0.5) * 2e-4
+    held = mbrs[pick] + torch.cat([shift, shift], 1)
+    _, part = membership(parts, held)
+    slack = round_up(int(torch.bincount(part, minlength=parts.kmax).max()),
+                     128)
+    del part
+    cfg = ServeConfig(placement="sharded", shards=SHARDS, slack=slack)
+    kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    srv = SpatialServer(parts, mbrs, cfg, device=dev)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    owner0 = srv.slayout.owner.copy()
+    log, model = [], LiveSet(torch, mbrs, g)
+    t0 = time.perf_counter()
+    srv.tiles._ensure_mirror()
+    mirror_s = time.perf_counter() - t0
+    for i in range(SHARD_APPENDS):
+        new = held[i * INGEST_BATCH:(i + 1) * INGEST_BATCH]
+        if ingest_op(torch, log, "append", lambda: srv.append(new))[
+                "restaged"]:
+            raise AssertionError("a sharded append into the slack "
+                                 "re-staged")
+        model.append(new)
+    for _ in range(SHARD_DELETES):
+        ids = model.pick(INGEST_DELETE)
+        ingest_op(torch, log, "delete", lambda: srv.delete(ids))
+        model.alive[ids] = False
+    stale = shard_extent_slack(torch, ops, srv)
+    ingest_op(torch, log, "compact", srv.compact)
+    after_compact = shard_extent_slack(torch, ops, srv)
+    new = burst_boxes(torch, parts, srv.stats["cap"] + 1)
+    if not ingest_op(torch, log, "burst", lambda: srv.append(new))[
+            "restaged"]:
+        raise AssertionError("the sharded burst did not re-stage")
+    model.append(new)
+    after_restage = shard_extent_slack(torch, ops, srv)
+    if after_compact or after_restage:
+        raise AssertionError("a shard row's extent is not tight after "
+                             "compact or re-stage")
+    qc, qi, pts = (batches[k][0] for k in ("counts", "ids", "knn"))
+    got = ingest_queries(srv, qc, qi, pts)
+    torch.cuda.synchronize()
+    launches = dict(kernel.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    live_ids, live_boxes = model.live()
+    if srv.stats["n"] != live_ids.numel():
+        raise AssertionError("the sharded server's n is not the live count")
+    stats = {k: srv.stats[k] for k in ("n", "cap", "moved_tiles")}
+    owners_changed = int((srv.slayout.owner != owner0).sum())
+    del srv        # its shards and dense oracle (about 24 GB) before the
+    torch.cuda.empty_cache()       # fresh staging of the doubled tile
+    check_counts(torch, geometry, live_boxes, qc[:CHECK_Q],
+                 got["counts"][:CHECK_Q])
+    if not torch.equal(got["dense"], got["counts"]):
+        raise AssertionError("sharded dense counts differ from pruned after "
+                             "ingest")
+    fresh = SpatialServer(parts, live_boxes, ServeConfig(
+        placement="sharded", shards=SHARDS), device=dev)
+    want = ingest_queries(fresh, qc, qi, pts)
+    remap = lambda a: torch.where(a >= 0, live_ids[a.clamp_min(0)].to(  # noqa
+        a.dtype), a)
+    hid, cnt, ovf = want["ids"]
+    if not (torch.equal(got["counts"], want["counts"])
+            and all(torch.equal(u, v) for u, v in zip(
+                got["ids"], (remap(hid), cnt, ovf)))):
+        raise AssertionError("sharded ingested answers differ from a fresh "
+                             "sharded staging")
+    nn, d2, kovf = want["knn"]
+    if not knn_agree(torch, got["knn"], (remap(nn), d2, kovf)):
+        raise AssertionError("sharded ingested kNN differs from a fresh "
+                             "sharded staging")
+    emit(dict(phase="sharded_ingest", shards=SHARDS, n0=N, slack=slack,
+              stage_s=stage_s, mirror_s=mirror_s, ops=log, **stats,
+              owners_changed=owners_changed,
+              rows_extent_above_tight_after_deletes=stale,
+              equal_to_fresh_sharded_staging=True,
+              brute_force_counts=CHECK_Q, max_memory_allocated=peak,
+              launches=launches))
+    for name in ("gather_count_skip", "gather_hits_skip", "dense_counts"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 f"ingest path: {launches}")
+    del fresh, got, want, model, live_boxes, live_ids, held
+    torch.cuda.empty_cache()
+    return launches
+
+
+def sharded_phase(torch, dev, servers, mbrs, batches, pruned_x, knn_x):
+    """Queue 1 item 10 on the card: the sharded "x" server over every
+    batch (the dense oracle and the brute force on the first), "off"
+    over a few, and the sharded ingest -> launches of each range-probe
+    kernel on the sharded path.  The sharded servers are built with the
+    replicated ``servers["x"]`` resident; ``servers`` is emptied before
+    the ingest, whose re-stage at a doubled capacity needs the room."""
+    parts = servers["x"].parts
+    runs = [sharded_serve(torch, dev, parts, mbrs, "x", batches, pruned_x,
+                          knn_x, (BATCHES, ID_BATCHES, KNN_BATCHES), True),
+            sharded_serve(torch, dev, parts, mbrs, "off", batches, pruned_x,
+                          knn_x, SHARD_OFF_BATCHES, False)]
+    servers.clear()
+    torch.cuda.empty_cache()
+    runs.append(sharded_ingest(torch, dev, parts, mbrs, batches))
+    launches = {k: sum(r[k] for r in runs) for k in runs[0]}
+    for name in list(CASES) + ["dense_counts", "dense_hits"]:
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the sharded "
+                                 f"path: {launches}")
+    for name in list(TABLES.values()) + ["count", "mask"]:
+        if launches[name]:
+            raise AssertionError(f"{name} was launched on the sharded path: "
+                                 f"{launches}")
+    return launches
+
+
+def sharded_alone(torch, dev):
+    """The sharded phase on its own (the kernels build at first use):
+    the serve phase's objects, batches and replicated "x" answers, then
+    ``sharded_phase``."""
+    from repro_torch.data import spatial_gen
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batches = dict(counts=[qboxes(torch, g, Q, 0.03, dev)
+                           for _ in range(BATCHES)],
+                   ids=[qboxes(torch, g, Q_IDS, 0.003, dev)
+                        for _ in range(ID_BATCHES)])
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batches["knn"] = [torch.rand(Q_KNN, 2, generator=g, device=dev)
+                      for _ in range(KNN_BATCHES)]
+    mbrs = spatial_gen.osm_like(N, seed=SEED, device=dev)
+    srv = SpatialServer.from_method("bsp", mbrs, PAYLOAD, ServeConfig(),
+                                    device=dev)
+    pruned_x = dict(counts=[srv.range_counts(q)[0]
+                            for q in batches["counts"]],
+                    ids=[srv.range_ids(q, max_hits=MAX_HITS)[:3]
+                         for q in batches["ids"]])
+    knn_x = [srv.knn(p, K, max_cand=MAX_CAND)[:3] for p in batches["knn"]]
+    servers = {"x": srv}
+    del srv
+    return sharded_phase(torch, dev, servers, mbrs, batches, pruned_x, knn_x)
+
+
+def sharded_join_phase(torch, dev, inputs, results):
+    """Multi-device join plans and parallel partitioning on the card ->
+    the launches of the encode and the join's batched passes."""
+    from repro_torch.core import metrics
+    from repro_torch.core.partition import partition_counts
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.query import engine, parallel_partition
+
+    hkernel.reset_launches()
+    mkernel.reset_launches()
+    r, s = inputs["pi"]
+    for method in ("bsp", "hc"):
+        one = results["pi", method]
+        plan, plan_s = timed_s(torch, lambda: engine.plan_join(
+            method, r, s, PAYLOAD, SHARDS, device=dev))
+        before = dict(mkernel.LAUNCHES)
+        count, join_s = timed_s(torch, lambda: engine.spatial_join_count(
+            plan, max_pairs_per_tile=one["max_n"]))
+        per = {k: mkernel.LAUNCHES[k] - before[k] for k in before}
+        want = "pair_list" if plan.stats["overlapping"] else "rp_counts"
+        if per[want] != 1:
+            raise AssertionError(f"the {SHARDS}-device {method} plan "
+                                 f"launched {per}, want one {want}")
+        if count != one["exact"]:
+            raise AssertionError(f"the {SHARDS}-device {method} plan counts "
+                                 f"{count}, the one-device plan "
+                                 f"{one['exact']}")
+        before = dict(mkernel.LAUNCHES)
+        raw, raw_s = timed_s(torch, lambda: engine.run_join_count(
+            plan, dedup="none"))
+        if raw != one["raw"] or mkernel.LAUNCHES["raw_counts"] - before[
+                "raw_counts"] != 1:
+            raise AssertionError(f"the {SHARDS}-device {method} raw count "
+                                 f"{raw} (one-device {one['raw']}) or its "
+                                 f"launches")
+        emit(dict(phase="multidevice_join", input="pi", method=method,
+                  n_devices=SHARDS, tpd=plan.stats["tpd"],
+                  skew=plan.stats["skew"], plan_s=plan_s, join_s=join_s,
+                  raw_count_s=raw_s, exact=count,
+                  one_device_exact=one["exact"], raw=raw,
+                  equals_unpartitioned=True, launches=per))
+        del plan
+    merged = torch.cat([r, s])
+    n = merged.shape[0]
+    before = hkernel.LAUNCHES["encode"]
+    (parts, stats), secs = timed_s(torch, lambda: (
+        parallel_partition.parallel_partition(merged, PAYLOAD, SHARDS)))
+    counts, copies = partition_counts(merged, parts)
+    cov = float(metrics.coverage(copies))
+    if stats["dropped"] or cov != 1.0:
+        raise AssertionError(f"parallel partitioning dropped "
+                             f"{stats['dropped']} objects, coverage {cov}")
+    emit(dict(phase="parallel_partition", n=n, payload=PAYLOAD,
+              buckets=SHARDS, seconds=secs, k=parts.k(), kmax=parts.kmax,
+              lambda_=float(metrics.boundary_ratio(counts, parts.valid, n)),
+              balance_stddev=float(metrics.balance_stddev(counts,
+                                                          parts.valid)),
+              skew=float(metrics.skew_ratio(counts, parts.valid)),
+              coverage=cov, dropped=stats["dropped"],
+              encode_launches=hkernel.LAUNCHES["encode"] - before))
+    return dict(mkernel.LAUNCHES, **hkernel.LAUNCHES)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -2485,9 +2913,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     (servers, mbrs, qc, qi, pruned_x, launches, calls,
-     serve_encode) = serve_phase(torch, dev)
+     serve_encode, batches) = serve_phase(torch, dev)
     t1 = time.perf_counter()
-    pts, pruned_knn, knn_launches = knn_phase(torch, servers, mbrs, dev)
+    pts, pruned_knn, knn_launches, batches["knn"], knn_x = knn_phase(
+        torch, servers, mbrs, dev)
     t2 = time.perf_counter()
     dense_launches = dense_phase(torch, servers["x"], mbrs, qc, qi, pts,
                                  pruned_x, pruned_knn)
@@ -2502,12 +2931,21 @@ def main() -> int:
     t4 = time.perf_counter()
     wall.update(serve_s=t1 - t0, knn_s=t2 - t1, dense_s=t3 - t2,
                 kernels_s=t4 - t3)
-    del servers, mbrs, qc, qi, pruned_x, pts, pruned_knn
+    servers = {"x": servers["x"]}
+    del qc, qi, pts, pruned_knn
+    torch.cuda.empty_cache()
+    sharded_launches = sharded_phase(torch, dev, servers, mbrs, batches,
+                                     pruned_x, knn_x)
+    t4b = time.perf_counter()
+    wall["sharded_s"] = t4b - t4
+    t4 = t4b
+    del servers, mbrs, batches, pruned_x, knn_x
     torch.cuda.empty_cache()
 
     ingest_launches = ingest_phase(torch, dev)
     for e in entries:
-        e["launches_by_path"] = dict(ingest=ingest_launches[e["name"]])
+        e["launches_by_path"] = dict(ingest=ingest_launches[e["name"]],
+                                     sharded=sharded_launches[e["name"]])
     t4b = time.perf_counter()
     wall["ingest_s"] = t4b - t4
     t4 = t4b
@@ -2519,6 +2957,7 @@ def main() -> int:
                                                              inputs)
     t6 = time.perf_counter()
     join_check_phase(torch, inputs, results, pairs)
+    sharded_join = sharded_join_phase(torch, dev, inputs, results)
     t7 = time.perf_counter()
     main_launches = dict(
         hilbert_encode=serve_encode + part_encode + join_launches["encode"],
@@ -2532,9 +2971,11 @@ def main() -> int:
         e["launches_by_path"] = (
             dict(serve_hilbert_staging=serve_encode, partition=part_encode,
                  join=join_launches["encode"],
-                 ingest=ingest_launches["encode"])
+                 ingest=ingest_launches["encode"],
+                 sharded=sharded_join["encode"])
             if e["name"] == "hilbert_encode" else
-            dict(join=join_launches[e["name"][4:]]))
+            dict(join=join_launches[e["name"][4:]],
+                 sharded=sharded_join[e["name"][4:]]))
         emit(dict(phase="kernel", **e))
     entries += new_entries
     t8 = time.perf_counter()

@@ -6,8 +6,11 @@ the paper's layout metrics, and optionally run a self-join.
         --dataset osm --n 20000 --method bos --payload 500 --join
 
 It runs on one card, or on the CPU only when given ``--device cpu``.
-``--parallel`` (the MapReduce-style partitioner over a device mesh)
-is not ported yet and raises.
+``--parallel`` partitions with the MapReduce-style partitioner
+(``query.parallel_partition``) over as many buckets as there are
+devices (the CUDA device count; 1 on the CPU), simulated on the one
+device, and the join plans for that many devices, as the reference's
+``jax.device_count()`` does.
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ import torch
 from ..core import metrics
 from ..core.partition import api as papi, partition_counts
 from ..data import spatial_gen
-from ..device import not_ported, resolve
-from ..query import engine
+from ..device import resolve
+from ..query import engine, parallel_partition
 
 
 def _sync(dev: torch.device) -> None:
@@ -40,14 +43,18 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu (plain kernel versions)")
     args = ap.parse_args(argv)
-    if args.parallel:
-        raise not_ported("partition_etl --parallel", "Queue 1 item 10")
 
     dev = resolve(args.device)
+    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
     mbrs = spatial_gen.dataset(args.dataset, args.n, seed=0, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
-    parts = papi.partition(args.method, mbrs, args.payload)
+    if args.parallel:
+        parts, stats = parallel_partition.parallel_partition(
+            mbrs, args.payload, n_dev)
+        print(f"parallel partition stats: {stats}")
+    else:
+        parts = papi.partition(args.method, mbrs, args.payload)
     _sync(dev)
     t_part = time.perf_counter() - t0
 
@@ -65,7 +72,7 @@ def main(argv=None):
     if args.join:
         s = spatial_gen.dataset(args.dataset, args.n, seed=7, device=dev)
         t0 = time.perf_counter()
-        plan = engine.plan_join(args.method, mbrs, s, args.payload, 1,
+        plan = engine.plan_join(args.method, mbrs, s, args.payload, n_dev,
                                 device=dev)
         cnt = engine.spatial_join_count(plan)
         dt = time.perf_counter() - t0

@@ -1,5 +1,5 @@
 """Spatial-join engine (the paper's Algorithm 1), torch twin of
-``repro.query.engine`` on one device.
+``repro.query.engine`` on one card.
 
 Phases, as the reference's:
   A. partition  -- any of the six layouts on the merged R u S;
@@ -12,13 +12,15 @@ Phases, as the reference's:
 ``plan_join`` builds the reference's ``JoinPlan`` bit for bit for any
 ``n_devices`` (planning is host work), from the O(nnz) membership
 pairs instead of the reference's ``(N, kmax)`` rank table.  Execution
-runs a one-device plan's tiles together where the reference ``lax.map``s
-inside ``shard_map``: one launch counts every tile's rp-owned pairs
-(``mbr_join.ops.tile_rp_counts``) or, for the raw count
-(``dedup="none"``), every tile's pairs (``tile_raw_counts``), and
-count, scan and emit list every tile's pairs (``tile_pair_list``),
-concatenated in slot order where the reference ``all_gather``s.  A plan
-for more devices, or a ``mesh``, raises (ROADMAP Queue 1 item 10).
+runs every tile of a plan together, for any ``n_devices``, where the
+reference ``lax.map``s inside ``shard_map``: the plan's ``(D, Tpd,
+...)`` arrays are viewed as ``(D·Tpd, ...)``, one launch counts every
+tile's rp-owned pairs (``mbr_join.ops.tile_rp_counts``) or, for the
+raw count (``dedup="none"``), every tile's pairs (``tile_raw_counts``),
+and the sum stands for the reference's ``psum``; count, scan and emit
+list every tile's pairs (``tile_pair_list``), device row after device
+row, which is the reference's ``all_gather``.  A ``mesh`` raises
+(ROADMAP Queue 1 item 10).
 
 Live sizes.  The reference joins every tile at the global padded
 ``cap_r x cap_s``, which under skew is quadratic waste (one hotspot
@@ -160,43 +162,47 @@ def plan_join(method: str, r, s, payload: int, n_devices: int,
 # execution
 # --------------------------------------------------------------------------
 
-def _one_device(plan: JoinPlan, mesh) -> None:
-    """Raise for what is not ported: a mesh, or a plan for more than one
-    device."""
+def _one_card(plan: JoinPlan, mesh) -> tuple:
+    """A plan's tiles as one card's: ``(r_tiles, s_tiles, r_ids, s_ids,
+    tile_boxes, live_r, live_s)`` with the device axis folded into the
+    tile axis (free views; the live sizes on the host).  A mesh raises
+    (ROADMAP Queue 1 item 10)."""
     if mesh is not None:
         raise not_ported("mesh", "Queue 1 item 10")
-    if plan.r_tiles.shape[0] > 1:
-        raise not_ported("multi-device join", "Queue 1 item 10")
+    return tuple(a.flatten(0, 1) for a in (plan.r_tiles, plan.s_tiles,
+                                           plan.r_ids, plan.s_ids,
+                                           plan.tile_boxes)) + (
+        plan.live_r.reshape(-1), plan.live_s.reshape(-1))
 
 
 def _meta(plan: JoinPlan):
     """The batched passes' work items on the plan's card (None on the
-    CPU), laid out once a plan."""
+    CPU), laid out once a plan over every device row's tiles."""
     if plan.meta is None and plan.r_tiles.device.type == "cuda":
-        plan.meta = mops.kernel.tile_meta(plan.live_r[0], plan.live_s[0],
+        plan.meta = mops.kernel.tile_meta(plan.live_r.reshape(-1),
+                                          plan.live_s.reshape(-1),
                                           plan.r_tiles.device)
     return plan.meta
 
 
 def tile_counts(plan: JoinPlan, mesh=None, axis: str | None = None,
                 dedup: str = "rp") -> torch.Tensor:
-    """Per-tile pair counts of a one-device plan -> (Tpd,) int64 (0 for
-    tiles with no live pair); ``dedup`` as in ``run_join_count``.  Either
-    count is one batched pass over every tile."""
-    _one_device(plan, mesh)
+    """Per-tile pair counts -> (D·Tpd,) int64 in the plan's (device,
+    slot) order (0 for slots with no live pair); ``dedup`` as in
+    ``run_join_count``.  Either count is one batched pass over every
+    tile of every device row."""
+    rt, st, _, _, tb, live_r, live_s = _one_card(plan, mesh)
     if dedup == "none":
-        return mops.tile_raw_counts(plan.r_tiles[0], plan.s_tiles[0],
-                                    plan.live_r[0], plan.live_s[0],
-                                    _meta(plan))
-    return mops.tile_rp_counts(
-        plan.r_tiles[0], plan.s_tiles[0], plan.tile_boxes[0], plan.universe,
-        plan.live_r[0], plan.live_s[0], _meta(plan))
+        return mops.tile_raw_counts(rt, st, live_r, live_s, _meta(plan))
+    return mops.tile_rp_counts(rt, st, tb, plan.universe, live_r, live_s,
+                               _meta(plan))
 
 
 def run_join_count(plan: JoinPlan, mesh=None, axis: str | None = None,
                    dedup: str = "rp") -> int:
-    """Execute a planned join count.  With ``dedup='rp'`` the result is
-    the exact duplicate-free pair count for non-overlapping layouts;
+    """Execute a planned join count: the sum of every device row's tile
+    counts (the reference's ``psum``).  With ``dedup='rp'`` the result
+    is the exact duplicate-free pair count for non-overlapping layouts;
     ``dedup='none'`` returns the raw MASJ count (replicated pairs
     included)."""
     return int(tile_counts(plan, mesh, axis, dedup).sum())
@@ -219,8 +225,9 @@ def masj_pairs(plan: JoinPlan, mesh=None, axis: str | None = None,
                max_pairs_per_tile: int = 4096, stats: dict | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The paper's MASJ: every tile's pairs (duplicates included),
-    gathered -> ``(rid, sid, uniq)``, ``uniq`` marking the first copy
-    of each distinct pair (``dedup.unique_pairs``).
+    gathered device row after device row (the reference's
+    ``all_gather``) -> ``(rid, sid, uniq)``, ``uniq`` marking the first
+    copy of each distinct pair (``dedup.unique_pairs``).
 
     As in the reference, a tile with more than ``max_pairs_per_tile``
     pairs keeps its first ones and silently drops the rest; ``stats``,
@@ -229,10 +236,9 @@ def masj_pairs(plan: JoinPlan, mesh=None, axis: str | None = None,
     reference pads every tile's list to ``max_pairs_per_tile`` with
     (-1, -1), which ``unique_pairs`` never counts.
     """
-    _one_device(plan, mesh)
-    rid, sid, n = mops.tile_pair_list(
-        plan.r_tiles[0], plan.s_tiles[0], plan.r_ids[0], plan.s_ids[0],
-        plan.live_r[0], plan.live_s[0], max_pairs_per_tile, _meta(plan))
+    rt, st, rids, sids, _, live_r, live_s = _one_card(plan, mesh)
+    rid, sid, n = mops.tile_pair_list(rt, st, rids, sids, live_r, live_s,
+                                      max_pairs_per_tile, _meta(plan))
     uniq = dd.unique_pairs(rid, sid)[1]
     if stats is not None:
         stats.update(

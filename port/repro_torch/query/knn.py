@@ -304,6 +304,33 @@ def knn_partial(pts: torch.Tensor, canon_tiles: torch.Tensor,
     return _refine_topk(k, pts, qi, ti, si, canon_tiles, ids, max_cand)
 
 
+def merge_knn_partials(pids: torch.Tensor, pd2: torch.Tensor,
+                       slots: torch.Tensor, qpd: int, k: int
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-way merge of per-owner top-k frontiers by ``(distance, id)``.
+
+    pids/pd2: (..., D, M, k) per-owner partial answers (entry (o, m) is
+    owner ``o``'s local top-k for this home's ``m``-th message to it);
+    slots: (..., D, M) home query slot of each message (-1 padding) ->
+    ``(nn_ids[..., qpd, k] int32, nn_d2[..., qpd, k] f32)``; leading
+    dims are homes merged at once.  Each query meets each owner at most
+    once and each canonical id lives on one owner, so a per-query
+    ``(D, k)`` table re-sorted by the key of ``_refine_topk`` gives the
+    dense answer's order: the reference's two stable argsorts (id, then
+    distance) order by the same pair.
+    """
+    live = (slots >= 0)[..., None]
+    keyed = torch.where(live & (pids >= 0), pids, _BIG_ID).to(torch.int32)
+    dk = torch.where(live, pd2, torch.inf).to(torch.float32)
+    key = ((dk.view(torch.int32).long() << 32) | keyed.long())
+    pad = (_INF_BITS << 32) | _BIG_ID
+    top = torch.sort(range_mod._owner_table(key, slots, qpd, pad),
+                     dim=-1).values[..., :k]
+    d2 = (top >> 32).to(torch.int32).view(torch.float32)
+    cid = (top & 0xFFFFFFFF).to(torch.int32)
+    return torch.where(d2 < math.inf, cid, -1), d2
+
+
 def knn_fanout(pts: torch.Tensor, kth_d2: torch.Tensor,
                part_boxes: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Per-query MINDIST fan-out: partitions a best-first search must

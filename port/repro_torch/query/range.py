@@ -166,3 +166,80 @@ def pruned_range_ids(qboxes: torch.Tensor, canon_tiles: torch.Tensor,
     qi, ti, si = gathered_hits(qboxes, canon_tiles, cand, chunk_boxes, alive,
                                extent=extent)
     return ids_answer(qi, ids[ti, si], qboxes.shape[0], max_hits)
+
+
+# --------------------------------------------------------------------------
+# owner-partial merges (the sharded executor's home-side reduce)
+# --------------------------------------------------------------------------
+
+def _home_index(slots: torch.Tensor, qpd: int) -> torch.Tensor:
+    """Each message's home query slot, dead messages (``-1``) sent to a
+    trash slot ``qpd`` that the merges slice off -> int64, as ``slots``."""
+    return torch.where(slots >= 0, slots, qpd).long()
+
+
+def merge_owner_counts(partials: torch.Tensor, slots: torch.Tensor,
+                       qpd: int) -> torch.Tensor:
+    """Sum per-owner partial counts back onto home query slots.
+
+    partials: (..., D, M) int32, entry (o, m) owner ``o``'s count for
+    this home's ``m``-th message to it; slots: (..., D, M) int32 home
+    query slot of each message (-1 = padding) -> (..., qpd) int32.
+    Leading dims are homes merged at once.  Exact: canonical copies
+    partition the ids across tiles and the placement the tiles across
+    owners, so every hit is counted by exactly one owner and the merge
+    is an integer sum.
+    """
+    lead = partials.shape[:-2]
+    idx = _home_index(slots, qpd).flatten(-2)
+    vals = torch.where(slots >= 0, partials, 0).flatten(-2).to(torch.int32)
+    out = torch.zeros(lead + (qpd + 1,), dtype=torch.int32,
+                      device=partials.device)
+    return out.scatter_add_(-1, idx, vals)[..., :qpd]
+
+
+def _owner_table(vals: torch.Tensor, slots: torch.Tensor, qpd: int,
+                 fill) -> torch.Tensor:
+    """(..., D, M, w) per-message rows -> (..., qpd, D·w): row ``s``
+    holds owner ``o``'s row of the message carrying slot ``s`` in
+    columns ``o·w .. o·w + w``, ``fill`` where no message carries it
+    (a query reaches each owner at most once, so no cell is written
+    twice outside the trash slot)."""
+    lead = vals.shape[:-3]
+    d, m, w = vals.shape[-3:]
+    b = int(np.prod(lead))
+    tbl = torch.full((b, qpd + 1, d, w), fill, dtype=vals.dtype,
+                     device=vals.device)
+    dev = vals.device
+    tbl[torch.arange(b, device=dev)[:, None, None],
+        _home_index(slots, qpd).reshape(b, d, m),
+        torch.arange(d, device=dev)[None, :, None]] = vals.reshape(b, d, m, w)
+    return tbl[:, :qpd].reshape(lead + (qpd, d * w))
+
+
+def merge_owner_ids(pids: torch.Tensor, pcounts: torch.Tensor,
+                    slots: torch.Tensor, qpd: int, max_hits: int
+                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Union per-owner ascending id partials into the ``range_ids``
+    contract.
+
+    pids: (..., D, M, mh) ascending local hit ids (-1 padded) of each
+    owner; pcounts: (..., D, M) true (untruncated) local counts; slots:
+    (..., D, M) home query slots (-1 padding) -> ``(hit_ids[..., qpd,
+    max_hits] int32, counts[..., qpd] int32, overflow[..., qpd])``.
+    Each query reaches each owner at most once and each canonical id
+    lives on exactly one owner, so the union has no duplicate and one
+    ascending sort of each query's row gives the dense path's ids.  An
+    owner that truncated (more than ``mh`` hits) makes ``counts >
+    max_hits`` when ``mh == max_hits``, so it is flagged, never silent.
+    """
+    keyed = torch.where((slots >= 0)[..., None] & (pids >= 0), pids,
+                        _BIG_ID).to(torch.int32)
+    flat = _owner_table(keyed, slots, qpd, _BIG_ID)
+    if flat.shape[-1] < max_hits:
+        flat = torch.nn.functional.pad(flat, (0, max_hits - flat.shape[-1]),
+                                       value=_BIG_ID)
+    top = torch.sort(flat, dim=-1).values[..., :max_hits]
+    hit_ids = torch.where(top < _BIG_ID, top, -1)
+    counts = merge_owner_counts(pcounts, slots, qpd)
+    return hit_ids, counts, counts > max_hits

@@ -5,17 +5,26 @@
   candidate lists, the region fan-out metric and ``HeatTracker``.
 - ``layout``: ``stage_tiles`` (MASJ tiles, canonical marks, probe
   boxes, the ``"x"`` and ``"hilbert"`` local indexes, the alive mask),
-  ``StagedLayout``, the replicated single-device executors and the
-  ingest lifecycle (``append``, ``delete``, ``update``, ``compact``).
+  ``StagedLayout``, the ``TileLayout`` protocol and its two placements
+  (``ReplicatedTiles``; ``ShardedTiles`` over ``shard_staged``'s
+  ``ShardedLayout``, ``pack_queries``), and the ingest lifecycle
+  (``append``, ``delete``, ``update``, ``compact``).
+- ``exchange``: the sharded placement's owner-routed scatter, probe
+  and merge, the owners simulated on one device.
 - ``engine``: ``SpatialServer`` and ``WidthPolicy``.
 """
-from . import config, engine, layout, router  # noqa: F401
+from . import config, engine, exchange, layout, router  # noqa: F401
 from .config import PlacementPolicy, ServeConfig  # noqa: F401
 from .engine import SpatialServer, WidthPolicy  # noqa: F401
 from .layout import (  # noqa: F401
     ReplicatedTiles,
+    ShardedLayout,
+    ShardedTiles,
     StagedLayout,
+    TileLayout,
     build_tiles,
+    pack_queries,
+    shard_staged,
     stage_tiles,
     staged_from_numpy,
 )

@@ -1,5 +1,6 @@
-"""The batched spatial query server (twin of ``repro.serve.engine``,
-replicated placement on one device).
+"""The batched spatial query server (twin of ``repro.serve.engine`` on
+one device: the replicated placement, and the sharded placement with
+its owners simulated).
 
 A dataset is partitioned and MASJ-staged once; each range batch is
 then answered in three steps (the pruned probe, the default):
@@ -29,9 +30,16 @@ Answers after any ingest sequence equal a fresh staging of the live
 set.  ``rebalance`` is the reference's no-op report under the
 replicated placement.
 
-Features of the reference server not ported yet (sharded and heat
-placements, ``rebalance_every``, meshes) raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+The server is written once against the ``TileLayout`` protocol
+(``serve.layout``): ``placement="replicated"`` keeps the whole staging
+on the device, ``placement="sharded"`` (``ServeConfig.shards`` owners)
+places tiles on owners and runs each batch through the owner-routed
+exchange (``serve.exchange``), every owner simulated on the one device
+(``mesh=None``); the answers are the same bits.
+
+Features of the reference server not ported yet (the heat placement,
+the sharded ``rebalance``, ``rebalance_every``, meshes) raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 from __future__ import annotations
 
@@ -48,7 +56,7 @@ from ..kernels.range_probe import ops as rops
 from ..query import knn as knn_mod
 from . import router
 from .config import ServeConfig
-from .layout import ReplicatedTiles, StagedLayout, build_tiles
+from .layout import ShardedLayout, StagedLayout, TileLayout, build_tiles
 
 log = logging.getLogger(__name__)
 
@@ -103,8 +111,6 @@ class WidthPolicy:
 
 
 def _check_ported(config: ServeConfig) -> None:
-    if config.placement == "sharded":
-        raise not_ported("placement='sharded'", "Queue 1 item 10")
     if config.placement == "heat":
         raise not_ported("placement='heat'", "Queue 1 item 11")
     if config.policy.rebalance_every is not None:
@@ -119,10 +125,11 @@ class SpatialServer:
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
     ``config`` is a frozen ``ServeConfig``; the port serves the
-    replicated placement, ``probe`` ``"pruned"`` (default) or
-    ``"dense"`` (also a per-call ``pruned=`` override), and
-    ``local_index`` ``"x"`` (default), ``"hilbert"`` or ``"off"``, on
-    any of the six layouts.
+    ``"replicated"`` and ``"sharded"`` placements (the latter's
+    ``shards`` owners simulated on the device), ``probe`` ``"pruned"``
+    (default) or ``"dense"`` (also a per-call ``pruned=`` override),
+    and ``local_index`` ``"x"`` (default), ``"hilbert"`` or ``"off"``,
+    on any of the six layouts.
     """
 
     def __init__(self, parts: api.Partitioning, mbrs,
@@ -137,7 +144,7 @@ class SpatialServer:
         mbrs = torch.as_tensor(mbrs, dtype=torch.float32, device=self.device)
         self.parts = api.Partitioning(parts.boxes.to(self.device),
                                       parts.valid.to(self.device))
-        self.tiles: ReplicatedTiles = build_tiles(self.parts, mbrs, config)
+        self.tiles: TileLayout = build_tiles(self.parts, mbrs, config)
         self.stats = self.tiles.stats
         self.stats["method"] = method
         self.widths = WidthPolicy(cap=self.stats["t_live"])
@@ -169,8 +176,30 @@ class SpatialServer:
         return self.tiles.chunk_boxes
 
     @property
-    def layout(self) -> StagedLayout:
-        return self.tiles.staged
+    def uni(self) -> torch.Tensor:
+        return self.tiles.uni
+
+    @property
+    def layout(self) -> StagedLayout | None:
+        """The replicated staging (None under ``placement='sharded'``)."""
+        return getattr(self.tiles, "staged", None)
+
+    @property
+    def slayout(self) -> ShardedLayout | None:
+        """The sharded staging (None under ``placement='replicated'``)."""
+        return getattr(self.tiles, "slayout", None)
+
+    @property
+    def shards(self) -> int:
+        return self.tiles.shards
+
+    @property
+    def n_devices(self) -> int:
+        return self.tiles.n_devices
+
+    @property
+    def _oracle_np(self):
+        return self.tiles.oracle_np
 
     def _queries(self, qboxes) -> torch.Tensor:
         """Query boxes (Q, 4) or points (Q, 2) as float32 on the device."""
@@ -191,7 +220,8 @@ class SpatialServer:
         return float(rops.chunk_skip_rate(qboxes, self.chunk_boxes, cand))
 
     def resident_tile_bytes(self) -> int:
-        """Device bytes of the resident canonical tiles and ids."""
+        """Device bytes of the resident canonical tiles and ids, a
+        device (an owner's shard under ``placement='sharded'``)."""
         return self.tiles.resident_tile_bytes()
 
     # -- streaming ---------------------------------------------------------
@@ -236,7 +266,8 @@ class SpatialServer:
     def rebalance(self) -> dict:
         """Snapshot the heat tracker and hand it to the layout: under the
         replicated placement no tile has an owner to move, so the report
-        is the reference's no-op."""
+        is the reference's no-op; the sharded placement's re-plan raises
+        (ROADMAP Queue 1 item 11)."""
         heat, cooc = self.heat.snapshot()
         return self.tiles.rebalance(heat, cooc)
 

@@ -1,5 +1,6 @@
-"""Staging, the replicated single-device tile layout and its ingest
-lifecycle (the replicated half of ``repro.serve.layout``).
+"""Staging, the ``TileLayout`` protocol, its replicated and sharded
+placements, and the streaming ingest lifecycle (twin of
+``repro.serve.layout``).
 
 ``stage_tiles`` MASJ-stages a dataset under a ``Partitioning`` into
 ``(T, cap, 4)`` member tiles: every object is copied to every tile
@@ -8,11 +9,21 @@ tile gets a *probe box* (tight MBR over its canonical members) for
 routing, and with a local index (``local_index="x"``: canonical xmin;
 ``"hilbert"``: the Hilbert key of the canonical centre) each tile's
 slots are sorted and summarised by one chunk box per 128 slots for the
-chunk-skipping kernels.  ``ReplicatedTiles`` serves range and kNN
-batches against one such staging on one device, routed (pruned) or
-over every tile (the dense oracle), and streams ``append``,
-``delete``, ``update`` and ``compact`` into it as O(M) scatters, with
-an overflow re-stage of the live set.
+chunk-skipping kernels.  Two placements serve range and kNN batches
+against a staging, routed (pruned) or over every tile (the dense
+oracle):
+
+- ``ReplicatedTiles``: the whole staging on the one device;
+- ``ShardedTiles``: tiles placed on ``D`` owners by capped LPT
+  (``shard_staged``, at most ``ceil(T/D)`` tiles an owner), each batch
+  run through the owner-routed exchange (``serve.exchange``).  There
+  is no mesh: the ``D`` owners are simulated on the one device, their
+  shards one contiguous ``(D, T_rows, ...)`` array, so each move of the
+  exchange is one launch over every owner.
+
+Both stream ``append``, ``delete``, ``update`` and ``compact`` into the
+staging as O(M) scatters, with an overflow re-stage of the live set
+(``_TilesBase``, the lifecycle written once).
 
 Membership is built blockwise over objects as (object, tile) pairs
 (``core.partition.assign.membership``): the reference's dense
@@ -25,11 +36,13 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import time
+from typing import Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
-from ..core import geometry
+from ..core import geometry, placement
 from ..core.partition import api
 from ..core.partition.assign import assign_from_pairs, membership, round_up
 from ..device import not_ported
@@ -37,7 +50,7 @@ from ..kernels.hilbert import ops as hilbert_ops
 from ..kernels.range_probe import ops as rops
 from ..query import knn as knn_mod
 from ..query import range as range_mod
-from . import router
+from . import exchange, router
 from .config import ServeConfig
 
 _KEY_BLOCK_SLOTS = 1 << 25   # slots per block of Hilbert sort keys
@@ -253,25 +266,300 @@ def _host_np(x) -> np.ndarray:
     return np.asarray(x)
 
 
-class ReplicatedTiles:
-    """The full staging on one device, and its ingest lifecycle.
+# --------------------------------------------------------------------------
+# sharded staging: tiles placed on owners, shards built on the device
+# --------------------------------------------------------------------------
 
-    Each routed batch probes its candidate tiles with the gathered
-    kernels (chunk-skipping when the staging carries a local index);
-    the dense oracle probes every tile with the dense kernels.  Every
-    probe passes the alive mask and its live extent.  Stats dicts equal
-    the reference's with ``mesh=None``.
+@dataclasses.dataclass(frozen=True)
+class ShardedLayout:
+    """Owner-sharded staging: every owner's tile shard + the routing maps.
+
+    canon_shards : (D, T_rows, cap, 4) canonical member MBRs, one shard
+                   an owner (sentinel rows past an owner's tile count)
+    id_shards    : (D, T_rows, cap) int32 member ids (-1 padding)
+    alive_shards : (D, T_rows, cap) bool (False in padding rows)
+    chunk_shards : (D, T_rows, C, 4) owner-local chunk boxes (None when
+                   staged with ``local_index="off"``)
+    probe_boxes  : (T, 4) *global* probe boxes: routing scans them
+    chunk_boxes  : (T, C, 4) *global* chunk boxes, or None
+    uni          : (4,) dataset universe
+    owner, local : (T,) int32 host maps, global tile -> (owner, row)
+    rep_owner, rep_local : the hot-tile replica maps (heat placement,
+                   ROADMAP Queue 1 item 11); None here
+
+    The four shard arrays are contiguous, so ``(D·T_rows, ...)`` is a
+    free view of each (``exchange.Shards``).
+    """
+
+    canon_shards: torch.Tensor
+    id_shards: torch.Tensor
+    alive_shards: torch.Tensor
+    chunk_shards: torch.Tensor | None
+    probe_boxes: torch.Tensor
+    chunk_boxes: torch.Tensor | None
+    uni: torch.Tensor
+    owner: np.ndarray
+    local: np.ndarray
+    rep_owner: np.ndarray | None = None
+    rep_local: np.ndarray | None = None
+
+
+def _scatter_shards(canon: torch.Tensor, ids: torch.Tensor,
+                    alive: torch.Tensor, chunk: torch.Tensor | None,
+                    owner: np.ndarray, local: np.ndarray, t_rows: int,
+                    d: int):
+    """The global staging's rows gathered into ``(D, t_rows, ...)``
+    shards on its own device: shard row ``o·t_rows + l`` reads the tile
+    the (owner, local) maps place there; padding rows get the sentinel
+    box, id -1 and ``alive`` False (and sentinel chunk boxes).  No host
+    round trip: at 8 M objects that would move about 5.8 GB each way."""
+    dev = ids.device
+    src = np.full(d * t_rows, -1, np.int64)
+    src[owner.astype(np.int64) * t_rows + local] = np.arange(owner.shape[0])
+    src_t = torch.from_numpy(src).to(dev)
+    pad = src_t < 0
+    take = src_t.clamp_min(0)
+
+    def gather(a, fill):
+        out = a.index_select(0, take)
+        out[pad] = torch.as_tensor(fill, dtype=a.dtype, device=dev)
+        return out.view((d, t_rows) + tuple(a.shape[1:]))
+
+    sentinel = geometry.sentinel(dev)
+    return (gather(canon, sentinel), gather(ids, -1), gather(alive, False),
+            None if chunk is None else gather(chunk, sentinel))
+
+
+def shard_staged(layout: StagedLayout, stats: dict, n_shards: int,
+                 mesh=None, prev_owner: np.ndarray | None = None,
+                 cooc: np.ndarray | None = None, replicate_top: int = 0
+                 ) -> tuple[ShardedLayout, dict]:
+    """Shard a staged layout's tiles across ``n_shards`` owners.
+
+    Placement is capped LPT on per-tile member counts
+    (``core.placement.shard_tiles``): no owner holds more than
+    ``ceil(T/D)`` tiles, so each owner's shard is at most one tile over
+    an even split.  ``prev_owner`` (a streaming re-stage) adds the
+    moved-tile count to the stats; ``cooc`` switches to the
+    co-locating planner.  -> ``(ShardedLayout, stats)``.  The reference
+    also returns a host copy of the unsharded staging for its dense
+    oracle; the port rebuilds that oracle on the device from the
+    shards (``ShardedTiles._oracle``).  A mesh and hot-tile replicas
+    (``replicate_top > 0``) raise (ROADMAP Queue 1 items 10 and 11).
+    """
+    if mesh is not None:
+        raise not_ported("mesh", "Queue 1 item 10")
+    d = max(1, int(n_shards))
+    if replicate_top > 0 and d > 1:
+        raise not_ported("PlacementPolicy.replicate_top > 0",
+                         "Queue 1 item 11")
+    member_counts = ((layout.ids >= 0).sum(1).cpu().numpy()
+                     .astype(np.float64))
+    owner, local, t_local, pstats = placement.shard_tiles(
+        member_counts, d, prev_owner=prev_owner, cooc=cooc)
+    canon_sh, id_sh, alive_sh, chunk_sh = _scatter_shards(
+        layout.canon_tiles, layout.ids, layout.alive, layout.chunk_boxes,
+        owner, local, t_local, d)
+    slayout = ShardedLayout(canon_shards=canon_sh, id_shards=id_sh,
+                            alive_shards=alive_sh, chunk_shards=chunk_sh,
+                            probe_boxes=layout.probe_boxes,
+                            chunk_boxes=layout.chunk_boxes, uni=layout.uni,
+                            owner=owner, local=local)
+    stats = dict(stats, shards=d, t_local=t_local,
+                 shard_bytes=sum(_nbytes(a) for a in (canon_sh, id_sh,
+                                                      alive_sh)) // d,
+                 placement_skew=pstats["skew"], replicated_tiles=0)
+    for key in ("cut_before", "cut_after"):
+        if key in pstats:
+            stats[key] = pstats[key]
+    if "moved" in pstats:
+        stats["moved_tiles"] = pstats["moved"]
+    return slayout, stats
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+# --------------------------------------------------------------------------
+# query packing (host): fan-out-weighted LPT onto home devices
+# --------------------------------------------------------------------------
+
+def pack_queries(costs: np.ndarray, n_devices: int
+                 ) -> tuple[np.ndarray, dict]:
+    """LPT-pack queries onto devices by per-query cost.
+
+    costs: (Q,) (routed fan-out on the pruned path) -> ``(slots[D, Qpd]
+    int32 query indices, stats)``, -1 slots padding; Qpd is the largest
+    group.  An all-zero cost vector falls back to uniform costs, so
+    queries still spread instead of piling onto device 0.
+    """
+    d = max(1, n_devices)
+    costs = np.asarray(costs).astype(np.float64)
+    if costs.size and not np.any(costs > 0):
+        costs = np.ones_like(costs)
+    dev, makespan, mean_load = placement.lpt_pack(costs, d)
+    groups = [np.flatnonzero(dev == i) for i in range(d)]
+    qpd = max(1, max(len(g) for g in groups))
+    slots = np.full((d, qpd), -1, np.int32)
+    for i, g in enumerate(groups):
+        slots[i, :len(g)] = g
+    stats = dict(makespan=makespan, mean_load=mean_load,
+                 skew=makespan / max(mean_load, 1e-9), qpd=qpd)
+    return slots, stats
+
+
+def _pack_rows(arr, slots: np.ndarray, pad):
+    """Scatter per-query rows into the packed (D, Qpd, ...) slot grid,
+    ``pad`` in the -1 slots.  A tensor stays on its device (numpy in,
+    numpy out, as the reference)."""
+    if isinstance(arr, torch.Tensor):
+        s = torch.from_numpy(np.asarray(slots, np.int64)).to(arr.device)
+        pad_t = torch.as_tensor(pad, dtype=arr.dtype, device=arr.device)
+        out = pad_t.expand(tuple(s.shape) + tuple(pad_t.shape)).clone()
+        live = s >= 0
+        out[live] = arr[s[live]]
+        return out
+    a = np.asarray(arr)
+    pad = np.asarray(pad, a.dtype)
+    out = np.broadcast_to(pad, slots.shape + pad.shape).copy()
+    live = slots >= 0
+    out[live] = a[slots[live]]
+    return out
+
+
+def _unpack_rows(x, slots: np.ndarray, n_queries: int):
+    """Invert ``_pack_rows``: (D, Qpd, ...) -> per-query rows in the
+    batch's order (a tensor stays on its device)."""
+    if isinstance(x, torch.Tensor):
+        s = torch.from_numpy(np.asarray(slots, np.int64).ravel()).to(x.device)
+        x = x.reshape((slots.size,) + tuple(x.shape[2:]))
+        live = s >= 0
+        res = torch.zeros((n_queries,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        res[s[live]] = x[live]
+        return res
+    x = np.asarray(x)
+    x = x.reshape((slots.size,) + x.shape[2:])
+    live = slots >= 0
+    res = np.zeros((n_queries,) + x.shape[1:], x.dtype)
+    res[slots[live]] = x[live.ravel()]
+    return res
+
+
+def _knn_cost_proxy(uni_np: np.ndarray, n: int, dist, k: int) -> np.ndarray:
+    """LPT packing weight for a kNN batch: the tiles the first deepening
+    box would touch, at the radius the executor starts from.  The
+    diagonal is the reference's float64 ``np.linalg.norm`` cast to
+    float32; the packing decides the exchange tables, so a one-ulp
+    radius would change them."""
+    diag = float(np.linalg.norm(uni_np[2:] - uni_np[:2]))
+    r0 = float(knn_mod.initial_radius(
+        torch.tensor(diag, dtype=torch.float32), k, n))
+    return (1.0 + np.sum(_host_np(dist) <= r0, axis=1)).astype(np.float64)
+
+
+# --------------------------------------------------------------------------
+# the protocol
+# --------------------------------------------------------------------------
+
+@runtime_checkable
+class TileLayout(Protocol):
+    """What ``SpatialServer`` serves against: one contract, two
+    placements (``ReplicatedTiles``, ``ShardedTiles``).
+
+    ``mode`` names the routed executor in answer stats (``"pruned"``
+    replicated, ``"sharded"`` owner-routed).  The routed executors take
+    the server's ``(Q, F)`` candidate lists and LPT cost vector;
+    ``knn_attempt`` routes its own MINDIST frontier at width ``f`` and
+    returns the excluded distance the exactness check needs; the
+    ``dense_*`` trio is the all-tile oracle; ``append`` / ``delete`` /
+    ``update`` / ``compact`` are the ingest lifecycle, mutating
+    ``stats`` in place (the server shares the dict).
+    """
+
+    parts: api.Partitioning
+    config: ServeConfig
+    stats: dict
+    mode: str
+    shards: int
+
+    @property
+    def probe_boxes(self) -> torch.Tensor: ...
+
+    @property
+    def chunk_boxes(self) -> torch.Tensor | None: ...
+
+    @property
+    def uni(self) -> torch.Tensor: ...
+
+    def resident_tile_bytes(self) -> int: ...
+
+    def append(self, mbrs) -> dict: ...
+
+    def delete(self, ids) -> dict: ...
+
+    def update(self, ids, mbrs) -> dict: ...
+
+    def compact(self) -> dict: ...
+
+    def rebalance(self, heat=None, cooc=None) -> dict: ...
+
+    def range_counts(self, qboxes, cand, costs): ...
+
+    def range_ids(self, qboxes, cand, costs, max_hits: int): ...
+
+    def knn_attempt(self, pts, k: int, max_cand: int, f: int): ...
+
+    def dense_range_counts(self, qboxes): ...
+
+    def dense_range_ids(self, qboxes, max_hits: int): ...
+
+    def dense_knn(self, pts, k: int, max_cand: int): ...
+
+
+class _Upload:
+    """Host plan arrays -> device tensors, each array uploaded once (it
+    is held meanwhile, so its ``id`` cannot be reused); ``nbytes``
+    counts what went up."""
+
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.sent: dict[int, tuple[np.ndarray, torch.Tensor]] = {}
+
+    def __call__(self, x: np.ndarray) -> torch.Tensor:
+        if id(x) not in self.sent:
+            self.sent[id(x)] = (x, torch.from_numpy(
+                np.ascontiguousarray(x)).to(self.dev))
+        return self.sent[id(x)][1]
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(_nbytes(t) for _, t in self.sent.values()))
+
+
+class _TilesBase:
+    """The staging mirrors and the streaming ingest lifecycle, shared by
+    both placements.
+
+    Subclasses implement ``_install(layout)`` (build the resident
+    arrays from a fresh ``StagedLayout``), ``_release()`` (drop them
+    before a re-stage), ``_scatter(plan)`` (the O(M)
+    device refresh of the cells and rows a plan names, returning the
+    bytes uploaded), ``_device_arrays()`` (the resident staging as the
+    unsharded ``(canon, ids, probe, chunk, alive, uni)`` tensors),
+    ``_device_ids()`` (every resident row's ids) and ``device``.
 
     Ingest (``append``, ``delete``, ``update``, ``compact``) is the
-    reference's ``_TilesBase`` lifecycle: host numpy mirrors of the
-    staging are the source of truth, each mutation emits a *scatter
-    plan* of the cells and rows it touched, and ``_scatter`` writes
-    exactly those into the resident staging with ``index_put_``.  The
-    mirrors are built from the device staging at the first mutation
-    (about 6 GB of host memory at 8 M objects, which a server that
-    never ingests never pays) and dropped on re-stage.  The live extent
-    follows ``alive``: it rises to cover every slot a plan writes alive,
-    stays on tombstones (a larger extent is still exact), and is
+    reference's lifecycle: host numpy mirrors of the staging are the
+    source of truth, each mutation emits a *scatter plan* of the cells
+    and rows it touched, and ``_scatter`` writes exactly those into the
+    resident arrays with ``index_put_``.  The mirrors are built from
+    the device at the first mutation (about 6 GB of host memory at 8 M
+    objects, which a server that never ingests never pays) and dropped
+    on re-stage.  Each placement keeps a live extent a resident row in
+    step with ``alive``: it rises to cover every slot a plan writes
+    alive, stays on tombstones (a larger extent is still exact), and is
     recomputed for compacted rows and on every install.
 
     A scatter plan is a dict of optional entries, all host numpy:
@@ -285,7 +573,9 @@ class ReplicatedTiles:
       ids, alive, probe, chunk)`` with leading dim R.
     """
 
-    mode = "pruned"
+    mode = "base"
+    shards = 1
+    n_devices = 1
 
     def __init__(self, parts: api.Partitioning, layout: StagedLayout,
                  stats: dict, config: ServeConfig):
@@ -300,27 +590,6 @@ class ReplicatedTiles:
         self._canon_np = None        # no host mirrors until a mutation
         self._install(layout)
 
-    def _install(self, layout: StagedLayout) -> None:
-        # the executors read canonical data only: drop the all-copies
-        # member tiles instead of keeping (T, cap, 4) bytes resident
-        self.staged = dataclasses.replace(layout, tiles=None)
-        # (T,) int32 live extent of the alive mask: the routed and dense
-        # count and hit-list kernels stop each tile's walk there
-        self.extent = rops.live_extent(layout.alive)
-
-    @property
-    def probe_boxes(self) -> torch.Tensor:
-        return self.staged.probe_boxes
-
-    @property
-    def chunk_boxes(self) -> torch.Tensor | None:
-        return self.staged.chunk_boxes
-
-    def resident_tile_bytes(self) -> int:
-        lay = self.staged
-        return (lay.canon_tiles.numel() * lay.canon_tiles.element_size()
-                + lay.ids.numel() * lay.ids.element_size())
-
     # -- host mirrors (the ingest path's source of truth) ---------------
 
     def _ensure_mirror(self) -> None:
@@ -331,14 +600,13 @@ class ReplicatedTiles:
         ids absent from the staging are exactly the deleted ones."""
         if self._canon_np is not None:
             return
-        lay = self.staged
-        self._canon_np = _to_host(lay.canon_tiles)
-        self._ids_np = _to_host(lay.ids)
-        self._probe_np = _to_host(lay.probe_boxes)
-        self._chunk_np = (None if lay.chunk_boxes is None
-                          else _to_host(lay.chunk_boxes))
-        self._alive_np = _to_host(lay.alive)
-        self._uni_np = _to_host(lay.uni)
+        canon, ids, probe, chunk, alive, uni = self._device_arrays()
+        self._canon_np = _to_host(canon)
+        self._ids_np = _to_host(ids)
+        self._probe_np = _to_host(probe)
+        self._chunk_np = None if chunk is None else _to_host(chunk)
+        self._alive_np = _to_host(alive)
+        self._uni_np = _to_host(uni)
         t = self._ids_np.shape[0]
         self._fill = (self._ids_np >= 0).sum(axis=1).astype(np.int64)
         # per-tile dead canonical slots (the compaction trigger) and
@@ -371,7 +639,7 @@ class ReplicatedTiles:
         """The tightest tile's remaining slack (read off the device
         staging when a re-stage has just dropped the mirrors)."""
         if self._canon_np is None:
-            fill = int((self.staged.ids >= 0).sum(1).max())
+            fill = int((self._device_ids() >= 0).sum(1).max())
         else:
             fill = int(self._fill.max())
         return int(self.stats["cap"] - fill)
@@ -380,7 +648,7 @@ class ReplicatedTiles:
         """MASJ membership with nearest-tile adoption of ``new`` on the
         staging device, as host (object, tile) pairs in object-major
         order: the nonzeros of the reference's (M, kmax) table."""
-        dev = self.staged.ids.device
+        dev = self.device
         obj, part = membership(self.parts, torch.from_numpy(new).to(dev))
         return obj.cpu().numpy(), part.cpu().numpy()
 
@@ -517,7 +785,8 @@ class ReplicatedTiles:
         return report
 
     def rebalance(self, heat=None, cooc=None) -> dict:
-        """Replicated tiles have no owners to move: a no-op report."""
+        """Replicated tiles have no owners to move: a no-op report (the
+        sharded placement overrides it)."""
         return dict(placement=self.config.placement, moved_tiles=0,
                     replicated_tiles=0, bytes_transferred=0)
 
@@ -665,7 +934,7 @@ class ReplicatedTiles:
         if not sum(sizes):
             return [c for _, c in rows]
         b = np.concatenate([self._canon_np[t, c] for t, c in rows])
-        dev = self.staged.ids.device
+        dev = self.device
         keys = hilbert_ops.hilbert_keys(
             torch.from_numpy((b[:, :2] + b[:, 2:]) * 0.5).to(dev),
             torch.from_numpy(self._uni_np).to(dev)).cpu().numpy()
@@ -756,13 +1025,17 @@ class ReplicatedTiles:
         """Re-stage the live dataset plus the not-yet-inserted ``extra``
         batch on the device at a fresh capacity (the max tile count
         plus the effective slack), install it and drop the mirrors.
-        Reclaims every tombstoned slot, canonical and copies.  Returns
-        the bytes of the dataset uploaded."""
+        Reclaims every tombstoned slot, canonical and copies.  The
+        resident arrays are released first (the mirrors hold the data):
+        staging at a grown capacity takes several times the staging in
+        temporaries, and the card then holds one staging at a time.
+        Returns the bytes of the dataset uploaded."""
         boxes, ids = self._dataset_np()
         if extra is not None and len(extra):
             boxes = np.concatenate([boxes, extra], axis=0)
             ids = np.concatenate([ids, np.asarray(extra_ids, np.int32)])
-        dev = self.staged.ids.device
+        dev = self.device
+        self._release()
         layout, stats = stage_tiles(
             self.parts, torch.from_numpy(boxes).to(dev),
             self.config.replace(capacity=None, slack=self._eff_slack),
@@ -774,6 +1047,63 @@ class ReplicatedTiles:
         self._install(layout)
         return int(boxes.nbytes + ids.nbytes)
 
+    @property
+    def uni(self) -> torch.Tensor:
+        return self._device_arrays()[5]
+
+
+class ReplicatedTiles(_TilesBase):
+    """The full staging on the one device; only queries vary.
+
+    Each routed batch probes its candidate tiles with the gathered
+    kernels (chunk-skipping when the staging carries a local index);
+    the dense oracle probes every tile with the dense kernels.  Every
+    probe passes the alive mask and its live extent (``extent``, one a
+    tile).  Stats dicts equal the reference's with ``mesh=None``.
+    """
+
+    mode = "pruned"
+
+    def _install(self, layout: StagedLayout) -> None:
+        # the executors read canonical data only: drop the all-copies
+        # member tiles instead of keeping (T, cap, 4) bytes resident
+        self.staged = dataclasses.replace(layout, tiles=None)
+        # (T,) int32 live extent of the alive mask: the routed and dense
+        # count and hit-list kernels stop each tile's walk there
+        self.extent = rops.live_extent(layout.alive)
+
+    @property
+    def probe_boxes(self) -> torch.Tensor:
+        return self.staged.probe_boxes
+
+    @property
+    def chunk_boxes(self) -> torch.Tensor | None:
+        return self.staged.chunk_boxes
+
+    def resident_tile_bytes(self) -> int:
+        lay = self.staged
+        return (lay.canon_tiles.numel() * lay.canon_tiles.element_size()
+                + lay.ids.numel() * lay.ids.element_size())
+
+    @property
+    def device(self) -> torch.device:
+        return self.staged.ids.device
+
+    @property
+    def uni(self) -> torch.Tensor:
+        return self.staged.uni
+
+    def _device_arrays(self):
+        lay = self.staged
+        return (lay.canon_tiles, lay.ids, lay.probe_boxes, lay.chunk_boxes,
+                lay.alive, lay.uni)
+
+    def _device_ids(self) -> torch.Tensor:
+        return self.staged.ids
+
+    def _release(self) -> None:
+        self.staged = self.extent = None
+
     def _scatter(self, plan: dict) -> int:
         """O(M) device refresh: ``index_put_`` the plan's cells and rows
         into the resident staging, and keep the live extent in step with
@@ -782,15 +1112,7 @@ class ReplicatedTiles:
         if not plan:
             return 0
         lay = self.staged
-        dev = lay.ids.device
-        sent: dict[int, torch.Tensor] = {}
-
-        def put(x: np.ndarray) -> torch.Tensor:
-            # the plan holds every array, so its id is stable meanwhile
-            if id(x) not in sent:
-                sent[id(x)] = torch.from_numpy(
-                    np.ascontiguousarray(x)).to(dev)
-            return sent[id(x)]
+        put = _Upload(lay.ids.device)
 
         def cells(key):
             idx, vals = plan[key]
@@ -825,7 +1147,7 @@ class ReplicatedTiles:
                 lay.chunk_boxes[rows] = put(e["chunk"])
             # compaction re-packed these rows: recompute their extent
             self.extent[rows] = rops.live_extent(lay.alive[rows])
-        return int(sum(a.numel() * a.element_size() for a in sent.values()))
+        return put.nbytes
 
     # -- routed executors ------------------------------------------------
 
@@ -879,15 +1201,288 @@ class ReplicatedTiles:
                                              skew=1.0)
 
 
+class ShardedTiles(_TilesBase):
+    """Tiles shard across ``config.shards`` owners; queries travel to
+    them through the owner-routed exchange, the owners simulated on
+    the one device (``mesh=None``).
+
+    Staging shards by capped-LPT placement (``shard_staged``), built on
+    the device from the staging, which is then dropped.  Each routed
+    batch packs its queries onto home devices (``pack_queries``),
+    translates their candidate lists into per-owner tables on the host
+    (``router.owner_split``, timed into ``split_ms``) and runs one
+    ``serve.exchange`` orchestration.  The live extent is kept a shard
+    row (``extent``, ``(D, T_rows)``).  The dense oracle probes an
+    unsharded staging rebuilt on the device from the shards at its
+    first call and dropped on every refresh.  A streaming re-stage
+    re-balances owners on the fresh member counts
+    (``stats['moved_tiles']``) under the same ``ceil(T/D)`` bound.
+    Stats dicts equal the reference's with ``mesh=None``.
+    """
+
+    mode = "sharded"
+
+    def __init__(self, parts: api.Partitioning, layout: StagedLayout,
+                 stats: dict, config: ServeConfig):
+        self.shards = 0        # set by the first _install
+        self._owner = None     # the map a re-stage re-balances from
+        self._cooc = None      # co-occurrence (the heat placement's)
+        self._comm = exchange._Comm(None)
+        self.split_ms = 0.0    # owner_split's host ms, the last batch
+        super().__init__(parts, layout, stats, config)
+
+    @property
+    def _replicate_top(self) -> int:
+        return 0               # the heat placement budgets replica rows
+
+    def _install(self, layout: StagedLayout) -> None:
+        cfg = self.config
+        if not self.shards:
+            self.shards = int(cfg.shards) if cfg.shards else self.n_devices
+        slayout, stats = shard_staged(
+            layout, self.stats, self.shards, prev_owner=self._owner,
+            cooc=self._cooc, replicate_top=self._replicate_top)
+        self.slayout = slayout
+        self._owner = slayout.owner
+        for key in ("shards", "t_local", "shard_bytes", "placement_skew",
+                    "moved_tiles", "replicated_tiles", "cut_before",
+                    "cut_after"):
+            if key in stats:
+                self.stats[key] = stats[key]
+        d, t_rows, cap = slayout.id_shards.shape
+        # global tile -> its flat shard row owner * T_rows + local
+        self._rows = torch.from_numpy(
+            slayout.owner.astype(np.int64) * t_rows + slayout.local
+        ).to(slayout.id_shards.device)
+        # (D, T_rows) int32 live extent a shard row (0 in padding rows)
+        self.extent = rops.live_extent(
+            slayout.alive_shards.view(-1, cap)).view(d, t_rows)
+        self._oracle_t = None
+
+    def rebalance(self, heat=None, cooc=None) -> dict:
+        raise not_ported("ShardedTiles.rebalance", "Queue 1 item 11")
+
+    def _release(self) -> None:
+        self.slayout = self.extent = self._rows = self._oracle_t = None
+
+    def _placements(self, t: torch.Tensor) -> torch.Tensor:
+        """Flat shard rows of global tiles ``t`` (int64 on the device):
+        one copy a tile (the heat placement's replica rows, ROADMAP
+        Queue 1 item 11, would add theirs here)."""
+        return self._rows[t]
+
+    def _flat(self):
+        """The shard arrays as ``(D·T_rows, ...)`` views."""
+        s = self.slayout
+        cap = s.id_shards.shape[-1]
+        chunk = (None if s.chunk_shards is None
+                 else s.chunk_shards.view((-1,) + s.chunk_shards.shape[2:]))
+        return (s.canon_shards.view(-1, cap, 4), s.id_shards.view(-1, cap),
+                s.alive_shards.view(-1, cap), chunk)
+
+    def _scatter(self, plan: dict) -> int:
+        """O(M) device refresh of the shards: each plan cell and row is
+        written through its tile's flat shard row ``owner·T_rows +
+        local`` with ``index_put_``, the global probe and chunk boxes and
+        the universe beside.  The extent a shard row rises to cover each
+        slot written alive, stays on tombstones, and is recomputed for
+        rewritten rows.  Drops the dense oracle's staging.  Returns the
+        bytes uploaded."""
+        if not plan:
+            return 0
+        s = self.slayout
+        canon, ids, alive, chunk = self._flat()
+        extent = self.extent.view(-1)
+        put = _Upload(self.device)
+
+        def cells(key):
+            idx, vals = plan[key]
+            c = put(idx)
+            return (self._placements(c[:, 0]), c[:, 1]), put(vals)
+
+        if "boxes" in plan:
+            canon.index_put_(*cells("boxes"))
+        if "ids" in plan:
+            ids.index_put_(*cells("ids"))
+        if "alive" in plan:
+            (r, sl), v = cells("alive")
+            alive.index_put_((r, sl), v)
+            extent.scatter_reduce_(0, r[v], (sl[v] + 1).int(), "amax")
+        if "probe" in plan:
+            rows, vals = plan["probe"]
+            s.probe_boxes[put(rows)] = put(vals)
+        if "chunk" in plan:
+            (r, c), v = cells("chunk")
+            if chunk is not None:
+                chunk.index_put_((r, c), v)
+            if s.chunk_boxes is not None:
+                tc = put(plan["chunk"][0])
+                s.chunk_boxes.index_put_((tc[:, 0], tc[:, 1]), v)
+        if "uni" in plan:
+            s.uni.copy_(put(plan["uni"]))
+        if "rows" in plan:
+            e = plan["rows"]
+            rows = put(e["rows"])
+            fr = self._placements(rows)
+            canon[fr] = put(e["boxes"])
+            ids[fr] = put(e["ids"])
+            alive[fr] = put(e["alive"])
+            s.probe_boxes[rows] = put(e["probe"])
+            if e["chunk"] is not None:
+                if chunk is not None:
+                    chunk[fr] = put(e["chunk"])
+                if s.chunk_boxes is not None:
+                    s.chunk_boxes[rows] = put(e["chunk"])
+            extent[fr] = rops.live_extent(alive[fr])
+        self._oracle_t = None
+        return put.nbytes
+
+    # -- accessors -------------------------------------------------------
+
+    @property
+    def device(self) -> torch.device:
+        return self.slayout.id_shards.device
+
+    @property
+    def probe_boxes(self) -> torch.Tensor:
+        return self.slayout.probe_boxes
+
+    @property
+    def chunk_boxes(self) -> torch.Tensor | None:
+        return self.slayout.chunk_boxes
+
+    @property
+    def uni(self) -> torch.Tensor:
+        return self.slayout.uni
+
+    @property
+    def oracle_np(self) -> tuple[np.ndarray, np.ndarray]:
+        """Host copies of the unsharded canonical staging (the ingest
+        mirrors, built if missing)."""
+        self._ensure_mirror()
+        return self._canon_np, self._ids_np
+
+    def resident_tile_bytes(self) -> int:
+        s = self.slayout
+        return (_nbytes(s.canon_shards) + _nbytes(s.id_shards)) // self.shards
+
+    def _device_arrays(self):
+        canon, ids, alive, _ = self._flat()
+        s, r = self.slayout, self._rows
+        return (canon[r], ids[r], s.probe_boxes, s.chunk_boxes, alive[r],
+                s.uni)
+
+    def _device_ids(self) -> torch.Tensor:
+        return self._flat()[1]
+
+    def _oracle(self):
+        """The unsharded ``(canon, ids, alive, extent)`` staging of the
+        dense oracle, gathered from the shards on the device at first
+        use (the sharded executors never need it)."""
+        if self._oracle_t is None:
+            canon, ids, alive, _ = self._flat()
+            r = self._rows
+            self._oracle_t = (canon[r], ids[r], alive[r],
+                              self.extent.view(-1)[r])
+        return self._oracle_t
+
+    # -- exchange plumbing -----------------------------------------------
+
+    def _exchange_plan(self, cand, costs: np.ndarray):
+        """Host plan of one batch: LPT query packing and the owner-local
+        candidate tables (``router.owner_split``, one query at a time;
+        its host ms land in ``split_ms``) -> ``(slots, send_slot,
+        send_cand, stats)``, the tables on the device."""
+        s = self.slayout
+        slots, pstats = pack_queries(costs, self.shards)
+        cand = _host_np(cand)
+        t0 = time.perf_counter()
+        send_slot, send_cand, xstats = router.owner_split(
+            cand, slots, s.owner, s.local, alt_owner=s.rep_owner,
+            alt_local=s.rep_local)
+        self.split_ms = (time.perf_counter() - t0) * 1e3
+        dev = self.device
+        return (slots, torch.from_numpy(send_slot).to(dev),
+                torch.from_numpy(send_cand).to(dev), {**pstats, **xstats})
+
+    def _shards(self) -> exchange.Shards:
+        canon, ids, alive, chunk = self._flat()
+        return exchange.Shards(canon, ids, alive, chunk, self.extent.view(-1),
+                               self.slayout.id_shards.shape[1])
+
+    # -- routed executors ------------------------------------------------
+
+    def range_counts(self, qboxes, cand, costs):
+        slots, ss, sc, xstats = self._exchange_plan(cand, costs)
+        qp = _pack_rows(qboxes, slots, _SENTINEL)
+        out = exchange.serve_range_counts(self._comm, qp, ss, sc,
+                                          self._shards())
+        return (_unpack_rows(out, slots, qboxes.shape[0]),
+                dict(shards=self.shards, **xstats))
+
+    def range_ids(self, qboxes, cand, costs, max_hits: int):
+        slots, ss, sc, xstats = self._exchange_plan(cand, costs)
+        qp = _pack_rows(qboxes, slots, _SENTINEL)
+        cap = self.slayout.id_shards.shape[-1]
+        mh_local = min(max_hits, sc.shape[3] * cap)
+        out = exchange.serve_range_ids(self._comm, qp, ss, sc, self._shards(),
+                                       max_hits=max_hits, mh_local=mh_local)
+        n_q = qboxes.shape[0]
+        hit_ids, counts, overflow = (_unpack_rows(x, slots, n_q) for x in out)
+        return hit_ids, counts, overflow, dict(shards=self.shards, **xstats)
+
+    def knn_attempt(self, pts, k: int, max_cand: int, f: int):
+        """One sharded kNN pass at frontier width ``f`` -> ``(nn_ids,
+        nn_d2, radius, overflow, excluded, stats)``."""
+        n_live = self.stats["n"]
+        uni = self.slayout.uni
+        cand, dist, excl = router.candidate_knn(self.slayout.probe_boxes,
+                                                pts, f)
+        slots, ss, sc, xstats = self._exchange_plan(
+            cand, _knn_cost_proxy(_host_np(uni), n_live, dist, k))
+        pp = _pack_rows(pts, slots, (uni[:2] + uni[2:]) * 0.5)
+        dead = torch.from_numpy(slots < 0).to(self.device)
+        out = exchange.serve_knn(self._comm, pp, ss, sc, dead, self._shards(),
+                                 uni, n_live, k=k, max_cand=max_cand)
+        nn_ids, nn_d2, radius, overflow, rounds = (
+            _unpack_rows(x, slots, pts.shape[0]) for x in out)
+        return nn_ids, nn_d2, radius, overflow, excl, dict(
+            xstats, shards=self.shards, rounds=_max_rounds(rounds))
+
+    # -- dense oracle ----------------------------------------------------
+
+    def dense_range_counts(self, qboxes):
+        canon, _, alive, extent = self._oracle()
+        return range_mod.range_counts(qboxes, canon, alive,
+                                      extent=extent), {}
+
+    def dense_range_ids(self, qboxes, max_hits: int):
+        canon, ids, alive, extent = self._oracle()
+        hit_ids, counts, overflow = range_mod.range_ids(
+            qboxes, canon, ids, max_hits, alive, extent=extent)
+        return hit_ids, counts, overflow, {}
+
+    def dense_knn(self, pts, k: int, max_cand: int):
+        canon, ids, alive, extent = self._oracle()
+        nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn(
+            pts, k, canon, ids, self.slayout.uni, max_cand=max_cand,
+            n_live=self.stats["n"], alive=alive, extent=extent)
+        return nn_ids, nn_d2, overflow, dict(rounds=_max_rounds(rounds))
+
+
 def _max_rounds(rounds: torch.Tensor) -> int:
     return int(rounds.max()) if rounds.numel() else 0
 
 
+_PLACEMENT_CLS = {"replicated": ReplicatedTiles, "sharded": ShardedTiles}
+
+
 def build_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
-                config: ServeConfig) -> ReplicatedTiles:
-    """Stage ``mbrs`` and construct the placement ``config`` names."""
-    if config.placement != "replicated":
+                config: ServeConfig) -> _TilesBase:
+    """Stage ``mbrs`` and construct the placement ``config`` names (the
+    one place the placement string is dispatched)."""
+    if config.placement not in _PLACEMENT_CLS:
         raise not_ported(f"placement={config.placement!r}",
-                         "Queue 1 items 10-11")
+                         "Queue 1 item 11")
     layout, stats = stage_tiles(parts, mbrs, config)
-    return ReplicatedTiles(parts, layout, stats, config)
+    return _PLACEMENT_CLS[config.placement](parts, layout, stats, config)

@@ -8,7 +8,9 @@ tile's canonical *probe box* for the pruned executor
 MINDIST order (``route_knn``), and each point's MINDIST frontier of
 probe boxes in L∞ order (``candidate_knn``).  Candidate lists are
 fixed-width ``(Q, f_max)`` int32 with ``-1`` padding.  Every sort that
-stands in for a JAX ``argsort`` is stable.
+stands in for a JAX ``argsort`` is stable.  ``owner_split`` translates
+a batch's candidate lists into the sharded placement's per-owner
+exchange tables (host numpy, one query at a time, as the reference).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core import geometry
+from ..core.partition.assign import round_up
 from ..core.partition.api import Partitioning
 from ..device import resolve
 from ..query.knn import mindist2_fused
@@ -157,3 +160,115 @@ class HeatTracker:
     def snapshot(self) -> tuple[np.ndarray, np.ndarray]:
         """Host copies of ``(heat[T], cooc[T, T])``."""
         return self.heat.cpu().numpy(), self.cooc.cpu().numpy()
+
+
+# --------------------------------------------------------------------------
+# owner translation (sharded layouts: global tiles -> (owner, local))
+# --------------------------------------------------------------------------
+
+def owner_split(cand: np.ndarray, slots: np.ndarray, owner: np.ndarray,
+                local: np.ndarray, bucket: int = 8,
+                alt_owner: np.ndarray | None = None,
+                alt_local: np.ndarray | None = None,
+                ) -> tuple[np.ndarray, np.ndarray, dict]:
+    """Translate global candidate lists into per-owner exchange tables.
+
+    cand: (Q, F) int32 global candidate tiles (-1 padding) from
+    ``candidate_range`` / ``candidate_knn``; slots: (D, Qpd) query
+    packing from ``serve.layout.pack_queries`` (home placement);
+    owner/local: (T,) global-tile → (owner device, local shard row)
+    maps from ``core.placement.shard_tiles``.
+
+    Returns ``(send_slot[D, D, M], send_cand[D, D, M, F_local], stats)``
+    — for home device ``h`` and owner ``o``, message ``m`` carries home
+    query slot ``send_slot[h, o, m]`` (-1 padding) together with that
+    query's candidate tiles *owned by o, in o's local coordinates*
+    (``send_cand``, -1 padded, ascending local order).  A query emits
+    one message per owner holding ≥ 1 of its candidates and none to the
+    rest, so exchange volume scales with routed fan-out, not D.  ``M``
+    and ``F_local`` are maxima over all pairs, rounded up to ``bucket``
+    so jitted exchange steps recompile per size bucket, not per batch.
+
+    ``alt_owner``/``alt_local`` (both (T,) int32, ``-1`` = no replica)
+    describe a second live copy of some tiles (``HeatSharded``).  A
+    replicated candidate may be probed on either owner — both rows are
+    bit-exact — so the split routes it to whichever placement helps:
+    an owner the query *already* messages (saving a whole message),
+    else the owner with the fewest candidate rows gathered so far this
+    batch (spreading probe load off the hot device).  Deterministic:
+    fixed (home, slot, candidate) order, ties to the primary owner
+    then the lower device id.  Each candidate still reaches exactly
+    one owner, so the merge stays owner-disjoint and exact.
+
+    Host-side numpy (runs once per batch, O(Q·F)); ``stats`` reports
+    the message/width geometry for the serving stats dict, plus the
+    per-owner probe load (gathered candidate rows), its max/mean
+    imbalance, the padded exchange buffer bytes, and how many
+    candidate rows took the alternate replica.
+    """
+    d, qpd = slots.shape
+    send: list[list[list[tuple[int, np.ndarray]]]] = \
+        [[[] for _ in range(d)] for _ in range(d)]
+    f_local = 1
+    n_msgs = 0
+    probe_rows = np.zeros(d, np.int64)
+    routed_alt = 0
+    for h in range(d):
+        for s in range(qpd):
+            qi = slots[h, s]
+            if qi < 0:
+                continue
+            c = cand[qi]
+            c = c[c >= 0]
+            if c.size == 0:
+                continue
+            ow = owner[c].copy()
+            lc = local[c].copy()
+            if alt_owner is not None:
+                flex = np.flatnonzero(alt_owner[c] >= 0)
+                if flex.size:
+                    fixed_owners = set(np.unique(np.delete(ow, flex)))
+                    for k in flex:
+                        o1, o2 = int(ow[k]), int(alt_owner[c[k]])
+                        if o1 in fixed_owners:
+                            pick = o1
+                        elif o2 in fixed_owners:
+                            pick = o2
+                        elif probe_rows[o2] < probe_rows[o1]:
+                            pick = o2
+                        else:
+                            pick = o1
+                        if pick != o1:
+                            ow[k] = pick
+                            lc[k] = alt_local[c[k]]
+                            routed_alt += 1
+                        fixed_owners.add(pick)
+            np.add.at(probe_rows, ow, 1)
+            for o in np.unique(ow):
+                lt = np.sort(lc[ow == o])
+                send[h][int(o)].append((s, lt))
+                f_local = max(f_local, int(lt.size))
+                n_msgs += 1
+    m = max(1, max(len(send[h][o]) for h in range(d) for o in range(d)))
+    m = min(qpd, round_up(m, bucket))
+    f_local = round_up(f_local, bucket)
+    send_slot = np.full((d, d, m), -1, np.int32)
+    send_cand = np.full((d, d, m, f_local), -1, np.int32)
+    for h in range(d):
+        for o in range(d):
+            for j, (s, lt) in enumerate(send[h][o]):
+                send_slot[h, o, j] = s
+                send_cand[h, o, j, :lt.size] = lt
+    # Padded all_to_all buffer estimate for one range_counts exchange:
+    # forward — per (home, owner) pair, m message slots each carrying a
+    # slot id (4 B), a query box (16 B) and f_local local tiles (4 B
+    # each); return — one count (4 B) per message slot.
+    xbytes = d * d * m * (4 + 16 + 4 * f_local) + d * d * m * 4
+    mean_rows = float(probe_rows.mean())
+    stats = dict(m_per_pair=m, f_local=f_local, messages=n_msgs,
+                 probe_rows=probe_rows.tolist(),
+                 probe_load_imbalance=(float(probe_rows.max()) /
+                                       max(mean_rows, 1e-9)),
+                 exchange_bytes=int(xbytes),
+                 routed_alt=int(routed_alt))
+    return send_slot, send_cand, stats

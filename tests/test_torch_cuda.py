@@ -820,3 +820,234 @@ def test_mamba2_on_cuda_matches_cpu():
     gen = {d: serve.generate(models[d], params[d], toks[:, :8].to(d), 8)
            for d in ("cpu", "cuda")}
     assert torch.equal(gen["cuda"].cpu(), gen["cpu"])
+
+
+# -- the sharded placement (owners simulated on the card) ---------------------
+
+SHARD_FIELDS = ("canon_shards", "id_shards", "alive_shards", "chunk_shards",
+                "probe_boxes", "chunk_boxes", "uni")
+
+
+def _assert_same_shards(a, b):
+    """Server ``a`` (the card) holds server ``b``'s (the CPU's) shards,
+    owner maps, extent and stats."""
+    for name in SHARD_FIELDS:
+        w, g = getattr(b.slayout, name), getattr(a.slayout, name)
+        assert (w is None and g is None) or torch.equal(g.cpu(), w), name
+    assert (a.slayout.owner == b.slayout.owner).all()
+    assert (a.slayout.local == b.slayout.local).all()
+    assert torch.equal(a.tiles.extent.cpu(), b.tiles.extent)
+    assert a.stats == b.stats
+
+
+def _sharded_pair(local_index, n=6000, shards=3, **cfg):
+    mbrs = spatial_gen.osm_like(n, seed=3, device="cpu")
+    parts = papi.partition("bsp", mbrs, 256)
+    config = ServeConfig(placement="sharded", shards=shards,
+                         local_index=local_index, **cfg)
+    return parts, mbrs, {d: SpatialServer(parts, mbrs, config, device=d)
+                         for d in ("cpu", "cuda")}
+
+
+def _answers_equal(srv, qb, pts, pruned=None):
+    out = {}
+    for d, s in srv.items():
+        out[d] = [s.range_counts(qb.to(d), pruned=pruned),
+                  s.range_ids(qb.to(d), max_hits=64, pruned=pruned),
+                  s.knn(pts.to(d), 5, pruned=pruned)]
+    for got, want in zip(out["cuda"], out["cpu"]):
+        for g, w in zip(got, want):
+            if isinstance(w, dict):
+                assert g == w
+            else:
+                assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("local_index", ["x", "hilbert", "off"])
+def test_sharded_batches_on_cuda_match_cpu(local_index):
+    """Three owners on the card: shards, maps, extent and stats equal
+    the CPU's; routed and dense counts, ids and kNN (ids, d2, flags,
+    stats) equal the plain versions' answers, and a counts batch
+    launches the routed count kernel once."""
+    _need_cuda()
+    _, _, srv = _sharded_pair(local_index)
+    _assert_same_shards(srv["cuda"], srv["cpu"])
+    qb = _boxes(np.random.default_rng(5), 96, 0.03)
+    pts = torch.from_numpy(
+        np.random.default_rng(6).random((40, 2)).astype(np.float32))
+    for pruned in (None, False):
+        _answers_equal(srv, qb, pts, pruned)
+    kernel.reset_launches()
+    srv["cuda"].range_counts(qb.cuda())
+    name = "gather_count" if local_index == "off" else "gather_count_skip"
+    assert kernel.LAUNCHES[name] == 1 and sum(kernel.LAUNCHES.values()) == 1
+
+
+@pytest.mark.parametrize("local_index", ["x", "off"])
+def test_folded_launch_equals_a_loop_over_owners_on_the_kernels(local_index):
+    """Every owner's received messages probed in one launch over the flat
+    (D·T_rows) shards equal one launch an owner on its own shard:
+    counts, hit lists and the kNN refinement, on the kernels."""
+    _need_cuda()
+    from repro_torch.serve import exchange, layout
+    _, _, srv = _sharded_pair(local_index, shards=4)
+    s = srv["cuda"]
+    qb = _boxes(np.random.default_rng(7), 128, 0.04).cuda()
+    cand, costs, _ = s._route_batch(qb)
+    slots, ss, sc, _ = s.tiles._exchange_plan(cand, costs)
+    comm, sh = exchange._Comm(None), s.tiles._shards()
+    qp = layout._pack_rows(qb, slots, layout._SENTINEL)
+    qr = comm.exchange(exchange._gather_send(
+        qp, ss, torch.from_numpy(layout._SENTINEL).cuda()))
+    cr = comm.exchange(sc)
+    flat = comm.fold(cr, sh.t_rows)
+    q = qr.reshape(-1, 4)
+    lay = s.slayout
+    own = [dict(tiles=lay.canon_shards[o], ids=lay.id_shards[o],
+                cb=None if lay.chunk_shards is None else lay.chunk_shards[o],
+                alive=lay.alive_shards[o], extent=s.tiles.extent[o],
+                q=qr[o].reshape(-1, 4), cand=cr[o].reshape(-1, cr.shape[-1]))
+           for o in range(4)]
+    kernel.reset_launches()
+    folded = range_mod.pruned_range_counts(q, sh.tiles, flat,
+                                           chunk_boxes=sh.cboxes,
+                                           alive=sh.alive, extent=sh.extent)
+    assert sum(kernel.LAUNCHES.values()) == 1
+    loop = [range_mod.pruned_range_counts(o["q"], o["tiles"], o["cand"],
+                                          chunk_boxes=o["cb"],
+                                          alive=o["alive"],
+                                          extent=o["extent"]) for o in own]
+    assert torch.equal(folded, torch.cat(loop))
+    folded = range_mod.pruned_range_ids(q, sh.tiles, sh.ids, flat, 32,
+                                        chunk_boxes=sh.cboxes, alive=sh.alive,
+                                        extent=sh.extent)
+    loop = [range_mod.pruned_range_ids(o["q"], o["tiles"], o["ids"],
+                                       o["cand"], 32, chunk_boxes=o["cb"],
+                                       alive=o["alive"], extent=o["extent"])
+            for o in own]
+    for j in range(3):
+        assert torch.equal(folded[j], torch.cat([x[j] for x in loop]))
+    pts = (q[:, :2] + q[:, 2:]) * 0.5
+    re = (torch.arange(q.shape[0], device="cuda") % 5).float() * 0.01
+    folded = knn_mod.knn_partial(pts, sh.tiles, sh.ids, flat, re, 5,
+                                 chunk_boxes=sh.cboxes, alive=sh.alive,
+                                 extent=sh.extent)
+    m = q.shape[0] // 4
+    loop = [knn_mod.knn_partial(pts[i * m:(i + 1) * m], o["tiles"], o["ids"],
+                                o["cand"], re[i * m:(i + 1) * m], 5,
+                                chunk_boxes=o["cb"], alive=o["alive"],
+                                extent=o["extent"])
+            for i, o in enumerate(own)]
+    for j in range(3):
+        assert torch.equal(folded[j], torch.cat([x[j] for x in loop]))
+
+
+def _stream(srv, parts, stream, rng, live):
+    """Run ``stream`` on the CPU and the card server alike; after each
+    command the shards, extent, report and stats agree and every shard
+    row's extent covers its alive slots."""
+    for op in stream:
+        if op[0] == "append":
+            nb = _boxes(rng, op[1], 0.004).numpy()
+            call = lambda s: s.append(nb)  # noqa: E731
+        elif op[0] in ("delete", "update"):
+            ids = rng.choice(live, size=op[1], replace=False)
+            if op[0] == "delete":
+                live = np.setdiff1d(live, ids)
+                call = lambda s: s.delete(ids)  # noqa: E731
+            else:
+                nb = _boxes(rng, op[1], 0.004).numpy()
+                call = lambda s: s.update(ids, nb)  # noqa: E731
+        elif op[0] == "compact":
+            call = lambda s: s.compact()  # noqa: E731
+        else:
+            nb = _centre_burst(parts, srv["cpu"].stats["cap"] + 1)
+            call = lambda s: s.append(nb)  # noqa: E731
+        want, got = call(srv["cpu"]), call(srv["cuda"])
+        assert {k: v for k, v in got.items() if k != "bytes_transferred"} \
+            == {k: v for k, v in want.items() if k != "bytes_transferred"}
+        _assert_same_shards(srv["cuda"], srv["cpu"])
+        ext = srv["cuda"].tiles.extent
+        tight = ops.live_extent(
+            srv["cuda"].slayout.alive_shards.flatten(0, 1)).view(ext.shape)
+        assert bool((ext >= tight).all())
+        if op[0] == "compact" or got["restaged"]:
+            assert torch.equal(ext, tight)
+        if op[0] == "append":
+            live = np.concatenate([live, np.arange(got["n_total"] - len(nb),
+                                                   got["n_total"])])
+    return live
+
+
+@pytest.mark.parametrize("local_index", ["x", "off"])
+def test_sharded_ingest_stream_on_cuda_matches_cpu(local_index):
+    """Appends, deletes, an update, a forced compaction, an overflow
+    re-stage that re-balances the owners and churn after it, four owners
+    on the card against the CPU; then the answers."""
+    _need_cuda()
+    parts, _, srv = _sharded_pair(local_index, shards=4, slack=128)
+    stream = [("append", 500), ("delete", 800), ("update", 300),
+              ("append", 400), ("compact",), ("burst",), ("delete", 500),
+              ("update", 100)]
+    _stream(srv, parts, stream, np.random.default_rng(4), np.arange(6000))
+    assert "moved_tiles" in srv["cuda"].stats
+    qb = _boxes(np.random.default_rng(5), 64, 0.03)
+    pts = torch.from_numpy(
+        np.random.default_rng(6).random((32, 2)).astype(np.float32))
+    for pruned in (None, False):
+        _answers_equal(srv, qb, pts, pruned)
+
+
+def test_sharded_delete_heavy_stream_stays_exact_past_a_stale_extent():
+    """Appends, then deletes of 70% of the ids with compaction off: most
+    shard rows keep a stale-large extent, and the card's pruned and
+    dense answers equal the CPU's and the brute force on the live set."""
+    _need_cuda()
+    parts, mbrs, srv = _sharded_pair("x", n=12_000, shards=4, slack=2048,
+                                     compact_dead_frac=None)
+    rng = np.random.default_rng(8)
+    live = _stream(srv, parts, [("append", 3000), ("delete", 10_500)], rng,
+                   np.arange(12_000))
+    ext = srv["cuda"].tiles.extent
+    tight = ops.live_extent(
+        srv["cuda"].slayout.alive_shards.flatten(0, 1)).view(ext.shape)
+    assert int((ext > tight).sum()) > ext.numel() // 4
+    qb = _boxes(np.random.default_rng(9), 128, 0.05)
+    pts = torch.from_numpy(
+        np.random.default_rng(10).random((48, 2)).astype(np.float32))
+    for pruned in (None, False):
+        _answers_equal(srv, qb, pts, pruned)
+    srv["cpu"].tiles._ensure_mirror()
+    boxes = torch.from_numpy(srv["cpu"].tiles._canon_np[
+        srv["cpu"].tiles._alive_np])
+    ids = torch.from_numpy(srv["cpu"].tiles._ids_np[
+        srv["cpu"].tiles._alive_np])
+    hit = ((qb[:, None, 0] <= boxes[None, :, 2])
+           & (boxes[None, :, 0] <= qb[:, None, 2])
+           & (qb[:, None, 1] <= boxes[None, :, 3])
+           & (boxes[None, :, 1] <= qb[:, None, 3]))
+    assert torch.equal(srv["cuda"].range_counts(qb.cuda())[0].cpu(),
+                       hit.sum(1, dtype=torch.int32))
+    assert set(ids.tolist()) == set(live.tolist())
+
+
+@pytest.mark.parametrize("method", ["bsp", "hc"])
+def test_multi_device_plan_on_cuda_counts_as_one_device(method):
+    """A 4-device plan's tiles run in one batched launch on the card and
+    count what the one-device plan counts (rp or MASJ pairs)."""
+    _need_cuda()
+    rng = np.random.default_rng(11)
+    r, s = _boxes(rng, 5000, 0.01), _boxes(rng, 4000, 0.01)
+    counts = []
+    for d in (1, 4):
+        plan = join_engine.plan_join(method, r, s, 300, d, device="cuda")
+        mkernel.reset_launches()
+        counts.append(join_engine.spatial_join_count(
+            plan, max_pairs_per_tile=1 << 14))
+        assert mkernel.LAUNCHES["rp_counts" if method == "bsp"
+                                else "pair_list"] == 1
+        counts.append(join_engine.run_join_count(plan, dedup="none"))
+    assert counts[0] == counts[2] and counts[1] == counts[3]
+    plan = join_engine.plan_join(method, r, s, 300, 1, device="cpu")
+    assert counts[0] == join_engine.spatial_join_count(
+        plan, max_pairs_per_tile=1 << 14)

@@ -32,6 +32,8 @@ torch.set_num_threads(1)
 N_BASE, PAYLOAD = 400, 64
 LAYOUT_FIELDS = ("canon_tiles", "ids", "alive", "probe_boxes", "chunk_boxes",
                  "uni")
+SHARD_FIELDS = ("canon_shards", "id_shards", "alive_shards", "chunk_shards",
+                "probe_boxes", "chunk_boxes", "uni")
 BOOKKEEPING = ("_fill", "_dead", "_n_free", "_canon_slot")
 
 # test_ingest_streams.py's corpus: slack appends, scattered deletes,
@@ -65,8 +67,19 @@ def _servers(method, dataset, seed, **cfg):
 
 
 def _assert_same_state(js, ts, jrep, trep, tight):
-    for name in LAYOUT_FIELDS:
-        want, got = getattr(js.layout, name), getattr(ts.layout, name)
+    """The staging (the shards and owner maps under the sharded
+    placement), bookkeeping, report and stats equal repro's, and the
+    extent (a tile, or a shard row) covers every alive slot."""
+    if js.slayout is None:
+        fields, jlay, tlay = LAYOUT_FIELDS, js.layout, ts.layout
+        alive = ts.layout.alive
+    else:
+        fields, jlay, tlay = SHARD_FIELDS, js.slayout, ts.slayout
+        alive = ts.slayout.alive_shards.flatten(0, 1)
+        np.testing.assert_array_equal(tlay.owner, jlay.owner)
+        np.testing.assert_array_equal(tlay.local, jlay.local)
+    for name in fields:
+        want, got = getattr(jlay, name), getattr(tlay, name)
         if want is None:
             assert got is None
         else:
@@ -80,7 +93,8 @@ def _assert_same_state(js, ts, jrep, trep, tight):
                       if k != "bytes_transferred"}
     assert drop(trep) == drop(jrep)
     assert ts.stats == js.stats
-    ext, want = ts.tiles.extent, ops.live_extent(ts.layout.alive)
+    ext = ts.tiles.extent
+    want = ops.live_extent(alive).view(ext.shape)
     assert bool((ext >= want).all())
     if tight:
         assert torch.equal(ext, want)

@@ -39,9 +39,15 @@ MAX_HITS = 4096
 # -- the extent invariant ---------------------------------------------------
 
 def _assert_extent(srv, tight: bool = False) -> None:
-    """No alive slot lies at or past its tile's extent; ``tight``: the
-    extent is exactly 1 + each tile's last alive slot."""
-    ext, want = srv.tiles.extent, ops.live_extent(srv.layout.alive)
+    """No alive slot lies at or past its tile's (or shard row's)
+    extent; ``tight``: the extent is exactly 1 + each row's last alive
+    slot."""
+    if srv.slayout is None:
+        want = ops.live_extent(srv.layout.alive)
+    else:
+        alive = srv.slayout.alive_shards
+        want = ops.live_extent(alive.flatten(0, 1)).view(alive.shape[:2])
+    ext = srv.tiles.extent
     assert ext.dtype == torch.int32 and ext.shape == want.shape
     assert bool((ext >= want).all()), "an alive slot lies past the extent"
     if tight:
@@ -191,11 +197,14 @@ def _check_vs_fresh_staging(srv, model, cfg, rng, nq=10, npts=6):
 
 
 def _run_stream(method, dataset, commands, seed, *, compact_dead_frac=0.5,
-                restage_dead_frac=None, local_index="x"):
+                restage_dead_frac=None, local_index="x",
+                placement="replicated"):
     rng = np.random.default_rng(seed)
     full = spatial_gen.dataset(dataset, N_BASE, seed=seed, device="cpu")
     parts = api.partition(method, full, PAYLOAD)
-    cfg = ServeConfig(slack=256, compact_dead_frac=compact_dead_frac,
+    cfg = ServeConfig(placement=placement,
+                      shards=None if placement == "replicated" else 4,
+                      slack=256, compact_dead_frac=compact_dead_frac,
                       restage_dead_frac=restage_dead_frac,
                       local_index=local_index)
     srv = SpatialServer(parts, full, cfg, device="cpu")

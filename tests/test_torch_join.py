@@ -288,12 +288,14 @@ def test_dense_join_counts_and_truncation_match_repro(method):
 
 
 def test_unported_execution_raises(rs):
+    """A mesh raises on every entry point (plans for more devices run,
+    simulated on one: tests/test_torch_multidevice.py)."""
     r, s = rs
     plan4 = tengine.plan_join("bsp", r, s, 200, 4, device="cpu")
     plan1 = tengine.plan_join("bsp", r, s, 200, 1, device="cpu")
-    calls = [lambda: tengine.run_join_count(plan4),
-             lambda: tengine.spatial_join_count(plan4),
-             lambda: tengine.run_join_pairs_masj(plan4),
+    calls = [lambda: tengine.run_join_count(plan4, mesh=object()),
+             lambda: tengine.tile_counts(plan4, object(), "d"),
+             lambda: tengine.run_join_pairs_masj(plan4, object(), "d"),
              lambda: tengine.run_join_count(plan1, mesh=object()),
              lambda: tengine.spatial_join_count(plan1, object(), "d")]
     for call in calls:
@@ -315,5 +317,7 @@ def test_etl_partitions_and_joins_on_the_cpu(method, capsys):
     out = capsys.readouterr().out
     assert f"method={method} n=3000" in out and "coverage          = 1.0000" \
         in out and "join: |R⋈S| =" in out
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        partition_etl.main(["--device", "cpu", "--parallel"])
+    assert partition_etl.main(["--device", "cpu", "--n", "3000", "--method",
+                               method, "--payload", "300", "--parallel"]) == 0
+    assert "parallel partition stats: {'dropped': 0" in \
+        capsys.readouterr().out

@@ -222,7 +222,8 @@ def test_default_device_is_cuda_and_never_falls_back(data, make):
 
 @pytest.mark.parametrize("make", [
     lambda d: TServer.from_method("bsp", d, 120,
-                                  TConfig(placement="sharded"), device="cpu"),
+                                  TConfig(placement="sharded", shards=2),
+                                  device="cpu").rebalance(),
     lambda d: TServer.from_method("bsp", d, 120, TConfig(placement="heat"),
                                   device="cpu"),
     lambda d: TServer.from_method(
