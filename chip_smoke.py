@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/H100 port's serving (replicated and sharded),
-ingest, partitioning and join paths, and Mamba2 inference, on one CUDA
-card.
+"""Drive the PyTorch/H100 port's serving (replicated, sharded and
+heat-aware), request plane, ingest, partitioning and join paths, and
+Mamba2 inference, on one CUDA card.
 
     python3 chip_smoke.py            # full size: 8 M osm-like objects served,
-                                     # replicated and on 4 simulated owners,
+                                     # replicated and on 4 simulated owners
+                                     # (count-balanced and heat-aware),
+                                     # behind the request plane,
                                      # 7 M staged + 1 M streamed in,
                                      # 4 M + 4 M pi and 1 M + 1 M osm joined,
                                      # Mamba2-1.3B prefill and decode
@@ -110,6 +112,54 @@ before each path and read just after it) and its wall seconds:
    force).  Alone (the kernels build at first use): ``python3 -c
    "import torch, chip_smoke; chip_smoke.sharded_alone(torch,
    torch.device('cuda'))"``.
+5c. heat -- the serve phase's objects and partitioning, the sharded
+   phase's servers freed, a replicated "x" server staged again for the
+   answers; hot counts batches of Q = 4096 boxes (the hotspot bench's
+   stream, ``benchmarks/bench_range_query.py`` ``_hot_qboxes``, from a
+   seeded torch generator: 85% of the centres in one 0.2-wide patch,
+   half-extents 0.02 + U·0.14, the rest uniform with U·0.05), 1024-box
+   ids batches around hot centres (half-extents to 0.003) and 1024 hot
+   kNN points.  The bench's three legs on 4 owners: (a)
+   ``placement="sharded"`` over 5 counts batches; (b) the same server
+   after ``rebalance()`` over the same 5; (c) ``placement="heat"``
+   with ``PlacementPolicy(heat_decay=0.85, replicate_top=64)``: 5 cold
+   batches, ``rebalance()``, 10 hot counts batches, 5 ids and 5 kNN
+   batches.  Then a ``rebalance_every=4`` heat server over 12 counts
+   batches (3 automatic rebalances, counted) and, on it, an ingest
+   stream through the replicas: 2 appends of 100,000 (served objects
+   resampled, shifted by up to 1e-4), a delete of 200,000, an update of
+   50,000, a forced ``compact()``, then a counts, an ids and a kNN batch
+   and the dense oracle.  Fails unless every answer equals the
+   replicated server's (kNN: where neither flags; the sharded flags a
+   subset), 128 rows of every hot counts batch equal the brute force,
+   every replica row equals its primary (boxes, ids, alive, chunk
+   boxes, extent), the shard rows stay (4, 512 + 64) through every
+   rebalance, every routed candidate resolves to exactly one resident
+   copy, and after the ingest the answers equal the dense oracle and
+   the brute force on the live set and the extent covers every alive
+   slot.  Prints each leg's messages a batch and their ratios (the
+   README's claim), ``routed_alt``, ``f_local``,
+   ``probe_load_imbalance``, p50/p99, ``split_ms``, device ms and the
+   idle share, each rebalance's report and split seconds (snapshot,
+   staging rebuild, plan, re-gather), the ingest's operations, peak
+   memory and the launches.
+5d. frontend -- the request plane (``FrontendConfig()``: ladder
+   64/128/256/512, max_delay 2 ms, queue_limit 4096, quantum 16) on the
+   replicated "x" server: each kind's direct service ms at width 512
+   give the mix's capacity R (70% counts to 0.03, 20% ids to 0.003 with
+   max_hits 1024, 10% kNN k = 10; tenants 70/20/10%); then
+   ``simulate_open_loop`` over ``poisson_workload`` (seed 0, 20,000
+   arrivals) at 0.5 R and at 1.5 R with a 50 ms default deadline, 2,000
+   arrivals at 0.5 of the heat server's own R on the rebalanced heat
+   server (its ``placement_stats()``), and the asyncio ``ServeFrontend``
+   on 1,024 concurrent mixed submissions drained by ``close()``.  Every
+   OK response must equal a direct unpadded call on the same queries
+   bit for bit (the check's launches not counted).  Prints p50/p99
+   queue and total ms, sustained requests a second, the fill and padded
+   slots by kind, rejected and timed-out counts, the plane's host µs a
+   request and the routed kernels' launches.  Alone with the heat
+   phase (the kernels build at first use): ``python3 -c "import torch,
+   chip_smoke; chip_smoke.heat_alone(torch, torch.device('cuda'))"``.
 6. ingest -- the serve phase's 8,000,000 objects again (same seed):
    ``bsp`` at payload 4096 over the first 7,000,000, staged with
    ``local_index="x"`` and a slack that holds the held-out 1,000,000
@@ -218,7 +268,8 @@ before each path and read just after it) and its wall seconds:
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
 join's two batched passes; ``launches_by_path`` holds each row's
-launches on the ingest and the sharded paths), the card's
+launches on the ingest, the sharded, the heat and the frontend paths),
+the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
 exits non-zero.
@@ -231,6 +282,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "port"))
@@ -315,6 +368,17 @@ SHARDS = 4                 # owners of the sharded servers, join plans and
                            # parallel partitioning, simulated on the card
 SHARD_OFF_BATCHES = (4, 2, 2)   # counts, ids, kNN batches of sharded "off"
 SHARD_APPENDS, SHARD_DELETES = 3, 2    # the sharded ingest stream
+HOT_FRAC = 0.85            # query centres in the hot patch (the hotspot bench)
+HEAT_DECAY, HEAT_TOP = 0.85, 64    # the heat placement's policy
+HEAT_LEG, HEAT_HOT = 5, 10         # counts batches a leg; leg (c) hot
+HEAT_IDS, HEAT_KNN = 5, 5          # leg (c)'s ids and kNN batches
+HEAT_CHECK = 128           # rows of every hot counts batch brute-forced
+HEAT_EVERY, HEAT_EVERY_BATCHES = 4, 12     # rebalance_every, its batches
+HEAT_APPENDS, HEAT_DELETE, HEAT_UPDATE = 2, 200_000, 50_000
+FE_MIX = {"range_counts": 0.7, "range_ids": 0.2, "knn": 0.1}
+FE_ARRIVALS, FE_HEAT_ARRIVALS = 20_000, 2_000   # a run's arrivals
+FE_DEADLINE = 0.05         # the 1.5 R run's default deadline (s)
+FE_ASYNC = 1024            # concurrent submissions to the asyncio frontend
 
 
 def emit(obj) -> None:
@@ -1252,6 +1316,612 @@ def sharded_alone(torch, dev):
     servers = {"x": srv}
     del srv
     return sharded_phase(torch, dev, servers, mbrs, batches, pruned_x, knn_x)
+
+
+def hot_centres(torch, g, n, ctr, dev):
+    """``n`` centres in the 0.2-wide hot patch around ``ctr``."""
+    return ctr + (torch.rand(n, 2, generator=g, device=dev) - 0.5) * 0.2
+
+
+def hot_qboxes(torch, g, q, ctr, dev, frac=HOT_FRAC):
+    """``benchmarks/bench_range_query.py``'s ``_hot_qboxes`` from a
+    seeded torch generator: ``frac`` of the centres in the hot patch with
+    half-extents 0.02 + U·0.14, the rest uniform with U·0.05."""
+    n_hot = int(q * frac)
+    c = torch.cat([hot_centres(torch, g, n_hot, ctr, dev),
+                   torch.rand(q - n_hot, 2, generator=g, device=dev)])
+    s = torch.rand(q, 2, generator=g, device=dev) * 0.05
+    s[:n_hot] = torch.rand(n_hot, 2, generator=g, device=dev) * 0.14 + 0.02
+    return torch.cat([c - s, c + s], dim=-1)
+
+
+def replica_rows_equal(torch, srv):
+    """Fail unless every replica row equals its primary (boxes, ids,
+    alive, chunk boxes, extent) -> the replicated tile count."""
+    s = srv.slayout
+    reps = np.flatnonzero(s.rep_owner >= 0)
+    dev = s.id_shards.device
+    take = lambda o, l: (torch.from_numpy(o[reps].astype(np.int64)).to(dev),  # noqa: E731
+                         torch.from_numpy(l[reps].astype(np.int64)).to(dev))
+    ro, rl = take(s.rep_owner, s.rep_local)
+    po, pl = take(s.owner, s.local)
+    for name, a in (("boxes", s.canon_shards), ("ids", s.id_shards),
+                    ("alive", s.alive_shards), ("chunk", s.chunk_shards),
+                    ("extent", srv.tiles.extent)):
+        if a is not None and not torch.equal(a[ro, rl], a[po, pl]):
+            raise AssertionError(f"a replica row's {name} differs from its "
+                                 f"primary's")
+    return int(reps.size)
+
+
+def one_resident_copy(torch, srv, qb):
+    """Fail unless every candidate of a routed batch resolves to exactly
+    one (owner, row) holding the tile, primary or replica
+    (``tests/test_heat_placement.py``'s check) -> the split's stats."""
+    s = srv.slayout
+    cand, costs, _ = srv._route_batch(qb)
+    slots, ss, sc, xstats = srv.tiles._exchange_plan(cand, costs)
+    d, t_rows = s.id_shards.shape[:2]
+    inv = np.full((d, t_rows), -1, np.int64)
+    inv[s.owner, s.local] = np.arange(s.owner.shape[0])
+    reps = np.flatnonzero(s.rep_owner >= 0)
+    inv[s.rep_owner[reps], s.rep_local[reps]] = reps
+    ss, sc, cand = ss.cpu().numpy(), sc.cpu().numpy(), cand.cpu().numpy()
+    h, o, m = np.nonzero(ss >= 0)
+    q = slots[h, ss[h, o, m]]
+    f = sc.shape[-1]
+    lt = sc[h, o, m]                                    # (msgs, F_local)
+    keep = lt >= 0
+    got_q = np.repeat(q, f)[keep.ravel()]
+    got_t = inv[np.repeat(o, f)[keep.ravel()], lt[keep]]
+    if (got_t < 0).any():
+        raise AssertionError("a routed candidate names a row holding no "
+                             "tile")
+    wq, wt = np.nonzero(cand >= 0)
+    want = np.sort(wq.astype(np.int64) << 32 | cand[wq, wt])
+    got = np.sort(got_q.astype(np.int64) << 32 | got_t)
+    if not np.array_equal(want, got):
+        raise AssertionError("routed candidates do not resolve to exactly "
+                             "one resident copy each")
+    return xstats
+
+
+def heat_batches(torch, srv, batches, want, checked, log, rows=None):
+    """Counts batches through ``srv``: each answer equal to the
+    replicated server's, the first ``HEAT_CHECK`` rows of each held to
+    the brute force when ``checked`` is given, the shard rows ``rows``
+    after each (an automatic rebalance runs inside a batch) -> per-batch
+    rows."""
+    from repro_torch.core import geometry
+    out = []
+    for i, (qb, w) in enumerate(zip(batches, want)):
+        before = srv._batches_since_rebalance
+        t0 = time.perf_counter()
+        cnt, st = srv.range_counts(qb)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(cnt, w):
+            raise AssertionError(f"{log} counts batch {i} differs from the "
+                                 f"replicated server")
+        if checked is not None:
+            check_counts(torch, geometry, checked, qb[:HEAT_CHECK],
+                         cnt[:HEAT_CHECK])
+        if rows is not None and srv.slayout.canon_shards.shape[:2] != rows:
+            raise AssertionError(f"{log} batch {i}: shard rows "
+                                 f"{srv.slayout.canon_shards.shape[:2]}, "
+                                 f"want {rows}")
+        out.append(dict(ms=ms, split_ms=srv.tiles.split_ms,
+                         rebalanced=srv._batches_since_rebalance <= before,
+                         **{k: st[k] for k in (
+                             "messages", "routed_alt", "f_local",
+                             "m_per_pair", "probe_load_imbalance",
+                             "exchange_bytes")}))
+    return out
+
+
+def timed_rebalance(torch, srv, rows_want):
+    """``srv.rebalance()`` timed, its shard rows checked -> report."""
+    if srv.slayout.canon_shards.shape[:2] != rows_want:
+        raise AssertionError(f"shard rows {srv.slayout.canon_shards.shape[:2]}"
+                             f" before a rebalance, want {rows_want}")
+    t0 = time.perf_counter()
+    rep = srv.rebalance()
+    torch.cuda.synchronize()
+    rep = dict(rep, seconds=time.perf_counter() - t0, **srv.rebalance_s)
+    if srv.slayout.canon_shards.shape[:2] != rows_want:
+        raise AssertionError(f"shard rows {srv.slayout.canon_shards.shape[:2]}"
+                             f" after a rebalance, want {rows_want}")
+    return rep
+
+
+def leg_row(rows):
+    ms = [r["ms"] for r in rows]
+    sp = [r["split_ms"] for r in rows]
+    return dict(batches=len(rows), p50_ms=pct(ms, 0.5), p99_ms=pct(ms, 0.99),
+                split_p50_ms=pct(sp, 0.5),
+                messages=[r["messages"] for r in rows],
+                messages_mean=sum(r["messages"] for r in rows) / len(rows),
+                routed_alt=[r["routed_alt"] for r in rows],
+                f_local=[r["f_local"] for r in rows],
+                m_per_pair=[r["m_per_pair"] for r in rows],
+                probe_load_imbalance=[r["probe_load_imbalance"]
+                                      for r in rows],
+                exchange_bytes=[r["exchange_bytes"] for r in rows])
+
+
+def heat_phase(torch, dev, mbrs, parts):
+    """Queue 1 item 11 on the card: the hotspot bench's three legs at
+    full size, the automatic rebalance, and an ingest stream through the
+    replicas -> ``(replicated "x" server, rebalanced heat server,
+    launches)``, the servers for the frontend phase."""
+    from repro_torch.core import geometry
+    from repro_torch.core.partition.assign import membership, round_up
+    from repro_torch.kernels.range_probe import kernel, ops
+    from repro_torch.query import knn as knn_mod
+    from repro_torch.serve import PlacementPolicy, ServeConfig, SpatialServer
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 6)
+    ctr = torch.rand(2, generator=g, device=dev) * 0.6 + 0.2
+    hot = [hot_qboxes(torch, g, Q, ctr, dev) for _ in range(HEAT_HOT)]
+    c = hot_centres(torch, g, Q_IDS, ctr, dev)
+    s = torch.rand(Q_IDS, 2, generator=g, device=dev) * 0.003
+    ids_q = [torch.cat([c - s, c + s], -1)]
+    for _ in range(HEAT_IDS - 1):
+        c = hot_centres(torch, g, Q_IDS, ctr, dev)
+        s = torch.rand(Q_IDS, 2, generator=g, device=dev) * 0.003
+        ids_q.append(torch.cat([c - s, c + s], -1))
+    knn_p = [hot_centres(torch, g, Q_KNN, ctr, dev)
+             for _ in range(HEAT_KNN)]
+
+    # the replicated "x" server's answers are what every placement gives
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rsrv = SpatialServer(parts, mbrs, ServeConfig(), device=dev)
+    want_c = [rsrv.range_counts(q)[0] for q in hot]
+    want_i = [rsrv.range_ids(q, max_hits=MAX_HITS)[:3] for q in ids_q]
+    want_k = [rsrv.knn(p, K, max_cand=MAX_CAND)[:3] for p in knn_p]
+    torch.cuda.synchronize()
+    kernel.reset_launches()
+    t_all = time.perf_counter()
+
+    # (a) count-balanced, (b) the same server co-located on its heat
+    t0 = time.perf_counter()
+    ssrv = SpatialServer(parts, mbrs, ServeConfig(placement="sharded",
+                                                  shards=SHARDS), device=dev)
+    torch.cuda.synchronize()
+    sharded_build_s = time.perf_counter() - t0
+    t_local = ssrv.stats["t_local"]
+    leg_a = heat_batches(torch, ssrv, hot[:HEAT_LEG], want_c, mbrs, "(a)")
+    rb_b = timed_rebalance(torch, ssrv, (SHARDS, t_local))
+    leg_b = heat_batches(torch, ssrv, hot[:HEAT_LEG], want_c, None, "(b)")
+    del ssrv
+    torch.cuda.empty_cache()
+
+    # (c) the heat placement: cold, rebalanced, then hot traffic
+    pol = PlacementPolicy(heat_decay=HEAT_DECAY, replicate_top=HEAT_TOP)
+    rows = (SHARDS, t_local + HEAT_TOP)
+    t0 = time.perf_counter()
+    hsrv = SpatialServer(parts, mbrs, ServeConfig(
+        placement="heat", shards=SHARDS, policy=pol), device=dev)
+    torch.cuda.synchronize()
+    heat_build_s = time.perf_counter() - t0
+    cold_reps = replica_rows_equal(torch, hsrv)
+    leg_c_cold = heat_batches(torch, hsrv, hot[:HEAT_LEG], want_c, None,
+                              "(c) cold", rows)
+    rb_c = timed_rebalance(torch, hsrv, rows)
+    n_reps = replica_rows_equal(torch, hsrv)
+    leg_c = heat_batches(torch, hsrv, hot, want_c, mbrs, "(c)", rows)
+    i_ms, k_ms, only_r = [], [], 0
+    for i, q in enumerate(ids_q):
+        t0 = time.perf_counter()
+        out = hsrv.range_ids(q, max_hits=MAX_HITS)
+        torch.cuda.synchronize()
+        i_ms.append((time.perf_counter() - t0) * 1e3)
+        if not all(torch.equal(u, v) for u, v in zip(out[:3], want_i[i])):
+            raise AssertionError(f"heat ids batch {i} differs from the "
+                                 f"replicated server")
+    check_ids(torch, geometry, mbrs, ids_q[0], *want_i[0], MAX_HITS)
+    for i, p in enumerate(knn_p):
+        t0 = time.perf_counter()
+        out = hsrv.knn(p, K, max_cand=MAX_CAND)
+        torch.cuda.synchronize()
+        k_ms.append((time.perf_counter() - t0) * 1e3)
+        ok, extra = knn_within(torch, out[:3], want_k[i])
+        if not ok:
+            raise AssertionError(f"heat kNN batch {i} differs from the "
+                                 f"replicated server")
+        only_r += extra
+    ok = ~want_k[0][2][:CHECK_KNN]
+    b_ids, b_d2 = knn_brute(torch, knn_mod, mbrs, knn_p[0][:CHECK_KNN], K)
+    if not (torch.equal(want_k[0][0][:CHECK_KNN][ok], b_ids[ok])
+            and torch.equal(want_k[0][1][:CHECK_KNN][ok], b_d2[ok])):
+        raise AssertionError("hot kNN disagrees with the brute force")
+    xstats = one_resident_copy(torch, hsrv, hot[0])
+    launches = dict(kernel.LAUNCHES)
+    dev_c, top_c = device_busy(torch, lambda: hsrv.range_counts(hot[1]), 3)
+    kernel.LAUNCHES.update(launches)         # the profiled repeats'
+    c_p50 = leg_row(leg_c)["p50_ms"]
+    msgs = {k: leg_row(r)["messages_mean"] for k, r in
+            (("a", leg_a), ("b", leg_b), ("c", leg_c[:HEAT_LEG]))}
+    emit(dict(
+        phase="heat", n=N, shards=SHARDS, t=hsrv.stats["t"], t_local=t_local,
+        replicate_top=HEAT_TOP, heat_decay=HEAT_DECAY, q=Q,
+        sharded_build_s=sharded_build_s, heat_build_s=heat_build_s,
+        shard_rows=list(rows), shard_bytes=hsrv.stats["shard_bytes"],
+        resident_tile_bytes=hsrv.resident_tile_bytes(),
+        replicated_tiles_cold=cold_reps, replicated_tiles=n_reps,
+        leg_a=leg_row(leg_a), leg_b=leg_row(leg_b),
+        leg_c_cold=leg_row(leg_c_cold), leg_c=leg_row(leg_c),
+        messages_mean=msgs,
+        messages_ratio_b_over_a=msgs["b"] / msgs["a"],
+        messages_ratio_c_over_a=msgs["c"] / msgs["a"],
+        rebalance_b=rb_b, rebalance_c=rb_c,
+        counts_device_ms=dev_c, counts_idle_share=1.0 - dev_c / c_p50,
+        top_device=top_c,
+        ids=dict(batches=len(i_ms), p50_ms=pct(i_ms, 0.5),
+                 p99_ms=pct(i_ms, 0.99)),
+        knn=dict(batches=len(k_ms), p50_ms=pct(k_ms, 0.5),
+                 p99_ms=pct(k_ms, 0.99), flagged_by_replicated_only=only_r),
+        one_resident_copy=True, routed_alt=xstats["routed_alt"],
+        equal_to_replicated_x=True, brute_force_counts_per_batch=HEAT_CHECK,
+        brute_force_ids=Q_IDS, brute_force_knn=int(ok.sum()),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=launches))
+
+    # rebalance_every, then an ingest stream through the replicas
+    m = HEAT_APPENDS * INGEST_BATCH + HEAT_UPDATE
+    pick = torch.randperm(mbrs.shape[0], generator=g, device=dev)[:m]
+    shift = (torch.rand(m, 2, generator=g, device=dev) - 0.5) * 2e-4
+    held = mbrs[pick] + torch.cat([shift, shift], 1)
+    _, part = membership(parts, held)
+    slack = round_up(int(torch.bincount(part, minlength=parts.kmax).max()),
+                     128)
+    del part
+    epol = PlacementPolicy(heat_decay=HEAT_DECAY, replicate_top=HEAT_TOP,
+                           rebalance_every=HEAT_EVERY)
+    t0 = time.perf_counter()
+    esrv = SpatialServer(parts, mbrs, ServeConfig(
+        placement="heat", shards=SHARDS, slack=slack, policy=epol),
+        device=dev)
+    torch.cuda.synchronize()
+    every_build_s = time.perf_counter() - t0
+    batches = [hot[i % HEAT_HOT] for i in range(HEAT_EVERY_BATCHES)]
+    every = heat_batches(torch, esrv, batches,
+                         [want_c[i % HEAT_HOT]
+                          for i in range(HEAT_EVERY_BATCHES)], None, "every",
+                         rows)
+    n_auto = sum(r["rebalanced"] for r in every)
+    if n_auto != HEAT_EVERY_BATCHES // HEAT_EVERY:
+        raise AssertionError(f"rebalance_every={HEAT_EVERY} rebalanced "
+                             f"{n_auto} times in {HEAT_EVERY_BATCHES} "
+                             f"batches")
+    replica_rows_equal(torch, esrv)
+    auto_s = esrv.rebalance_s
+    log, model = [], LiveSet(torch, mbrs, g)
+    t0 = time.perf_counter()
+    esrv.tiles._ensure_mirror()
+    mirror_s = time.perf_counter() - t0
+
+    def step(kind, fn):
+        rep = ingest_op(torch, log, kind, fn)
+        if rep["restaged"]:
+            raise AssertionError(f"the heat ingest's {kind} re-staged")
+        log[-1]["replicated_tiles"] = replica_rows_equal(torch, esrv)
+        log[-1]["rows_extent_above_tight"] = shard_extent_slack(torch, ops,
+                                                                esrv)
+        if esrv.slayout.canon_shards.shape[:2] != rows:
+            raise AssertionError("shard rows changed through the ingest")
+        return rep
+
+    for i in range(HEAT_APPENDS):
+        new = held[i * INGEST_BATCH:(i + 1) * INGEST_BATCH]
+        step("append", lambda: esrv.append(new))
+        model.append(new)
+    ids = model.pick(HEAT_DELETE)
+    step("delete", lambda: esrv.delete(ids))
+    model.alive[ids] = False
+    ids = model.pick(HEAT_UPDATE)
+    new = held[HEAT_APPENDS * INGEST_BATCH:]
+    step("update", lambda: esrv.update(ids, new))
+    model.boxes[ids] = new
+    step("compact", esrv.compact)
+    if log[-1]["rows_extent_above_tight"]:
+        raise AssertionError("a shard row's extent is not tight after the "
+                             "heat ingest's compact")
+    qc, qi, pts = hot[0], ids_q[0], knn_p[0]
+    got = ingest_queries(esrv, qc, qi, pts)
+    dense_i = esrv.range_ids(qi, max_hits=MAX_HITS, pruned=False)[:3]
+    dense_k = esrv.knn(pts, K, max_cand=MAX_CAND, pruned=False)[:3]
+    torch.cuda.synchronize()
+    launches_e = dict(kernel.LAUNCHES)
+    live_ids, live_boxes = model.live()
+    if esrv.stats["n"] != live_ids.numel():
+        raise AssertionError("the heat server's n is not the live count")
+    check_counts(torch, geometry, live_boxes, qc[:HEAT_CHECK],
+                 got["counts"][:HEAT_CHECK])
+    if not (torch.equal(got["dense"], got["counts"])
+            and all(torch.equal(u, v) for u, v in zip(got["ids"], dense_i))):
+        raise AssertionError("the heat server's ingested answers differ "
+                             "from its dense oracle")
+    ok, _ = knn_within(torch, got["knn"], dense_k)
+    (ai, ad, ao) = got["knn"]
+    sub = ~ao[:CHECK_KNN]
+    b_ids, b_d2 = knn_brute(torch, knn_mod, live_boxes, pts[:CHECK_KNN], K)
+    b_ids = live_ids[b_ids.long()].to(torch.int32)
+    if not (ok and torch.equal(ai[:CHECK_KNN][sub], b_ids[sub])
+            and torch.equal(ad[:CHECK_KNN][sub], b_d2[sub])):
+        raise AssertionError("the heat server's ingested kNN differs from "
+                             "its dense oracle or the brute force")
+    if not bool((esrv.tiles.extent >= ops.live_extent(
+            esrv.slayout.alive_shards.flatten(0, 1)).view(
+                esrv.tiles.extent.shape)).all()):
+        raise AssertionError("extent < live_extent(alive) after the ingest")
+    emit(dict(phase="heat_ingest", rebalance_every=HEAT_EVERY,
+              batches=len(every), auto_rebalances=n_auto,
+              every_p50_ms=pct([r["ms"] for r in every], 0.5),
+              every_batch_ms=[r["ms"] for r in every],
+              last_auto_rebalance_s=auto_s, build_s=every_build_s,
+              slack=slack, mirror_s=mirror_s, ops=log,
+              equal_to_dense_oracle=True, brute_force_counts=HEAT_CHECK,
+              brute_force_knn=int(sub.sum()),
+              max_memory_allocated=torch.cuda.max_memory_allocated(),
+              launches=launches_e, phase_s=time.perf_counter() - t_all))
+    for name in ("gather_count_skip", "gather_hits_skip", "dense_counts",
+                 "dense_hits"):
+        if launches_e[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the heat "
+                                 f"path: {launches_e}")
+    for name in list(TABLES.values()) + ["count", "mask"]:
+        if launches_e[name]:
+            raise AssertionError(f"{name} was launched on the heat path: "
+                                 f"{launches_e}")
+    del esrv, got, dense_i, dense_k, model, live_ids, live_boxes, held
+    torch.cuda.empty_cache()
+    return rsrv, hsrv, launches_e
+
+
+def mix_request(rng, i):
+    """The frontend's traffic mix, drawn from the arrival generator:
+    70% ``range_counts`` (half-extents to 0.03), 20% ``range_ids`` (to
+    0.003), 10% ``knn``; tenants take 70%, 20% and 10% of the
+    arrivals."""
+    u, v = rng.random(), rng.random()
+    tenant = "t0" if v < 0.7 else "t1" if v < 0.9 else "t2"
+    if u < 0.1:
+        return "knn", rng.random(2).astype(np.float32), (K, MAX_CAND), tenant
+    c = rng.random(2)
+    if u < 0.3:
+        s = rng.random(2) * 0.003
+        kind, params = "range_ids", (MAX_HITS,)
+    else:
+        s = rng.random(2) * 0.03
+        kind, params = "range_counts", ()
+    return kind, np.concatenate([c - s, c + s]).astype(np.float32), params, \
+        tenant
+
+
+def direct_rows(torch, srv, kind, payloads, params):
+    """One direct unpadded batched call -> host rows, as
+    ``execute_batch`` returns them."""
+    q = torch.from_numpy(np.stack(payloads)).to(srv.device)
+    if kind == "range_counts":
+        return srv.range_counts(q)[0].cpu().tolist()
+    if kind == "range_ids":
+        hid, cnt, ovf, _ = srv.range_ids(q, max_hits=params[0])
+        hid, cnt, ovf = hid.cpu().numpy(), cnt.cpu().numpy(), ovf.cpu().numpy()
+        return [(hid[i], int(cnt[i]), bool(ovf[i])) for i in range(len(q))]
+    nn, d2, ovf, _ = srv.knn(q, params[0], max_cand=params[1])
+    nn, d2, ovf = nn.cpu().numpy(), d2.cpu().numpy(), ovf.cpu().numpy()
+    return [(nn[i], d2[i], bool(ovf[i])) for i in range(len(q))]
+
+
+def same_rows(got, want) -> bool:
+    for g, w in zip(got, want):
+        if isinstance(w, tuple):
+            if not all(np.array_equal(np.asarray(a), np.asarray(b))
+                       for a, b in zip(g, w)):
+                return False
+        elif g != w:
+            return False
+    return len(got) == len(want)
+
+
+class CheckedExecute:
+    """``simulate_open_loop``'s executor: ``execute_batch`` timed on the
+    host clock (the copies to the host wait for the card), then the
+    batch's queries as one direct unpadded call, which must give the same
+    rows bit for bit; the check's launches are not counted.  Keeps the
+    slots and the fill by kind."""
+
+    def __init__(self, torch, kernel, frontend):
+        self.torch, self.kernel, self.fe = torch, kernel, frontend
+        self.slots, self.fill, self.service = {}, {}, {}
+        self.check_s = 0.0
+
+    def __call__(self, srv, batch):
+        t0 = time.perf_counter()
+        results = self.fe.execute_batch(srv, batch)
+        service_s = time.perf_counter() - t0
+        counted = dict(self.kernel.LAUNCHES)
+        want = direct_rows(self.torch, srv, batch.kind,
+                           [r.payload for r in batch.requests], batch.params)
+        self.kernel.LAUNCHES.update(counted)
+        self.check_s += time.perf_counter() - t0 - service_s
+        if not same_rows(results, want):
+            raise AssertionError(f"a padded {batch.kind} batch of "
+                                 f"{len(batch.requests)} (width "
+                                 f"{batch.width}) differs from the direct "
+                                 f"call")
+        k = batch.kind
+        self.slots[k] = self.slots.get(k, 0) + batch.width
+        self.fill[k] = self.fill.get(k, 0) + len(batch.requests)
+        self.service.setdefault(k, []).append(service_s * 1e3)
+        return results, service_s
+
+
+def service_capacity(torch, srv, frontend, rounds=10):
+    """Each kind's direct service ms at the top rung (``execute_batch``
+    on 512 requests; the kinds in turns over ``rounds`` rounds after a
+    warm-up, the median of each, so a slow spell of the shared host
+    weighs on every kind alike) -> (ms by kind, the mix's capacity R in
+    requests a second)."""
+    rng = np.random.default_rng(SEED + 7)
+    top = frontend.FrontendConfig().max_batch
+    kinds = {}
+    while len(kinds) < 3 or min(len(v) for v in kinds.values()) < top:
+        kind, payload, params, _ = mix_request(rng, 0)
+        kinds.setdefault((kind, params), []).append(payload)
+    batches = {kind: frontend.Batch(kind, params, [frontend.Request(
+        kind, p, params) for p in pl[:top]], top, 0.0)
+        for (kind, params), pl in kinds.items()}
+    times = {kind: [] for kind in batches}
+    for r in range(rounds + 1):
+        for kind, batch in batches.items():
+            t0 = time.perf_counter()
+            frontend.execute_batch(srv, batch)
+            if r:
+                times[kind].append((time.perf_counter() - t0) * 1e3)
+    ms = {kind: median(t) for kind, t in times.items()}
+    per_req_ms = sum(FE_MIX[kind] * ms[kind] for kind in ms) / top
+    return ms, 1e3 / per_req_ms
+
+
+def open_loop_run(torch, kernel, frontend, srv, name, rate, arrivals, cfg):
+    """One ``simulate_open_loop`` run of ``poisson_workload`` (seed 0) at
+    ``rate`` -> its row."""
+    t0 = time.perf_counter()
+    wl = frontend.poisson_workload(rate, arrivals / rate, mix_request, seed=0)
+    gen_s = time.perf_counter() - t0
+    ex = CheckedExecute(torch, kernel, frontend)
+    before = dict(kernel.LAUNCHES)
+    t0 = time.perf_counter()
+    resp, metrics = frontend.simulate_open_loop(srv, wl, cfg, execute=ex)
+    wall_s = time.perf_counter() - t0
+    launches = {k: kernel.LAUNCHES[k] - before[k] for k in CASES}
+    snap = metrics.snapshot()
+    done = [a.t + r.total_s for a, r in zip(wl, resp) if r.ok]
+    span = max(done) - wl[0].t if done else 0.0
+    if snap["completed"] + snap["rejected"] + snap["timed_out"] != len(wl):
+        raise AssertionError(f"frontend run {name} lost requests")
+    return dict(
+        phase="frontend", run=name, offered_rate=rate, arrivals=len(wl),
+        workload_gen_s=gen_s, wall_s=wall_s, config=dict(
+            ladder=list(cfg.ladder), max_delay=cfg.max_delay,
+            queue_limit=cfg.queue_limit, quantum=cfg.quantum,
+            default_deadline=cfg.default_deadline),
+        completed=snap["completed"], rejected=snap["rejected"],
+        timed_out=snap["timed_out"], batches=snap["batches"],
+        queue_depth_max=snap["queue_depth_max"],
+        batches_by_kind={k: len(v) for k, v in ex.service.items()},
+        virtual_s=max(done, default=0.0),
+        sustained_rps=snap["completed"] / span if span else 0.0,
+        queue_ms=dict(p50=snap["queue_s"]["p50"] * 1e3,
+                      p99=snap["queue_s"]["p99"] * 1e3),
+        total_ms=dict(p50=snap["total_s"]["p50"] * 1e3,
+                      p99=snap["total_s"]["p99"] * 1e3),
+        execute_ms=dict(p50=snap["execute_s"]["p50"] * 1e3,
+                        p99=snap["execute_s"]["p99"] * 1e3),
+        fill_ratio=snap["batch_fill_ratio"], padded_slots=snap["padded_slots"],
+        fill_by_kind={k: ex.fill[k] / ex.slots[k] for k in ex.slots},
+        padded_slots_by_kind={k: ex.slots[k] - ex.fill[k] for k in ex.slots},
+        service_p50_ms_by_kind={k: pct(v, 0.5) for k, v in ex.service.items()},
+        # the plane's own host time: the run's wall but the executions
+        # and their checks
+        host_us_per_request=(wall_s - ex.check_s - sum(
+            sum(v) for v in ex.service.values()) / 1e3) * 1e6 / len(wl),
+        tenants=snap["tenants"], equal_to_direct_calls=True,
+        launches=launches)
+
+
+def frontend_phase(torch, dev, rsrv, hsrv):
+    """Queue 1 item 12 on the card: the request plane in front of the
+    replicated "x" server (the open loop at 0.5 R and 1.5 R, the asyncio
+    frontend) and of the rebalanced heat server -> launches."""
+    import asyncio
+    from repro_torch.kernels.range_probe import kernel
+    from repro_torch.serve import frontend
+
+    kernel.reset_launches()
+    cfg = frontend.FrontendConfig()
+    ms, cap = service_capacity(torch, rsrv, frontend)
+    emit(dict(phase="frontend_capacity", server="replicated",
+              service_ms_at_512=ms, capacity_rps=cap))
+    emit(open_loop_run(torch, kernel, frontend, rsrv, "replicated_0.5R",
+                       0.5 * cap, FE_ARRIVALS, cfg))
+    emit(open_loop_run(torch, kernel, frontend, rsrv, "replicated_1.5R",
+                       1.5 * cap, FE_ARRIVALS,
+                       cfg.replace(default_deadline=FE_DEADLINE)))
+    hms, hcap = service_capacity(torch, hsrv, frontend)
+    emit(dict(phase="frontend_capacity", server="heat",
+              service_ms_at_512=hms, capacity_rps=hcap))
+    row = open_loop_run(torch, kernel, frontend, hsrv, "heat_0.5R",
+                        0.5 * hcap, FE_HEAT_ARRIVALS, cfg)
+    emit(dict(row, placement_stats=frontend.ServeFrontend(
+        hsrv).placement_stats()))
+
+    rng = np.random.default_rng(SEED + 8)
+    subs = [mix_request(rng, i) for i in range(FE_ASYNC)]
+
+    async def serve_all():
+        fe = frontend.ServeFrontend(rsrv, cfg)
+        fe.start()
+        calls = []
+        for kind, payload, params, tenant in subs:
+            if kind == "knn":
+                calls.append(fe.knn(payload, *params, tenant=tenant))
+            elif kind == "range_ids":
+                calls.append(fe.range_ids(payload, *params, tenant=tenant))
+            else:
+                calls.append(fe.range_counts(payload, tenant=tenant))
+        tasks = [asyncio.ensure_future(c) for c in calls]
+        await asyncio.sleep(0)
+        await fe.close()                     # drains every submission
+        return await asyncio.gather(*tasks), fe
+
+    before = dict(kernel.LAUNCHES)
+    t0 = time.perf_counter()
+    out, fe = asyncio.run(serve_all())
+    async_s = time.perf_counter() - t0
+    a_launches = {k: kernel.LAUNCHES[k] - before[k] for k in CASES}
+    launches = dict(kernel.LAUNCHES)
+    if not all(r.ok for r in out):
+        raise AssertionError("the asyncio frontend did not serve every "
+                             "submission")
+    for kind in ("range_counts", "range_ids", "knn"):
+        idx = [i for i, s in enumerate(subs) if s[0] == kind]
+        want = direct_rows(torch, rsrv, kind, [subs[i][1] for i in idx],
+                           subs[idx[0]][2])
+        if not same_rows([out[i].value for i in idx], want):
+            raise AssertionError(f"asyncio {kind} responses differ from a "
+                                 f"direct call")
+    snap = fe.metrics.snapshot()
+    emit(dict(phase="frontend", run="asyncio", submissions=FE_ASYNC,
+              wall_s=async_s, completed=snap["completed"],
+              batches=snap["batches"], fill_ratio=snap["batch_fill_ratio"],
+              total_ms=dict(p50=snap["total_s"]["p50"] * 1e3,
+                            p99=snap["total_s"]["p99"] * 1e3),
+              drained_on_close=True, equal_to_direct_calls=True,
+              launches=a_launches))
+    for name in CASES:
+        if name in ("gather_count", "gather_hits"):
+            continue
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} was not launched on the frontend "
+                                 f"path: {launches}")
+    return launches
+
+
+def heat_alone(torch, dev):
+    """The heat and frontend phases on their own (the kernels build at
+    first use): the serve phase's objects and partitioning, then
+    ``heat_phase`` and ``frontend_phase`` -> their launches."""
+    from repro_torch.core.partition import api
+    from repro_torch.data import spatial_gen
+
+    mbrs = spatial_gen.osm_like(N, seed=SEED, device=dev)
+    parts = api.partition("bsp", mbrs, PAYLOAD)
+    rsrv, hsrv, launches = heat_phase(torch, dev, mbrs, parts)
+    return launches, frontend_phase(torch, dev, rsrv, hsrv)
 
 
 def sharded_join_phase(torch, dev, inputs, results):
@@ -2932,6 +3602,7 @@ def main() -> int:
     wall.update(serve_s=t1 - t0, knn_s=t2 - t1, dense_s=t3 - t2,
                 kernels_s=t4 - t3)
     servers = {"x": servers["x"]}
+    parts = servers["x"].parts
     del qc, qi, pts, pruned_knn
     torch.cuda.empty_cache()
     sharded_launches = sharded_phase(torch, dev, servers, mbrs, batches,
@@ -2939,13 +3610,25 @@ def main() -> int:
     t4b = time.perf_counter()
     wall["sharded_s"] = t4b - t4
     t4 = t4b
-    del servers, mbrs, batches, pruned_x, knn_x
+    del servers, batches, pruned_x, knn_x
+    torch.cuda.empty_cache()
+    rsrv, hsrv, heat_launches = heat_phase(torch, dev, mbrs, parts)
+    t4b = time.perf_counter()
+    wall["heat_s"] = t4b - t4
+    t4 = t4b
+    frontend_launches = frontend_phase(torch, dev, rsrv, hsrv)
+    t4b = time.perf_counter()
+    wall["frontend_s"] = t4b - t4
+    t4 = t4b
+    del rsrv, hsrv, parts, mbrs
     torch.cuda.empty_cache()
 
     ingest_launches = ingest_phase(torch, dev)
     for e in entries:
         e["launches_by_path"] = dict(ingest=ingest_launches[e["name"]],
-                                     sharded=sharded_launches[e["name"]])
+                                     sharded=sharded_launches[e["name"]],
+                                     heat=heat_launches[e["name"]],
+                                     frontend=frontend_launches[e["name"]])
     t4b = time.perf_counter()
     wall["ingest_s"] = t4b - t4
     t4 = t4b

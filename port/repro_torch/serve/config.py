@@ -6,10 +6,9 @@ Axes: ``placement`` (``"replicated"`` | ``"sharded"`` | ``"heat"``),
 ``"x"`` | ``"hilbert"``), ``chunk`` (chunk-box granularity, a multiple
 of 128), ``capacity``/``slack`` (per-tile member slots), ``shards``,
 ``axis``, the compaction thresholds, and the heat ``policy``.  The
-port serves ``placement="replicated"`` and ``"sharded"`` (its
-``shards`` owners simulated on one device) with every ``probe`` and
-``local_index``; ``serve.engine`` raises ``NotImplementedError`` for
-``"heat"`` and ``policy.rebalance_every``.
+port serves every placement (the ``shards`` owners of ``"sharded"``
+and ``"heat"`` simulated on one device) with every ``probe`` and
+``local_index``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """The batched spatial query server (twin of ``repro.serve.engine`` on
-one device: the replicated placement, and the sharded placement with
-its owners simulated).
+one device: the replicated placement, and the sharded and heat
+placements with their owners simulated).
 
 A dataset is partitioned and MASJ-staged once; each range batch is
 then answered in three steps (the pruned probe, the default):
@@ -27,24 +27,29 @@ compaction policy (or ``compact``) reclaims dead slots; each writes
 only the touched cells and rows to the device, and a tile overflow
 re-stages the layout at a grown capacity and resets the width cache.
 Answers after any ingest sequence equal a fresh staging of the live
-set.  ``rebalance`` is the reference's no-op report under the
-replicated placement.
+set.
+
+Every routed batch folds its candidate lists into a ``HeatTracker``;
+``rebalance`` hands a snapshot to the layout, which re-plans its owners
+on it (``"sharded"``: co-locating tiles that share queries; ``"heat"``:
+that and replicas of the hottest tiles; ``"replicated"``: the
+reference's no-op report), and ``PlacementPolicy.rebalance_every``
+runs it every N observed batches.
 
 The server is written once against the ``TileLayout`` protocol
 (``serve.layout``): ``placement="replicated"`` keeps the whole staging
-on the device, ``placement="sharded"`` (``ServeConfig.shards`` owners)
-places tiles on owners and runs each batch through the owner-routed
-exchange (``serve.exchange``), every owner simulated on the one device
-(``mesh=None``); the answers are the same bits.
-
-Features of the reference server not ported yet (the heat placement,
-the sharded ``rebalance``, ``rebalance_every``, meshes) raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+on the device, ``placement="sharded"`` and ``"heat"``
+(``ServeConfig.shards`` owners) place tiles on owners and run each
+batch through the owner-routed exchange (``serve.exchange``), every
+owner simulated on the one device (``mesh=None``); the answers are the
+same bits.  A mesh raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
 import logging
 import math
+import time
 
 import numpy as np
 import torch
@@ -110,14 +115,6 @@ class WidthPolicy:
         self._w.clear()
 
 
-def _check_ported(config: ServeConfig) -> None:
-    if config.placement == "heat":
-        raise not_ported("placement='heat'", "Queue 1 item 11")
-    if config.policy.rebalance_every is not None:
-        raise not_ported("PlacementPolicy.rebalance_every",
-                         "Queue 1 item 11")
-
-
 class SpatialServer:
     """Stage once, then serve batched exact range and kNN queries on
     one device.
@@ -125,8 +122,9 @@ class SpatialServer:
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
     ``config`` is a frozen ``ServeConfig``; the port serves the
-    ``"replicated"`` and ``"sharded"`` placements (the latter's
-    ``shards`` owners simulated on the device), ``probe`` ``"pruned"``
+    ``"replicated"``, ``"sharded"`` and ``"heat"`` placements (the
+    latter two's ``shards`` owners simulated on the device), ``probe``
+    ``"pruned"``
     (default) or ``"dense"`` (also a per-call ``pruned=`` override),
     and ``local_index`` ``"x"`` (default), ``"hilbert"`` or ``"off"``,
     on any of the six layouts.
@@ -137,7 +135,6 @@ class SpatialServer:
                  device: torch.device | str | None = None,
                  method: str | None = None, mesh=None):
         self.config = config = config if config is not None else ServeConfig()
-        _check_ported(config)
         if mesh is not None:
             raise not_ported("mesh", "Queue 1 item 10")
         self.device = resolve(device)
@@ -151,6 +148,8 @@ class SpatialServer:
         self.heat = router.HeatTracker(self.stats["t"],
                                        decay=config.policy.heat_decay,
                                        device=self.device)
+        self._batches_since_rebalance = 0
+        self.rebalance_s: dict = {}   # the last rebalance's split seconds
 
     @classmethod
     def from_method(cls, method: str, mbrs, payload: int,
@@ -158,7 +157,6 @@ class SpatialServer:
                     device: torch.device | str | None = None
                     ) -> "SpatialServer":
         """Partition ``mbrs`` with ``method`` at ``payload`` and serve."""
-        _check_ported(config if config is not None else ServeConfig())
         dev = resolve(device)
         mbrs = torch.as_tensor(mbrs, dtype=torch.float32, device=dev)
         parts = api.partition(method, mbrs, payload)
@@ -181,12 +179,14 @@ class SpatialServer:
 
     @property
     def layout(self) -> StagedLayout | None:
-        """The replicated staging (None under ``placement='sharded'``)."""
+        """The replicated staging (None under ``"sharded"`` and
+        ``"heat"``)."""
         return getattr(self.tiles, "staged", None)
 
     @property
     def slayout(self) -> ShardedLayout | None:
-        """The sharded staging (None under ``placement='replicated'``)."""
+        """The sharded staging, replica maps included under ``"heat"``
+        (None under ``placement='replicated'``)."""
         return getattr(self.tiles, "slayout", None)
 
     @property
@@ -264,12 +264,32 @@ class SpatialServer:
         return report
 
     def rebalance(self) -> dict:
-        """Snapshot the heat tracker and hand it to the layout: under the
-        replicated placement no tile has an owner to move, so the report
-        is the reference's no-op; the sharded placement's re-plan raises
-        (ROADMAP Queue 1 item 11)."""
+        """Snapshot the heat tracker and hand it to the layout: owners
+        re-plan, co-locating co-occurring tiles (seeded from the current
+        plan), and under ``"heat"`` the hottest
+        ``config.policy.replicate_top`` tiles refresh their replicas.
+        Answers are the same bits before and after; only the owner maps
+        and the shards change.  The no-op report under
+        ``"replicated"``.  ``rebalance_s`` keeps the split seconds: the
+        snapshot (its host copy), and the layout's staging rebuild, plan
+        and re-gather."""
+        t0 = time.perf_counter()
         heat, cooc = self.heat.snapshot()
-        return self.tiles.rebalance(heat, cooc)
+        snapshot_s = time.perf_counter() - t0
+        report = self.tiles.rebalance(heat, cooc)
+        self.rebalance_s = dict(snapshot_s=snapshot_s,
+                                **getattr(self.tiles, "rebalance_s", {}))
+        self._batches_since_rebalance = 0
+        return report
+
+    def _observe(self, cand) -> None:
+        """Fold one routed batch into the heat tracker; rebalance every
+        ``config.policy.rebalance_every`` observed batches."""
+        self.heat.observe(cand)
+        self._batches_since_rebalance += 1
+        every = self.config.policy.rebalance_every
+        if every is not None and self._batches_since_rebalance >= every:
+            self.rebalance()
 
     # -- routing (host side, per batch) -----------------------------------
 
@@ -286,7 +306,7 @@ class SpatialServer:
         f = self.widths.at_least("range", floor)
         cand, _, _ = router.candidates_from_overlap(hit, f)
         self.widths.observe("range", f)
-        self.heat.observe(cand)
+        self._observe(cand)
         return cand, pf.astype(np.float64), f
 
     def _fanout_stats(self, qboxes: torch.Tensor) -> dict:
@@ -382,6 +402,6 @@ class SpatialServer:
         self.widths.observe(wkey, f)
         # heat sees the converged frontier: the tiles this batch probed
         cand, _, _ = router.candidate_knn(self.probe_boxes, pts, f)
-        self.heat.observe(cand)
+        self._observe(cand)
         return (nn_ids, nn_d2, overflow | miss,
                 dict(f_max=f, retries=retries, **xstats))

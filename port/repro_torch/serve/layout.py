@@ -19,7 +19,10 @@ oracle):
   run through the owner-routed exchange (``serve.exchange``).  There
   is no mesh: the ``D`` owners are simulated on the one device, their
   shards one contiguous ``(D, T_rows, ...)`` array, so each move of the
-  exchange is one launch over every owner.
+  exchange is one launch over every owner;
+- ``HeatSharded``: the sharded placement re-planned on observed query
+  heat (``rebalance``): co-located primaries and bit-exact replicas of
+  the hottest tiles in ``replicate_top`` extra rows an owner.
 
 Both stream ``append``, ``delete``, ``update`` and ``compact`` into the
 staging as O(M) scatters, with an overflow re-stage of the live set
@@ -284,8 +287,10 @@ class ShardedLayout:
     chunk_boxes  : (T, C, 4) *global* chunk boxes, or None
     uni          : (4,) dataset universe
     owner, local : (T,) int32 host maps, global tile -> (owner, row)
-    rep_owner, rep_local : the hot-tile replica maps (heat placement,
-                   ROADMAP Queue 1 item 11); None here
+    rep_owner, rep_local : (T,) int32 host maps of the hot tiles' second
+                   copies (owner, row past ``t_local``), -1 where a tile
+                   has none; None without replicas (``replicate_top``
+                   of 0)
 
     The four shard arrays are contiguous, so ``(D·T_rows, ...)`` is a
     free view of each (``exchange.Shards``).
@@ -306,16 +311,17 @@ class ShardedLayout:
 
 def _scatter_shards(canon: torch.Tensor, ids: torch.Tensor,
                     alive: torch.Tensor, chunk: torch.Tensor | None,
-                    owner: np.ndarray, local: np.ndarray, t_rows: int,
-                    d: int):
+                    owner: np.ndarray, local: np.ndarray, tiles: np.ndarray,
+                    t_rows: int, d: int):
     """The global staging's rows gathered into ``(D, t_rows, ...)``
-    shards on its own device: shard row ``o·t_rows + l`` reads the tile
-    the (owner, local) maps place there; padding rows get the sentinel
-    box, id -1 and ``alive`` False (and sentinel chunk boxes).  No host
-    round trip: at 8 M objects that would move about 5.8 GB each way."""
+    shards on its own device: shard row ``owner[i]·t_rows + local[i]``
+    reads global tile ``tiles[i]`` (a hot tile twice: its primary and
+    its replica row); padding rows get the sentinel box, id -1 and
+    ``alive`` False (and sentinel chunk boxes).  No host round trip: at
+    8 M objects that would move about 5.8 GB each way."""
     dev = ids.device
     src = np.full(d * t_rows, -1, np.int64)
-    src[owner.astype(np.int64) * t_rows + local] = np.arange(owner.shape[0])
+    src[owner.astype(np.int64) * t_rows + local] = tiles
     src_t = torch.from_numpy(src).to(dev)
     pad = src_t < 0
     take = src_t.clamp_min(0)
@@ -330,51 +336,136 @@ def _scatter_shards(canon: torch.Tensor, ids: torch.Tensor,
             None if chunk is None else gather(chunk, sentinel))
 
 
+def _plan_replicas(owner: np.ndarray, score: np.ndarray, t_local: int,
+                   d: int, replicate_top: int,
+                   cooc: np.ndarray | None = None):
+    """Place one replica of each of the ``replicate_top`` hottest tiles
+    on a second owner (the reference's host planner, copied as it is).
+    Replica rows occupy shard rows past ``t_local``; each owner hosts at
+    most ``replicate_top`` replicas, so its row budget is exactly
+    ``t_local + replicate_top``.  Targets go greedily by descending tile
+    score.  With ``cooc``, the target is the non-primary owner holding
+    the most co-occurring traffic (primary tiles plus replicas already
+    placed); without it (or when no co-occurrence reaches another
+    owner), the least score-loaded owner, loads adjusted as if the
+    replica takes half the tile's traffic.  Deterministic.
+    -> ``(rep_owner[T], rep_local[T])`` int32, -1 where no replica."""
+    t = owner.shape[0]
+    rep_owner = np.full(t, -1, np.int32)
+    rep_local = np.full(t, -1, np.int32)
+    hot = np.argsort(-score, kind="stable")[:min(replicate_top, t)]
+    dev_load = np.zeros(d, np.float64)
+    np.add.at(dev_load, owner, score)
+    rep_count = np.zeros(d, np.int64)
+    aff = None
+    if cooc is not None:
+        w = np.asarray(cooc, np.float64)
+        w = w + w.T
+        np.fill_diagonal(w, 0.0)
+        onehot = np.zeros((t, d), np.float64)
+        onehot[np.arange(t), owner] = 1.0
+        aff = w @ onehot            # (t, d) co-traffic per owner
+    for tt in hot.tolist():
+        open_ = [dv for dv in range(d)
+                 if dv != owner[tt] and rep_count[dv] < replicate_top]
+        if not open_:
+            continue
+        if aff is not None and max(aff[tt, dv] for dv in open_) > 0:
+            dv = max(open_, key=lambda x: (aff[tt, x], -dev_load[x], -x))
+        else:
+            dv = min(open_, key=lambda x: (dev_load[x], x))
+        rep_owner[tt] = dv
+        rep_local[tt] = t_local + rep_count[dv]
+        rep_count[dv] += 1
+        dev_load[dv] += 0.5 * score[tt]
+        dev_load[owner[tt]] -= 0.5 * score[tt]
+        if aff is not None:
+            aff[:, dv] += w[:, tt]  # the replica is now resident on dv
+    return rep_owner, rep_local
+
+
 def shard_staged(layout: StagedLayout, stats: dict, n_shards: int,
                  mesh=None, prev_owner: np.ndarray | None = None,
-                 cooc: np.ndarray | None = None, replicate_top: int = 0
+                 cooc: np.ndarray | None = None,
+                 heat: np.ndarray | None = None, replicate_top: int = 0,
+                 timings: dict | None = None
                  ) -> tuple[ShardedLayout, dict]:
     """Shard a staged layout's tiles across ``n_shards`` owners.
 
     Placement is capped LPT on per-tile member counts
     (``core.placement.shard_tiles``): no owner holds more than
     ``ceil(T/D)`` tiles, so each owner's shard is at most one tile over
-    an even split.  ``prev_owner`` (a streaming re-stage) adds the
-    moved-tile count to the stats; ``cooc`` switches to the
-    co-locating planner.  -> ``(ShardedLayout, stats)``.  The reference
-    also returns a host copy of the unsharded staging for its dense
-    oracle; the port rebuilds that oracle on the device from the
-    shards (``ShardedTiles._oracle``).  A mesh and hot-tile replicas
-    (``replicate_top > 0``) raise (ROADMAP Queue 1 items 10 and 11).
+    an even split.  ``prev_owner`` (a re-stage or a rebalance) adds the
+    moved-tile count to the stats; ``cooc`` switches to the co-locating
+    planner (``placement.colocate_tiles``, seeded from ``prev_owner``).
+    ``replicate_top > 0`` adds one bit-exact replica of each of the
+    hottest tiles (ranked by ``heat`` when any value is above 0, by
+    member counts otherwise) in the shard rows past ``t_local``: every
+    owner has exactly ``t_local + replicate_top`` rows however many
+    replicas place (``d == 1`` places none).  The replica rows are
+    gathered from the staging on the device like the primaries.
+    ``timings``, when given, receives the host planning and the
+    device gather seconds (``plan_s``, ``scatter_s``).
+    -> ``(ShardedLayout, stats)``.  The reference also returns a host
+    copy of the unsharded staging for its dense oracle; the port
+    rebuilds that oracle on the device from the shards
+    (``ShardedTiles._oracle``).  A mesh raises (ROADMAP Queue 1 item
+    10).
     """
     if mesh is not None:
         raise not_ported("mesh", "Queue 1 item 10")
+    t0 = time.perf_counter()
     d = max(1, int(n_shards))
-    if replicate_top > 0 and d > 1:
-        raise not_ported("PlacementPolicy.replicate_top > 0",
-                         "Queue 1 item 11")
+    if d == 1:
+        replicate_top = 0      # a second owner needs a second device
     member_counts = ((layout.ids >= 0).sum(1).cpu().numpy()
                      .astype(np.float64))
     owner, local, t_local, pstats = placement.shard_tiles(
         member_counts, d, prev_owner=prev_owner, cooc=cooc)
+    t = owner.shape[0]
+    rep_owner = rep_local = None
+    t_rows, n_rep = t_local, 0
+    owner_all, local_all, tiles_all = owner, local, np.arange(t)
+    if replicate_top > 0:
+        score = member_counts
+        if heat is not None and np.any(np.asarray(heat) > 0):
+            score = np.asarray(heat, np.float64)
+        rep_owner, rep_local = _plan_replicas(owner, score, t_local, d,
+                                              int(replicate_top), cooc=cooc)
+        t_rows = t_local + int(replicate_top)
+        reps = np.flatnonzero(rep_owner >= 0)
+        n_rep = int(reps.size)
+        owner_all = np.concatenate([owner, rep_owner[reps]])
+        local_all = np.concatenate([local, rep_local[reps]])
+        tiles_all = np.concatenate([tiles_all, reps])
+    t1 = time.perf_counter()
     canon_sh, id_sh, alive_sh, chunk_sh = _scatter_shards(
         layout.canon_tiles, layout.ids, layout.alive, layout.chunk_boxes,
-        owner, local, t_local, d)
+        owner_all, local_all, tiles_all, t_rows, d)
+    if timings is not None:
+        _sync(canon_sh.device)
+        timings.update(plan_s=t1 - t0, scatter_s=time.perf_counter() - t1)
     slayout = ShardedLayout(canon_shards=canon_sh, id_shards=id_sh,
                             alive_shards=alive_sh, chunk_shards=chunk_sh,
                             probe_boxes=layout.probe_boxes,
                             chunk_boxes=layout.chunk_boxes, uni=layout.uni,
-                            owner=owner, local=local)
+                            owner=owner, local=local, rep_owner=rep_owner,
+                            rep_local=rep_local)
     stats = dict(stats, shards=d, t_local=t_local,
                  shard_bytes=sum(_nbytes(a) for a in (canon_sh, id_sh,
                                                       alive_sh)) // d,
-                 placement_skew=pstats["skew"], replicated_tiles=0)
+                 placement_skew=pstats["skew"], replicated_tiles=n_rep)
     for key in ("cut_before", "cut_after"):
         if key in pstats:
             stats[key] = pstats[key]
     if "moved" in pstats:
         stats["moved_tiles"] = pstats["moved"]
     return slayout, stats
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -465,11 +556,11 @@ def _knn_cost_proxy(uni_np: np.ndarray, n: int, dist, k: int) -> np.ndarray:
 
 @runtime_checkable
 class TileLayout(Protocol):
-    """What ``SpatialServer`` serves against: one contract, two
-    placements (``ReplicatedTiles``, ``ShardedTiles``).
+    """What ``SpatialServer`` serves against: one contract, three
+    placements (``ReplicatedTiles``, ``ShardedTiles``, ``HeatSharded``).
 
     ``mode`` names the routed executor in answer stats (``"pruned"``
-    replicated, ``"sharded"`` owner-routed).  The routed executors take
+    replicated, ``"sharded"`` and ``"heat"`` owner-routed).  The routed executors take
     the server's ``(Q, F)`` candidate lists and LPT cost vector;
     ``knn_attempt`` routes its own MINDIST frontier at width ``f`` and
     returns the excluded distance the exactness check needs; the
@@ -1216,8 +1307,10 @@ class ShardedTiles(_TilesBase):
     unsharded staging rebuilt on the device from the shards at its
     first call and dropped on every refresh.  A streaming re-stage
     re-balances owners on the fresh member counts
-    (``stats['moved_tiles']``) under the same ``ceil(T/D)`` bound.
-    Stats dicts equal the reference's with ``mesh=None``.
+    (``stats['moved_tiles']``) under the same ``ceil(T/D)`` bound;
+    ``rebalance`` re-plans them on observed heat (co-locating tiles
+    that share queries).  Stats dicts equal the reference's with
+    ``mesh=None``.
     """
 
     mode = "sharded"
@@ -1226,22 +1319,26 @@ class ShardedTiles(_TilesBase):
                  stats: dict, config: ServeConfig):
         self.shards = 0        # set by the first _install
         self._owner = None     # the map a re-stage re-balances from
-        self._cooc = None      # co-occurrence (the heat placement's)
+        self._heat = None      # last observed heat and co-occurrence
+        self._cooc = None      # (rebalance feeds them; re-stages re-plan)
         self._comm = exchange._Comm(None)
         self.split_ms = 0.0    # owner_split's host ms, the last batch
+        self.rebalance_s: dict = {}   # the last rebalance's split seconds
         super().__init__(parts, layout, stats, config)
 
     @property
     def _replicate_top(self) -> int:
-        return 0               # the heat placement budgets replica rows
+        return 0               # HeatSharded budgets replica rows
 
-    def _install(self, layout: StagedLayout) -> None:
+    def _install(self, layout: StagedLayout,
+                 timings: dict | None = None) -> None:
         cfg = self.config
         if not self.shards:
             self.shards = int(cfg.shards) if cfg.shards else self.n_devices
         slayout, stats = shard_staged(
             layout, self.stats, self.shards, prev_owner=self._owner,
-            cooc=self._cooc, replicate_top=self._replicate_top)
+            cooc=self._cooc, heat=self._heat,
+            replicate_top=self._replicate_top, timings=timings)
         self.slayout = slayout
         self._owner = slayout.owner
         for key in ("shards", "t_local", "shard_bytes", "placement_skew",
@@ -1250,26 +1347,86 @@ class ShardedTiles(_TilesBase):
             if key in stats:
                 self.stats[key] = stats[key]
         d, t_rows, cap = slayout.id_shards.shape
-        # global tile -> its flat shard row owner * T_rows + local
+        dev = slayout.id_shards.device
+        # global tile -> its primary flat shard row owner * T_rows + local
+        # (the dense oracle and a rebalance read the primaries)
         self._rows = torch.from_numpy(
-            slayout.owner.astype(np.int64) * t_rows + slayout.local
-        ).to(slayout.id_shards.device)
+            slayout.owner.astype(np.int64) * t_rows + slayout.local).to(dev)
+        # global tile -> its replica's flat row, -1 where it has none
+        self._rep_rows = None
+        if slayout.rep_owner is not None:
+            ro = slayout.rep_owner.astype(np.int64)
+            self._rep_rows = torch.from_numpy(np.where(
+                ro >= 0, ro * t_rows + slayout.rep_local, -1)).to(dev)
         # (D, T_rows) int32 live extent a shard row (0 in padding rows)
         self.extent = rops.live_extent(
             slayout.alive_shards.view(-1, cap)).view(d, t_rows)
         self._oracle_t = None
 
     def rebalance(self, heat=None, cooc=None) -> dict:
-        raise not_ported("ShardedTiles.rebalance", "Queue 1 item 11")
+        """Re-plan the owners on observed heat under traffic.
+
+        ``heat``/``cooc`` (a ``HeatTracker.snapshot()``) replace the
+        stored signals; the tile -> owner map is re-planned, co-locating
+        on the co-occurrence graph and seeded from the current owners
+        (only tiles whose move pays travel), the heat placement's
+        replicas re-chosen, and the shards re-gathered.  Tile contents,
+        ids, slots, probe and chunk boxes stay, so answers are the same
+        bits before and after, and the shard shapes stay.  The unsharded
+        staging is rebuilt on the device from the primary rows (as the
+        dense oracle's is) and the old shards released before the new
+        ones are gathered: one staging and one set of shards at a time.
+        Returns the reference's report; ``rebalance_s`` keeps the
+        split seconds (``stage_s``, ``plan_s``, ``scatter_s``)."""
+        if heat is not None:
+            self._heat = np.asarray(heat, np.float64)
+        if cooc is not None:
+            self._cooc = np.asarray(cooc, np.float64)
+        t0 = time.perf_counter()
+        s = self.slayout
+        canon, ids, alive, _ = self._oracle()
+        layout = StagedLayout(
+            tiles=None, ids=ids, canon_tiles=canon, tile_boxes=None,
+            probe_boxes=s.probe_boxes, chunk_boxes=s.chunk_boxes,
+            alive=alive, uni=s.uni)
+        del s, canon, ids, alive
+        _sync(self.device)
+        timings = dict(stage_s=time.perf_counter() - t0)
+        self._release()
+        self._install(layout, timings)
+        del layout
+        self.rebalance_s = timings
+        s = self.slayout
+        nbytes = _nbytes(s.canon_shards) + _nbytes(s.id_shards) \
+            + _nbytes(s.alive_shards)
+        if s.chunk_shards is not None:
+            nbytes += _nbytes(s.chunk_shards)
+        return dict(placement=self.config.placement,
+                    moved_tiles=self.stats.get("moved_tiles", 0),
+                    replicated_tiles=self.stats.get("replicated_tiles", 0),
+                    cut_before=self.stats.get("cut_before"),
+                    cut_after=self.stats.get("cut_after"),
+                    bytes_transferred=int(nbytes))
 
     def _release(self) -> None:
-        self.slayout = self.extent = self._rows = self._oracle_t = None
+        self.slayout = self.extent = self._rows = self._rep_rows = None
+        self._oracle_t = None
 
-    def _placements(self, t: torch.Tensor) -> torch.Tensor:
-        """Flat shard rows of global tiles ``t`` (int64 on the device):
-        one copy a tile (the heat placement's replica rows, ROADMAP
-        Queue 1 item 11, would add theirs here)."""
-        return self._rows[t]
+    def _placements(self, t: torch.Tensor):
+        """Every resident copy of global tiles ``t`` (int64 on the
+        device) -> ``(rows, sel)``: the primary flat shard rows, then
+        one replica row for each tile that has one; ``sel`` indexes the
+        replicated entries back into ``t`` (None when there are none),
+        so each write fans out to all copies and replicas stay
+        bit-exact."""
+        rows = self._rows[t]
+        if self._rep_rows is None:
+            return rows, None
+        rr = self._rep_rows[t]
+        sel = torch.nonzero(rr >= 0).squeeze(1)
+        if not sel.numel():
+            return rows, None
+        return torch.cat([rows, rr[sel]]), sel
 
     def _flat(self):
         """The shard arrays as ``(D·T_rows, ...)`` views."""
@@ -1282,12 +1439,14 @@ class ShardedTiles(_TilesBase):
 
     def _scatter(self, plan: dict) -> int:
         """O(M) device refresh of the shards: each plan cell and row is
-        written through its tile's flat shard row ``owner·T_rows +
-        local`` with ``index_put_``, the global probe and chunk boxes and
-        the universe beside.  The extent a shard row rises to cover each
-        slot written alive, stays on tombstones, and is recomputed for
-        rewritten rows.  Drops the dense oracle's staging.  Returns the
-        bytes uploaded."""
+        written through every flat shard row holding its tile
+        (``owner·T_rows + local``, and the replica's row where there is
+        one: ``_placements``) with ``index_put_``, the global probe and
+        chunk boxes and the universe beside.  The extent a shard row
+        rises to cover each slot written alive, stays on tombstones, and
+        is recomputed for rewritten rows, on replica rows as on their
+        primaries.  Drops the dense oracle's staging.  Returns the bytes
+        uploaded."""
         if not plan:
             return 0
         s = self.slayout
@@ -1298,7 +1457,8 @@ class ShardedTiles(_TilesBase):
         def cells(key):
             idx, vals = plan[key]
             c = put(idx)
-            return (self._placements(c[:, 0]), c[:, 1]), put(vals)
+            r, sel = self._placements(c[:, 0])
+            return (r, _fan(c[:, 1], sel)), _fan(put(vals), sel)
 
         if "boxes" in plan:
             canon.index_put_(*cells("boxes"))
@@ -1317,20 +1477,21 @@ class ShardedTiles(_TilesBase):
                 chunk.index_put_((r, c), v)
             if s.chunk_boxes is not None:
                 tc = put(plan["chunk"][0])
-                s.chunk_boxes.index_put_((tc[:, 0], tc[:, 1]), v)
+                s.chunk_boxes.index_put_((tc[:, 0], tc[:, 1]),
+                                         put(plan["chunk"][1]))
         if "uni" in plan:
             s.uni.copy_(put(plan["uni"]))
         if "rows" in plan:
             e = plan["rows"]
             rows = put(e["rows"])
-            fr = self._placements(rows)
-            canon[fr] = put(e["boxes"])
-            ids[fr] = put(e["ids"])
-            alive[fr] = put(e["alive"])
+            fr, sel = self._placements(rows)
+            canon[fr] = _fan(put(e["boxes"]), sel)
+            ids[fr] = _fan(put(e["ids"]), sel)
+            alive[fr] = _fan(put(e["alive"]), sel)
             s.probe_boxes[rows] = put(e["probe"])
             if e["chunk"] is not None:
                 if chunk is not None:
-                    chunk[fr] = put(e["chunk"])
+                    chunk[fr] = _fan(put(e["chunk"]), sel)
                 if s.chunk_boxes is not None:
                     s.chunk_boxes[rows] = put(e["chunk"])
             extent[fr] = rops.live_extent(alive[fr])
@@ -1470,19 +1631,51 @@ class ShardedTiles(_TilesBase):
         return nn_ids, nn_d2, overflow, dict(rounds=_max_rounds(rounds))
 
 
+class HeatSharded(ShardedTiles):
+    """Sharded placement that follows the query log: co-located
+    primaries and hot-tile replicas, planned on the host from the
+    ``HeatTracker`` signals the server feeds through ``rebalance``.
+
+    - primaries co-locate on the candidate co-occurrence graph
+      (``placement.colocate_tiles``), cutting the cross-owner pairs
+      that make a query message two owners;
+    - the ``config.policy.replicate_top`` hottest tiles keep a
+      bit-exact second copy on another owner, in the shard rows past
+      ``t_local`` (every owner has exactly ``ceil(T/D) +
+      replicate_top`` rows, the hybrid's memory cost), and
+      ``router.owner_split`` routes each candidate to whichever copy
+      saves a message or carries less probe load.
+
+    Every ingest write fans out to all copies (``_placements``), so
+    answers stay the dense oracle's bits through appends, deletes,
+    updates and compaction.  Cold (before any heat) it replicates by
+    member counts and places primaries as ``ShardedTiles`` does.
+    """
+
+    mode = "heat"
+
+    @property
+    def _replicate_top(self) -> int:
+        return self.config.policy.replicate_top
+
+
+def _fan(x: torch.Tensor, sel: torch.Tensor | None) -> torch.Tensor:
+    """Per-entry values ``x`` of a write, repeated for the replica rows
+    ``_placements`` appended (``sel`` indexes them into ``x``)."""
+    return x if sel is None else torch.cat([x, x[sel]])
+
+
 def _max_rounds(rounds: torch.Tensor) -> int:
     return int(rounds.max()) if rounds.numel() else 0
 
 
-_PLACEMENT_CLS = {"replicated": ReplicatedTiles, "sharded": ShardedTiles}
+_PLACEMENT_CLS = {"replicated": ReplicatedTiles, "sharded": ShardedTiles,
+                  "heat": HeatSharded}
 
 
 def build_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
                 config: ServeConfig) -> _TilesBase:
     """Stage ``mbrs`` and construct the placement ``config`` names (the
     one place the placement string is dispatched)."""
-    if config.placement not in _PLACEMENT_CLS:
-        raise not_ported(f"placement={config.placement!r}",
-                         "Queue 1 item 11")
     layout, stats = stage_tiles(parts, mbrs, config)
     return _PLACEMENT_CLS[config.placement](parts, layout, stats, config)

@@ -1051,3 +1051,106 @@ def test_multi_device_plan_on_cuda_counts_as_one_device(method):
     plan = join_engine.plan_join(method, r, s, 300, 1, device="cpu")
     assert counts[0] == join_engine.spatial_join_count(
         plan, max_pairs_per_tile=1 << 14)
+
+
+# -- the heat placement and the request plane on the card ----------------------
+
+def _assert_replicas_equal_primaries(srv):
+    """Every replica row is its primary's row on the card: boxes, ids,
+    alive, chunk boxes and the live extent."""
+    s = srv.slayout
+    reps = np.flatnonzero(s.rep_owner >= 0)
+    assert reps.size
+    ro, rl = torch.from_numpy(s.rep_owner[reps]), torch.from_numpy(
+        s.rep_local[reps])
+    po, pl = torch.from_numpy(s.owner[reps]), torch.from_numpy(s.local[reps])
+    for a in (s.canon_shards, s.id_shards, s.alive_shards, s.chunk_shards,
+              srv.tiles.extent):
+        if a is not None:
+            assert torch.equal(a[ro, rl], a[po, pl])
+
+
+def test_heat_server_on_cuda_matches_cpu():
+    """A heat server (4 owners, 8 replicas an owner) on the card against
+    the same server on the CPU: cold, through a rebalance on hot
+    traffic, then an ingest stream through the replicas (appends,
+    deletes, an update, a forced compaction, an overflow re-stage);
+    after every step the maps, replica maps, shards, extent, stats and
+    answers agree and every replica row equals its primary."""
+    _need_cuda()
+    from repro_torch.serve import PlacementPolicy
+    mbrs = spatial_gen.osm_like(6000, seed=3, device="cpu")
+    parts = papi.partition("bsp", mbrs, 256)
+    config = ServeConfig(placement="heat", shards=4, slack=128,
+                         policy=PlacementPolicy(heat_decay=0.85,
+                                                replicate_top=8))
+    srv = {d: SpatialServer(parts, mbrs, config, device=d)
+           for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(12)
+    c = 0.4 + rng.random((96, 2)) * 0.2
+    s = rng.random((96, 2)) * 0.05
+    qb = torch.from_numpy(np.concatenate([c - s, c + s], -1).astype(
+        np.float32))
+    pts = torch.from_numpy(rng.random((32, 2)).astype(np.float32))
+    for step in ("cold", "rebalanced"):
+        _assert_same_shards(srv["cuda"], srv["cpu"])
+        for name in ("rep_owner", "rep_local"):
+            assert (getattr(srv["cuda"].slayout, name)
+                    == getattr(srv["cpu"].slayout, name)).all()
+        _assert_replicas_equal_primaries(srv["cuda"])
+        for pruned in (None, False):
+            _answers_equal(srv, qb, pts, pruned)
+        if step == "cold":
+            reports = [srv[d].rebalance() for d in ("cpu", "cuda")]
+            assert reports[0] == reports[1]
+    stream = [("append", 500), ("delete", 800), ("update", 300),
+              ("compact",), ("burst",), ("delete", 300)]
+    _stream(srv, parts, stream, np.random.default_rng(4), np.arange(6000))
+    assert srv["cuda"].stats["restages"] == 1
+    _assert_replicas_equal_primaries(srv["cuda"])
+    for pruned in (None, False):
+        _answers_equal(srv, qb, pts, pruned)
+
+
+@pytest.mark.parametrize("placement", ["replicated", "heat"])
+def test_frontend_padded_batches_on_cuda_equal_direct_calls(placement):
+    """The request plane's padded batches on the card: every kind, at
+    two ladder widths, equals a direct unpadded call on the card and the
+    CPU server's answers; the responses hold host numpy only."""
+    _need_cuda()
+    from repro_torch.serve import PlacementPolicy, frontend
+    mbrs = spatial_gen.osm_like(6000, seed=3, device="cpu")
+    parts = papi.partition("bsp", mbrs, 256)
+    config = (ServeConfig() if placement == "replicated" else ServeConfig(
+        placement="heat", shards=4, policy=PlacementPolicy(replicate_top=8)))
+    srv = {d: SpatialServer(parts, mbrs, config, device=d)
+           for d in ("cpu", "cuda")}
+    rng = np.random.default_rng(13)
+    qb = _boxes(rng, 40, 0.03).numpy()
+    pts = rng.random((40, 2)).astype(np.float32)
+    for kind, q, params in (("range_counts", qb, ()),
+                            ("range_ids", qb, (64,)),
+                            ("knn", pts, (5, 256))):
+        reqs = [frontend.Request(kind, q[i], params) for i in range(40)]
+        for width in (64, 128):
+            got = {d: frontend.execute_batch(
+                s, frontend.Batch(kind, params, reqs, width, 0.0))
+                for d, s in srv.items()}
+            if kind == "range_counts":
+                want = srv["cuda"].range_counts(torch.from_numpy(q).cuda())[0]
+                assert got["cuda"] == got["cpu"] == want.cpu().tolist()
+                continue
+            if kind == "range_ids":
+                want = srv["cuda"].range_ids(torch.from_numpy(q).cuda(),
+                                             max_hits=params[0])[:3]
+            else:
+                want = srv["cuda"].knn(torch.from_numpy(q).cuda(), params[0],
+                                       max_cand=params[1])[:3]
+            for i in range(40):
+                for a, b, w in zip(got["cuda"][i], got["cpu"][i],
+                                   (x[i] for x in want)):
+                    assert not isinstance(a, torch.Tensor)
+                    np.testing.assert_array_equal(np.asarray(a),
+                                                  w.cpu().numpy())
+                    np.testing.assert_array_equal(np.asarray(a),
+                                                  np.asarray(b))

@@ -11,7 +11,8 @@ owner and local maps, ``t_local``, the shard arrays and the staging
 stats equal repro's (5 shards show the padding rows: sentinel, id -1,
 dead, extent 0); the dense oracle of a sharded server; the widen and
 retry ladder; the owner-folded launch of every move against a loop
-over the owners on the CPU's plain versions; and what still raises.
+over the owners on the CPU's plain versions; and what still raises (a
+mesh).
 Tolerance: exact equality throughout."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
@@ -31,7 +32,6 @@ from repro.serve import ServeConfig as JConfig, SpatialServer as JServer
 from repro_torch.core.partition import api as tapi
 from repro_torch.kernels.range_probe import ops as tops
 from repro_torch.query import knn as tknn, range as trange
-from repro_torch.serve import PlacementPolicy
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
 from repro_torch.serve import exchange as texchange
 from repro_torch.serve import layout as tlayout
@@ -304,19 +304,12 @@ def test_folded_launch_equals_a_loop_over_owners(data, servers, local_index):
 # -- what still raises ---------------------------------------------------------
 
 @pytest.mark.parametrize("make", [
-    lambda d: TServer.from_method("bsp", d, PAYLOAD, TConfig(
-        placement="sharded", shards=2), device="cpu").rebalance(),
-    lambda d: TServer.from_method("bsp", d, PAYLOAD,
-                                  TConfig(placement="heat"), device="cpu"),
-    lambda d: TServer.from_method("bsp", d, PAYLOAD, TConfig(
-        placement="sharded", shards=2,
-        policy=PlacementPolicy(rebalance_every=3)), device="cpu"),
     lambda d: TServer(tapi.partition("bsp", torch.from_numpy(d), PAYLOAD), d,
                       TConfig(placement="sharded", shards=2), device="cpu",
                       mesh=object()),
     lambda d: texchange._Comm("d"),
-], ids=["rebalance", "heat", "rebalance_every", "mesh", "comm_mesh"])
+], ids=["mesh", "comm_mesh"])
 def test_unported_sharded_features_raise(data, make):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "1[01]"):
+                                                  "10"):
         make(data)
