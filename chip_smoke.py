@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's serving (replicated, sharded and
 heat-aware), request plane, ingest, partitioning and join paths, and
-Mamba2 inference, on one CUDA card.
+Mamba2 inference and training, on one CUDA card.
 
     python3 chip_smoke.py            # full size: 8 M osm-like objects served,
                                      # replicated and on 4 simulated owners
@@ -9,7 +9,8 @@ Mamba2 inference, on one CUDA card.
                                      # behind the request plane,
                                      # 7 M staged + 1 M streamed in,
                                      # 4 M + 4 M pi and 1 M + 1 M osm joined,
-                                     # Mamba2-1.3B prefill and decode
+                                     # Mamba2-1.3B prefill and decode,
+                                     # and 9 training steps at 8 x 2,048
 
 Phases, each printing JSON lines (launch counts are set to 0 just
 before each path and read just after it) and its wall seconds:
@@ -265,10 +266,43 @@ before each path and read just after it) and its wall seconds:
    design never.  Then the kernel's CUDA-event ms over 10 launches at
    the prefill shape, timed in turns with the FFMA design on the same
    inputs, its plain ms and its bound.
+14. lm_train -- the prefill phases' weights freed: ``launch/train.py``'s
+   ``main`` on the published configuration (``--arch mamba2_1p3b``,
+   float32 master weights, bf16 activations, TF32 off, asserted) at B =
+   8 sequences of L = 2,048 tokens (the Mamba2 paper's training
+   context; the global batch cut to 8), remat "full", the AdamW
+   defaults, 2 warm steps, 6 timed and 1 profiled, a failure injected
+   at step 3 (no checkpoint is due, so ``run_loop`` retries the step;
+   ``--ckpt-every`` lies past the last step, so nothing is written).
+   With the launch counts at 0 just before: every step must launch
+   ``intra_chunk`` 96 times (a forward and a recompute a layer) and
+   ``intra_chunk_v1`` never, every loss and ``grad_norm`` must be
+   finite, the restarts 1, and the launcher's own check ``losses[-1] <
+   losses[0]`` must hold.  Prints the median step seconds, tokens/s,
+   peak memory, the profiled step's device ms, idle share, largest
+   device items and operators, a breakdown by part (one layer's
+   forward and backward, the SSD block's, the intra-chunk block's, the
+   head's and the AdamW update, CUDA events), the losses and
+   ``grad_norm``, and the first step's loss again, forward only,
+   through the kernel and through the plain intra-chunk.  Layer 0's SSD
+   inputs of that forward are kept.
+15. lm_train_check -- fails unless (a) ``ops.IntraChunk`` on layer 0's
+   training inputs and on a random set launches the kernel once, gives
+   its plain version within 2e-5, and gives input gradients bit-equal
+   to ``torch.autograd.grad`` through ``ref.intra_chunk_grouped`` (the
+   backward recomputes that graph); (b) at full width and 2 layers (B
+   = 2, L = 512), 6 steps with a checkpoint every 2 and a failure at
+   step 4 restore step 4's checkpoint and end with the parameters and
+   moments of an uninterrupted run bit for bit, under
+   ``torch.use_deterministic_algorithms`` (the temporary directories
+   removed, the bytes written printed); (c) in float32 at full width,
+   2 layers, B = 2, L = 256, a train step with remat "full" gives the
+   loss, gradients and new parameters of one with "none", bit for bit.
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
 join's two batched passes; ``launches_by_path`` holds each row's
-launches on the ingest, the sharded, the heat and the frontend paths),
+launches on the ingest, the sharded, the heat and the frontend paths,
+and row 12's on the train path),
 the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
@@ -276,11 +310,17 @@ exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -342,6 +382,15 @@ CHECK_B, CHECK_L = 2, 200          # float32 prefill-vs-decode check
 SSD_TOL = 2e-5                     # the reference's kernel tolerance
 LM_TOL = 1e-4                      # tests/test_models_smoke.py's
 SSD_SOURCE = "port/repro_torch/kernels/ssd/csrc/ssd.cu"
+TRAIN_B, TRAIN_L = 8, 2048         # the Mamba2 paper's training context;
+                                   # the global batch cut to 8 sequences
+TRAIN_WARM, TRAIN_TIMED = 2, 6     # steps; one more step is profiled
+TRAIN_STEPS = TRAIN_WARM + TRAIN_TIMED + 1
+TRAIN_FAIL_AT = 3                  # the injected failure (no checkpoint:
+                                   # run_loop retries the step)
+FT_LAYERS, FT_B, FT_L = 2, 2, 512  # lm_train_check (b): full width
+FT_STEPS, FT_EVERY, FT_FAIL_AT = 6, 2, 4
+REMAT_B, REMAT_L = 2, 256          # lm_train_check (c), float32
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:41"
 NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
@@ -432,7 +481,6 @@ def check_ids(torch, geometry, mbrs, q, hit_ids, counts, overflow,
 def device_busy(torch, fn, reps: int):
     """Device time per call from torch.profiler (kernels, copies and
     sets on the card), and the five largest device consumers."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -440,13 +488,20 @@ def device_busy(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return device_items(prof, reps)
+
+
+def device_items(prof, reps: int, top: int = 5):
+    """A finished profile's device ms per call, and its ``top`` largest
+    device consumers."""
+    from torch.autograd import DeviceType
     by_name: dict[str, float] = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = (by_name.get(e.name, 0.0)
                                + e.time_range.elapsed_us() / 1e3 / reps)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    return sum(by_name.values()), [[k[:80], v] for k, v in top]
+    items = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return sum(by_name.values()), [[k[:80], v] for k, v in items]
 
 
 def serve_phase(torch, dev):
@@ -3548,6 +3603,389 @@ def lm_check_phase(torch, dev, cfg, model, params, launches):
         launches_per_prefill=launches // 3, bytes=bytes_, flops=flops,
         shape=dict(zip("blhp", main["shape"]), q=chunk), cases=cases)
 
+def lm_train_phase(torch, dev):
+    """``launch/train.main`` on the published configuration at TRAIN_B x
+    TRAIN_L, remat "full", the AdamW defaults, a failure injected at step
+    TRAIN_FAIL_AT -> (the SSD launches of the run, its launches a step,
+    layer 0's SSD inputs of the first step's batch)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import configs
+    from repro_torch.data import tokens as data_tokens
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.kernels.ssd import ref as sref
+    from repro_torch.launch import train
+    from repro_torch.models import api
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get(LM_ARCH)
+    stamps, seen, counts = [], [], []
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+    def on_step(i, metrics):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        seen.append(metrics)
+        counts.append(skernel.LAUNCHES["intra_chunk"])
+        if i == TRAIN_STEPS - 1:
+            prof.__enter__()
+        elif i == TRAIN_STEPS:
+            prof.__exit__(None, None, None)
+
+    ckpt = tempfile.mkdtemp(prefix="lm_train_")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    skernel.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train.main([
+                "--arch", LM_ARCH, "--batch", str(TRAIN_B), "--seq",
+                str(TRAIN_L), "--steps", str(TRAIN_STEPS), "--ckpt-dir", ckpt,
+                "--ckpt-every", str(TRAIN_STEPS + 1), "--inject-failure-at",
+                str(TRAIN_FAIL_AT), "--log-every", "1", "--device",
+                str(dev)], on_step=on_step)
+    except BaseException:
+        sys.stderr.write(out.getvalue())
+        raise
+    finally:
+        written = os.listdir(ckpt)
+        shutil.rmtree(ckpt)
+    wall = time.perf_counter() - t0
+    launches = skernel.LAUNCHES["intra_chunk"]
+    v1 = skernel.LAUNCHES["intra_chunk_v1"]
+    peak = torch.cuda.max_memory_allocated()
+    lines = out.getvalue().splitlines()
+    done = re.search(r"restarts=(\d+)", lines[-1])
+    per_step = [b - a for a, b in zip([0] + counts, counts)]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    timed = step_s[TRAIN_WARM - 1:TRAIN_WARM - 1 + TRAIN_TIMED]
+    prof_s = step_s[-1]
+    dev_ms, top = device_items(prof, 1, top=12)
+    med = median(timed)
+    tokens = TRAIN_B * TRAIN_L
+
+    # the first step's loss again, forward only, through the kernel and
+    # through the plain intra-chunk, on the launcher's initial weights
+    # and first batch; layer 0's SSD inputs are kept for lm_train_check
+    model = api.build(cfg, dev)
+    params = model.init_params(torch.Generator(dev).manual_seed(0))
+    batch = data_tokens.batch_for_step(data_tokens.TokenPipelineConfig(
+        vocab=cfg.vocab, seq_len=TRAIN_L, global_batch=TRAIN_B), 0, dev)
+    captured = []
+    launch = skernel.intra_chunk
+
+    def capture(*args):
+        if not captured:
+            captured.append(args[:5])
+        return launch(*args)
+
+    losses = {}
+    try:
+        with torch.no_grad():
+            skernel.intra_chunk = capture
+            losses["kernel"] = float(model.loss_fn(params, batch, "none")[0])
+            skernel.intra_chunk = sref.intra_chunk_grouped   # no launch
+            losses["plain"] = float(model.loss_fn(params, batch, "none")[0])
+    finally:
+        skernel.intra_chunk = launch
+    breakdown = train_breakdown(torch, dev, cfg, params, batch, captured[0])
+    del params, model, batch
+    torch.cuda.empty_cache()
+
+    first, last = seen[0], seen[-1]
+    emit(dict(
+        phase="lm_train", arch=cfg.name, n_params=cfg.n_params(),
+        n_layers=cfg.n_layers, batch=TRAIN_B, seq=TRAIN_L, dtype=cfg.dtype,
+        remat="full", steps=len(seen), warm_steps=TRAIN_WARM,
+        timed_steps=TRAIN_TIMED, step_s=med, step_s_timed=timed,
+        step_s_all=step_s, tokens_per_s=tokens / med,
+        max_memory_allocated=peak, seconds=wall,
+        ssd_launches=launches, ssd_launches_per_step=per_step,
+        ssd_v1_launches=v1, profiled_step_s=prof_s, device_ms=dev_ms,
+        idle_share=1 - dev_ms / (med * 1e3), top_device=top,
+        top_ops=top_ops(prof), breakdown_ms=breakdown,
+        first_loss=first["loss"], last_loss=last["loss"],
+        losses=[m["loss"] for m in seen],
+        grad_norms=[m["grad_norm"] for m in seen],
+        lrs=[m["lr"] for m in seen],
+        restarts=int(done.group(1)) if done else None,
+        checkpoints_written=written,
+        first_loss_forward_kernel=losses["kernel"],
+        first_loss_forward_kernel_equal=losses["kernel"] == first["loss"],
+        first_loss_forward_plain=losses["plain"],
+        first_loss_plain_gap=losses["kernel"] - losses["plain"],
+        model_flops_per_step=8 * cfg.n_params() * tokens,
+        model_flops_bound_s=8 * cfg.n_params() * tokens / BF16_FLOPS_PER_S,
+        launcher=lines[-3:]))
+    if rc != 0 or not done or int(done.group(1)) != 1:
+        raise AssertionError(f"the launcher returned {rc} or did not "
+                             f"restart once: {lines[-1:]}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+               for m in seen):
+        raise AssertionError("a training loss or grad_norm is not finite")
+    if len(seen) != TRAIN_STEPS or written:
+        raise AssertionError(f"{len(seen)} steps ran, checkpoints {written}")
+    if per_step != [2 * cfg.n_layers] * TRAIN_STEPS or v1:
+        raise AssertionError(f"the SSD kernel launched {per_step} times a "
+                             f"step (and the FFMA design {v1} times)")
+    return launches, 2 * cfg.n_layers, captured[0]
+
+
+def top_ops(prof, n: int = 15):
+    """The profile's operators by the device time of the kernels they
+    launch themselves (autograd's backward nodes apart), in ms."""
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    return [[k[:60], ms, c] for k, ms, c in rows[:n]]
+
+
+def train_breakdown(torch, dev, cfg, params, batch, layer0):
+    """CUDA-event ms of the training step's parts at its shapes: one
+    layer's forward and backward under remat "full" (the recompute
+    included), the SSD block's (``ssd_forward``) and the intra-chunk
+    block's within it (the kernel forward and the plain backward), the
+    head (final norm, unembed, loss), and the AdamW update of every
+    parameter.  A step is about ``n_layers`` layers, the head and the
+    update."""
+    from torch.utils import checkpoint as ckpt
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.models import layers, lm
+    from repro_torch.optim import adamw
+
+    params.requires_grad_(True)
+    g = torch.Generator(dev).manual_seed(SEED + 10)
+    h = (torch.randn((TRAIN_B, TRAIN_L, cfg.d_model), generator=g,
+                     device=dev).to(torch.bfloat16).requires_grad_(True))
+    blk = params.blocks[0]
+    wrt = [h] + list(blk.parameters())
+
+    def layer():
+        y = ckpt.checkpoint(lm._layer, h, blk, cfg, "ssm", None,
+                            use_reentrant=False)
+        torch.autograd.grad(y, wrt, torch.ones_like(y))
+
+    def head():
+        x = layers.rms_norm(h, params.final_norm, cfg.norm_eps)
+        loss = lm.nll(lm._logits_of(x, params, cfg), batch["tokens"])
+        torch.autograd.grad(loss, [h, params.final_norm, params.embed])
+
+    x, dt, cl, b, c = layer0
+    a_log = torch.full((x.shape[2],), -1.0, device=dev)
+    ins = [t.detach().clone().requires_grad_(True)
+           for t in (x, dt, a_log, b, c)]
+    gy = torch.ones_like(x)
+
+    def ssd():
+        torch.autograd.grad(sops.ssd_forward(*ins), ins, gy)
+
+    intra = [t.detach().clone().requires_grad_(True)
+             for t in (x, dt, cl, b, c)]
+
+    def intra_chunk():
+        torch.autograd.grad(sops.IntraChunk.apply(*intra, 128), intra, gy)
+
+    out = {k: cuda_ms(torch, fn, 3) for k, fn in (
+        ("layer_fwd_bwd", layer), ("ssd_fwd_bwd", ssd),
+        ("intra_chunk_fwd_bwd", intra_chunk), ("head_fwd_bwd", head))}
+    with torch.no_grad():
+        out["intra_chunk_fwd"] = cuda_ms(
+            torch, lambda: sops.IntraChunk.apply(*intra, 128), 3)
+    del h, wrt, ins, intra, gy
+    named = lm.named_leaves(params, cfg)
+    opt_cfg = adamw.AdamWConfig()
+    state = adamw.init_state(named, opt_cfg)
+    grads = {k: torch.randn(p.shape, generator=g, device=dev) * 1e-3
+             for k, p in named.items()}
+    nd = lm.ref_ndims(named, cfg)
+    out["adamw_update"] = cuda_ms(torch, lambda: adamw.update(
+        grads, state, named, opt_cfg, nd), 3)
+    del grads, state
+    params.requires_grad_(False)
+    out["layers_x_n"] = out["layer_fwd_bwd"] * cfg.n_layers
+    return out
+
+
+def ssd_grads(torch, fn, ins, gy):
+    """fn's output and its input gradients against ``gy``."""
+    ins = [t.detach().clone().requires_grad_(True) for t in ins]
+    y = fn(*ins)
+    return y.detach(), torch.autograd.grad(y, ins, gy)
+
+
+def train_state(torch, dev, cfg, opt, seed=SEED):
+    from repro_torch.models import api
+    return api.init_train_state(api.build(cfg, dev),
+                                torch.Generator(dev).manual_seed(seed), opt)
+
+
+@contextlib.contextmanager
+def deterministic(torch):
+    """torch's deterministic algorithms where it has them (the embedding
+    gradient's scatter-add among them), warning where it has none: yields
+    the list of those warnings.  torch asks for a cuBLAS workspace
+    setting first."""
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    found: list[str] = []
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield found
+        found += sorted({str(w.message)[:120] for w in caught
+                         if "determinis" in str(w.message)})
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def ft_check(torch, dev, cfg):
+    """(b): FT_STEPS steps with a checkpoint every FT_EVERY and a failure
+    at FT_FAIL_AT against an uninterrupted run, under deterministic
+    algorithms."""
+    from repro_torch.data import tokens as data_tokens
+    from repro_torch.ft.runtime import FTConfig, run_loop
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = AdamWConfig(total_steps=FT_STEPS, warmup=0)
+    step_fn = api.make_train_step(api.build(cfg, dev), opt)
+    pipe = data_tokens.TokenPipelineConfig(vocab=cfg.vocab, seq_len=FT_L,
+                                           global_batch=FT_B)
+    runs, written = {}, {}
+    with deterministic(torch) as nondeterministic:
+        for name, fail in (("uninterrupted", None), ("restarted",
+                                                     FT_FAIL_AT)):
+            d = tempfile.mkdtemp(prefix="lm_ft_")
+            try:
+                runs[name] = run_loop(
+                    lambda st, i: step_fn(st, data_tokens.batch_for_step(
+                        pipe, i, dev)), train_state(torch, dev, cfg, opt),
+                    list(range(FT_STEPS)), FTConfig(
+                        ckpt_dir=d, ckpt_every=FT_EVERY if fail else
+                        FT_STEPS + 1), inject_failure_at=fail)
+                written[name] = {
+                    sub: sum(f.stat().st_size for f in (Path(d) / sub)
+                             .iterdir()) for sub in sorted(os.listdir(d))}
+            finally:
+                shutil.rmtree(d)
+    (want, _, info0), (got, _, info) = runs["uninterrupted"], runs[
+        "restarted"]
+    diff = {"params": 0.0, "m": 0.0, "v": 0.0}
+    equal = int(got.step) == int(want.step) == FT_STEPS
+    for (ka, a), (kb, b) in zip(want.params.named_parameters(),
+                                got.params.named_parameters()):
+        equal &= ka == kb and torch.equal(a, b)
+        diff["params"] = max(diff["params"],
+                             float((a - b).detach().abs().max()))
+    for k in want.opt.m:
+        for part in ("m", "v"):
+            a, b = getattr(want.opt, part)[k], getattr(got.opt, part)[k]
+            equal &= torch.equal(a, b)
+            diff[part] = max(diff[part], float((a - b).abs().max()))
+    return dict(layers=cfg.n_layers, batch=FT_B, seq=FT_L, steps=FT_STEPS,
+                ckpt_every=FT_EVERY, fail_at=FT_FAIL_AT,
+                restarts=[info0["restarts"], info["restarts"]],
+                bytes_written=written, bit_equal=equal, max_abs_diff=diff,
+                deterministic_algorithms=True,
+                nondeterministic_ops=nondeterministic)
+
+
+def remat_check(torch, dev, cfg):
+    """(c): float32, one train step with remat "full" against "none":
+    the loss and every gradient bit for bit, then the step's metrics and
+    new parameters, under deterministic algorithms (the embedding
+    gradient's scatter-add is not deterministic otherwise)."""
+    from repro_torch.models import api, lm
+    from repro_torch.optim.adamw import AdamWConfig
+
+    opt = AdamWConfig()
+    toks = torch.randint(0, cfg.vocab, (REMAT_B, REMAT_L), device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED + 8))
+    grads, steps = {}, {}
+    with deterministic(torch) as nondeterministic:
+        for remat in ("none", "full"):
+            state = train_state(torch, dev, cfg, opt)
+            named = lm.named_leaves(state.params, cfg)
+            loss, _ = lm.loss_fn(state.params, {"tokens": toks}, cfg, remat)
+            grads[remat] = (loss.detach(), torch.autograd.grad(
+                loss, list(named.values())))
+            state, metrics = api.make_train_step(
+                api.build(cfg, dev), opt, remat=remat)(state,
+                                                       {"tokens": toks})
+            steps[remat] = (metrics, [p.detach() for p in
+                                      state.params.parameters()])
+    (l0, g0), (l1, g1) = grads["none"], grads["full"]
+    (m0, p0), (m1, p1) = steps["none"], steps["full"]
+    equal = (torch.equal(l0, l1) and all(map(torch.equal, g0, g1))
+             and all(torch.equal(m0[k], m1[k]) for k in m0)
+             and all(map(torch.equal, p0, p1)))
+    return dict(dtype=cfg.dtype, layers=cfg.n_layers, batch=REMAT_B,
+                seq=REMAT_L, loss=float(l0), bit_equal=equal,
+                nondeterministic_ops=nondeterministic,
+                max_grad_diff=max(float((a - b).abs().max())
+                                  for a, b in zip(g0, g1)))
+
+
+def lm_train_check_phase(torch, dev, layer0):
+    """(a) IntraChunk against the plain version, forward and backward;
+    (b) a restart from a checkpoint against an uninterrupted run; (c)
+    remat "full" against "none"."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ssd import kernel as skernel
+    from repro_torch.kernels.ssd import ops as sops
+    from repro_torch.kernels.ssd import ref as sref
+
+    chunk = 128
+    x0 = layer0[0]
+    sets = {"layer0": layer0, "random": ssd_inputs_random(
+        torch, dev, 1, 8192, x0.shape[2], x0.shape[3], layer0[3].shape[2],
+        layer0[3].shape[3], chunk)}
+    cases, ok = {}, True
+    for name, ins in sets.items():
+        gy = torch.randn(ins[0].shape, device=dev,
+                         generator=torch.Generator(dev).manual_seed(SEED + 9))
+        skernel.reset_launches()
+        y, got = ssd_grads(torch, lambda *t: sops.IntraChunk.apply(
+            *t, chunk), ins, gy)
+        launched = skernel.LAUNCHES["intra_chunk"]
+        y_plain, want = ssd_grads(torch, lambda *t: sref.intra_chunk_grouped(
+            *t, chunk), ins, gy)
+        bwd_ms = cuda_ms(torch, lambda: ssd_grads(
+            torch, lambda *t: sops.IntraChunk.apply(*t, chunk), ins, gy), 3)
+        err = (y - y_plain).abs()
+        fwd_ok = bool((err <= SSD_TOL + SSD_TOL * y_plain.abs()).all())
+        bits = all(map(torch.equal, got, want))
+        cases[name] = dict(
+            shape=list(ins[0].shape), launches=launched,
+            forward_max_abs_err=float(err.max()), forward_ok=fwd_ok,
+            grads_bit_equal=bits, forward_backward_ms=bwd_ms,
+            grad_max_abs=[float(g.abs().max()) for g in want],
+            grads_finite=all(bool(torch.isfinite(g).all()) for g in got))
+        ok &= fwd_ok and bits and launched == 1 and cases[name][
+            "grads_finite"]
+        del y, got, y_plain, want, err
+    del sets, layer0, x0
+    torch.cuda.empty_cache()
+
+    full = configs.get(LM_ARCH)
+    ft = ft_check(torch, dev, dataclasses.replace(full, n_layers=FT_LAYERS))
+    torch.cuda.empty_cache()
+    remat = remat_check(torch, dev, dataclasses.replace(
+        full, n_layers=FT_LAYERS, dtype="float32"))
+    torch.cuda.empty_cache()
+    emit(dict(phase="lm_train_check", intra_chunk=cases, ft_restart=ft,
+              remat=remat))
+    if not ok:
+        raise AssertionError(f"IntraChunk differs from the plain version: "
+                             f"{cases}")
+    if not (ft["bit_equal"] and ft["restarts"] == [0, 1]):
+        raise AssertionError(f"the restarted run differs from the "
+                             f"uninterrupted one: {ft}")
+    if not remat["bit_equal"]:
+        raise AssertionError(f"remat full and none differ: {remat}")
+
 
 def main() -> int:
     import torch
@@ -3673,10 +4111,20 @@ def main() -> int:
     lm_decode_phase(torch, dev, cfg, model, params)
     t10 = time.perf_counter()
     ssd_entry = lm_check_phase(torch, dev, cfg, model, params, ssd_launches)
+    t11 = time.perf_counter()
+    del params, model
+    torch.cuda.empty_cache()
+    train_launches, per_step, layer0 = lm_train_phase(torch, dev)
+    t12 = time.perf_counter()
+    lm_train_check_phase(torch, dev, layer0)
+    del layer0
+    ssd_entry["launches_by_path"] = dict(train=train_launches)
+    ssd_entry["launches_per_train_step"] = per_step
     emit(dict(phase="kernel", **ssd_entry))
     entries.append(ssd_entry)
     wall.update(lm_prefill_s=t9 - t8, lm_decode_s=t10 - t9,
-                lm_check_s=time.perf_counter() - t10)
+                lm_check_s=t11 - t10, lm_train_s=t12 - t11,
+                lm_train_check_s=time.perf_counter() - t12)
     emit(dict(phase="wall", **wall))
     emit({"kernels": [dict(
         {k: e[k] for k in (

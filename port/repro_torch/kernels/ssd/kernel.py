@@ -10,9 +10,10 @@ calls.  Each checks its inputs, allocates its output with
 current stream, raises if the launch returned an error, and adds one to
 its count in ``LAUNCHES``.
 
-The launch is invisible to autograd, and the SSD backward is not ported
-yet: with grad mode on and any input requiring grad, the wrapper raises
-rather than hand back a result whose gradient would be silently wrong.
+The launch is invisible to autograd: with grad mode on and any input
+requiring grad, the wrapper raises rather than hand back a result whose
+gradient would be silently wrong.  Training reaches the kernel through
+``ops.ssd_forward``, whose ``IntraChunk`` launches it as its forward.
 """
 from __future__ import annotations
 
@@ -21,7 +22,6 @@ from pathlib import Path
 
 import torch
 
-from ...device import not_ported
 from .. import cuda_build
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "ssd.cu"
@@ -99,7 +99,9 @@ def _launch(name: str, x: torch.Tensor, dt: torch.Tensor, cl: torch.Tensor,
             b: torch.Tensor, c: torch.Tensor, chunk: int) -> torch.Tensor:
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, dt, cl, b, c)):
-        raise not_ported("SSD backward", "Queue 1 item 14b")
+        raise RuntimeError(
+            f"{name}: a direct launch is invisible to autograd; "
+            "differentiate through ops.ssd_forward (ops.IntraChunk)")
     dev = cuda_build.require_cuda(name, x)
     if x.dim() != 4 or b.dim() != 4:
         raise ValueError(f"{name}: x and b must be 4-d")

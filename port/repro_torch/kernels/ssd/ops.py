@@ -13,6 +13,13 @@ with the chunk-final states H_c computed by an O(L/Q) pass:
 B and C stay grouped throughout: heads are viewed as (group, head of
 the group), so the reference's per-head repeats of B and C, (B, L, H, S)
 each, are never built.
+
+Training differentiates the same function: ``IntraChunk`` is the
+counterpart of the reference's ``custom_vjp`` around the Pallas kernel
+(kernel forward, a backward derived from the plain formula), and the
+inter-chunk pass takes a form autograd can differentiate whenever grad
+is on.  Without grad it keeps its in-place form, which holds one
+buffer of states fewer.
 """
 from __future__ import annotations
 
@@ -23,6 +30,32 @@ from . import kernel, ref
 CHUNK = 128
 
 
+class IntraChunk(torch.autograd.Function):
+    """The intra-chunk block with the CUDA kernel as its forward and the
+    gradient of the plain version (``ref.intra_chunk_grouped``) as its
+    backward: the backward recomputes the plain graph on the saved
+    inputs and differentiates it, as the reference's ``_intra_bwd``
+    takes ``jax.vjp`` of ``ref.intra_chunk_ref``.  ``fwd`` replaces the
+    kernel in tests that run on the CPU."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cl, b, c, chunk, fwd=None):
+        ctx.chunk = chunk
+        ctx.save_for_backward(x, dt, cl, b, c)
+        return (fwd or kernel.intra_chunk)(x, dt, cl, b, c, chunk)
+
+    @staticmethod
+    def backward(ctx, gy):
+        ins = [t.detach().requires_grad_(need) for t, need in
+               zip(ctx.saved_tensors, ctx.needs_input_grad[:5])]
+        wrt = [t for t in ins if t.requires_grad]
+        with torch.enable_grad():
+            y = ref.intra_chunk_grouped(*ins, ctx.chunk)
+            got = iter(torch.autograd.grad(y, wrt, gy))
+        return (*(next(got) if t.requires_grad else None for t in ins),
+                None, None)
+
+
 def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                 b: torch.Tensor, c: torch.Tensor, chunk: int = CHUNK
                 ) -> torch.Tensor:
@@ -31,8 +64,9 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     x: (B, L, H, P), dt: (B, L, H), a_log: (H,) (negative), b, c:
     (B, L, G, S) with H % G == 0, all float32.  Returns (B, L, H, P)
     float32.  The intra-chunk block is the CUDA kernel for CUDA tensors
-    and its plain version (``ref.intra_chunk_grouped``, the reference's
-    einsum form) for CPU ones.
+    (through ``IntraChunk``) and its plain version
+    (``ref.intra_chunk_grouped``, the reference's einsum form, which
+    autograd differentiates directly) for CPU ones.
     """
     bs, l, h, p = x.shape
     g, s = b.shape[2], b.shape[3]
@@ -47,10 +81,10 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     cl = torch.cumsum(ld.reshape(bs, nc, chunk, h), dim=2)  # (B, nc, Q, H)
 
     # ---- intra-chunk ----
-    intra = (kernel.intra_chunk if x.device.type == "cuda"
-             else ref.intra_chunk_grouped)
-    y = intra(x, dt, cl.reshape(bs, l, h), b, c, chunk).reshape(
-        bs, nc, chunk, g, rep, p)
+    args = (x, dt, cl.reshape(bs, l, h), b, c, chunk)
+    y = (IntraChunk.apply(*args) if x.device.type == "cuda"
+         else ref.intra_chunk_grouped(*args)).reshape(bs, nc, chunk, g,
+                                                      rep, p)
 
     # ---- inter-chunk state pass ----
     xc = x.reshape(bs, nc, chunk, g, rep, p)
@@ -68,14 +102,27 @@ def ssd_forward(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     # States are kept (S, head of the group, P), so both einsums are
     # plain batched products over (batch, chunk, group)
     decays = torch.exp(cl_last).reshape(bs, nc, g, 1, rep, 1)
-    h_prevs = torch.empty_like(s_c)
-    h_prevs[:, 0] = 0.0
-    for n in range(nc - 1):
-        torch.addcmul(s_c[:, n], h_prevs[:, n], decays[:, n],
-                      out=h_prevs[:, n + 1])
+    differentiable = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, dt, a_log, b, c))
+    if differentiable:
+        states = [torch.zeros_like(s_c[:, 0])]
+        for n in range(nc - 1):
+            states.append(torch.addcmul(s_c[:, n], states[-1],
+                                        decays[:, n]))
+        h_prevs = torch.stack(states, dim=1)
+        del states
+    else:
+        h_prevs = torch.empty_like(s_c)
+        h_prevs[:, 0] = 0.0
+        for n in range(nc - 1):
+            torch.addcmul(s_c[:, n], h_prevs[:, n], decays[:, n],
+                          out=h_prevs[:, n + 1])
 
     # inter-chunk output: y_t += exp(cl_t) . C_t . H_{n-1}
     y_inter = torch.einsum("bnqgs,bngsrp->bnqgrp", cc, h_prevs)
     del s_c, h_prevs
-    y_inter *= torch.exp(cl).reshape(bs, nc, chunk, g, rep, 1)
+    e_cl = torch.exp(cl).reshape(bs, nc, chunk, g, rep, 1)
+    if differentiable:
+        return (y + y_inter * e_cl).reshape(bs, l, h, p)
+    y_inter *= e_cl
     return y.add_(y_inter).reshape(bs, l, h, p)

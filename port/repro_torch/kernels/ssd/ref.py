@@ -18,10 +18,18 @@ import torch
 
 def _masked(g, cl, dt):
     """``where(i >= j, g * exp(cl_i - cl_j), 0) * dt_j`` over the last
-    two axes of ``g``; ``cl``/``dt`` carry the chunk on their last."""
+    two axes of ``g``; ``cl``/``dt`` carry the chunk on their last.
+
+    The exponent is masked to -inf above the diagonal before ``exp``:
+    there ``cl_i - cl_j`` is positive and overflows float32 once a
+    chunk's decay passes 88.7 (128 steps of dt 0.7 at A = -1), and the
+    gradient of the masked ``g * inf`` is 0 * inf = NaN (the reference's
+    ``intra_chunk_ref`` has that hazard; ROADMAP Queue 3).  On and below
+    the diagonal the values are the same."""
     q = g.shape[-1]
-    decay = torch.exp(cl[..., :, None] - cl[..., None, :])
     mask = torch.ones(q, q, dtype=torch.bool, device=g.device).tril()
+    decay = torch.exp(torch.where(mask, cl[..., :, None] - cl[..., None, :],
+                                  -torch.inf))
     return torch.where(mask, g * decay, 0.0) * dt[..., None, :]
 
 

@@ -1,9 +1,11 @@
-"""Model factory (twin of ``repro.models.api``): ``build(cfg)`` and the
-inference steps, prefill and greedy decode.
+"""Model factory (twin of ``repro.models.api``): ``build(cfg)``, the
+train state and step, and the inference steps, prefill and greedy
+decode.
 
 Only the ssm family (Mamba2) is ported; ``build`` raises for the others
-(ROADMAP Queue 1 item 14c), and training raises until item 14b.  Both
-steps run under ``torch.no_grad()``.
+(ROADMAP Queue 1 item 14c).  Prefill and decode run under
+``torch.no_grad()``; the train step differentiates the loss with
+``torch.autograd.grad`` and updates the state in place.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import torch
 
 from .. import device as device_mod
 from ..device import not_ported
+from ..optim import adamw
 from . import lm
 from .config import ModelConfig
 
@@ -25,10 +28,6 @@ class Model:
     loss_fn: Callable                 # (params, batch) -> (loss, aux)
     init_cache: Callable              # (batch, max_len) -> cache
     decode_step: Callable             # (params, cache, token, pos) -> ...
-
-
-def _training(*_args, **_kwargs):
-    raise not_ported("training", "Queue 1 item 14b")
 
 
 def build(cfg: ModelConfig, device=None) -> Model:
@@ -43,19 +42,88 @@ def build(cfg: ModelConfig, device=None) -> Model:
         return lm.init_params(gen, cfg)
 
     return Model(
-        cfg=cfg, init_params=init_params, loss_fn=_training,
+        cfg=cfg, init_params=init_params,
+        loss_fn=lambda p, b, remat="full": lm.loss_fn(p, b, cfg, remat),
         init_cache=lambda batch, max_len: lm.init_cache(cfg, batch, max_len,
                                                         dev),
         decode_step=lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),
     )
 
 
-def init_train_state(*args, **kwargs):
-    _training()
+@dataclasses.dataclass
+class TrainState:
+    params: lm.LM                     # float32, requires_grad
+    opt: adamw.OptState               # keyed by the parameters' names
+    step: torch.Tensor                # int32, 0-d
 
 
-def make_train_step(*args, **kwargs):
-    _training()
+def init_train_state(model: Model, gen: torch.Generator,
+                     opt_cfg: adamw.AdamWConfig) -> TrainState:
+    """Random parameters from ``gen`` (which stands for the reference's
+    key), with grad on, and zero moments."""
+    params = model.init_params(gen).requires_grad_(True)
+    return TrainState(
+        params=params,
+        opt=adamw.init_state(lm.named_leaves(params, model.cfg), opt_cfg),
+        step=torch.zeros((), dtype=torch.int32, device=gen.device))
+
+
+def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
+                    remat: str = "full", n_micro: int = 1,
+                    bf16_weight_gather: bool = False):
+    """``step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``.
+
+    ``n_micro`` > 1 accumulates the gradients of sequential microbatches
+    in float32 and divides them by ``n_micro``.  ``bf16_weight_gather``
+    casts the float32 parameters whose reference leaf has two dimensions
+    or more to bf16 before the loss (the reference casts them before its
+    FSDP gather); their gradients reach the float32 parameters.  The
+    parameters and moments are updated in place, and the state is
+    returned.
+    """
+    cfg = model.cfg
+
+    def view(params):
+        if not bf16_weight_gather:
+            return params
+        nd = lm.ref_ndims(dict(params.named_parameters()), cfg)
+        return lm.param_view(params, lambda k, p: p.to(torch.bfloat16) if (
+            p.dtype == torch.float32 and nd[k] >= 2) else p)
+
+    def loss_and_grads(params, named, mb):
+        loss, _ = model.loss_fn(view(params), mb, remat)
+        grads = torch.autograd.grad(loss, list(named.values()))
+        return loss.detach(), dict(zip(named, grads))
+
+    def step(state: TrainState, batch):
+        named = lm.named_leaves(state.params, cfg)
+        if n_micro == 1:
+            loss, grads = loss_and_grads(state.params, named, batch)
+        else:
+            mbs = {k: v.reshape((n_micro, v.shape[0] // n_micro)
+                                + tuple(v.shape[1:]))
+                   for k, v in batch.items()}
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in named.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=state.step.device)
+            for i in range(n_micro):
+                li, gi = loss_and_grads(state.params, named,
+                                        {k: v[i] for k, v in mbs.items()})
+                for k, g in gi.items():
+                    grads[k] += g.float()
+                loss = loss + li
+                del gi
+            for g in grads.values():
+                g.div_(n_micro)
+            loss = loss / n_micro
+        _, opt, om = adamw.update(grads, state.opt, named, opt_cfg,
+                                  lm.ref_ndims(named, cfg))
+        del grads
+        return TrainState(params=state.params, opt=opt,
+                          step=state.step + 1), {"loss": loss, **om}
+    return step
 
 
 def make_prefill_step(model: Model):

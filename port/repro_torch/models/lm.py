@@ -1,16 +1,31 @@
 """Decoder-only LM assembly (twin of ``repro.models.lm``), for the ssm
 family: embed, a ``nn.ModuleList`` of blocks walked in a Python loop
 (the reference scans stacked super-blocks), final norm, tied or separate
-unembed with the padded vocab rows masked to -1e9.
+unembed with the padded vocab rows masked to -1e9, and the training
+loss.
 
-Inference only: ``remat`` matters for training and raises unless
-``"none"`` (ROADMAP Queue 1 item 14b); the vlm image prefix raises with
-item 14c.
+``remat`` rematerialises each layer in the backward, as the reference
+checkpoints its super-block body (one layer for the ssm pattern):
+``"full"`` saves only the layer's input, ``"dots"`` also the outputs of
+the products without batch dimensions (``aten.mm`` and ``aten.addmm``,
+the reference's ``dots_with_no_batch_dims_saveable``).  The vlm image
+prefix raises with ROADMAP Queue 1 item 14c.
+
+The reference keeps every block parameter stacked over the super-block
+axis, so its leaves have one dimension more than the port's per-layer
+tensors, and ``jax.tree.leaves`` walks them in the order of their sorted
+keys.  ``ref_path`` maps a port parameter's name to its leaf there: the
+optimizer's weight decay, the train step's bf16 cast and the order of
+the global norm follow from it.
 """
 from __future__ import annotations
 
+import functools
+import types
+
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..device import not_ported
 from . import blocks, layers
@@ -55,6 +70,58 @@ def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
               [blocks.block_init(gen, cfg, k) for k in kinds(cfg)], unembed)
 
 
+def ref_path(name: str, cfg: ModelConfig) -> tuple:
+    """``(path, layer)``: the key path of parameter ``name`` in
+    ``repro``'s pytree and its index along the super-block axis there
+    (None for a leaf that is not stacked: ``embed``, ``final_norm``,
+    ``unembed`` and the ``rest`` layers')."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return tuple(parts), None
+    pat, n_super, _ = structure(cfg)
+    i, leaf = int(parts[1]), tuple(parts[2:])
+    if i < n_super * len(pat):
+        return ("blocks", f"p{i % len(pat)}") + leaf, i // len(pat)
+    return ("rest", f"r{i - n_super * len(pat)}") + leaf, None
+
+
+def named_leaves(params: "LM", cfg: ModelConfig) -> dict:
+    """Name -> parameter, in the order ``jax.tree.leaves`` walks the
+    reference's leaves (and a stacked leaf's layers in turn)."""
+    def order(name):
+        path, layer = ref_path(name, cfg)
+        return path, layer or 0
+
+    named = dict(params.named_parameters())
+    return {k: named[k] for k in sorted(named, key=order)}
+
+
+def ref_ndims(params: dict, cfg: ModelConfig) -> dict:
+    """Name -> the dimensions of its leaf in the reference: one more for
+    a stacked leaf.  The reference decays, and casts to bf16 for the
+    weight gather, the leaves with two or more."""
+    return {k: p.dim() + (ref_path(k, cfg)[1] is not None)
+            for k, p in params.items()}
+
+
+def param_view(params: "LM", fn) -> types.SimpleNamespace:
+    """``params``' structure with each parameter ``p`` named ``name``
+    replaced by ``fn(name, p)``, namespaces standing for the modules:
+    ``forward`` reads it as it reads the model (the train step's bf16
+    weights, whose gradients reach the float32 parameters)."""
+    def walk(mod, prefix):
+        ns = types.SimpleNamespace(**{
+            n: fn(prefix + n, p)
+            for n, p in mod.named_parameters(recurse=False)})
+        for n, child in mod.named_children():
+            setattr(ns, n, [walk(c, f"{prefix}{n}.{i}.")
+                            for i, c in enumerate(child)]
+                    if isinstance(child, nn.ModuleList)
+                    else walk(child, f"{prefix}{n}."))
+        return ns
+    return walk(params, "")
+
+
 def _dt(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
@@ -62,7 +129,11 @@ def _dt(cfg):
 def _embed_in(params: LM, tokens, cfg, img=None):
     if img is not None:
         raise not_ported("the vlm image prefix", "Queue 1 item 14c")
-    x = params.embed[tokens].to(_dt(cfg))
+    # the reference casts before the gather; in training that makes the
+    # embedding's gradient accumulate in the activations' type as there.
+    # Inference gathers first (the same values, no (V, D) copy)
+    x = (params.embed.to(_dt(cfg))[tokens] if torch.is_grad_enabled()
+         else params.embed[tokens].to(_dt(cfg)))
     if cfg.tie_embeddings:
         # the scale is rounded to the activations' type first, as
         # jnp.asarray(d ** 0.5, x.dtype) does (45.25 in bf16 at d = 2048)
@@ -82,6 +153,25 @@ def _logits_of(x, params: LM, cfg):
     return logits
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_REMAT = {
+    "full": ckpt.noop_context_fn,
+    "dots": functools.partial(ckpt.create_selective_checkpoint_contexts,
+                              _save_dots),
+}
+
+
+def _layer(x, blk, cfg, kind, positions):
+    return blocks.apply_block(x, blk, cfg, kind, positions)[0]
+
+
 def forward(params: LM, tokens, cfg: ModelConfig, img=None,
             remat: str = "none", logits_mode: str = "all") -> tuple:
     """Teacher-forcing forward -> (logits float32, aux).
@@ -89,18 +179,50 @@ def forward(params: LM, tokens, cfg: ModelConfig, img=None,
     logits_mode="last" computes the unembed only for the final position
     (the prefill path): the (B, S, V) tensor never exists.
     """
-    if remat != "none":
-        raise not_ported(f"remat={remat!r}", "Queue 1 item 14b")
+    if remat != "none" and remat not in _REMAT:
+        raise ValueError(f"remat must be none, full or dots: {remat!r}")
     x = _embed_in(params, tokens, cfg, img)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
     aux = {}
     for blk, kind in zip(params.blocks, kinds(cfg)):
-        x, _ = blocks.apply_block(x, blk, cfg, kind, positions)
+        if remat == "none":
+            x = _layer(x, blk, cfg, kind, positions)
+        else:
+            x = ckpt.checkpoint(_layer, x, blk, cfg, kind, positions,
+                                use_reentrant=False,
+                                context_fn=_REMAT[remat])
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:]
     return _logits_of(x, params, cfg), aux
+
+
+def nll(logits, tokens):
+    """Mean next-token cross-entropy of ``tokens`` under ``logits`` (the
+    text positions are the last S), plus the z-loss."""
+    txt = logits[:, -tokens.shape[1]:][:, :-1]
+    tgt = tokens[:, 1:].long()
+    lse = torch.logsumexp(txt, dim=-1)
+    true = torch.gather(txt, -1, tgt[..., None])[..., 0]
+    loss = torch.mean(lse - true)
+    return loss + 1e-4 * torch.mean(lse ** 2)
+
+
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig, remat: str = "full"):
+    """Next-token cross-entropy -> (loss, aux).  batch: {tokens}.
+
+    Single pass: nll = logsumexp(logits) - logits[label] over the text
+    positions, then the z-loss ``1e-4 * mean(lse ** 2)``, then the MoE
+    load-balance terms (the ssm family has none)."""
+    tokens = batch["tokens"]
+    logits, aux = forward(params, tokens, cfg, img=batch.get("img"),
+                          remat=remat)
+    loss = nll(logits, tokens)
+    for k, v in aux.items():
+        if k.endswith("lb_loss"):
+            loss = loss + 0.01 * v
+    return loss, aux
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

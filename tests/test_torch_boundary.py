@@ -58,5 +58,8 @@ def test_the_lm_slice_is_in_the_walk():
     mods = [m for _, m in _modules()]
     for m in ("repro_torch.models.lm", "repro_torch.models.api",
               "repro_torch.configs.mamba2_1p3b",
-              "repro_torch.kernels.ssd.kernel", "repro_torch.launch.serve"):
+              "repro_torch.kernels.ssd.kernel", "repro_torch.launch.serve",
+              "repro_torch.optim.adamw", "repro_torch.data.tokens",
+              "repro_torch.checkpoint.store", "repro_torch.ft.runtime",
+              "repro_torch.launch.train"):
         assert m in mods, m

@@ -789,9 +789,88 @@ def test_ssd_intra_chunk_kernel_matches_plain_version(h, g, chunk, p, s,
     assert skernel.LAUNCHES["intra_chunk_v1"] == 1
     with pytest.raises(ValueError):
         skernel.intra_chunk(*(t.cuda() for t in (x, dt, cl, b, c)), 12)
-    with pytest.raises(NotImplementedError, match="14b"):
+    with pytest.raises(RuntimeError, match="IntraChunk"):
         skernel.intra_chunk(x.cuda().requires_grad_(True), dt.cuda(),
                             cl.cuda(), b.cuda(), c.cuda(), chunk)
+
+
+@pytest.mark.parametrize("batch,l,h,g,p,s", [
+    (2, 2048, 64, 1, 64, 128),     # Mamba2-1.3B's widths, a training batch
+    (1, 256, 4, 2, 36, 20)])
+def test_intra_chunk_function_matches_plain_forward_and_backward(
+        batch, l, h, g, p, s):
+    """IntraChunk launches the kernel once forward (within 2e-5 of the
+    plain version) and its input gradients equal autograd's through the
+    plain version on the card bit for bit: the backward recomputes that
+    same graph.  ssd_forward's gradients on the card match the CPU's."""
+    _need_cuda()
+    rng = np.random.default_rng(l + h + p)
+    x = rng.standard_normal((batch, l, h, p)) * 0.5
+    dt = np.logaddexp(rng.standard_normal((batch, l, h)), 0) * 0.1
+    a = -np.exp(rng.standard_normal(h) * 0.3)
+    b, c = (rng.standard_normal((batch, l, g, s)) * 0.3 for _ in range(2))
+    gy = rng.standard_normal((batch, l, h, p))
+    x, dt, a, b, c, gy = (torch.from_numpy(t.astype(np.float32)).cuda()
+                          for t in (x, dt, a, b, c, gy))
+    cl = torch.cumsum((dt * a).reshape(batch, l // CHUNK, CHUNK, h),
+                      2).reshape(batch, l, h)
+
+    def grads(fn):
+        ins = [t.clone().requires_grad_(True) for t in (x, dt, cl, b, c)]
+        y = fn(*ins)
+        return y.detach(), torch.autograd.grad(y, ins, gy)
+
+    skernel.reset_launches()
+    y, got = grads(lambda *t: sops.IntraChunk.apply(*t, CHUNK))
+    assert skernel.LAUNCHES == {"intra_chunk": 1, "intra_chunk_v1": 0}
+    y_plain, want = grads(lambda *t: sref.intra_chunk_grouped(*t, CHUNK))
+    torch.testing.assert_close(y, y_plain, rtol=2e-5, atol=2e-5)
+    for a_, b_ in zip(got, want):
+        assert torch.equal(a_, b_)
+    ins = [t.clone().requires_grad_(True) for t in (x, dt, a, b, c)]
+    (sops.ssd_forward(*ins) * gy).sum().backward()
+    assert skernel.LAUNCHES["intra_chunk"] == 2
+    cpu = [t.detach().cpu().requires_grad_(True) for t in (x, dt, a, b, c)]
+    (sops.ssd_forward(*cpu) * gy.cpu()).sum().backward()
+    for t, u in zip(ins, cpu):
+        torch.testing.assert_close(t.grad.cpu(), u.grad, rtol=1e-4,
+                                   atol=1e-4 * float(u.grad.abs().max()))
+
+
+def test_mamba2_train_step_on_cuda_matches_cpu():
+    """Two float32 train steps at the smoke config, card against CPU;
+    remat "full" launches the kernel twice a layer a step."""
+    _need_cuda()
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import api, convert
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(configs.smoke("mamba2_1p3b"), dtype="float32")
+    opt = adamw.AdamWConfig(warmup=0)
+    states, steps = {}, {}
+    for d in ("cpu", "cuda"):
+        model = api.build(cfg, d)
+        states[d] = api.init_train_state(model, torch.Generator().manual_seed(
+            0), opt) if d == "cpu" else None
+        steps[d] = api.make_train_step(model, opt)
+    tree = convert.params_to_numpy(states["cpu"].params, cfg)
+    states["cuda"] = api.TrainState(
+        params=convert.params_from_numpy(tree, cfg, "cuda").requires_grad_(
+            True),
+        opt=adamw.init_state({k: p.cuda() for k, p in
+                              states["cpu"].opt.m.items()}, opt),
+        step=torch.zeros((), dtype=torch.int32, device="cuda"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 256)).astype(np.int32))
+    skernel.reset_launches()
+    for _ in range(2):
+        metrics = {d: steps[d](states[d], {"tokens": toks.to(d)})[1]
+                   for d in ("cpu", "cuda")}
+        for k in ("loss", "grad_norm", "lr"):
+            torch.testing.assert_close(metrics["cuda"][k].cpu(),
+                                       metrics["cpu"][k], rtol=1e-4,
+                                       atol=0)
+    assert skernel.LAUNCHES["intra_chunk"] == 2 * 2 * cfg.n_layers
 
 
 def test_mamba2_on_cuda_matches_cpu():

@@ -184,17 +184,23 @@ def test_unported_features_raise_naming_their_item():
     cfg, tcfg = _cfgs("float32")
     _, tp = _params(cfg, tcfg)
     toks = torch.from_numpy(_tokens(cfg, 1, 8))
+    # remat and training (item 14b) are ported: they run
+    want, _ = lm.forward(tp, toks, tcfg)
     for remat in ("full", "dots"):
-        with pytest.raises(NotImplementedError, match="14b"):
-            lm.forward(tp, toks, tcfg, remat=remat)
+        got, _ = lm.forward(tp, toks, tcfg, remat=remat)
+        assert torch.equal(got, want)
     with pytest.raises(NotImplementedError, match="14c"):
         lm.forward(tp, toks, tcfg, img=torch.zeros(1, 2, 3))
     model = api.build(tcfg, "cpu")
-    for fn in (lambda: api.init_train_state(model, None, None),
-               lambda: api.make_train_step(model, None),
-               lambda: model.loss_fn(tp, {"tokens": toks})):
-        with pytest.raises(NotImplementedError, match="14b"):
-            fn()
+    from repro_torch.optim import adamw
+    state = api.init_train_state(model, torch.Generator().manual_seed(0),
+                                 adamw.AdamWConfig())
+    assert all(p.requires_grad for p in state.params.parameters())
+    _, metrics = api.make_train_step(model, adamw.AdamWConfig())(
+        state, {"tokens": toks})
+    loss, _ = model.loss_fn(tp, {"tokens": toks})
+    for v in (metrics["loss"], metrics["grad_norm"], loss):
+        assert bool(torch.isfinite(v))
     from repro_torch.models import blocks
     with pytest.raises(NotImplementedError, match="14c"):
         blocks.block_init(torch.Generator().manual_seed(0), tcfg, "full")

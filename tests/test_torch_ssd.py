@@ -158,12 +158,13 @@ def test_ssd_forward_sends_cpu_tensors_to_the_plain_version(monkeypatch):
 
 def test_kernel_route_refuses_cpu_tensors_and_gradients():
     """The CUDA kernel's wrapper refuses a CPU tensor rather than send it
-    to the plain version; a launch with inputs that require grad raises,
-    because the launch is invisible to autograd."""
+    to the plain version; a direct launch with inputs that require grad
+    raises, because the launch is invisible to autograd, and names the
+    differentiable route."""
     args = _t(*_inputs(1, 1, 128, 2, 16, 1, 32))
     x, dt, a_log, bm, cm = args
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="14b"):
+    with pytest.raises(RuntimeError, match="ops.ssd_forward.*IntraChunk"):
         kernel.intra_chunk(x, dt, dt, bm, cm, 128)
     with torch.no_grad(), pytest.raises(ValueError, match="cuda"):
         kernel.intra_chunk(x, dt, dt, bm, cm, 128)
