@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's serving (replicated, sharded and
-heat-aware), request plane, ingest, partitioning and join paths, and
-Mamba2 inference and training, on one CUDA card.
+heat-aware), request plane, ingest, partitioning and join paths, Mamba2
+inference and training, and the other model families' inference, on
+one CUDA card.
 
     python3 chip_smoke.py            # full size: 8 M osm-like objects served,
                                      # replicated and on 4 simulated owners
@@ -10,7 +11,10 @@ Mamba2 inference and training, on one CUDA card.
                                      # 7 M staged + 1 M streamed in,
                                      # 4 M + 4 M pi and 1 M + 1 M osm joined,
                                      # Mamba2-1.3B prefill and decode,
-                                     # and 9 training steps at 8 x 2,048
+                                     # and 9 training steps at 8 x 2,048,
+                                     # RecurrentGemma-9B prefill of 32,768
+                                     # tokens and decode, and every other
+                                     # family at full width
 
 Phases, each printing JSON lines (launch counts are set to 0 just
 before each path and read just after it) and its wall seconds:
@@ -298,11 +302,46 @@ before each path and read just after it) and its wall seconds:
    removed, the bytes written printed); (c) in float32 at full width,
    2 layers, B = 2, L = 256, a train step with remat "full" gives the
    loss, gradients and new parameters of one with "none", bit for bit.
+16. fam_prefill -- the training phases' weights freed: published
+   RecurrentGemma-9B at full width and depth (38 layers: 12 x (rec,
+   rec, local) and (rec, rec); random float32 weights, bf16
+   activations, TF32 off, asserted): ``make_prefill_step`` on B = 1
+   prompt of L = 32,768 tokens (``prefill_32k``'s length, its batch of
+   32 cut to 1; cut to 16,384 if the warm run takes more than 30 s, and
+   the cut printed), a warm run, 2 timed (median) and 1 profiled;
+   seconds, tokens/s, peak memory, device ms, idle share, the five
+   largest device items.  The logits must be finite: L lies past
+   2,559, where the reference's windowed attention is NaN (ROADMAP
+   Queue 3).
+17. fam_decode -- ``launch/serve.py``'s greedy loop on the same model
+   at batch 128, prompt 32, gen 32: tokens/s, p50 and p99 step ms, the
+   idle share of a profiled step.
+18. fam_check -- float32, the same weights: fails unless (a) at full
+   depth, B = 2, L = 200, and (b) one super-block (rec, rec, local; the
+   model's first three layers), B = 2, L = 2,600 (the local ring of
+   2,048 wraps; from 2,559 on a query's first key chunk lies outside
+   its window), the teacher-forced logits equal L ``decode_step`` calls
+   within 1e-4 (``tests/test_models_smoke.py``'s tolerance), greedy
+   tokens agreeing wherever the top-two margin exceeds 2e-4.
+19. families -- every other family at full width, each model freed
+   before the next: qwen1.5-4b (40 layers, all), gemma2-27b (4 of 46),
+   mixtral-8x22b (2 of 56), arctic-480b (1 of 35), internvl2-26b (4 of
+   48, 256 seeded image tokens of width 3,200) and whisper-medium (24 +
+   24 layers, all, 1,500 seeded frames); the depth cut is the most of
+   each that 80 GB holds in float32 weights with room to run.  For each:
+   a bf16 prefill at B = 1, L = 5,120 text tokens (past 4,607, where
+   the reference's 4,096 windows are NaN; whisper 448 decoder tokens),
+   a warm and a timed run, logits finite; the greedy loop at batch 32,
+   prompt 16, gen 16; and float32 decode against teacher forcing at B =
+   2, L = 64 within 1e-4 (the MoE pair at capacity factor
+   max(16, experts): a decode step routes 2 tokens, and below that a
+   step could drop a choice the forward keeps).
+   Every kernel's launch count must stay 0 over phases 16-19.
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
 join's two batched passes; ``launches_by_path`` holds each row's
-launches on the ingest, the sharded, the heat and the frontend paths,
-and row 12's on the train path),
+launches on the ingest, the sharded, the heat, the frontend and the
+families paths, and row 12's on the train path),
 the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
@@ -391,6 +430,16 @@ TRAIN_FAIL_AT = 3                  # the injected failure (no checkpoint:
 FT_LAYERS, FT_B, FT_L = 2, 2, 512  # lm_train_check (b): full width
 FT_STEPS, FT_EVERY, FT_FAIL_AT = 6, 2, 4
 REMAT_B, REMAT_L = 2, 256          # lm_train_check (c), float32
+FAM_ARCH = "recurrentgemma_9b"     # fam_prefill, fam_decode, fam_check
+FAM_L, FAM_L_CUT, FAM_CUT_S = 32_768, 16_384, 30.0
+FAM_CHECK_L, FAM_WRAP_L = 200, 2_600   # fam_check (a) and (b), B = 2
+FAMILIES = {  # arch -> layers run (None: all), each at full width
+    "qwen15_4b": None, "gemma2_27b": 4, "mixtral_8x22b": 2,
+    "arctic_480b": 1, "internvl2_26b": 4, "whisper_medium": None,
+}
+FAMILY_L, WHISPER_L = 5_120, 448   # a bf16 prefill's text tokens, B = 1
+FAMILY_DECODE = (32, 16, 16)       # batch, prompt, gen
+FAMILY_CHECK_B, FAMILY_CHECK_L = 2, 64
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:41"
 NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
@@ -481,6 +530,13 @@ def check_ids(torch, geometry, mbrs, q, hit_ids, counts, overflow,
 def device_busy(torch, fn, reps: int):
     """Device time per call from torch.profiler (kernels, copies and
     sets on the card), and the five largest device consumers."""
+    return device_ops(torch, fn, reps)[:2]
+
+
+def device_ops(torch, fn, reps: int, n: int = 8):
+    """``device_busy`` with the operators too: device ms per call, the
+    five largest kernels and the ``n`` largest operators by the device
+    time of the kernels they launch (ms per call, calls per call)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -488,7 +544,9 @@ def device_busy(torch, fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return device_items(prof, reps)
+    dev_ms, top = device_items(prof, reps)
+    return dev_ms, top, [[k, ms / reps, c / reps]
+                         for k, ms, c in top_ops(prof, n)]
 
 
 def device_items(prof, reps: int, top: int = 5):
@@ -3325,21 +3383,6 @@ def batched_case(torch, name, plan, result):
                            cap_r=int(rt.shape[1]), cap_s=int(st.shape[1])))
 
 
-def lm_model(torch, dev):
-    """The published Mamba2-1.3B configuration, random float32 weights
-    from a seeded generator on the card."""
-    from repro_torch import configs
-    from repro_torch.models import api
-
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = configs.get(LM_ARCH)
-    model = api.build(cfg, dev)
-    params = model.init_params(torch.Generator(dev).manual_seed(SEED))
-    return cfg, model, params
-
-
 def prefill_batch(torch, dev, cfg):
     g = torch.Generator(dev).manual_seed(SEED + 4)
     return {"tokens": torch.randint(0, cfg.vocab, (PREFILL_B, PREFILL_L),
@@ -3416,32 +3459,12 @@ def prefill_layer0_inputs(torch, dev, cfg, model, params):
 def lm_decode_phase(torch, dev, cfg, model, params):
     """The serve launcher's greedy loop at DECODE_B -> tokens/s."""
     from repro_torch.kernels.ssd import kernel as skernel
-    from repro_torch.launch import serve
-    from repro_torch.models import api
 
-    g = torch.Generator(dev).manual_seed(SEED + 5)
-    prompt = torch.randint(0, cfg.vocab, (DECODE_B, DECODE_PROMPT),
-                           generator=g, device=dev)
-    serve.generate(model, params, prompt[:, :2], 2)        # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     skernel.reset_launches()
-    stamps = [time.perf_counter()]
-
-    def on_step(_pos):
-        torch.cuda.synchronize()
-        stamps.append(time.perf_counter())
-
-    out = serve.generate(model, params, prompt, DECODE_GEN, on_step)
-    wall = stamps[-1] - stamps[0]
-    step_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
-    if not (out.shape == (DECODE_B, DECODE_GEN)
-            and bool(((out >= 0) & (out < cfg.vocab)).all())):
-        raise AssertionError("decode produced tokens out of the vocab")
-    serve_step = api.make_serve_step(model)
-    cache = model.init_cache(DECODE_B, 4)
-    dev_ms, top = device_busy(
-        torch, lambda: serve_step(params, cache, prompt[:, 0], 0), 3)
+    out, wall, step_ms = greedy_run(torch, dev, cfg, model, params,
+                                    DECODE_B, DECODE_PROMPT, DECODE_GEN,
+                                    SEED + 5)
+    dev_ms, top, _ = decode_profile(torch, model, params, out[:, 0])
     p50 = pct(step_ms, 0.5)
     emit(dict(
         phase="lm_decode", arch=cfg.name, batch=DECODE_B,
@@ -3504,7 +3527,6 @@ def lm_check_phase(torch, dev, cfg, model, params, launches):
     import dataclasses
     from repro_torch.kernels.ssd import kernel as skernel
     from repro_torch.kernels.ssd import ref as sref
-    from repro_torch.models import lm
 
     chunk = 128
     layer0 = prefill_layer0_inputs(torch, dev, cfg, model, params)
@@ -3555,41 +3577,26 @@ def lm_check_phase(torch, dev, cfg, model, params, launches):
     g = torch.Generator(dev).manual_seed(SEED + 7)
     toks = torch.randint(0, cfg.vocab, (CHECK_B, CHECK_L), generator=g,
                          device=dev)
+    forward, init_cache, decode_step = lm_check_fns(torch, cfg32, dev)
+    tf_launches = []
+
+    def counted_forward(p, b):
+        out = forward(p, b)
+        tf_launches.append(skernel.LAUNCHES["intra_chunk"])
+        return out
+
     skernel.reset_launches()
-    with torch.no_grad():
-        tf, _ = lm.forward(params, toks, cfg32, logits_mode="all")
-        tf_launches = skernel.LAUNCHES["intra_chunk"]
-        cache = lm.init_cache(cfg32, CHECK_B, CHECK_L, dev)
-        err, rel, undecided, flipped, within = 0.0, 0.0, 0, 0, True
-        for pos in range(CHECK_L):
-            logits, cache = lm.decode_step(params, cache, toks[:, pos], pos,
-                                           cfg32)
-            want = tf[:, pos, :cfg.vocab]
-            d = (logits[:, :cfg.vocab] - want).abs()
-            err = max(err, float(d.max()))
-            rel = max(rel, float((d / (want.abs() + 1e-30)).max()))
-            within &= bool((d <= LM_TOL + LM_TOL * want.abs()).all())
-            # a token may flip where each logit can move by the tolerance
-            top2 = torch.topk(want, 2, dim=-1).values
-            decided = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
-            undecided += int((~decided).sum())
-            flipped += int((decided & (logits[:, :cfg.vocab].argmax(-1)
-                                       != want.argmax(-1))).sum())
-    decode_launches = skernel.LAUNCHES["intra_chunk"] - tf_launches
-    ok = (tf_launches == cfg.n_layers and decode_launches == 0
-          and flipped == 0 and bool(torch.isfinite(tf).all()))
+    check = decode_vs_forward(torch, cfg32, params, {"tokens": toks},
+                              counted_forward, init_cache, decode_step)
+    decode_launches = skernel.LAUNCHES["intra_chunk"] - tf_launches[0]
     emit(dict(phase="lm_check", prefill_vs_decode=dict(
-        dtype="float32", batch=CHECK_B, seq=CHECK_L, max_abs_err=err,
-        max_rel_err=rel, tolerance=LM_TOL, within_tolerance=within,
-        undecided_positions=undecided, flipped_tokens=flipped,
-        prefill_ssd_launches=tf_launches, decode_ssd_launches=decode_launches),
+        check, prefill_ssd_launches=tf_launches[0],
+        decode_ssd_launches=decode_launches),
         ssd_kernel_cases=cases, main_path_ssd_launches=launches))
-    if not ok:
-        raise AssertionError("float32 prefill and decode disagree, or the "
-                             "kernel was launched off its path")
-    if not within:
-        raise AssertionError(f"float32 prefill and decode differ by {err} "
-                             f"(tolerance {LM_TOL})")
+    if not (check["ok"] and tf_launches[0] == cfg.n_layers
+            and decode_launches == 0):
+        raise AssertionError(f"float32 prefill and decode disagree, or the "
+                             f"kernel was launched off its path: {check}")
     main = cases["layer0"]
     return dict(
         name="ssd_intra_chunk", route="cuda", source=SSD_SOURCE,
@@ -3751,7 +3758,7 @@ def train_breakdown(torch, dev, cfg, params, batch, layer0):
     update."""
     from torch.utils import checkpoint as ckpt
     from repro_torch.kernels.ssd import ops as sops
-    from repro_torch.models import layers, lm
+    from repro_torch.models import blocks, layers, lm
     from repro_torch.optim import adamw
 
     params.requires_grad_(True)
@@ -3762,8 +3769,8 @@ def train_breakdown(torch, dev, cfg, params, batch, layer0):
     wrt = [h] + list(blk.parameters())
 
     def layer():
-        y = ckpt.checkpoint(lm._layer, h, blk, cfg, "ssm", None,
-                            use_reentrant=False)
+        y, _ = ckpt.checkpoint(blocks.apply_block, h, blk, cfg, "ssm",
+                               None, use_reentrant=False)
         torch.autograd.grad(y, wrt, torch.ones_like(y))
 
     def head():
@@ -3987,6 +3994,378 @@ def lm_train_check_phase(torch, dev, layer0):
         raise AssertionError(f"remat full and none differ: {remat}")
 
 
+def card_line():
+    """The card's name and power limit, as ``nvidia-smi`` prints them
+    (printed beside every number of the families' phases: a card set
+    below 700 W runs slower)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def kernel_modules():
+    """(row-name prefix, module) of each kernel source's wrappers."""
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.kernels.range_probe import kernel
+    from repro_torch.kernels.ssd import kernel as skernel
+
+    return (("", kernel), ("hilbert_", hkernel), ("mbr_", mkernel),
+            ("ssd_", skernel))
+
+
+def kernel_launches():
+    """Every kernel wrapper's launch count, keyed by the kernel rows'
+    names."""
+    return {prefix + k: v for prefix, mod in kernel_modules()
+            for k, v in mod.LAUNCHES.items()}
+
+
+def reset_kernel_launches():
+    for _, mod in kernel_modules():
+        mod.reset_launches()
+
+
+def no_kernel_launched(phase):
+    """The families' paths run no hand-written kernel (their attention,
+    MoE, RG-LRU and encoder-decoder code has no Pallas in the
+    reference): every count must still be 0."""
+    counts = kernel_launches()
+    if any(counts.values()):
+        raise AssertionError(f"{phase} launched a kernel: {counts}")
+    return counts
+
+
+def family_model(torch, dev, arch, n_layers=None):
+    """The published configuration of ``arch`` at full width (depth cut
+    to ``n_layers``), random float32 weights from a seeded generator on
+    the card, TF32 off."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = configs.get(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = api.build(cfg, dev)
+    params = model.init_params(torch.Generator(dev).manual_seed(SEED))
+    return cfg, model, params
+
+
+def family_batch(torch, dev, cfg, b, l, seed, dtype=None):
+    """Seeded tokens, and the vlm's image tokens or the encdec's frames
+    (bf16 as the reference's launcher makes them, unless ``dtype``)."""
+    g = torch.Generator(dev).manual_seed(seed)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, l), generator=g,
+                                     device=dev)}
+    dtype = dtype or torch.bfloat16
+    if cfg.family == "vlm":
+        batch["img"] = torch.randn((b, cfg.vis_tokens, cfg.vis_dim),
+                                   generator=g, device=dev).to(dtype)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn((b, cfg.src_len, cfg.d_model),
+                                      generator=g, device=dev).to(dtype)
+    return batch
+
+
+def logits_ok(torch, logits, cfg):
+    return (bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+            and bool((logits[..., cfg.vocab:] == -1e9).all()))
+
+
+def fam_prefill_phase(torch, dev, cfg, model, params):
+    """make_prefill_step on 1 x FAM_L tokens (cut to FAM_L_CUT if the
+    warm run takes more than FAM_CUT_S seconds)."""
+    from repro_torch.models import api
+
+    step = api.make_prefill_step(model)
+    seq, cut = FAM_L, None
+    batch = family_batch(torch, dev, cfg, 1, seq, SEED + 20)
+    reset_kernel_launches()
+    warm, warm_s = timed_s(torch, lambda: step(params, batch))
+    if warm_s > FAM_CUT_S:
+        cut = (f"L {FAM_L} -> {FAM_L_CUT}: the warm run took {warm_s:.1f} s"
+               f" (> {FAM_CUT_S} s)")
+        seq = FAM_L_CUT
+        batch = family_batch(torch, dev, cfg, 1, seq, SEED + 20)
+        warm, warm_s = timed_s(torch, lambda: step(params, batch))
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(2):
+        logits, t = timed_s(torch, lambda: step(params, batch))
+        secs.append(t)
+    peak = torch.cuda.max_memory_allocated()
+    if not (logits.shape == (1, cfg.vocab_padded)
+            and logits_ok(torch, logits, cfg)):
+        raise AssertionError("fam_prefill logits are not finite, of the "
+                             "wrong shape, or the padded vocab is not "
+                             "masked")
+    dev_ms, top, ops = device_ops(torch, lambda: step(params, batch), 1)
+    counts = no_kernel_launched("fam_prefill")
+    wall = median(secs)
+    emit(dict(
+        phase="fam_prefill", card=card_line(), arch=cfg.name,
+        n_params=cfg.n_params(),
+        n_layers=cfg.n_layers, kinds=cfg.pattern, batch=1, seq=seq,
+        cut=cut, dtype=cfg.dtype, seconds=wall, seconds_all=secs,
+        first_s=warm_s, tokens_per_s=seq / wall, max_memory_allocated=peak,
+        device_ms=dev_ms, idle_share=1 - dev_ms / (wall * 1e3),
+        top_device=top, top_ops=ops,
+        repeat_max_abs_diff=float((logits - warm).abs().max()),
+        model_flops=2 * cfg.n_params() * seq,
+        model_flops_bound_s=2 * cfg.n_params() * seq / BF16_FLOPS_PER_S,
+        kernel_launches=sum(counts.values())))
+    return counts
+
+
+def greedy_run(torch, dev, cfg, model, params, b, prompt_len, gen, seed):
+    """``launch/serve.py``'s ``generate`` at batch ``b``, each step
+    synchronised -> (tokens, wall s, step ms)."""
+    from repro_torch.launch import serve
+
+    batch = family_batch(torch, dev, cfg, b, prompt_len, seed)
+    frames = batch.get("frames")
+    serve.generate(model, params, batch["tokens"][:, :2], 2,
+                   frames=frames)                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stamps = [time.perf_counter()]
+
+    def on_step(_pos):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    out = serve.generate(model, params, batch["tokens"], gen, on_step,
+                         frames=frames)
+    if not (out.shape == (b, gen)
+            and bool(((out >= 0) & (out < cfg.vocab)).all())):
+        raise AssertionError(f"{cfg.name}: decode produced tokens out of "
+                             f"the vocab")
+    return out, stamps[-1] - stamps[0], [
+        (y - x) * 1e3 for x, y in zip(stamps, stamps[1:])]
+
+
+def decode_profile(torch, model, params, tok, frames=None):
+    """Device ms of a serve step (3 profiled, at position 0 of a fresh
+    cache of 4), its largest kernels and operators."""
+    from repro_torch.models import api, encdec
+
+    serve_step = api.make_serve_step(model)
+    if model.cfg.family == "encdec":
+        with torch.no_grad():
+            cache = encdec.init_cache(params, frames, model.cfg, 4)
+    else:
+        cache = model.init_cache(tok.shape[0], 4)
+    tok = tok.contiguous()
+    return device_ops(torch, lambda: serve_step(params, cache, tok, 0), 3)
+
+
+def fam_decode_phase(torch, dev, cfg, model, params):
+    """``launch/serve.py``'s greedy loop at DECODE_B, DECODE_PROMPT,
+    DECODE_GEN (Mamba2's ``lm_decode`` shape)."""
+    reset_kernel_launches()
+    out, wall, step_ms = greedy_run(torch, dev, cfg, model, params,
+                                    DECODE_B, DECODE_PROMPT, DECODE_GEN,
+                                    SEED + 21)
+    dev_ms, top, ops = decode_profile(torch, model, params, out[:, 0])
+    counts = no_kernel_launched("fam_decode")
+    p50 = pct(step_ms, 0.5)
+    emit(dict(
+        phase="fam_decode", card=card_line(), arch=cfg.name, batch=DECODE_B,
+        prompt=DECODE_PROMPT, gen=DECODE_GEN, steps=len(step_ms),
+        seconds=wall, tokens_per_s=DECODE_B * DECODE_GEN / wall,
+        p50_step_ms=p50, p99_step_ms=pct(step_ms, 0.99),
+        device_ms_per_step=dev_ms, idle_share=1 - dev_ms / p50,
+        top_device=top, top_ops=ops,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        sample=out[0, :16].tolist(), kernel_launches=sum(counts.values())))
+    return counts
+
+
+def decode_vs_forward(torch, cfg, params, batch, forward, init_cache,
+                      decode_step):
+    """float32 teacher-forced logits against one ``decode_step`` a
+    position -> the largest gaps, and the tokens that flip where the
+    top-two margin exceeds twice the tolerance."""
+    toks = batch["tokens"]
+    b, n = toks.shape
+    with torch.no_grad():
+        tf = forward(params, batch)
+        cache = init_cache(params, batch, n)
+        err, rel, undecided, flipped, within = 0.0, 0.0, 0, 0, True
+        for pos in range(n):
+            logits, cache = decode_step(params, cache, toks[:, pos], pos)
+            want = tf[:, pos, :cfg.vocab]
+            d = (logits[:, :cfg.vocab] - want).abs()
+            err = max(err, float(d.max()))
+            rel = max(rel, float((d / (want.abs() + 1e-30)).max()))
+            within &= bool((d <= LM_TOL + LM_TOL * want.abs()).all())
+            top2 = torch.topk(want, 2, dim=-1).values
+            decided = (top2[:, 0] - top2[:, 1]) > 2 * LM_TOL
+            undecided += int((~decided).sum())
+            flipped += int((decided & (logits[:, :cfg.vocab].argmax(-1)
+                                       != want.argmax(-1))).sum())
+    finite = bool(torch.isfinite(tf[..., :cfg.vocab]).all())
+    return dict(dtype="float32", batch=b, seq=n, max_abs_err=err,
+                max_rel_err=rel, tolerance=LM_TOL, within_tolerance=within,
+                undecided_positions=undecided, flipped_tokens=flipped,
+                finite=finite, ok=within and finite and flipped == 0)
+
+
+def lm_check_fns(torch, cfg, dev):
+    """(forward, init_cache, decode_step) of a decoder-only model, in the
+    shape ``decode_vs_forward`` takes."""
+    from repro_torch.models import lm
+
+    return (lambda p, b: lm.forward(p, b["tokens"], cfg)[0],
+            lambda p, b, n: lm.init_cache(cfg, len(b["tokens"]), n, dev),
+            lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg))
+
+
+def encdec_check_fns(torch, cfg, dev):
+    from repro_torch.models import encdec
+
+    return (lambda p, b: encdec.forward(p, b["frames"], b["tokens"],
+                                        cfg)[0],
+            lambda p, b, n: encdec.init_cache(p, b["frames"], cfg, n),
+            lambda p, c, t, pos: encdec.decode_step(p, c, t, pos, cfg))
+
+
+def fam_check_phase(torch, dev, cfg, params):
+    """(a) full depth at L = FAM_CHECK_L and (b) one super-block at L =
+    FAM_WRAP_L, float32, decode against teacher forcing."""
+    import dataclasses
+    from repro_torch.models import lm
+
+    reset_kernel_launches()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    a = decode_vs_forward(
+        torch, cfg32, params,
+        family_batch(torch, dev, cfg32, 2, FAM_CHECK_L, SEED + 22),
+        *lm_check_fns(torch, cfg32, dev))
+    pat = cfg.pattern
+    cfg_b = dataclasses.replace(cfg32, n_layers=len(pat))
+    one = lm.LM(params.embed, params.final_norm,
+                list(params.blocks[:len(pat)]), params.unembed)
+    b = decode_vs_forward(
+        torch, cfg_b, one,
+        family_batch(torch, dev, cfg_b, 2, FAM_WRAP_L, SEED + 23),
+        *lm_check_fns(torch, cfg_b, dev))
+    b.update(kinds=list(pat), ring=min(FAM_WRAP_L, cfg.local_window),
+             reference_nan_from=cfg.local_window + 511)
+    counts = no_kernel_launched("fam_check")
+    emit(dict(phase="fam_check", card=card_line(), arch=cfg.name, full_depth=a,
+              one_super_block=b, kernel_launches=sum(counts.values())))
+    for name, r in (("full depth", a), ("one super-block", b)):
+        if not r["ok"]:
+            raise AssertionError(f"fam_check ({name}): float32 prefill and "
+                                 f"decode disagree: {r}")
+    return counts
+
+
+def family_phase(torch, dev, arch, layers_run):
+    """One family at full width: bf16 prefill, greedy decode, float32
+    decode against teacher forcing -> its JSON row."""
+    import dataclasses
+    from repro_torch.models import api
+
+    cfg, model, params = family_model(torch, dev, arch, layers_run)
+    step = api.make_prefill_step(model)
+    seq = WHISPER_L if cfg.family == "encdec" else FAMILY_L
+    batch = family_batch(torch, dev, cfg, 1, seq, SEED + 30)
+    torch.cuda.reset_peak_memory_stats()
+    _, warm_s = timed_s(torch, lambda: step(params, batch))
+    logits, secs = timed_s(torch, lambda: step(params, batch))
+    peak = torch.cuda.max_memory_allocated()
+    if not (logits.shape == (1, cfg.vocab_padded)
+            and logits_ok(torch, logits, cfg)):
+        raise AssertionError(f"{arch}: prefill logits are not finite, of "
+                             f"the wrong shape, or not masked")
+    b, prompt_len, gen = FAMILY_DECODE
+    out, wall, step_ms = greedy_run(torch, dev, cfg, model, params, b,
+                                    prompt_len, gen, SEED + 31)
+    frames = family_batch(torch, dev, cfg, b, 1, SEED + 31).get("frames")
+    dev_ms, top, _ = decode_profile(torch, model, params, out[:, 0], frames)
+    p50 = pct(step_ms, 0.5)
+    # a decode step routes FAMILY_CHECK_B tokens: at a capacity factor of
+    # at least the expert count no step drops a choice the forward keeps
+    cf = max(16.0, cfg.n_experts) if cfg.n_experts else cfg.capacity_factor
+    cfg32 = dataclasses.replace(cfg, dtype="float32", capacity_factor=cf)
+    fns = (encdec_check_fns if cfg.family == "encdec" else lm_check_fns)(
+        torch, cfg32, dev)
+    check = decode_vs_forward(
+        torch, cfg32, params,
+        family_batch(torch, dev, cfg32, FAMILY_CHECK_B, FAMILY_CHECK_L,
+                     SEED + 32, dtype=torch.float32), *fns)
+    row = dict(
+        arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        enc_layers=cfg.enc_layers or None,
+        weights_bytes=sum(p.numel() * 4 for p in params.parameters()),
+        prefill=dict(batch=1, seq=seq, extra_tokens=cfg.vis_tokens or None,
+                     src_len=cfg.src_len if frames is not None else None,
+                     seconds=secs, first_s=warm_s,
+                     tokens_per_s=seq / secs, max_memory_allocated=peak),
+        decode=dict(batch=b, prompt=prompt_len, gen=gen, seconds=wall,
+                    tokens_per_s=b * gen / wall, p50_step_ms=p50,
+                    p99_step_ms=pct(step_ms, 0.99),
+                    device_ms_per_step=dev_ms, idle_share=1 - dev_ms / p50,
+                    top_device=top, sample=out[0, :8].tolist()),
+        check=dict(check, capacity_factor=cf if cfg.n_experts else None))
+    del params, model, step, batch, logits
+    torch.cuda.empty_cache()
+    if not check["ok"]:
+        raise AssertionError(f"{arch}: float32 prefill and decode disagree: "
+                             f"{check}")
+    return row
+
+
+def families_phase(torch, dev):
+    from repro_torch import configs
+
+    reset_kernel_launches()
+    rows = []
+    for arch, layers_run in FAMILIES.items():
+        t0 = time.perf_counter()
+        row = family_phase(torch, dev, arch, layers_run)
+        full = configs.get(arch)
+        row.update(layers_published=full.n_layers,
+                   depth_cut=None if layers_run is None else
+                   f"{full.n_layers} -> {layers_run} layers",
+                   seconds_all=time.perf_counter() - t0)
+        emit(dict(phase="family", card=card_line(), **row))
+        rows.append(row)
+    counts = no_kernel_launched("families")
+    emit(dict(phase="families", archs=[r["arch"] for r in rows],
+              kernel_launches=sum(counts.values())))
+    return counts
+
+
+def families_alone(torch, dev):
+    """Phases 16-19, run by ``main`` after the training phases or on
+    their own (no kernel is built: these paths launch none) ->
+    {kernel row name: launches on those paths} (all 0) and their wall
+    seconds."""
+    wall = {}
+    t0 = time.perf_counter()
+    cfg, model, params = family_model(torch, dev, FAM_ARCH)
+    fam_prefill_phase(torch, dev, cfg, model, params)
+    t1 = time.perf_counter()
+    fam_decode_phase(torch, dev, cfg, model, params)
+    t2 = time.perf_counter()
+    fam_check_phase(torch, dev, cfg, params)
+    t3 = time.perf_counter()
+    del params, model
+    torch.cuda.empty_cache()
+    counts = families_phase(torch, dev)
+    wall.update(fam_prefill_s=t1 - t0, fam_decode_s=t2 - t1,
+                fam_check_s=t3 - t2, families_s=time.perf_counter() - t3)
+    return counts, wall
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4001,10 +4380,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     wall = {}
     t0 = time.perf_counter()
     libs = cuda_build.build_all([kernel.SOURCE, hkernel.SOURCE,
@@ -4105,7 +4481,7 @@ def main() -> int:
     del inputs, results, tiles, pairs, plans
     torch.cuda.empty_cache()
 
-    cfg, model, params = lm_model(torch, dev)
+    cfg, model, params = family_model(torch, dev, LM_ARCH)
     ssd_launches = lm_prefill_phase(torch, dev, cfg, model, params)
     t9 = time.perf_counter()
     lm_decode_phase(torch, dev, cfg, model, params)
@@ -4118,13 +4494,18 @@ def main() -> int:
     t12 = time.perf_counter()
     lm_train_check_phase(torch, dev, layer0)
     del layer0
-    ssd_entry["launches_by_path"] = dict(train=train_launches)
-    ssd_entry["launches_per_train_step"] = per_step
-    emit(dict(phase="kernel", **ssd_entry))
-    entries.append(ssd_entry)
+    torch.cuda.empty_cache()
     wall.update(lm_prefill_s=t9 - t8, lm_decode_s=t10 - t9,
                 lm_check_s=t11 - t10, lm_train_s=t12 - t11,
                 lm_train_check_s=time.perf_counter() - t12)
+    family_launches, family_wall = families_alone(torch, dev)
+    wall.update(family_wall)
+    ssd_entry["launches_by_path"] = dict(train=train_launches)
+    ssd_entry["launches_per_train_step"] = per_step
+    entries.append(ssd_entry)
+    for e in entries:
+        e["launches_by_path"]["families"] = family_launches[e["name"]]
+    emit(dict(phase="kernel", **ssd_entry))
     emit(dict(phase="wall", **wall))
     emit({"kernels": [dict(
         {k: e[k] for k in (

@@ -1,15 +1,16 @@
 """Batched greedy-decoding server loop (twin of
 ``repro.launch.serve``).
 
-  python -m repro_torch.launch.serve --arch mamba2_1p3b --batch 8 \\
+  python -m repro_torch.launch.serve --arch gemma2_27b --batch 8 \\
       --prompt-len 32 --gen 32            # smoke config, on cuda
   python -m repro_torch.launch.serve --no-smoke --batch 128   # published
-  python -m repro_torch.launch.serve --device cpu
+  python -m repro_torch.launch.serve --arch whisper_medium --device cpu
 
 The prompt is fed one token a step through the serve step (the O(1)
 recurrence), as the reference does; ``--no-smoke`` runs the published
 configuration (the reference's ``--smoke`` flag cannot be turned off).
-Weights and prompt are random, from fixed seeds.
+Weights and prompt are random, from fixed seeds; the encoder-decoder
+family gets seeded bf16 frames, as the reference's launcher does.
 """
 from __future__ import annotations
 
@@ -20,18 +21,25 @@ import torch
 
 from .. import configs
 from .. import device as device_mod
-from ..models import api
+from ..models import api, encdec
 
 
 def generate(model: api.Model, params, prompt: torch.Tensor, gen: int,
-             on_step=None) -> torch.Tensor:
+             on_step=None, frames: torch.Tensor | None = None
+             ) -> torch.Tensor:
     """Greedy decode: feed ``prompt`` (B, P) one token a step, then
-    ``gen`` generated tokens -> (B, gen) int32.  ``on_step(pos)`` is
-    called after each step."""
+    ``gen`` generated tokens -> (B, gen) int32.  ``frames`` (B, src_len,
+    d_model): the encoder-decoder's input, whose encoding builds the
+    cross-attention cache.  ``on_step(pos)`` is called after each
+    step."""
     serve = api.make_serve_step(model)
     batch, prompt_len = prompt.shape
     max_len = prompt_len + gen
-    cache = model.init_cache(batch, max_len)
+    if model.cfg.family == "encdec":
+        with torch.no_grad():
+            cache = encdec.init_cache(params, frames, model.cfg, max_len)
+    else:
+        cache = model.init_cache(batch, max_len)
     tok = prompt[:, 0]
     out = []
     for pos in range(max_len - 1):
@@ -59,11 +67,16 @@ def main(argv=None):
     dev = device_mod.resolve(args.device)
     model = api.build(cfg, dev)
     params = model.init_params(torch.Generator(dev).manual_seed(0))
+    frames = None
+    if cfg.family == "encdec":
+        frames = torch.randn((args.batch, cfg.src_len, cfg.d_model),
+                             generator=torch.Generator(dev).manual_seed(1),
+                             device=dev).to(torch.bfloat16)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
                            generator=torch.Generator(dev).manual_seed(2),
                            device=dev)
     t0 = time.time()
-    seqs = generate(model, params, prompt, args.gen)
+    seqs = generate(model, params, prompt, args.gen, frames=frames)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     dt = time.time() - t0

@@ -2,10 +2,13 @@
 train state and step, and the inference steps, prefill and greedy
 decode.
 
-Only the ssm family (Mamba2) is ported; ``build`` raises for the others
-(ROADMAP Queue 1 item 14c).  Prefill and decode run under
-``torch.no_grad()``; the train step differentiates the loss with
-``torch.autograd.grad`` and updates the state in place.
+Every family serves: prefill and greedy decode run under
+``torch.no_grad()``.  Only the ssm family (Mamba2) trains: the train
+step differentiates the loss with ``torch.autograd.grad`` and updates
+the state in place, and for any other family ``make_train_step`` and
+the model's ``loss_fn`` raise (ROADMAP Queue 1 item 14c).  The
+encoder-decoder family has no ``init_cache``, as in the reference: its
+cache comes from ``encdec.init_cache(params, frames, cfg, max_len)``.
 """
 from __future__ import annotations
 
@@ -15,32 +18,39 @@ from typing import Callable
 import torch
 
 from .. import device as device_mod
-from ..device import not_ported
 from ..optim import adamw
-from . import lm
+from . import encdec, lm
 from .config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    init_params: Callable             # (torch.Generator) -> lm.LM
+    init_params: Callable             # (torch.Generator) -> lm.LM | EncDec
     loss_fn: Callable                 # (params, batch) -> (loss, aux)
-    init_cache: Callable              # (batch, max_len) -> cache
+    init_cache: Callable | None       # (batch, max_len) -> cache
     decode_step: Callable             # (params, cache, token, pos) -> ...
 
 
 def build(cfg: ModelConfig, device=None) -> Model:
     """The model of ``cfg`` on ``device`` (``cuda`` unless ``"cpu"``)."""
-    if cfg.family != "ssm":
-        raise not_ported(f"the {cfg.family!r} family", "Queue 1 item 14c")
     dev = device_mod.resolve(device)
+    family = encdec if cfg.family == "encdec" else lm
 
-    def init_params(gen: torch.Generator) -> lm.LM:
+    def init_params(gen: torch.Generator):
         if gen.device.type != dev.type:
             raise ValueError(f"generator on {gen.device}, model on {dev}")
-        return lm.init_params(gen, cfg)
+        return family.init_params(gen, cfg)
 
+    if cfg.family == "encdec":
+        def loss_fn(p, b, remat="full"):
+            raise lm.no_training(cfg)
+
+        return Model(
+            cfg=cfg, init_params=init_params, loss_fn=loss_fn,
+            init_cache=None,
+            decode_step=lambda p, c, t, pos: encdec.decode_step(p, c, t, pos,
+                                                                cfg))
     return Model(
         cfg=cfg, init_params=init_params,
         loss_fn=lambda p, b, remat="full": lm.loss_fn(p, b, cfg, remat),
@@ -79,9 +89,11 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     or more to bf16 before the loss (the reference casts them before its
     FSDP gather); their gradients reach the float32 parameters.  The
     parameters and moments are updated in place, and the state is
-    returned.
+    returned.  Only the ssm family trains yet.
     """
     cfg = model.cfg
+    if cfg.family != "ssm":
+        raise lm.no_training(cfg)
 
     def view(params):
         if not bf16_weight_gather:
@@ -127,14 +139,20 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
 
 
 def make_prefill_step(model: Model):
-    """Inference prefill: no-grad forward, last-position logits."""
+    """Inference prefill: no-grad forward, last-position logits.  batch:
+    {tokens, [img] (vlm), [frames] (encdec)}."""
     cfg = model.cfg
 
     @torch.no_grad()
     def step(params, batch):
-        logits, _ = lm.forward(params, batch["tokens"], cfg,
-                               img=batch.get("img"), remat="none",
-                               logits_mode="last")
+        if cfg.family == "encdec":
+            logits, _ = encdec.forward(params, batch["frames"],
+                                       batch["tokens"], cfg,
+                                       logits_mode="last")
+        else:
+            logits, _ = lm.forward(params, batch["tokens"], cfg,
+                                   img=batch.get("img"), remat="none",
+                                   logits_mode="last")
         return logits[:, -1]
     return step
 

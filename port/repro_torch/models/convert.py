@@ -3,7 +3,8 @@ and back; and ``repro``'s train state into the port's.
 
 ``repro`` stacks each pattern position's parameters over a leading
 super-block axis (``params["blocks"]["p0"][...][i]``) and keeps
-remainder layers under ``params["rest"]``; the port keeps one module a
+remainder layers under ``params["rest"]``; the encoder-decoder stacks
+``enc`` and ``dec`` over their layers.  The port keeps one module a
 layer.  Every tensor keeps the name of its key in ``repro``'s pytree
 (``blocks[i].ssm.in_proj`` is ``params["blocks"]["p0"]["ssm"]
 ["in_proj"][i]``), so both packages compute with the same weights.  ``tree_to_numpy``
@@ -19,36 +20,48 @@ import torch
 
 from .. import device as device_mod
 from ..optim import adamw
-from . import api, blocks, lm, ssm
+from . import api, blocks, encdec, layers, lm
 
 
 def _t(a, dev) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
 
-def _block(tree: dict, kind: str, dev) -> blocks.Block:
-    blocks._only_ssm(kind)
-    return blocks.Block(_t(tree["norm1"], dev), ssm.Mixer(
-        {k: _t(v, dev) for k, v in tree["ssm"].items()}))
+def _layer(stacked: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked subtree."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in stacked.items()}
 
 
-def params_from_numpy(tree: dict, cfg, device=None) -> lm.LM:
-    """``tree``: repro's ``lm.init_params`` result with numpy leaves."""
+def _block(tree: dict, dev) -> blocks.Block:
+    """One layer's subtree -> a Block: leaves are its norms, subtrees its
+    parts."""
+    parts = {k: layers.Params({n: _t(a, dev) for n, a in v.items()})
+             for k, v in tree.items() if isinstance(v, dict)}
+    return blocks.Block({k: _t(v, dev) for k, v in tree.items()
+                         if not isinstance(v, dict)}, parts)
+
+
+def params_from_numpy(tree: dict, cfg, device=None):
+    """``tree``: repro's ``lm.init_params`` (or ``encdec.init_params``)
+    result with numpy leaves -> ``lm.LM`` (or ``encdec.EncDec``)."""
     dev = device_mod.resolve(device)
+    if cfg.family == "encdec":
+        return encdec.EncDec(
+            _t(tree["embed"], dev),
+            [_block(_layer(tree["enc"], i), dev)
+             for i in range(cfg.enc_layers)],
+            [_block(_layer(tree["dec"], i), dev)
+             for i in range(cfg.n_layers)],
+            _t(tree["enc_norm"], dev), _t(tree["final_norm"], dev))
     pat, n_super, rest = lm.structure(cfg)
-    layers_ = []
-    for i in range(n_super):
-        for j, kind in enumerate(pat):
-            stacked = tree["blocks"][f"p{j}"]
-            layers_.append(_block(
-                {"norm1": stacked["norm1"][i],
-                 "ssm": {k: v[i] for k, v in stacked["ssm"].items()}},
-                kind, dev))
-    for i in range(rest):
-        layers_.append(_block(tree["rest"][f"r{i}"], pat[i], dev))
+    layers_ = [_block(_layer(tree["blocks"][f"p{j}"], i), dev)
+               for i in range(n_super) for j in range(len(pat))]
+    layers_ += [_block(tree["rest"][f"r{i}"], dev) for i in range(rest)]
     return lm.LM(_t(tree["embed"], dev), _t(tree["final_norm"], dev),
-                 layers_, None if cfg.tie_embeddings
-                 else _t(tree["unembed"], dev))
+                 layers_,
+                 None if cfg.tie_embeddings else _t(tree["unembed"], dev),
+                 _t(tree["vis_proj"], dev) if "vis_proj" in tree else None)
 
 
 def tree_to_numpy(named: dict, cfg) -> dict:
@@ -76,7 +89,7 @@ def tree_to_numpy(named: dict, cfg) -> dict:
     return tree
 
 
-def params_to_numpy(params: lm.LM, cfg) -> dict:
+def params_to_numpy(params, cfg) -> dict:
     """The inverse of ``params_from_numpy``."""
     return tree_to_numpy(dict(params.named_parameters()), cfg)
 

@@ -1,0 +1,170 @@
+"""Whisper-style encoder-decoder backbone (twin of
+``repro.models.encdec``).
+
+The conv/mel frontend is a stub, as in the reference: precomputed frame
+embeddings (B, src_len, d_model) go straight into the encoder.  Encoder
+= bidirectional attention blocks; decoder = causal self-attention,
+cross-attention and gated-MLP blocks.  Encoder keys and decoder queries
+are roped with their own positions, in the cross-attention too, as the
+reference does.  The logits take no sqrt(d) embedding scale (unlike
+``lm``).
+
+Parameters: ``embed``, ``enc[i]`` (``norm1``, ``attn``, ``norm2``,
+``mlp``), ``dec[i]`` (``norm1``, ``attn``, ``normx``, ``xattn``,
+``norm2``, ``mlp``), ``enc_norm``, ``final_norm``: ``enc.i.attn.wq`` is
+layer i of the reference's stacked ``enc.attn.wq``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from . import blocks, layers, lm
+from .config import ModelConfig
+
+
+class EncDec(nn.Module):
+    def __init__(self, embed, enc: list, dec: list, enc_norm, final_norm):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.enc = nn.ModuleList(enc)
+        self.dec = nn.ModuleList(dec)
+        self.enc_norm = nn.Parameter(enc_norm, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+
+
+def init_params(gen: torch.Generator, cfg: ModelConfig) -> EncDec:
+    """Random init on the generator's device (float32 weights)."""
+    d, v = cfg.d_model, cfg.vocab_padded
+
+    def norm():
+        return torch.zeros(d, device=gen.device)
+
+    embed = layers.dense_init(gen, (v, d))
+    enc = [blocks.Block({"norm1": norm(), "norm2": norm()},
+                        {"attn": blocks.attn_init(gen, cfg),
+                         "mlp": blocks.mlp_init(gen, cfg)})
+           for _ in range(cfg.enc_layers)]
+    dec = [blocks.Block({"norm1": norm(), "normx": norm(), "norm2": norm()},
+                        {"attn": blocks.attn_init(gen, cfg),
+                         "xattn": blocks.attn_init(gen, cfg),
+                         "mlp": blocks.mlp_init(gen, cfg)})
+           for _ in range(cfg.n_layers)]
+    return EncDec(embed, enc, dec, norm(), norm())
+
+
+def _positions(b, s, device):
+    return torch.arange(s, device=device)[None].expand(b, s)
+
+
+def _mha(x, kv_src, p, cfg, *, causal, positions, kv_positions):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    src = kv_src.shape[1]
+    q = (x @ p.wq.to(x.dtype)).reshape(b, s, h, hd)
+    k = (kv_src @ p.wk.to(x.dtype)).reshape(b, src, kv, hd)
+    v = (kv_src @ p.wv.to(x.dtype)).reshape(b, src, kv, hd)
+    q = layers.rope(q, positions, cfg.rope_theta)
+    k = layers.rope(k, kv_positions, cfg.rope_theta)
+    out = layers.chunked_attention(q, k, v, causal=causal)
+    return out.reshape(b, s, h * hd) @ p.wo.to(x.dtype)
+
+
+def encode(params: EncDec, frames, cfg: ModelConfig):
+    x = frames.to(lm._dt(cfg))
+    b, s, _ = x.shape
+    pos = _positions(b, s, x.device)
+    for p in params.enc:
+        hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+        x = x + _mha(hn, hn, p.attn, cfg, causal=False, positions=pos,
+                     kv_positions=pos)
+        x = x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps),
+                           p.mlp, cfg)
+    return layers.rms_norm(x, params.enc_norm, cfg.norm_eps)
+
+
+def _logits_of(x, params: EncDec, cfg):
+    logits = (x @ params.embed.to(x.dtype).T).float()
+    if cfg.vocab_padded != cfg.vocab:
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(iota < cfg.vocab, logits, -1e9)
+    return logits
+
+
+def _embed(params: EncDec, tokens, dtype):
+    # gathered first, then cast: the reference's values, no (V, D) copy
+    return params.embed[tokens].to(dtype)
+
+
+def forward(params: EncDec, frames, tokens, cfg: ModelConfig,
+            logits_mode: str = "all"):
+    """Teacher-forcing enc-dec forward -> (logits float32, aux)."""
+    enc_out = encode(params, frames, cfg)
+    x = _embed(params, tokens, enc_out.dtype)
+    b, s, _ = x.shape
+    pos = _positions(b, s, x.device)
+    kv_pos = _positions(b, enc_out.shape[1], x.device)
+    for p in params.dec:
+        hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+        x = x + _mha(hn, hn, p.attn, cfg, causal=True, positions=pos,
+                     kv_positions=pos)
+        hx = layers.rms_norm(x, p.normx, cfg.norm_eps)
+        x = x + _mha(hx, enc_out, p.xattn, cfg, causal=False,
+                     positions=pos, kv_positions=kv_pos)
+        x = x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps),
+                           p.mlp, cfg)
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    if logits_mode == "last":
+        x = x[:, -1:]
+    return _logits_of(x, params, cfg), {}
+
+
+# ------------------------------ decode ------------------------------------
+
+def init_cache(params: EncDec, frames, cfg: ModelConfig, max_len: int):
+    """The cross-attention K/V of every decoder layer from the encoder
+    (keys roped at the source positions), and a zeroed self-attention
+    cache of ``max_len`` -> {"self": [{k, v}], "cross": [{k, v}]}."""
+    enc_out = encode(params, frames, cfg)
+    b, src, _ = enc_out.shape
+    kv, hd = cfg.n_kv, cfg.hd
+    kv_pos = _positions(b, src, enc_out.device)
+    cross = []
+    for p in params.dec:
+        k = (enc_out @ p.xattn.wk.to(enc_out.dtype)).reshape(b, src, kv, hd)
+        v = (enc_out @ p.xattn.wv.to(enc_out.dtype)).reshape(b, src, kv, hd)
+        cross.append({"k": layers.rope(k, kv_pos, cfg.rope_theta), "v": v})
+    self_c = [blocks.attn_cache_init(cfg, "full", b, max_len, lm._dt(cfg),
+                                     enc_out.device)
+              for _ in range(cfg.n_layers)]
+    return {"self": self_c, "cross": cross}
+
+
+def decode_step(params: EncDec, cache: dict, token, pos, cfg: ModelConfig):
+    """One decode step.  token: (B,) -> (logits, cache); the
+    self-attention cache is written at ``pos`` in place."""
+    x = _embed(params, token[:, None], lm._dt(cfg))
+    b = x.shape[0]
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    posv = torch.full((b, 1), pos, device=x.device)
+    for p, selfc, crossc in zip(params.dec, cache["self"], cache["cross"]):
+        hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+        q = (hn @ p.attn.wq.to(hn.dtype)).reshape(b, 1, h, hd)
+        k = (hn @ p.attn.wk.to(hn.dtype)).reshape(b, 1, kv, hd)
+        v = (hn @ p.attn.wv.to(hn.dtype)).reshape(b, kv, hd)
+        q = layers.rope(q, posv, cfg.rope_theta)
+        k = layers.rope(k, posv, cfg.rope_theta)
+        selfc["k"][:, pos] = k[:, 0].to(selfc["k"].dtype)
+        selfc["v"][:, pos] = v.to(selfc["v"].dtype)
+        a = layers.decode_attention(q, selfc["k"], selfc["v"], pos + 1)
+        x = x + a.reshape(b, 1, h * hd) @ p.attn.wo.to(hn.dtype)
+        hx = layers.rms_norm(x, p.normx, cfg.norm_eps)
+        qx = (hx @ p.xattn.wq.to(hx.dtype)).reshape(b, 1, h, hd)
+        qx = layers.rope(qx, posv, cfg.rope_theta)
+        ax = layers.decode_attention(qx, crossc["k"], crossc["v"],
+                                     crossc["k"].shape[1])
+        x = x + ax.reshape(b, 1, h * hd) @ p.xattn.wo.to(hx.dtype)
+        x = x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps),
+                           p.mlp, cfg)
+    x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
+    return _logits_of(x[:, 0], params, cfg), cache

@@ -1,15 +1,16 @@
-"""Decoder-only LM assembly (twin of ``repro.models.lm``), for the ssm
-family: embed, a ``nn.ModuleList`` of blocks walked in a Python loop
-(the reference scans stacked super-blocks), final norm, tied or separate
-unembed with the padded vocab rows masked to -1e9, and the training
-loss.
+"""Decoder-only LM assembly (twin of ``repro.models.lm``) for the dense,
+moe, ssm, hybrid and vlm families: embed (and the vlm image prefix), a
+``nn.ModuleList`` of blocks walked in a Python loop (the reference scans
+stacked super-blocks, then its ``rest`` layers), final norm, tied or
+separate unembed with the padded vocab rows masked to -1e9, and the
+training loss (ssm only: the other families' training waits for ROADMAP
+Queue 1 item 14c).
 
 ``remat`` rematerialises each layer in the backward, as the reference
 checkpoints its super-block body (one layer for the ssm pattern):
 ``"full"`` saves only the layer's input, ``"dots"`` also the outputs of
 the products without batch dimensions (``aten.mm`` and ``aten.addmm``,
-the reference's ``dots_with_no_batch_dims_saveable``).  The vlm image
-prefix raises with ROADMAP Queue 1 item 14c.
+the reference's ``dots_with_no_batch_dims_saveable``).
 
 The reference keeps every block parameter stacked over the super-block
 axis, so its leaves have one dimension more than the port's per-layer
@@ -46,36 +47,45 @@ def kinds(cfg: ModelConfig) -> list[str]:
 
 
 class LM(nn.Module):
-    """``embed``, ``final_norm``, [``unembed``] and ``blocks``, named
-    after ``repro``'s parameter keys; ``blocks[i]`` is layer i."""
+    """``embed``, ``final_norm``, [``unembed``], [``vis_proj``] and
+    ``blocks``, named after ``repro``'s parameter keys; ``blocks[i]`` is
+    layer i (the ``rest`` layers last)."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 layers_: list, unembed: torch.Tensor | None = None):
+                 layers_: list, unembed: torch.Tensor | None = None,
+                 vis_proj: torch.Tensor | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.unembed = (None if unembed is None
                         else nn.Parameter(unembed, requires_grad=False))
+        self.vis_proj = (None if vis_proj is None
+                         else nn.Parameter(vis_proj, requires_grad=False))
         self.blocks = nn.ModuleList(layers_)
 
 
 def init_params(gen: torch.Generator, cfg: ModelConfig) -> LM:
     """Random init on the generator's device (float32 weights)."""
-    if cfg.family == "vlm":
-        raise not_ported("the vlm image prefix", "Queue 1 item 14c")
     d, v = cfg.d_model, cfg.vocab_padded
     embed = layers.dense_init(gen, (v, d))
     unembed = None if cfg.tie_embeddings else layers.dense_init(gen, (v, d))
-    return LM(embed, torch.zeros(d, device=gen.device),
-              [blocks.block_init(gen, cfg, k) for k in kinds(cfg)], unembed)
+    layers_ = [blocks.block_init(gen, cfg, k) for k in kinds(cfg)]
+    vis_proj = (layers.dense_init(gen, (cfg.vis_dim, d))
+                if cfg.family == "vlm" else None)
+    return LM(embed, torch.zeros(d, device=gen.device), layers_, unembed,
+              vis_proj)
 
 
 def ref_path(name: str, cfg: ModelConfig) -> tuple:
     """``(path, layer)``: the key path of parameter ``name`` in
     ``repro``'s pytree and its index along the super-block axis there
     (None for a leaf that is not stacked: ``embed``, ``final_norm``,
-    ``unembed`` and the ``rest`` layers')."""
+    ``unembed``, ``vis_proj`` and the ``rest`` layers').  The
+    encoder-decoder's ``enc.i.*`` and ``dec.i.*`` are layer i of the
+    stacked ``enc`` and ``dec`` trees."""
     parts = name.split(".")
+    if parts[0] in ("enc", "dec"):
+        return (parts[0],) + tuple(parts[2:]), int(parts[1])
     if parts[0] != "blocks":
         return tuple(parts), None
     pat, n_super, _ = structure(cfg)
@@ -127,8 +137,6 @@ def _dt(cfg):
 
 
 def _embed_in(params: LM, tokens, cfg, img=None):
-    if img is not None:
-        raise not_ported("the vlm image prefix", "Queue 1 item 14c")
     # the reference casts before the gather; in training that makes the
     # embedding's gradient accumulate in the activations' type as there.
     # Inference gathers first (the same values, no (V, D) copy)
@@ -137,8 +145,10 @@ def _embed_in(params: LM, tokens, cfg, img=None):
     if cfg.tie_embeddings:
         # the scale is rounded to the activations' type first, as
         # jnp.asarray(d ** 0.5, x.dtype) does (45.25 in bf16 at d = 2048)
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype,
-                             device=x.device)
+        x = x * layers.rounded(cfg.d_model ** 0.5, x.dtype)
+    if img is not None:     # the vlm prefix: projected patches, then text
+        vis = img.to(x.dtype) @ params.vis_proj.to(x.dtype)
+        x = torch.cat([vis, x], dim=1)
     return x
 
 
@@ -168,10 +178,6 @@ _REMAT = {
 }
 
 
-def _layer(x, blk, cfg, kind, positions):
-    return blocks.apply_block(x, blk, cfg, kind, positions)[0]
-
-
 def forward(params: LM, tokens, cfg: ModelConfig, img=None,
             remat: str = "none", logits_mode: str = "all") -> tuple:
     """Teacher-forcing forward -> (logits float32, aux).
@@ -184,18 +190,33 @@ def forward(params: LM, tokens, cfg: ModelConfig, img=None,
     x = _embed_in(params, tokens, cfg, img)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device)[None].expand(b, s)
-    aux = {}
-    for blk, kind in zip(params.blocks, kinds(cfg)):
+    pat, n_super, _ = structure(cfg)
+    stacked, aux = {}, {}
+    for i, (blk, kind) in enumerate(zip(params.blocks, kinds(cfg))):
         if remat == "none":
-            x = _layer(x, blk, cfg, kind, positions)
+            x, a = blocks.apply_block(x, blk, cfg, kind, positions)
         else:
-            x = ckpt.checkpoint(_layer, x, blk, cfg, kind, positions,
-                                use_reentrant=False,
-                                context_fn=_REMAT[remat])
+            x, a = ckpt.checkpoint(blocks.apply_block, x, blk, cfg, kind,
+                                   positions, use_reentrant=False,
+                                   context_fn=_REMAT[remat])
+        # the reference's keys: a pattern position's aux averaged over
+        # the super-blocks, a rest layer's as it is
+        if i < n_super * len(pat):
+            for k, v in a.items():
+                stacked.setdefault(f"{kind}{i % len(pat)}_{k}", []).append(v)
+        else:
+            aux.update({f"rest{i - n_super * len(pat)}_{k}": v
+                        for k, v in a.items()})
+    aux = {**{k: torch.stack(v).mean() for k, v in stacked.items()}, **aux}
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:]
     return _logits_of(x, params, cfg), aux
+
+
+def no_training(cfg: ModelConfig) -> NotImplementedError:
+    return not_ported(f"training of the {cfg.family} family",
+                      "Queue 1 item 14c")
 
 
 def nll(logits, tokens):
@@ -214,7 +235,10 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, remat: str = "full"):
 
     Single pass: nll = logsumexp(logits) - logits[label] over the text
     positions, then the z-loss ``1e-4 * mean(lse ** 2)``, then the MoE
-    load-balance terms (the ssm family has none)."""
+    load-balance terms (the ssm family has none).  Only the ssm family
+    trains yet."""
+    if cfg.family != "ssm":
+        raise no_training(cfg)
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg, img=batch.get("img"),
                           remat=remat)
@@ -227,15 +251,16 @@ def loss_fn(params: LM, batch: dict, cfg: ModelConfig, remat: str = "full"):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device) -> list[dict]:
-    """One cache a layer: the conv history in the activations' type and
-    the SSM state in float32."""
+    """One cache a layer: K and V (a ring of the window for a windowed
+    kind), the conv history in the activations' type, the SSM and RG-LRU
+    states in float32."""
     return [blocks.block_cache_init(cfg, k, batch, max_len, _dt(cfg), device)
             for k in kinds(cfg)]
 
 
 def decode_step(params: LM, cache: list, token, pos, cfg: ModelConfig):
     """One greedy decode step.  token: (B,) int -> (logits, cache); the
-    layers' states are updated in place."""
+    SSM states and the K/V caches are updated in place."""
     x = _embed_in(params, token[:, None], cfg)
     new_cache = []
     for blk, c, kind in zip(params.blocks, cache, kinds(cfg)):

@@ -1,0 +1,100 @@
+"""RecurrentGemma / Griffin RG-LRU recurrent block (twin of
+``repro.models.rglru``; arXiv:2402.19427).
+
+    r_t = σ(W_r x_t);  i_t = σ(W_i x_t);  a_t = a^(c·r_t)
+    h_t = a_t ⊙ h_{t−1} + √(1 − a_t²) ⊙ (i_t ⊙ x_t)
+
+Prefill scans the (a, b) pairs in float32 by Hillis-Steele doubling
+(log2 L passes over the sequence, the reference's associative operator
+in another order than ``lax.associative_scan``'s tree); decode is the
+one-step recurrence.  The block is Griffin's: (linear → conv1d →
+RG-LRU) gated by (linear → gelu), then projected out.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import layers
+
+_C = 8.0
+
+
+def init_params(gen: torch.Generator, cfg) -> layers.Params:
+    d = cfg.d_model
+    w = cfg.rglru_width or d
+    return layers.Params({
+        "in_x": layers.dense_init(gen, (d, w)),
+        "in_gate": layers.dense_init(gen, (d, w)),
+        "conv_w": layers.dense_init(gen, (4, w)),
+        "w_r": layers.dense_init(gen, (w, w)),
+        "w_i": layers.dense_init(gen, (w, w)),
+        # Λ init so that a = σ(Λ) ∈ (0.9, 0.999)
+        "lam": torch.full((w,), 4.0, device=gen.device),
+        "out": layers.dense_init(gen, (w, d)),
+    })
+
+
+def _gelu(x):
+    return F.gelu(x, approximate="tanh")
+
+
+def _gates(u, p):
+    uf = u.float()
+    r = torch.sigmoid(uf @ p.w_r)
+    i = torch.sigmoid(uf @ p.w_i)
+    # softplus as jax's logaddexp(x, 0): torch's returns x above 20
+    log_a = -_C * r * torch.logaddexp(p.lam, torch.zeros_like(p.lam))
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * uf)
+    return a, gated
+
+
+def scan(a, b):
+    """h_t = a_t h_{t-1} + b_t along axis 1 from h_{-1} = 0, by
+    doubling: after the pass of stride d each position holds the
+    composition of its last 2d steps, ``(a1, b1) then (a2, b2)`` being
+    ``(a1 a2, b1 a2 + b2)``."""
+    n = a.shape[1]
+    d = 1
+    while d < n:
+        b = torch.cat([b[:, :d], b[:, :-d] * a[:, d:] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return b
+
+
+def forward(x, p, cfg):
+    """x: (B, L, D) -> (B, L, D)."""
+    u = x @ p.in_x.to(x.dtype)
+    gate = _gelu(x @ p.in_gate.to(x.dtype))
+    u = layers.causal_dconv(u, p.conv_w.to(x.dtype))
+    a, b = _gates(u, p)
+    h = scan(a, b)
+    return (h.to(x.dtype) * gate) @ p.out.to(x.dtype)
+
+
+def init_cache(cfg, batch: int, dtype, device) -> dict:
+    w = cfg.rglru_width or cfg.d_model
+    return {
+        "conv": torch.zeros((batch, 3, w), dtype=dtype, device=device),
+        "h": torch.zeros((batch, w), dtype=torch.float32, device=device),
+    }
+
+
+def decode_step(x, cache: dict, p, cfg):
+    """x: (B, 1, D) -> (y, new cache)."""
+    u = x @ p.in_x.to(x.dtype)
+    gate = _gelu(x @ p.in_gate.to(x.dtype))
+    hist = torch.cat([cache["conv"], u], dim=1)               # (B, 4, W)
+    # the reference's einsum "bkw,kw->bw" (float32 sums of the exact
+    # products, one rounding) as a product and a sum: torch runs the
+    # einsum as W batched matrix-vector products, strided, 0.7 of a
+    # decode step at full width
+    w = p.conv_w.to(x.dtype).float()
+    u_c = (hist.float() * w).sum(dim=1).to(x.dtype)[:, None, :]
+    a, b = _gates(u_c, p)
+    h = cache["h"] * a[:, 0] + b[:, 0]
+    y = (h[:, None, :].to(x.dtype) * gate) @ p.out.to(x.dtype)
+    return y, {"conv": hist[:, 1:], "h": h}

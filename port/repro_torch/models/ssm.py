@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ..kernels.ssd import ops as ssd_ops
 from . import layers
@@ -23,13 +22,7 @@ def dims(cfg):
     return din, h, cfg.ssm_head_dim, cfg.ssm_groups, cfg.ssm_state
 
 
-class Mixer(nn.Module):
-    """One layer's SSM parameters, named after ``repro``'s keys."""
-
-    def __init__(self, tensors: dict):
-        super().__init__()
-        for name, t in tensors.items():
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+Mixer = layers.Params      # one layer's SSM parameters, named as in repro
 
 
 def init_params(gen: torch.Generator, cfg) -> Mixer:
@@ -47,17 +40,6 @@ def init_params(gen: torch.Generator, cfg) -> Mixer:
     })
 
 
-def _causal_dconv(u, w):
-    """u: (B, L, C), w: (K, C) depthwise causal conv, as K multiply-adds
-    in u's type (no cuDNN convolution, so no TF32)."""
-    k = w.shape[0]
-    pad = F.pad(u, (0, 0, k - 1, 0))
-    out = torch.zeros_like(u)
-    for i in range(k):
-        out = out + pad[:, i:i + u.shape[1]] * w[i]
-    return out
-
-
 def _split(proj, cfg):
     din, h, _, g, s = dims(cfg)
     z = proj[..., :din]
@@ -72,7 +54,7 @@ def forward(x, p: Mixer, cfg, chunk: int = ssd_ops.CHUNK):
     din, h, hp, g, s = dims(cfg)
     proj = x @ p.in_proj.to(x.dtype)
     z, xbc, dt = _split(proj, cfg)
-    xbc = F.silu(_causal_dconv(xbc, p.conv_w.to(x.dtype)))
+    xbc = F.silu(layers.causal_dconv(xbc, p.conv_w.to(x.dtype)))
     xs = xbc[..., :din].reshape(b, l, h, hp)
     bmat = xbc[..., din:din + g * s].reshape(b, l, g, s)
     cmat = xbc[..., din + g * s:].reshape(b, l, g, s)

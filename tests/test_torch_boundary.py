@@ -61,5 +61,6 @@ def test_the_lm_slice_is_in_the_walk():
               "repro_torch.kernels.ssd.kernel", "repro_torch.launch.serve",
               "repro_torch.optim.adamw", "repro_torch.data.tokens",
               "repro_torch.checkpoint.store", "repro_torch.ft.runtime",
-              "repro_torch.launch.train"):
+              "repro_torch.launch.train", "repro_torch.models.moe",
+              "repro_torch.models.rglru", "repro_torch.models.encdec"):
         assert m in mods, m

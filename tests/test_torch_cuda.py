@@ -901,6 +901,56 @@ def test_mamba2_on_cuda_matches_cpu():
     assert torch.equal(gen["cuda"].cpu(), gen["cpu"])
 
 
+@pytest.mark.parametrize("arch", ["gemma2_27b", "stablelm_12b", "qwen15_4b",
+                                  "command_r_35b", "whisper_medium",
+                                  "mixtral_8x22b", "arctic_480b",
+                                  "internvl2_26b", "recurrentgemma_9b"])
+def test_model_family_on_cuda_matches_cpu(arch):
+    """Each family's smoke config in float32 (MoE at capacity factor 16):
+    prefill logits and 8 decode steps' logits, card against CPU; no
+    kernel launches (these paths have none)."""
+    _need_cuda()
+    import copy
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import api, encdec
+    cfg = dataclasses.replace(configs.smoke(arch), dtype="float32",
+                              capacity_factor=16.0)
+    models = {d: api.build(cfg, d) for d in ("cpu", "cuda")}
+    params = {"cpu": models["cpu"].init_params(
+        torch.Generator().manual_seed(0))}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to("cuda")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 40)))}
+    if cfg.family == "vlm":
+        batch["img"] = torch.randn(2, cfg.vis_tokens, cfg.vis_dim)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.randn(2, cfg.src_len, cfg.d_model)
+    skernel.reset_launches()
+    kernel.reset_launches()
+    got = api.make_prefill_step(models["cuda"])(
+        params["cuda"], {k: v.cuda() for k, v in batch.items()})
+    want = api.make_prefill_step(models["cpu"])(params["cpu"], batch)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    caches = {}
+    for d in ("cpu", "cuda"):
+        if cfg.family == "encdec":
+            caches[d] = encdec.init_cache(params[d], batch["frames"].to(d),
+                                          cfg, 8)
+        else:
+            caches[d] = models[d].init_cache(2, 8)
+    with torch.no_grad():
+        for pos in range(8):
+            logits = {}
+            for d in ("cpu", "cuda"):
+                logits[d], caches[d] = models[d].decode_step(
+                    params[d], caches[d], batch["tokens"][:, pos].to(d), pos)
+            torch.testing.assert_close(logits["cuda"].cpu(), logits["cpu"],
+                                       rtol=1e-4, atol=1e-4)
+    assert not any(skernel.LAUNCHES.values())
+    assert not any(kernel.LAUNCHES.values())
+
+
 # -- the sharded placement (owners simulated on the card) ---------------------
 
 SHARD_FIELDS = ("canon_shards", "id_shards", "alive_shards", "chunk_shards",
