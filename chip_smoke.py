@@ -380,6 +380,7 @@ CHECK_Q = 1024         # queries of the first counts batch brute-forced
 Q_KNN, KNN_BATCHES, K, MAX_CAND = 1024, 5, 10, 1024
 CHECK_KNN = 256        # points of the first kNN batch brute-forced
 DENSE_ROWS = 256       # rows of the dense calls earlier runs timed
+PLAIN_Q = 256          # queries the dense counts' plain versions run on
 STAGINGS = ("x", "off", "hilbert")
 INDEXED = ("x", "hilbert")  # stagings probed by the *_skip kernels
 METHODS = ("fg", "bsp", "slc", "bos", "str", "hc")
@@ -466,6 +467,11 @@ SHARDS = 4                 # owners of the sharded servers, join plans and
                            # parallel partitioning, simulated on the card
 SHARD_OFF_BATCHES = (4, 2, 2)   # counts, ids, kNN batches of sharded "off"
 SHARD_APPENDS, SHARD_DELETES = 3, 2    # the sharded ingest stream
+MESH_BATCHES = 3           # batches of each kind a mesh rank serves
+MESH_TILES, MESH_PER_TILE = 100, 100   # the mesh append: objects in the
+                           # centres of the least-filled tiles (no overflow)
+MESH_DELETE = 100_000      # ids the mesh delete tombstones
+MESH_DEADLINE_S = 900.0    # the mesh phase's ranks, spawn to join
 HOT_FRAC = 0.85            # query centres in the hot patch (the hotspot bench)
 HEAT_DECAY, HEAT_TOP = 0.85, 64    # the heat placement's policy
 HEAT_LEG, HEAT_HOT = 5, 10         # counts batches a leg; leg (c) hot
@@ -1134,9 +1140,10 @@ def knn_within(torch, a, b):
 
 
 def sharded_serve(torch, dev, parts, mbrs, li, batches, pruned_x, knn_x,
-                  sizes, checked):
+                  sizes, checked, keep=None):
     """One sharded server (``SHARDS`` owners simulated on the card) over
-    the serve phase's batches -> its launches."""
+    the serve phase's batches -> its launches.  ``keep``, when given,
+    receives what the mesh phase holds its ranks to (``mesh_keep``)."""
     from repro_torch.core import geometry
     from repro_torch.kernels.range_probe import kernel
     from repro_torch.query import knn as knn_mod
@@ -1267,6 +1274,9 @@ def sharded_serve(torch, dev, parts, mbrs, li, batches, pruned_x, knn_x,
     row.update(equal_to_replicated_x=True, launches=launches,
                max_memory_allocated=torch.cuda.max_memory_allocated())
     emit(row)
+    if keep is not None:
+        mesh_keep(torch, srv, mbrs, parts, batches, counts, ids, knn,
+                  build_peak, keep)
     del srv
     torch.cuda.empty_cache()
     return launches
@@ -1376,7 +1386,8 @@ def sharded_ingest(torch, dev, parts, mbrs, batches):
     return launches
 
 
-def sharded_phase(torch, dev, servers, mbrs, batches, pruned_x, knn_x):
+def sharded_phase(torch, dev, servers, mbrs, batches, pruned_x, knn_x,
+                  keep=None):
     """Queue 1 item 10 on the card: the sharded "x" server over every
     batch (the dense oracle and the brute force on the first), "off"
     over a few, and the sharded ingest -> launches of each range-probe
@@ -1385,7 +1396,8 @@ def sharded_phase(torch, dev, servers, mbrs, batches, pruned_x, knn_x):
     the ingest, whose re-stage at a doubled capacity needs the room."""
     parts = servers["x"].parts
     runs = [sharded_serve(torch, dev, parts, mbrs, "x", batches, pruned_x,
-                          knn_x, (BATCHES, ID_BATCHES, KNN_BATCHES), True),
+                          knn_x, (BATCHES, ID_BATCHES, KNN_BATCHES), True,
+                          keep),
             sharded_serve(torch, dev, parts, mbrs, "off", batches, pruned_x,
                           knn_x, SHARD_OFF_BATCHES, False)]
     servers.clear()
@@ -2037,9 +2049,11 @@ def heat_alone(torch, dev):
     return launches, frontend_phase(torch, dev, rsrv, hsrv)
 
 
-def sharded_join_phase(torch, dev, inputs, results):
+def sharded_join_phase(torch, dev, inputs, results, keep=None):
     """Multi-device join plans and parallel partitioning on the card ->
-    the launches of the encode and the join's batched passes."""
+    the launches of the encode and the join's batched passes.  ``keep``,
+    when given, receives the counts and the parallel partition the mesh
+    phase holds its ranks to."""
     from repro_torch.core import metrics
     from repro_torch.core.partition import partition_counts
     from repro_torch.kernels.hilbert import kernel as hkernel
@@ -2049,6 +2063,8 @@ def sharded_join_phase(torch, dev, inputs, results):
     hkernel.reset_launches()
     mkernel.reset_launches()
     r, s = inputs["pi"]
+    if keep is not None:
+        keep["join_inputs"] = (r.cpu(), s.cpu())
     for method in ("bsp", "hc"):
         one = results["pi", method]
         plan, plan_s = timed_s(torch, lambda: engine.plan_join(
@@ -2073,6 +2089,9 @@ def sharded_join_phase(torch, dev, inputs, results):
             raise AssertionError(f"the {SHARDS}-device {method} raw count "
                                  f"{raw} (one-device {one['raw']}) or its "
                                  f"launches")
+        if keep is not None:
+            keep[f"join_{method}"] = dict(exact=count, raw=raw,
+                                          max_n=one["max_n"])
         emit(dict(phase="multidevice_join", input="pi", method=method,
                   n_devices=SHARDS, tpd=plan.stats["tpd"],
                   skew=plan.stats["skew"], plan_s=plan_s, join_s=join_s,
@@ -2085,6 +2104,9 @@ def sharded_join_phase(torch, dev, inputs, results):
     before = hkernel.LAUNCHES["encode"]
     (parts, stats), secs = timed_s(torch, lambda: (
         parallel_partition.parallel_partition(merged, PAYLOAD, SHARDS)))
+    if keep is not None:
+        keep["pp"] = dict(boxes=parts.boxes.cpu(), valid=parts.valid.cpu(),
+                          stats=stats)
     counts, copies = partition_counts(merged, parts)
     cov = float(metrics.coverage(copies))
     if stats["dropped"] or cov != 1.0:
@@ -2099,6 +2121,385 @@ def sharded_join_phase(torch, dev, inputs, results):
               coverage=cov, dropped=stats["dropped"],
               encode_launches=hkernel.LAUNCHES["encode"] - before))
     return dict(mkernel.LAUNCHES, **hkernel.LAUNCHES)
+
+
+def mesh_keep(torch, srv, mbrs, parts, batches, counts, ids, knn,
+              build_peak, keep):
+    """What the mesh phase holds its ranks to, from the in-process
+    sharded "x" server (bsp, ``SHARDS`` owners): its objects (the ranks
+    load them, not a regeneration) and partition, the first
+    ``MESH_BATCHES`` batches of each kind and their answers; the mesh
+    ingest (an append into the centres of the least-filled tiles, so
+    no tile overflows, and a delete) applied to it and a batch of each
+    kind answered after; its staging's peak memory and shard bytes."""
+    n = MESH_BATCHES
+    host = lambda x: tuple(v.cpu() for v in x)   # noqa: E731
+    keep.update(
+        mbrs=mbrs.cpu(), parts_bsp=(parts.boxes.cpu(), parts.valid.cpu()),
+        batches={k: [b.cpu() for b in batches[k][:n]]
+                 for k in ("counts", "ids", "knn")},
+        bsp=dict(counts=[c.cpu() for c in counts[:n]],
+                 ids=[host(x) for x in ids[:n]],
+                 knn=[host(x) for x in knn[:n]]),
+        build_peak=build_peak, shard_bytes=srv.stats["shard_bytes"],
+        cap=srv.stats["cap"])
+    cap = srv.slayout.id_shards.shape[-1]
+    fill = (srv.slayout.id_shards.view(-1, cap)[srv.tiles._rows] >= 0).sum(1)
+    fill = torch.where(parts.valid, fill, cap)
+    tiles = torch.argsort(fill, stable=True)[:MESH_TILES]
+    if int(fill[tiles].max()) + MESH_PER_TILE > srv.stats["cap"]:
+        raise AssertionError("the mesh append would overflow a tile")
+    ctr = (parts.boxes[tiles, :2] + parts.boxes[tiles, 2:]) * 0.5
+    g = torch.Generator(device=ctr.device).manual_seed(SEED + 9)
+    off = (torch.rand(MESH_TILES, MESH_PER_TILE, 2, generator=g,
+                      device=ctr.device) - 0.5) * 1e-6
+    lo = (ctr[:, None] + off).reshape(-1, 2)
+    append = torch.cat([lo, lo + 1e-7], 1)
+    delete = torch.randperm(srv.stats["n"], generator=g,
+                            device=ctr.device)[:MESH_DELETE]
+    rep_a = srv.append(append)
+    rep_d = srv.delete(delete)
+    if rep_a["restaged"] or rep_d["restaged"]:
+        raise AssertionError("the mesh ingest re-staged in-process")
+    qc, qi, pts = (batches[k][0] for k in ("counts", "ids", "knn"))
+    keep.update(append=append.cpu(), delete=delete.cpu(),
+                ingest=dict(counts=srv.range_counts(qc)[0].cpu(),
+                            ids=host(srv.range_ids(qi, max_hits=MAX_HITS)[
+                                :3]),
+                            knn=host(srv.knn(pts, K, max_cand=MAX_CAND)[:3]),
+                            append=rep_a, delete=rep_d))
+
+
+def mesh_rank(rank, size, path):
+    """One rank of the mesh phase (spawned; the kernels are built):
+    serve bsp (osm) and hc (pi) sharded over the gloo mesh on the card,
+    ingest on bsp, the join at D = ``size`` and the parallel partition,
+    each held to ``path/inputs.pt`` -> ``path/rank{rank}.json``."""
+    import json
+
+    import torch
+    from repro_torch.core.partition import api
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.kernels.range_probe import kernel
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.query import engine, parallel_partition
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    mods = (kernel, hkernel, mkernel)
+    inp = torch.load(f"{path}/inputs.pt", weights_only=False)
+    c = inp["consts"]                  # the parent's sizes and device
+    mesh = mesh_lib.init_process_mesh("gloo", f"file://{path}/store", rank,
+                                      size, c["device"],
+                                      timeout=MESH_DEADLINE_S)
+    dev = mesh.device
+    on_card = dev.type == "cuda"
+    out = dict(rank=rank, device=str(dev), paths={})
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(dev)
+
+    def note(step):
+        """The rank's device memory after ``step`` (also to stderr at
+        once, so a rank that fails later has left its trail)."""
+        sync()
+        mem = ((torch.cuda.memory_allocated(dev),
+                torch.cuda.memory_reserved(dev)) if on_card else (0, 0))
+        out.setdefault("memory", []).append((step,) + mem)
+        print(f"mesh rank {rank}: {step}: allocated {mem[0]}, reserved "
+              f"{mem[1]}", file=sys.stderr, flush=True)
+
+    def start():
+        sync()
+        for m in mods:
+            m.reset_launches()
+        mesh.reset_timers()
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def finish(row):
+        sync()
+        row.update(launches={m.__name__.split(".")[-2]: {
+            k: v for k, v in m.LAUNCHES.items() if v} for m in mods},
+                   peak_memory=(torch.cuda.max_memory_allocated(dev)
+                                if on_card else None),
+                   comm_s=mesh.timers["comm_s"], copy_s=mesh.timers["copy_s"],
+                   comm_calls=mesh.timers["calls"],
+                   comm_bytes=mesh.timers["bytes"])
+        return row
+
+    def timed(fn):
+        c0, k0 = mesh.timers["comm_s"], mesh.timers["copy_s"]
+        sync()
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, dict(ms=(time.perf_counter() - t0) * 1e3,
+                         comm_ms=(mesh.timers["comm_s"] - c0) * 1e3,
+                         copy_ms=(mesh.timers["copy_s"] - k0) * 1e3)
+
+    def same(a, b):
+        return all(torch.equal(x.cpu(), y) for x, y in zip(a, b))
+
+    def serve(srv, method, ref):
+        row = {}
+        for kind, call in (
+                ("counts", lambda q: srv.range_counts(q)[0]),
+                ("ids", lambda q: srv.range_ids(q, max_hits=c["max_hits"])[
+                    :3]),
+                ("knn", lambda q: srv.knn(q, c["k"],
+                                          max_cand=c["max_cand"])[:3])):
+            times = []
+            for i, q in enumerate(inp["batches"][kind]):
+                got, t = timed(lambda: call(q.to(dev)))
+                times.append(t)
+                want = ref[kind][i]
+                ok = (torch.equal(got.cpu(), want) if kind == "counts"
+                      else same(got, want))
+                if not ok:
+                    raise AssertionError(f"rank {rank}: mesh {method} {kind} "
+                                         f"batch {i} differs from the "
+                                         f"in-process sharded phase")
+            row[kind] = dict(batches=times,
+                             p50_ms=pct([t["ms"] for t in times], 0.5),
+                             comm_ms_p50=pct([t["comm_ms"] for t in times],
+                                             0.5),
+                             copy_ms_p50=pct([t["copy_ms"] for t in times],
+                                             0.5))
+        return row
+
+    note("loaded")
+    for method in ("bsp", "hc"):
+        note(f"{method}: before staging")
+        start()
+        # bsp serves the sharded phase's osm objects, hc the join's pi
+        mbrs = (inp["mbrs"] if method == "bsp"
+                else torch.cat(inp["join_inputs"])).to(dev)
+        boxes, valid = inp[f"parts_{method}"]
+        parts = api.Partitioning(boxes.to(dev), valid.to(dev))
+        srv, t = timed(lambda: SpatialServer(
+            parts, mbrs, ServeConfig(placement="sharded", shards=size),
+            device=dev, method=method, mesh=mesh))
+        row = dict(build=t, t=srv.stats["t"], t_local=srv.stats["t_local"],
+                   shard_bytes=srv.stats["shard_bytes"],
+                   resident_rows=int(srv.slayout.id_shards.shape[1]),
+                   resident_tile_bytes=srv.resident_tile_bytes())
+        note(f"{method}: staged")
+        if srv.slayout.id_shards.shape[0] != 1:
+            raise AssertionError("a rank holds more than its own shard")
+        row.update(serve(srv, method, inp[method]))
+        note(f"{method}: served")
+        if method == "bsp":
+            ing = inp["ingest"]
+            rep_a, row["append"] = timed(lambda: srv.append(
+                inp["append"].to(dev)))
+            rep_d, row["delete"] = timed(lambda: srv.delete(
+                inp["delete"].to(dev)))
+            qc, qi, pts = (inp["batches"][k][0].to(dev)
+                           for k in ("counts", "ids", "knn"))
+            if not (rep_a == ing["append"] and rep_d == ing["delete"]
+                    and torch.equal(srv.range_counts(qc)[0].cpu(),
+                                    ing["counts"])
+                    and same(srv.range_ids(qi, max_hits=c["max_hits"])[:3],
+                             ing["ids"])
+                    and same(srv.knn(pts, c["k"],
+                                     max_cand=c["max_cand"])[:3],
+                             ing["knn"])):
+                raise AssertionError(f"rank {rank}: the mesh ingest differs "
+                                     f"from the in-process sharded server")
+        note(f"{method}: done")
+        out["paths"][f"serve_{method}"] = finish(row)
+        del srv, mbrs
+        if on_card:
+            torch.cuda.empty_cache()
+
+    r, s = (x.to(dev) for x in inp["join_inputs"])
+    for method in ("bsp", "hc"):
+        start()
+        want = inp[f"join_{method}"]
+        plan, t_plan = timed(lambda: mesh_lib.in_turns(mesh, lambda: (
+            engine.plan_join(method, r, s, c["payload"], size, device=dev))))
+        count, t_join = timed(lambda: engine.spatial_join_count(
+            plan, mesh, max_pairs_per_tile=want["max_n"]))
+        raw, t_raw = timed(lambda: engine.run_join_count(plan, mesh,
+                                                         dedup="none"))
+        if count != want["exact"] or raw != want["raw"]:
+            raise AssertionError(f"rank {rank}: the mesh {method} join "
+                                 f"counts {count} (raw {raw}), in-process "
+                                 f"{want['exact']} ({want['raw']})")
+        out["paths"][f"join_{method}"] = finish(dict(
+            plan=t_plan, join=t_join, raw=t_raw, exact=count, raw_count=raw))
+        del plan
+        if on_card:
+            torch.cuda.empty_cache()
+    start()
+    merged = torch.cat([r, s])
+    (parts, stats), t = timed(lambda: parallel_partition.parallel_partition(
+        merged, c["payload"], size, mesh))
+    want = inp["pp"]
+    if not (torch.equal(parts.boxes.cpu(), want["boxes"])
+            and torch.equal(parts.valid.cpu(), want["valid"])
+            and stats == want["stats"]):
+        raise AssertionError(f"rank {rank}: the mesh parallel partition "
+                             f"differs from the in-process one")
+    out["paths"]["parallel_partition"] = finish(dict(partition=t,
+                                                     stats=stats))
+    with open(f"{path}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+    mesh_lib.close(mesh)
+
+
+MESH_PATHS = {  # mesh path -> the (module, kernel)s it must launch on
+    # every rank
+    "serve_bsp": (("range_probe", "gather_count_skip"),
+                  ("range_probe", "gather_hits_skip")),
+    "serve_hc": (("range_probe", "gather_count_skip"),
+                 ("range_probe", "gather_hits_skip")),
+    "join_bsp": (("mbr_join", "rp_counts"), ("mbr_join", "raw_counts")),
+    "join_hc": (("mbr_join", "pair_list"), ("mbr_join", "raw_counts")),
+    "parallel_partition": (("hilbert", "encode"),),
+}
+
+
+def mesh_launches_of(launches: dict, entry_name: str) -> int:
+    """A kernels-line entry's launches in the mesh phase (summed over
+    the ranks; ``launches`` is ``mesh_phase``'s)."""
+    if entry_name == "hilbert_encode":
+        return launches.get("hilbert", {}).get("encode", 0)
+    if entry_name.startswith("mbr_"):
+        return launches.get("mbr_join", {}).get(entry_name[4:], 0)
+    return launches.get("range_probe", {}).get(entry_name, 0)
+
+
+def mesh_phase(torch, dev, keep):
+    """Queue 1 item 10's mesh mode on the card: ``SHARDS`` spawned ranks
+    of a gloo process group on the one card, each holding one owner's
+    shard: bsp over the sharded phase's osm objects, its answers and
+    ingest held bit for bit to the in-process sharded "x" server
+    (``keep``); hc over the join's merged pi objects, held to an
+    in-process hc server built here; the joins to the ``SHARDS``-device
+    plans' counts and the parallel partition to the in-process one ->
+    the launches of every rank, summed by kernel name."""
+    import json
+
+    from repro_torch.core.partition import api
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    # hc serves the join phase's 8 M merged pi objects: its MASJ staging
+    # of the 8 M osm objects (overlapping tight boxes over the hotspots)
+    # took 48.57 GB before its 12.12 GB canonical sort, which one card
+    # cannot hold beside four ranks' shards
+    pi = torch.cat(keep["join_inputs"]).to(dev)
+    hc = api.partition("hc", pi, PAYLOAD)
+    srv = SpatialServer(hc, pi, ServeConfig(placement="sharded",
+                                            shards=SHARDS),
+                        device=dev, method="hc")
+    host = lambda x: tuple(v.cpu() for v in x)   # noqa: E731
+    b = keep["batches"]
+    keep["hc"] = dict(
+        counts=[srv.range_counts(q.to(dev))[0].cpu() for q in b["counts"]],
+        ids=[host(srv.range_ids(q.to(dev), max_hits=MAX_HITS)[:3])
+             for q in b["ids"]],
+        knn=[host(srv.knn(p.to(dev), K, max_cand=MAX_CAND)[:3])
+             for p in b["knn"]])
+    del srv, pi
+    torch.cuda.empty_cache()
+    ctx = 600 * 2**20             # a CUDA context, reckoned
+    held = torch.cuda.memory_reserved(dev) + ctx      # this process
+    objects = N * 16                                  # a rank's osm boxes
+    plan = dict(phase="mesh_memory_plan", ranks=SHARDS,
+                staging_turn_peak=keep["build_peak"],
+                shard_bytes=keep["shard_bytes"], context_bytes=ctx,
+                parent_bytes=held,
+                reckoned_card_peak=held + keep["build_peak"] + SHARDS * (
+                    keep["shard_bytes"] + ctx + objects),
+                card_bytes=torch.cuda.get_device_properties(dev).total_memory)
+    emit(plan)
+    if plan["reckoned_card_peak"] > plan["card_bytes"]:
+        raise AssertionError("the mesh phase would not fit on the card")
+    inputs = dict(keep, parts_hc=(hc.boxes.cpu(), hc.valid.cpu()),
+                  consts=dict(payload=PAYLOAD, max_hits=MAX_HITS, k=K,
+                              max_cand=MAX_CAND, device=str(dev)))
+    with tempfile.TemporaryDirectory() as path:
+        torch.save(inputs, f"{path}/inputs.pt")
+        t0 = time.perf_counter()
+        mesh_lib.spawn(mesh_rank, (SHARDS, path), SHARDS, MESH_DEADLINE_S)
+        wall_s = time.perf_counter() - t0
+        rows = []
+        for r in range(SHARDS):
+            with open(f"{path}/rank{r}.json") as f:
+                rows.append(json.load(f))
+    launches = {}
+    for row in rows:
+        emit(dict(phase="mesh_rank", backend="gloo", **row))
+        for name, path_row in row["paths"].items():
+            for mod, k in MESH_PATHS[name]:
+                if path_row["launches"][mod].get(k, 0) <= 0:
+                    raise AssertionError(f"rank {row['rank']} did not launch "
+                                         f"{k} on the mesh path {name}")
+            for mod, per in path_row["launches"].items():
+                tot = launches.setdefault(mod, {})
+                for k, v in per.items():
+                    tot[k] = tot.get(k, 0) + v
+    for k in list(TABLES.values()) + ["count", "mask"]:
+        if launches.get("range_probe", {}).get(k):
+            raise AssertionError(f"{k} was launched on the mesh path")
+    emit(dict(phase="mesh", ranks=SHARDS, backend="gloo", wall_s=wall_s,
+              equal_to_in_process=True, launches=launches))
+    return launches
+
+
+def mesh_alone(torch, dev):
+    """The serve, sharded and multi-device join phases' inputs and
+    in-process answers (the sharded "x" server alone), then
+    ``mesh_phase`` (the kernels build at first use)."""
+    from repro_torch.data import spatial_gen
+    from repro_torch.kernels import cuda_build
+    from repro_torch.kernels.hilbert import kernel as hkernel
+    from repro_torch.kernels.mbr_join import kernel as mkernel
+    from repro_torch.kernels.range_probe import kernel
+    from repro_torch.serve import ServeConfig, SpatialServer
+
+    cuda_build.build_all([kernel.SOURCE, hkernel.SOURCE, mkernel.SOURCE])
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    batches = dict(counts=[qboxes(torch, g, Q, 0.03, dev)
+                           for _ in range(MESH_BATCHES)],
+                   ids=[qboxes(torch, g, Q_IDS, 0.003, dev)
+                        for _ in range(MESH_BATCHES)])
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    batches["knn"] = [torch.rand(Q_KNN, 2, generator=g, device=dev)
+                      for _ in range(MESH_BATCHES)]
+    mbrs = spatial_gen.osm_like(N, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    srv = SpatialServer.from_method("bsp", mbrs, PAYLOAD, ServeConfig(
+        placement="sharded", shards=SHARDS), device=dev)
+    keep = {}
+    parts = srv.parts
+    counts = [srv.range_counts(q)[0] for q in batches["counts"]]
+    ids = [srv.range_ids(q, max_hits=MAX_HITS)[:3] for q in batches["ids"]]
+    knn = [srv.knn(p, K, max_cand=MAX_CAND)[:3] for p in batches["knn"]]
+    mesh_keep(torch, srv, mbrs, parts, batches, counts, ids, knn,
+              torch.cuda.max_memory_allocated(), keep)
+    del srv, mbrs
+    torch.cuda.empty_cache()
+    from repro_torch.query import engine
+    inputs = join_inputs(torch, dev)
+    results = {}
+    for method in ("bsp", "hc"):       # as join_phase counts them
+        plan = engine.plan_join(method, *inputs["pi"], PAYLOAD, 1, device=dev)
+        per_tile = engine.tile_counts(plan, dedup="none")
+        max_n = max(int(per_tile.max()), 1)
+        results["pi", method] = dict(
+            exact=engine.spatial_join_count(plan, max_pairs_per_tile=max_n),
+            raw=int(per_tile.sum()), max_n=max_n)
+        del plan
+    sharded_join_phase(torch, dev, inputs, results, keep)
+    del inputs
+    torch.cuda.empty_cache()
+    return mesh_phase(torch, dev, keep)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -2539,27 +2940,32 @@ def dense_skip_entry(torch, kernel, ref, name, q, tiles, alive, cbs, bad,
     extent, and without it) and the first design (``_v1``) held to the
     plain version, bit-equal else raise; the two designs timed in turns
     (new, first, first, new), and for the counts the tile-major dense
-    counts on the same inputs in the same turns."""
+    counts on the same inputs in the same turns.  The counts' plain
+    version runs on the batch's first ``PLAIN_Q`` queries, against each
+    design at those queries; the designs are timed on the whole batch
+    (and, for the entry's ``ms_at_plain_q``, at ``PLAIN_Q``)."""
     mask_out = name == "mask_skip"
     kfn, v1fn = getattr(kernel, name), getattr(kernel, name + "_v1")
     plain = getattr(ref, "probe_" + name.replace("count", "counts"))
     t, cap = tiles.shape[:2]
+    qp = q if mask_out else q[:PLAIN_Q]
 
     def plain_of(al, cb, block=8):
         if mask_out:
-            return plain(q, tiles, cb, al).transpose(0, 1)
-        return torch.cat([plain(q[i:i + block], tiles, cb, al)
-                          for i in range(0, q.shape[0], block)])
+            return plain(qp, tiles, cb, al).transpose(0, 1)
+        return torch.cat([plain(qp[i:i + block], tiles, cb, al)
+                          for i in range(0, qp.shape[0], block)])
 
     cases = []
     for alive_name, (al, ext) in alives:
         for cb_name, cb in (("bounding", cbs), ("non_bounding", bad)):
             designs = dict(
-                new=lambda al=al, ext=ext, cb=cb: kfn(q, tiles, cb, alive=al,
-                                                      extent=ext),
-                full_cap=lambda al=al, cb=cb: kfn(q, tiles, cb, alive=al),
-                v1=lambda al=al, cb=cb: v1fn(q, tiles, cb, alive=al))
-            got = {k: fn() for k, fn in designs.items()}
+                new=lambda x, al=al, ext=ext, cb=cb: kfn(x, tiles, cb,
+                                                         alive=al,
+                                                         extent=ext),
+                full_cap=lambda x, al=al, cb=cb: kfn(x, tiles, cb, alive=al),
+                v1=lambda x, al=al, cb=cb: v1fn(x, tiles, cb, alive=al))
+            got = {k: fn(qp) for k, fn in designs.items()}
             t0 = time.perf_counter()
             want = plain_of(al, cb)
             torch.cuda.synchronize()
@@ -2571,23 +2977,27 @@ def dense_skip_entry(torch, kernel, ref, name, q, tiles, alive, cbs, bad,
                         f"{cb_name}) differs from its plain version")
             turns = [("new", designs["new"]), ("v1", designs["v1"])]
             if not mask_out and cb_name == "bounding":
-                def dense(al=al, ext=ext):
-                    return kernel.dense_counts(q, tiles, alive=al, extent=ext)
+                def dense(x, al=al, ext=ext):
+                    return kernel.dense_counts(x, tiles, alive=al, extent=ext)
                 # chunk boxes that bound their members skip no hit
-                if not torch.equal(dense(), want):
+                if not torch.equal(dense(qp), want):
                     raise AssertionError("dense counts differ from the "
                                          "skipping plain version on bounding "
                                          "chunk boxes")
                 turns.append(("dense_counts", dense))
             ms = {k: [] for k, _ in turns}
             for k, fn in turns + turns[::-1]:
-                ms[k].append(cuda_ms(torch, fn, 10))
+                ms[k].append(cuda_ms(torch, lambda fn=fn: fn(q), 10))
             case = dict(alive=alive_name, chunk_boxes=cb_name,
-                        plain_ms=plain_ms,
-                        full_cap_ms=cuda_ms(torch, designs["full_cap"], 10),
+                        plain_ms=plain_ms, plain_q=qp.shape[0],
+                        full_cap_ms=cuda_ms(
+                            torch, lambda: designs["full_cap"](q), 10),
                         **{("ms" if k == "new" else f"{k}_ms"): sum(v) / 2
                            for k, v in ms.items()},
                         turns_ms=ms)
+            if len(cases) == 0:
+                case["ms_at_plain_q"] = cuda_ms(
+                    torch, lambda: designs["new"](qp), 10)
             cases.append(case)
     main = cases[0]      # staged alive mask, bounding chunk boxes
     al0, ext0 = alives[0][1]
@@ -2596,6 +3006,7 @@ def dense_skip_entry(torch, kernel, ref, name, q, tiles, alive, cbs, bad,
         name=name, route="cuda", source=SOURCE,
         replaces=DENSE_CASES[name], launches=launches[name],
         max_abs_err=0, ms=main["ms"], plain_ms=main["plain_ms"],
+        plain_q=main["plain_q"], ms_at_plain_q=main["ms_at_plain_q"],
         bound_ms=work["bound_ms"], bound_by=work["bound_by"],
         library_ms=None, bit_equal=True, on_serving_path=False,
         launched_by="this phase only (repro launches it from tests only)",
@@ -2624,30 +3035,35 @@ def dense_count_entry(torch, kernel, ref, q, tiles, alives, launches):
     tile's extent) on the dense counts batch, in every alive case, held
     to the plain version; beside them on the same inputs, each held to
     it too: the same kernel without the extent and the old
-    block-per-(tile, query block) ``count``."""
+    block-per-(tile, query block) ``count``.  The plain version runs on
+    the batch's first ``PLAIN_Q`` queries, against each design at those
+    queries; the designs are timed on the whole batch (``ms``) and at
+    ``PLAIN_Q`` (``ms_at_plain_q``)."""
     t, cap = tiles.shape[:2]
+    qp = q[:PLAIN_Q]
     cases = []
     for alive_name, (al, ext) in alives:
         t0 = time.perf_counter()
-        want = plain_dense_counts(torch, ref, q, tiles, al)
+        want = plain_dense_counts(torch, ref, qp, tiles, al)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
 
-        def new(e=ext, al=al):
-            return kernel.dense_counts(q, tiles, alive=al, extent=e)
+        def new(x, e=ext, al=al):
+            return kernel.dense_counts(x, tiles, alive=al, extent=e)
 
-        def old(al=al):
-            return kernel.count(q, tiles, alive=al)
+        def old(x, al=al):
+            return kernel.count(x, tiles, alive=al)
 
-        case = dict(alive=alive_name, plain_ms=plain_ms)
+        case = dict(alive=alive_name, plain_ms=plain_ms, plain_q=qp.shape[0],
+                    ms_at_plain_q=cuda_ms(torch, lambda: new(qp), 10))
         for key, fn, reps in (("ms", new, 10),
-                              ("full_cap_ms", lambda: new(None), 10),
+                              ("full_cap_ms", lambda x: new(x, None), 10),
                               ("old_design_ms", old, 3)):
-            if not torch.equal(fn(), want):
+            if not torch.equal(fn(qp), want):
                 raise AssertionError(f"dense counts ({key}, alive="
                                      f"{alive_name}) differ from the plain "
                                      f"version")
-            case[key] = cuda_ms(torch, fn, reps)
+            case[key] = cuda_ms(torch, lambda fn=fn: fn(q), reps)
         cases.append(case)
     main = cases[0]
     al, ext = alives[0][1]
@@ -2656,7 +3072,8 @@ def dense_count_entry(torch, kernel, ref, q, tiles, alives, launches):
         name="dense_counts", route="cuda", source=SOURCE,
         replaces=DENSE_CASES["dense_counts"],
         launches=launches["dense_counts"], max_abs_err=0, ms=main["ms"],
-        plain_ms=main["plain_ms"], bound_ms=work["bound_ms"],
+        plain_ms=main["plain_ms"], plain_q=main["plain_q"],
+        ms_at_plain_q=main["ms_at_plain_q"], bound_ms=work["bound_ms"],
         bound_by=work["bound_by"], library_ms=None, bit_equal=True,
         design="tile-major, four queries a thread, to the extent",
         old_design="count", old_design_ms=main["old_design_ms"],
@@ -4419,8 +4836,9 @@ def main() -> int:
     parts = servers["x"].parts
     del qc, qi, pts, pruned_knn
     torch.cuda.empty_cache()
+    keep = {}              # what the mesh phase holds its ranks to
     sharded_launches = sharded_phase(torch, dev, servers, mbrs, batches,
-                                     pruned_x, knn_x)
+                                     pruned_x, knn_x, keep)
     t4b = time.perf_counter()
     wall["sharded_s"] = t4b - t4
     t4 = t4b
@@ -4454,7 +4872,7 @@ def main() -> int:
                                                              inputs)
     t6 = time.perf_counter()
     join_check_phase(torch, inputs, results, pairs)
-    sharded_join = sharded_join_phase(torch, dev, inputs, results)
+    sharded_join = sharded_join_phase(torch, dev, inputs, results, keep)
     t7 = time.perf_counter()
     main_launches = dict(
         hilbert_encode=serve_encode + part_encode + join_launches["encode"],
@@ -4480,6 +4898,11 @@ def main() -> int:
                 new_kernels_s=t8 - t7)
     del inputs, results, tiles, pairs, plans
     torch.cuda.empty_cache()
+    mesh_launches = mesh_phase(torch, dev, keep)
+    del keep
+    t8b = time.perf_counter()
+    wall["mesh_s"] = t8b - t8
+    t8 = t8b
 
     cfg, model, params = family_model(torch, dev, LM_ARCH)
     ssd_launches = lm_prefill_phase(torch, dev, cfg, model, params)
@@ -4505,6 +4928,8 @@ def main() -> int:
     entries.append(ssd_entry)
     for e in entries:
         e["launches_by_path"]["families"] = family_launches[e["name"]]
+        e["launches_by_path"]["mesh"] = mesh_launches_of(mesh_launches,
+                                                         e["name"])
     emit(dict(phase="kernel", **ssd_entry))
     emit(dict(phase="wall", **wall))
     emit({"kernels": [dict(
@@ -4512,6 +4937,7 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         **{k: e[k] for k in ("bit_equal", "tolerance", "bound_ms_full_cap",
+                             "plain_q", "ms_at_plain_q",
                              "design", "table_kernel", "table_ms",
                              "old_extraction_ms", "old_design",
                              "old_design_ms", "launches_by_path") if k in e})

@@ -1,0 +1,295 @@
+"""Process meshes: the port's SPMD mode over ``torch.distributed``
+(counterpart of ``repro.launch.mesh`` and of ``repro.core.compat``'s
+``shard_map`` and ``all_to_all``).
+
+The reference's mesh has a single controller: one host plans each step
+and ``shard_map`` runs it on every device of a ``jax.sharding.Mesh``.
+The port runs one process a rank instead.  Every rank runs the same
+program on the same inputs, makes the same host plan (stable sorts and
+deterministic planners, held bit for bit against the reference), and
+keeps only its own shard on its device; the collectives below move what
+the reference's ``all_to_all``, ``psum`` and ``all_gather`` move.  A
+``ProcessMesh`` has one axis, ``"d"``, of ``size`` ranks.
+
+The caller names the backend; nothing picks one.  ``gloo`` serves CPU
+ranks and, on one card, CUDA ranks (NCCL refuses two ranks on one
+device): there every collective copies its operands through host
+memory, as gloo's own CUDA path does, and the copies are timed apart
+from the collective (``ProcessMesh.timers``).  ``nccl`` takes device
+tensors directly, one card a rank.  Every process group has a timeout,
+and ``spawn`` joins its ranks with a deadline, then kills them: no
+collective waits forever.
+
+Run under ``python -m torch.distributed.run`` with ``from_env``; tests
+spawn ranks with ``spawn`` and a ``file://`` store.  The reference's
+``make_production_mesh`` (TPU pods of 256 and 512 chips) has no
+counterpart: a process group is as large as its launcher makes it.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import os
+import time
+
+import torch
+import torch.distributed as dist
+
+from ..device import resolve
+
+AXIS = "d"
+DEFAULT_TIMEOUT_S = 300.0
+
+
+@dataclasses.dataclass
+class ProcessMesh:
+    """One rank's view of a one-axis process mesh.
+
+    group: the ``torch.distributed`` process group; rank and size: this
+    process's place in it; device: the rank's device; backend: the
+    group's backend; axis: the mesh axis name.  ``timers`` accumulates
+    the collectives' seconds (``comm_s``), the host copies of gloo on
+    CUDA (``copy_s``), the calls and the bytes sent.
+    """
+
+    group: dist.ProcessGroup
+    rank: int
+    size: int
+    device: torch.device
+    backend: str
+    axis: str = AXIS
+    timers: dict = dataclasses.field(default_factory=lambda: dict(
+        calls=0, comm_s=0.0, copy_s=0.0, bytes=0))
+
+    @property
+    def shape(self) -> dict:
+        return {self.axis: self.size}
+
+    @property
+    def axis_names(self) -> tuple[str, ...]:
+        return (self.axis,)
+
+    @property
+    def host_staging(self) -> bool:
+        """gloo on CUDA ranks: operands go through host memory."""
+        return self.backend == "gloo" and self.device.type == "cuda"
+
+    def reset_timers(self) -> None:
+        self.timers.update(calls=0, comm_s=0.0, copy_s=0.0, bytes=0)
+
+    # -- plumbing ---------------------------------------------------------
+
+    def _out(self, x: torch.Tensor) -> torch.Tensor:
+        """The collective's operand: on the host under host staging
+        (pending kernels are waited for first, so the copy's time is
+        the copy's), bool as uint8; contiguous."""
+        if self.host_staging:
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            x = x.to("cpu")
+            self.timers["copy_s"] += time.perf_counter() - t0
+        x = x.contiguous()
+        return x.view(torch.uint8) if x.dtype == torch.bool else x
+
+    def _back(self, x: torch.Tensor, dtype: torch.dtype,
+              host: bool = False) -> torch.Tensor:
+        if dtype == torch.bool:
+            x = x.view(torch.bool)
+        if self.host_staging and not host:
+            t0 = time.perf_counter()
+            x = x.to(self.device)
+            torch.cuda.synchronize(self.device)
+            self.timers["copy_s"] += time.perf_counter() - t0
+        return x
+
+    def _run(self, fn, nbytes: int) -> None:
+        t0 = time.perf_counter()
+        fn()
+        if self.device.type == "cuda" and not self.host_staging:
+            torch.cuda.synchronize(self.device)
+        self.timers["comm_s"] += time.perf_counter() - t0
+        self.timers["calls"] += 1
+        self.timers["bytes"] += nbytes
+
+    # -- collectives ------------------------------------------------------
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Device transpose of the leading axis (``size`` rows): row
+        ``o`` of the result is what rank ``o`` held in its row for this
+        rank (the reference's tiled ``all_to_all``)."""
+        if x.shape[0] != self.size:
+            raise ValueError(f"all_to_all of {tuple(x.shape)} on a mesh of "
+                             f"{self.size} ranks")
+        src = self._out(x)
+        dst = torch.empty_like(src)
+        self._run(lambda: dist.all_to_all_single(dst, src, group=self.group),
+                  src.numel() * src.element_size())
+        return self._back(dst, x.dtype)
+
+    def all_to_all_v(self, x: torch.Tensor, send: list[int],
+                     recv: list[int]) -> torch.Tensor:
+        """Uneven exchange along the leading axis: ``send[o]`` rows of
+        ``x`` (in order) go to rank ``o``; ``recv[o]`` rows come from
+        rank ``o``, concatenated in rank order."""
+        src = self._out(x)
+        dst = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
+        self._run(lambda: dist.all_to_all_single(
+            dst, src, list(recv), list(send), group=self.group),
+            src.numel() * src.element_size())
+        return self._back(dst, x.dtype)
+
+    def all_gather(self, x: torch.Tensor, host: bool = False
+                   ) -> torch.Tensor:
+        """Every rank's ``x`` (same shape everywhere) stacked on a new
+        leading axis in rank order; ``host`` leaves the result in host
+        memory under host staging (a host mirror's source)."""
+        src = self._out(x)
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        self._run(lambda: dist.all_gather(parts, src, group=self.group),
+                  src.numel() * src.element_size())
+        return self._back(torch.stack(parts), x.dtype, host)
+
+    def all_gather_v(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x`` (leading lengths may differ) concatenated
+        in rank order: the lengths are gathered first, each rank's rows
+        are padded to the longest and cut after."""
+        n = self.all_gather(torch.tensor([x.shape[0]], dtype=torch.int64,
+                                         device=x.device)).view(-1).tolist()
+        top = max(n)
+        if x.shape[0] < top:
+            x = torch.cat([x, x.new_zeros((top - x.shape[0],)
+                                          + tuple(x.shape[1:]))])
+        g = self.all_gather(x)
+        return torch.cat([g[r, :n[r]] for r in range(self.size)])
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """Elementwise ``"sum"`` or ``"max"`` over the ranks (the
+        reference's ``psum``, and its global ``any``)."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+        buf = self._out(x).clone()
+        self._run(lambda: dist.all_reduce(buf, op=red, group=self.group),
+                  buf.numel() * buf.element_size())
+        return self._back(buf, x.dtype)
+
+    def any(self, flag: torch.Tensor) -> bool:
+        """Global ``any`` of a bool tensor, the same on every rank (it
+        steers loops whose bodies hold collectives)."""
+        f = torch.tensor([int(bool(flag.any()))], dtype=torch.int32,
+                         device=self.device)
+        return bool(self.all_reduce(f, "max").item())
+
+    def barrier(self) -> None:
+        self._run(lambda: dist.barrier(group=self.group), 0)
+
+
+def _device(device, local_rank: int) -> torch.device:
+    dev = resolve(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+    return dev
+
+
+def init_process_mesh(backend: str, init_method: str, rank: int,
+                      world_size: int, device=None, *,
+                      timeout: float = DEFAULT_TIMEOUT_S,
+                      local_rank: int | None = None) -> ProcessMesh:
+    """Join a process group and return this rank's mesh.
+
+    ``backend``: ``"gloo"`` or ``"nccl"``; ``init_method``: a
+    ``file://`` path (tests) or ``tcp://host:port``; ``device``: the
+    rank's device (``cuda`` unless given; a bare ``cuda`` becomes
+    ``cuda:local_rank`` modulo the device count); ``timeout`` seconds
+    bound every collective.
+    """
+    dev = _device(device, rank if local_rank is None else local_rank)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    kw = dict(backend=backend, init_method=init_method, rank=rank,
+              world_size=world_size,
+              timeout=datetime.timedelta(seconds=timeout))
+    if backend == "nccl":
+        kw["device_id"] = dev
+    dist.init_process_group(**kw)
+    return ProcessMesh(dist.group.WORLD, rank, world_size, dev, backend)
+
+
+def from_env(backend: str, device=None, *,
+             timeout: float = DEFAULT_TIMEOUT_S) -> ProcessMesh:
+    """The mesh of a rank started by ``python -m torch.distributed.run``
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+    ``MASTER_PORT`` in the environment)."""
+    return init_process_mesh(
+        backend, "env://", int(os.environ["RANK"]),
+        int(os.environ["WORLD_SIZE"]), device, timeout=timeout,
+        local_rank=int(os.environ.get("LOCAL_RANK", 0)))
+
+
+def launched() -> bool:
+    """True in a rank started by ``torch.distributed.run``."""
+    return "RANK" in os.environ and "WORLD_SIZE" in os.environ
+
+
+def close(mesh: ProcessMesh | None) -> None:
+    """Leave the process group (a no-op without a mesh)."""
+    if mesh is not None and dist.is_initialized():
+        dist.destroy_process_group()
+
+
+def axis_size(mesh: ProcessMesh | None, name: str) -> int:
+    """The mesh's extent along ``name`` (1 for an axis it lacks)."""
+    return 1 if mesh is None else mesh.shape.get(name, 1)
+
+
+def dp_axes(mesh: ProcessMesh | None) -> tuple[str, ...]:
+    """The pure data-parallel axes: the reference's ``pod`` and
+    ``data``; a process mesh's one axis ``"d"`` is neither."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def in_turns(mesh: ProcessMesh | None, fn):
+    """Run ``fn()`` on one rank at a time, in rank order, and return its
+    result on each: work whose transient memory would not fit if every
+    rank on a card ran it at once (a whole staging).  CUDA ranks hand
+    their cached blocks back to the device before the first turn and
+    after their own, so a turn has the card's free memory."""
+    if mesh is None:
+        return fn()
+
+    def release():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+            torch.cuda.empty_cache()
+
+    release()
+    mesh.barrier()
+    out = None
+    for r in range(mesh.size):
+        if r == mesh.rank:
+            out = fn()
+            release()
+        mesh.barrier()
+    return out
+
+
+def spawn(fn, args: tuple, nprocs: int, deadline_s: float) -> None:
+    """Start ``fn(rank, *args)`` in ``nprocs`` spawned processes and join
+    them within ``deadline_s`` seconds.  A rank that raises fails the
+    run (the others are terminated); past the deadline every rank is
+    killed and ``TimeoutError`` is raised."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False,
+                             start_method="spawn")
+    end = time.monotonic() + deadline_s
+    try:
+        while not ctx.join(timeout=max(0.1, min(1.0, end - time.monotonic()))):
+            if time.monotonic() > end:
+                raise TimeoutError(f"{nprocs} ranks did not finish within "
+                                   f"{deadline_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5)

@@ -11,6 +11,11 @@ recurrence), as the reference does; ``--no-smoke`` runs the published
 configuration (the reference's ``--smoke`` flag cannot be turned off).
 Weights and prompt are random, from fixed seeds; the encoder-decoder
 family gets seeded bf16 frames, as the reference's launcher does.
+
+Under ``torch.distributed.run`` each rank serves its own replica of the
+model on its device (``launch.mesh.from_env``, the backend named by
+``--backend``); the ranks check that they decoded the same tokens and
+only rank 0 prints.  Sharding a model over the ranks is not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch
 from .. import configs
 from .. import device as device_mod
 from ..models import api, encdec
+from . import mesh as mesh_lib
 
 
 def generate(model: api.Model, params, prompt: torch.Tensor, gen: int,
@@ -61,10 +67,25 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", choices=["gloo", "nccl"], default=None,
+                    help="the process group's backend under "
+                    "torch.distributed.run (required there)")
     args = ap.parse_args(argv)
 
+    mesh = None
+    if mesh_lib.launched():
+        if args.backend is None:
+            ap.error("under torch.distributed.run, name --backend")
+        mesh = mesh_lib.from_env(args.backend, args.device)
+    try:
+        return _run(args, mesh)
+    finally:
+        mesh_lib.close(mesh)
+
+
+def _run(args, mesh) -> int:
     cfg = configs.smoke(args.arch) if args.smoke else configs.get(args.arch)
-    dev = device_mod.resolve(args.device)
+    dev = device_mod.resolve(args.device) if mesh is None else mesh.device
     model = api.build(cfg, dev)
     params = model.init_params(torch.Generator(dev).manual_seed(0))
     frames = None
@@ -81,8 +102,15 @@ def main(argv=None):
         torch.cuda.synchronize(dev)
     dt = time.time() - t0
     toks = seqs.numel()
+    if mesh is not None:
+        every = mesh.all_gather(seqs)
+        if not all(torch.equal(every[r], seqs) for r in range(mesh.size)):
+            raise RuntimeError("the ranks' replicas decoded different tokens")
+        if mesh.rank:
+            return 0
     print(f"arch={cfg.name} device={dev} generated {toks} tokens in "
-          f"{dt:.2f}s ({toks / dt:.1f} tok/s, batch={args.batch})")
+          f"{dt:.2f}s ({toks / dt:.1f} tok/s, batch={args.batch})"
+          + ("" if mesh is None else f", each of {mesh.size} ranks"))
     print("sample:", seqs[0][:16].tolist())
     return 0
 

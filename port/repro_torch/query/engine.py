@@ -19,8 +19,11 @@ tile's rp-owned pairs (``mbr_join.ops.tile_rp_counts``) or, for the
 raw count (``dedup="none"``), every tile's pairs (``tile_raw_counts``),
 and the sum stands for the reference's ``psum``; count, scan and emit
 list every tile's pairs (``tile_pair_list``), device row after device
-row, which is the reference's ``all_gather``.  A ``mesh`` raises
-(ROADMAP Queue 1 item 10).
+row, which is the reference's ``all_gather``.  Under a process mesh
+(``launch.mesh``, one rank a device row of a ``D``-device plan that
+every rank built alike) each rank runs the same launches over its own
+row, the counts are summed with ``all_reduce`` and the pair lists
+gathered in rank order with ``all_gather``.
 
 Live sizes.  The reference joins every tile at the global padded
 ``cap_r x cap_s``, which under skew is quadratic waste (one hotspot
@@ -40,7 +43,7 @@ import torch
 from ..core import geometry
 from ..core.partition import api
 from ..core.partition.assign import assign_from_pairs, membership, round_up
-from ..device import not_ported, resolve
+from ..device import resolve
 from ..kernels.mbr_join import ops as mops
 from . import balance
 from . import dedup as dd
@@ -60,9 +63,10 @@ class JoinPlan:
     stats: dict
     live_r: np.ndarray        # (D, Tpd) int64
     live_s: np.ndarray
-    # the card's layout of the batched tile passes, built at first use
-    meta: mops.kernel.TileMeta | None = dataclasses.field(
-        default=None, repr=False, compare=False)
+    # the card's layout of the batched tile passes, built at first use,
+    # keyed by the device row it covers (None: every row)
+    meta: dict = dataclasses.field(default_factory=dict, repr=False,
+                                   compare=False)
 
 
 def _boxes(x, dev: torch.device) -> torch.Tensor:
@@ -165,37 +169,46 @@ def plan_join(method: str, r, s, payload: int, n_devices: int,
 def _one_card(plan: JoinPlan, mesh) -> tuple:
     """A plan's tiles as one card's: ``(r_tiles, s_tiles, r_ids, s_ids,
     tile_boxes, live_r, live_s)`` with the device axis folded into the
-    tile axis (free views; the live sizes on the host).  A mesh raises
-    (ROADMAP Queue 1 item 10)."""
+    tile axis (free views; the live sizes on the host).  Under a mesh,
+    the rank's own device row."""
+    arrays = (plan.r_tiles, plan.s_tiles, plan.r_ids, plan.s_ids,
+              plan.tile_boxes)
     if mesh is not None:
-        raise not_ported("mesh", "Queue 1 item 10")
-    return tuple(a.flatten(0, 1) for a in (plan.r_tiles, plan.s_tiles,
-                                           plan.r_ids, plan.s_ids,
-                                           plan.tile_boxes)) + (
+        if plan.r_tiles.shape[0] != mesh.size:
+            raise ValueError(f"a plan for {plan.r_tiles.shape[0]} devices "
+                             f"on a mesh of {mesh.size} ranks")
+        r = mesh.rank
+        return tuple(a[r] for a in arrays) + (plan.live_r[r],
+                                              plan.live_s[r])
+    return tuple(a.flatten(0, 1) for a in arrays) + (
         plan.live_r.reshape(-1), plan.live_s.reshape(-1))
 
 
-def _meta(plan: JoinPlan):
+def _meta(plan: JoinPlan, mesh=None):
     """The batched passes' work items on the plan's card (None on the
-    CPU), laid out once a plan over every device row's tiles."""
-    if plan.meta is None and plan.r_tiles.device.type == "cuda":
-        plan.meta = mops.kernel.tile_meta(plan.live_r.reshape(-1),
-                                          plan.live_s.reshape(-1),
-                                          plan.r_tiles.device)
-    return plan.meta
+    CPU) over the tiles ``_one_card`` gives, laid out once a plan and
+    device row."""
+    if plan.r_tiles.device.type != "cuda":
+        return None
+    key = None if mesh is None else mesh.rank
+    if key not in plan.meta:
+        plan.meta[key] = mops.kernel.tile_meta(*_one_card(plan, mesh)[5:],
+                                               plan.r_tiles.device)
+    return plan.meta[key]
 
 
 def tile_counts(plan: JoinPlan, mesh=None, axis: str | None = None,
                 dedup: str = "rp") -> torch.Tensor:
     """Per-tile pair counts -> (D·Tpd,) int64 in the plan's (device,
-    slot) order (0 for slots with no live pair); ``dedup`` as in
-    ``run_join_count``.  Either count is one batched pass over every
-    tile of every device row."""
+    slot) order (0 for slots with no live pair; a rank's (Tpd,) under
+    a mesh); ``dedup`` as in ``run_join_count``.  Either count is one
+    batched pass over every tile of every device row."""
     rt, st, _, _, tb, live_r, live_s = _one_card(plan, mesh)
+    meta = _meta(plan, mesh)
     if dedup == "none":
-        return mops.tile_raw_counts(rt, st, live_r, live_s, _meta(plan))
+        return mops.tile_raw_counts(rt, st, live_r, live_s, meta)
     return mops.tile_rp_counts(rt, st, tb, plan.universe, live_r, live_s,
-                               _meta(plan))
+                               meta)
 
 
 def run_join_count(plan: JoinPlan, mesh=None, axis: str | None = None,
@@ -204,8 +217,12 @@ def run_join_count(plan: JoinPlan, mesh=None, axis: str | None = None,
     counts (the reference's ``psum``).  With ``dedup='rp'`` the result
     is the exact duplicate-free pair count for non-overlapping layouts;
     ``dedup='none'`` returns the raw MASJ count (replicated pairs
-    included)."""
-    return int(tile_counts(plan, mesh, axis, dedup).sum())
+    included).  Under a mesh each rank sums its row and the ranks'
+    sums are all-reduced."""
+    total = tile_counts(plan, mesh, axis, dedup).sum().view(1)
+    if mesh is not None:
+        total = mesh.all_reduce(total, "sum")
+    return int(total)
 
 
 def spatial_join_count(plan: JoinPlan, mesh=None, axis: str | None = None,
@@ -234,11 +251,18 @@ def masj_pairs(plan: JoinPlan, mesh=None, axis: str | None = None,
     if given, receives ``truncated_tiles``, ``max_tile_pairs`` and
     ``pairs`` (the candidates gathered).  Padding is not gathered: the
     reference pads every tile's list to ``max_pairs_per_tile`` with
-    (-1, -1), which ``unique_pairs`` never counts.
+    (-1, -1), which ``unique_pairs`` never counts.  Under a mesh each
+    rank lists its row's pairs and the lists (and per-tile counts) are
+    gathered in rank order, so every rank holds the same ``(rid, sid,
+    uniq)``.
     """
     rt, st, rids, sids, _, live_r, live_s = _one_card(plan, mesh)
     rid, sid, n = mops.tile_pair_list(rt, st, rids, sids, live_r, live_s,
-                                      max_pairs_per_tile, _meta(plan))
+                                      max_pairs_per_tile,
+                                      _meta(plan, mesh))
+    if mesh is not None:
+        rid, sid = (mesh.all_gather_v(x) for x in (rid, sid))
+        n = mesh.all_gather(n).reshape(-1)
     uniq = dd.unique_pairs(rid, sid)[1]
     if stats is not None:
         stats.update(

@@ -136,11 +136,15 @@ def _deepening_start(pts, k, canon_tiles, uni, r0, n_live):
 
 
 def _deepen(counts_at, r: torch.Tensor, r_cover: torch.Tensor, k: int,
-            max_rounds: int) -> tuple[torch.Tensor, torch.Tensor]:
+            max_rounds: int, any_=None) -> tuple[torch.Tensor, torch.Tensor]:
     """The reference's deepening ``while_loop`` on the host.
 
     ``counts_at(r, rows)`` -> unique hit counts of queries ``rows``
     (int64 index) at radii ``r`` -> ``(r[Q], rounds[Q] int32)``.
+    ``any_`` reads the continue flag (the sharded exchange passes its
+    ``_Comm.any``, all-reduced under a mesh, so that every rank runs
+    the same rounds and reaches the same collectives); by default it
+    is ``bool(grow.any())``.
     """
     q = r.shape[0]
     counts = counts_at(r, torch.arange(q, device=r.device))
@@ -148,7 +152,7 @@ def _deepen(counts_at, r: torch.Tensor, r_cover: torch.Tensor, k: int,
     for _ in range(max_rounds):
         short = counts < k
         grow = short & (r < r_cover)
-        if not bool(grow.any()):
+        if not (bool(grow.any()) if any_ is None else any_(grow)):
             break
         r_new = torch.where(short, torch.minimum(r * 2.0, r_cover), r)
         moved = (r_new != r).nonzero().squeeze(1)
@@ -235,6 +239,65 @@ def batched_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,
     nn_ids, nn_d2, n_cand = _refine_topk(k, pts, qi, ti, si, canon_tiles,
                                          ids, max_cand)
     return nn_ids, nn_d2, r, n_cand > max_cand, rounds
+
+
+def batched_knn_ranks(mesh, pts: torch.Tensor, k: int,
+                      canon_tiles: torch.Tensor, ids: torch.Tensor,
+                      tiles: torch.Tensor, n_tiles: int, uni: torch.Tensor,
+                      max_rounds: int = 32, max_cand: int = 1024,
+                      n_live=None, alive: torch.Tensor | None = None, *,
+                      extent: torch.Tensor | None = None):
+    """``batched_knn`` over a process mesh whose ranks each hold some
+    tiles of the staging: the same answer, bit for bit, on every rank.
+
+    canon_tiles/ids/alive/extent: the rank's rows; tiles: (R,) int64
+    their global tile indices, ascending; ``n_tiles`` the global tile
+    count; ``n_live`` the global live count (required: the local rows
+    cannot size the first radius).  The deepening's counts are summed
+    over the ranks each round, so every rank takes the same radii.
+    The refinement keeps, per query, the first ``max_cand`` candidates
+    in the global (tile, slot) order, as the single staging does: each
+    (query, tile)'s candidate count is summed over the ranks (every
+    tile lives on one) and a candidate's global rank is the count of
+    its query's candidates in lower tiles plus its rank in its tile.
+    Each rank's top-k of its kept candidates is gathered and merged by
+    ``(distance, id)``.
+    """
+    r_init, r_cover = _deepening_start(pts, k, canon_tiles, uni, None, n_live)
+
+    def counts_at(r, rows):
+        return mesh.all_reduce(range_mod.range_counts(
+            _qboxes(pts[rows], r), canon_tiles, alive, extent=extent), "sum")
+
+    q = pts.shape[0]
+    r = r_init.expand(q).clone()
+    r, rounds = _deepen(counts_at, r, r_cover, k, max_rounds)
+    re = r * _SQRT2_F32
+    qi, ti, si = range_mod.dense_hits(_qboxes(pts, re), canon_tiles, alive,
+                                      extent=extent)
+    live = ids[ti, si] >= 0
+    qi, ti, si = qi[live], ti[live], si[live]
+    cell = qi * n_tiles + tiles[ti]
+    per = mesh.all_reduce(torch.bincount(cell, minlength=q * n_tiles),
+                          "sum").view(q, n_tiles)
+    before = (torch.cumsum(per, 1) - per).view(-1)
+    # hits come grouped by (query, row), slots ascending: a hit's rank in
+    # its cell is its offset from the cell's first hit
+    first = torch.ones_like(cell, dtype=torch.bool)
+    first[1:] = cell[1:] != cell[:-1]
+    idx = torch.arange(cell.shape[0], device=cell.device)
+    start = torch.cummax(torch.where(first, idx, 0), 0).values
+    keep = before[cell] + (idx - start) < max_cand
+    nn_i, nn_d, _ = _refine_topk(k, pts, qi[keep], ti[keep], si[keep],
+                                 canon_tiles, ids, max_cand)
+    kk = nn_i.shape[-1]
+    slots = torch.arange(q, dtype=torch.int32,
+                         device=pts.device).expand(1, mesh.size, q)
+    nn_ids, nn_d2 = merge_knn_partials(
+        mesh.all_gather(nn_i)[None], mesh.all_gather(nn_d)[None], slots, q,
+        kk)
+    n_cand = per.sum(1).to(torch.int32)
+    return nn_ids[0], nn_d2[0], r, n_cand > max_cand, rounds
 
 
 def pruned_knn(pts: torch.Tensor, k: int, canon_tiles: torch.Tensor,

@@ -1,6 +1,5 @@
 """MapReduce-style parallel spatial partitioning (paper section 5.1,
-Algorithm 7; twin of ``repro.query.parallel_partition``, simulation
-mode).
+Algorithm 7; twin of ``repro.query.parallel_partition``).
 
 TeraSort-analogue over ``D`` buckets:
   sample  -- an anchor sample's Hilbert-key quantiles are the coarse
@@ -14,10 +13,14 @@ TeraSort-analogue over ``D`` buckets:
   reduce  -- each bucket runs a fine partitioner (masked SLC), all ``D``
              at once; the union of the bucket layouts is the layout.
 
-There is no mesh: the ``D`` devices are simulated on one (``mesh``
-raises, ROADMAP Queue 1 item 10).  Like the paper's, the parallel
-layout differs from the single-threaded one but is "reasonably well";
-the same metrics measure it.
+Without a mesh the ``D`` devices are simulated on one.  Under a process
+mesh (``launch.mesh``, ``D`` ranks) rank ``s`` maps source block ``s``,
+the shuffle is an ``all_to_all_single`` of its send buffers, it reduces
+bucket ``s``, and an ``all_gather`` of the bucket layouts and an
+all-reduced ``dropped`` give every rank the whole result, the
+simulation's bits.  Like the paper's, the parallel layout differs from
+the single-threaded one but is "reasonably well"; the same metrics
+measure it.
 """
 from __future__ import annotations
 
@@ -28,7 +31,6 @@ import torch
 
 from ..core import geometry
 from ..core.partition.api import Partitioning
-from ..device import not_ported
 from ..kernels.hilbert import ops as hilbert_ops
 
 BIG = 3.4e38   # float32 stand-in for +inf in the masked reductions
@@ -94,7 +96,9 @@ def parallel_partition(mbrs: torch.Tensor, payload: int, n_devices: int,
                        mesh=None, cap_factor: float = 2.0,
                        *, splitters: torch.Tensor | None = None,
                        seed: int = 0) -> tuple[Partitioning, dict]:
-    """Two-level partitioning over ``n_devices`` simulated devices.
+    """Two-level partitioning over ``n_devices`` devices, simulated on
+    one or, under ``mesh``, one a rank (``n_devices`` must be the mesh
+    size; every rank passes the same ``mbrs``).
 
     mbrs (N, 4) f32 -> ``(Partitioning, stats)``: ``D·kmax_local·D``
     regions (each bucket's ``kmax_local·D`` strips, valid where a strip
@@ -102,11 +106,12 @@ def parallel_partition(mbrs: torch.Tensor, payload: int, n_devices: int,
     Device ``s`` holds objects ``s·ceil(N/D) ..``, each bucket's
     buffer holds ``cap = ceil(cap_factor·N/D)`` objects from each
     source and ``dropped`` counts the objects past it.  ``splitters``
-    ((D-1,) Hilbert keys) replaces the sampled ``coarse_splitters``.
+    ((D-1,) Hilbert keys) replaces the sampled ``coarse_splitters``
+    (the same seeded sample on every rank).
     """
-    if mesh is not None:
-        raise not_ported("mesh", "Queue 1 item 10")
     d = max(1, int(n_devices))
+    if mesh is not None and mesh.size != d:
+        raise ValueError(f"{d} devices on a mesh of {mesh.size} ranks")
     dev = mbrs.device
     n = mbrs.shape[0]
     per_dev = math.ceil(n / d)
@@ -121,30 +126,44 @@ def parallel_partition(mbrs: torch.Tensor, payload: int, n_devices: int,
     mbrs_p = torch.cat([mbrs.to(torch.float32),
                         sentinel.expand(d * per_dev - n, 4)])
     real = torch.arange(d * per_dev, device=dev) < n
+    src = torch.arange(d * per_dev, device=dev) // per_dev
+    sources = d
+    if mesh is not None:
+        # the rank maps its own source block only
+        block = slice(mesh.rank * per_dev, (mesh.rank + 1) * per_dev)
+        mbrs_p, real = mbrs_p[block], real[block]
+        src = torch.zeros_like(src[block])
+        sources = 1
 
     # map: every object's Hilbert key -> coarse bucket
     keys = hilbert_ops.hilbert_keys(geometry.centroids(mbrs_p), uni)
     bucket = torch.searchsorted(splitters, keys)
-    # send buffers (D source, D bucket, cap): a source's objects of one
+    # send buffers (sources, D bucket, cap): a source's objects of one
     # bucket in their order, the first cap of them
-    src = torch.arange(d * per_dev, device=dev) // per_dev
-    group = torch.where(real, src * d + bucket, d * d)
+    group = torch.where(real, src * d + bucket, sources * d)
     order = torch.sort(group, stable=True).indices
-    sizes = torch.bincount(group, minlength=d * d + 1)
+    sizes = torch.bincount(group, minlength=sources * d + 1)
     start = torch.cumsum(sizes, 0) - sizes
     rank = torch.empty_like(group)
     rank[order] = torch.arange(order.shape[0], device=dev) - start[group[order]]
     ok = real & (rank < cap)
-    send = sentinel.expand(d, d, cap, 4).clone()
-    smask = torch.zeros(d, d, cap, dtype=torch.bool, device=dev)
+    send = sentinel.expand(sources, d, cap, 4).clone()
+    smask = torch.zeros(sources, d, cap, dtype=torch.bool, device=dev)
     send[src[ok], bucket[ok], rank[ok]] = mbrs_p[ok]
     smask[src[ok], bucket[ok], rank[ok]] = True
-    dropped = int((real & ~ok).sum())
+    dropped = (real & ~ok).sum().view(1)
     # shuffle: bucket b receives every source's buffer b, in source order
-    recv = send.transpose(0, 1).reshape(d, d * cap, 4)
-    rmask = smask.transpose(0, 1).reshape(d, d * cap)
+    if mesh is None:
+        recv = send.transpose(0, 1).reshape(d, d * cap, 4)
+        rmask = smask.transpose(0, 1).reshape(d, d * cap)
+    else:
+        recv = mesh.all_to_all(send[0]).reshape(1, d * cap, 4)
+        rmask = mesh.all_to_all(smask[0]).reshape(1, d * cap)
+        dropped = mesh.all_reduce(dropped, "sum")
     # reduce: the fine partition of every bucket
     boxes, valid = _slc_masked(recv, rmask, payload, kmax_local * d)
-    stats = dict(dropped=dropped, buckets=d, kmax_local=kmax_local)
+    if mesh is not None:
+        boxes, valid = mesh.all_gather(boxes[0]), mesh.all_gather(valid[0])
+    stats = dict(dropped=int(dropped), buckets=d, kmax_local=kmax_local)
     return Partitioning(boxes=boxes.reshape(-1, 4),
                         valid=valid.reshape(-1)), stats

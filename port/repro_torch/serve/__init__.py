@@ -11,7 +11,8 @@
   re-plan and hot-tile replicas), and the ingest lifecycle
   (``append``, ``delete``, ``update``, ``compact``).
 - ``exchange``: the sharded placement's owner-routed scatter, probe
-  and merge, the owners simulated on one device.
+  and merge, the owners simulated on one device or one a rank of a
+  process mesh (``launch.mesh``).
 - ``engine``: ``SpatialServer`` and ``WidthPolicy``.
 - ``frontend``: the request plane in front of the server (admission,
   per-tenant fairness, deadline-or-full padded batches), its asyncio

@@ -7,8 +7,8 @@ Axes: ``placement`` (``"replicated"`` | ``"sharded"`` | ``"heat"``),
 of 128), ``capacity``/``slack`` (per-tile member slots), ``shards``,
 ``axis``, the compaction thresholds, and the heat ``policy``.  The
 port serves every placement (the ``shards`` owners of ``"sharded"``
-and ``"heat"`` simulated on one device) with every ``probe`` and
-``local_index``.
+and ``"heat"`` simulated on one device, or one a rank of a process
+mesh) with every ``probe`` and ``local_index``.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
-"""The batched spatial query server (twin of ``repro.serve.engine`` on
-one device: the replicated placement, and the sharded and heat
-placements with their owners simulated).
+"""The batched spatial query server (twin of ``repro.serve.engine``:
+the replicated placement, and the sharded and heat placements with
+their owners simulated on one device or one a rank of a process
+mesh).
 
 A dataset is partitioned and MASJ-staged once; each range batch is
 then answered in three steps (the pruned probe, the default):
@@ -41,9 +42,10 @@ The server is written once against the ``TileLayout`` protocol
 on the device, ``placement="sharded"`` and ``"heat"``
 (``ServeConfig.shards`` owners) place tiles on owners and run each
 batch through the owner-routed exchange (``serve.exchange``), every
-owner simulated on the one device (``mesh=None``); the answers are the
-same bits.  A mesh raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.
+owner simulated on the one device (``mesh=None``) or, given a
+``launch.mesh.ProcessMesh``, one owner a rank (every rank runs the same
+calls on the same inputs and gets the whole answer back); the answers
+are the same bits.
 """
 from __future__ import annotations
 
@@ -56,7 +58,7 @@ import torch
 
 from ..core.partition import api
 from ..core.partition.assign import round_up
-from ..device import not_ported, resolve
+from ..device import resolve
 from ..kernels.range_probe import ops as rops
 from ..query import knn as knn_mod
 from . import router
@@ -116,8 +118,7 @@ class WidthPolicy:
 
 
 class SpatialServer:
-    """Stage once, then serve batched exact range and kNN queries on
-    one device.
+    """Stage once, then serve batched exact range and kNN queries.
 
     ``device`` defaults to ``cuda`` (raising where there is none);
     ``device="cpu"`` runs the plain PyTorch versions of every kernel.
@@ -127,7 +128,12 @@ class SpatialServer:
     ``"pruned"``
     (default) or ``"dense"`` (also a per-call ``pruned=`` override),
     and ``local_index`` ``"x"`` (default), ``"hilbert"`` or ``"off"``,
-    on any of the six layouts.
+    on any of the six layouts.  ``mesh`` (a ``launch.mesh.ProcessMesh``)
+    runs the server SPMD: every rank constructs it and makes every call
+    with the same inputs, on the mesh's device unless ``device`` is
+    given; the sharded placements hold one owner's shard a rank
+    (``shards`` must be the mesh size), the replicated one the whole
+    staging on every rank, each batch query-sharded.
     """
 
     def __init__(self, parts: api.Partitioning, mbrs,
@@ -135,13 +141,13 @@ class SpatialServer:
                  device: torch.device | str | None = None,
                  method: str | None = None, mesh=None):
         self.config = config = config if config is not None else ServeConfig()
-        if mesh is not None:
-            raise not_ported("mesh", "Queue 1 item 10")
-        self.device = resolve(device)
+        self.mesh = mesh
+        self.device = resolve(mesh.device if device is None
+                              and mesh is not None else device)
         mbrs = torch.as_tensor(mbrs, dtype=torch.float32, device=self.device)
         self.parts = api.Partitioning(parts.boxes.to(self.device),
                                       parts.valid.to(self.device))
-        self.tiles: TileLayout = build_tiles(self.parts, mbrs, config)
+        self.tiles: TileLayout = build_tiles(self.parts, mbrs, config, mesh)
         self.stats = self.tiles.stats
         self.stats["method"] = method
         self.widths = WidthPolicy(cap=self.stats["t_live"])
@@ -154,13 +160,15 @@ class SpatialServer:
     @classmethod
     def from_method(cls, method: str, mbrs, payload: int,
                     config: ServeConfig | None = None, *,
-                    device: torch.device | str | None = None
+                    device: torch.device | str | None = None, mesh=None
                     ) -> "SpatialServer":
-        """Partition ``mbrs`` with ``method`` at ``payload`` and serve."""
-        dev = resolve(device)
+        """Partition ``mbrs`` with ``method`` at ``payload`` and serve
+        (under a mesh every rank partitions the same objects alike)."""
+        dev = resolve(mesh.device if device is None and mesh is not None
+                      else device)
         mbrs = torch.as_tensor(mbrs, dtype=torch.float32, device=dev)
         parts = api.partition(method, mbrs, payload)
-        return cls(parts, mbrs, config, device=dev, method=method)
+        return cls(parts, mbrs, config, device=dev, method=method, mesh=mesh)
 
     # -- accessors --------------------------------------------------------
 

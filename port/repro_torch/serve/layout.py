@@ -16,10 +16,12 @@ oracle):
 - ``ReplicatedTiles``: the whole staging on the one device;
 - ``ShardedTiles``: tiles placed on ``D`` owners by capped LPT
   (``shard_staged``, at most ``ceil(T/D)`` tiles an owner), each batch
-  run through the owner-routed exchange (``serve.exchange``).  There
-  is no mesh: the ``D`` owners are simulated on the one device, their
+  run through the owner-routed exchange (``serve.exchange``).  Without
+  a mesh the ``D`` owners are simulated on the one device, their
   shards one contiguous ``(D, T_rows, ...)`` array, so each move of the
-  exchange is one launch over every owner;
+  exchange is one launch over every owner; under a process mesh
+  (``launch.mesh``) each rank is one owner and holds only its own
+  ``(1, T_rows, ...)`` shard;
 - ``HeatSharded``: the sharded placement re-planned on observed query
   heat (``rebalance``): co-located primaries and bit-exact replicas of
   the hottest tiles in ``replicate_top`` extra rows an owner.
@@ -27,6 +29,14 @@ oracle):
 Both stream ``append``, ``delete``, ``update`` and ``compact`` into the
 staging as O(M) scatters, with an overflow re-stage of the live set
 (``_TilesBase``, the lifecycle written once).
+
+Under a mesh every rank runs the same program on the same inputs: the
+same staging (taken in turns, ``launch.mesh.in_turns``, so one whole
+staging is resident on a card at a time), the same host plans and the
+same ingest commands on the same host mirrors; each rank keeps and
+writes only its own rows.  The replicated placement keeps the whole
+staging on every rank and query-shards each batch: the LPT packing's
+rows go one a rank and an ``all_gather`` brings the answers back.
 
 Membership is built blockwise over objects as (object, tile) pairs
 (``core.partition.assign.membership``): the reference's dense
@@ -48,9 +58,9 @@ import torch
 from ..core import geometry, placement
 from ..core.partition import api
 from ..core.partition.assign import assign_from_pairs, membership, round_up
-from ..device import not_ported
 from ..kernels.hilbert import ops as hilbert_ops
 from ..kernels.range_probe import ops as rops
+from ..launch import mesh as mesh_lib
 from ..query import knn as knn_mod
 from ..query import range as range_mod
 from . import exchange, router
@@ -312,14 +322,19 @@ class ShardedLayout:
 def _scatter_shards(canon: torch.Tensor, ids: torch.Tensor,
                     alive: torch.Tensor, chunk: torch.Tensor | None,
                     owner: np.ndarray, local: np.ndarray, tiles: np.ndarray,
-                    t_rows: int, d: int):
+                    t_rows: int, d: int, rank: int | None = None):
     """The global staging's rows gathered into ``(D, t_rows, ...)``
     shards on its own device: shard row ``owner[i]·t_rows + local[i]``
     reads global tile ``tiles[i]`` (a hot tile twice: its primary and
     its replica row); padding rows get the sentinel box, id -1 and
-    ``alive`` False (and sentinel chunk boxes).  No host round trip: at
-    8 M objects that would move about 5.8 GB each way."""
+    ``alive`` False (and sentinel chunk boxes).  With ``rank`` only
+    that owner's ``(1, t_rows, ...)`` shard is built.  No host round
+    trip: at 8 M objects that would move about 5.8 GB each way."""
     dev = ids.device
+    if rank is not None:
+        mine = owner == rank
+        local, tiles, d = local[mine], tiles[mine], 1
+        owner = np.zeros(local.shape[0], np.int64)
     src = np.full(d * t_rows, -1, np.int64)
     src[owner.astype(np.int64) * t_rows + local] = tiles
     src_t = torch.from_numpy(src).to(dev)
@@ -384,6 +399,83 @@ def _plan_replicas(owner: np.ndarray, score: np.ndarray, t_local: int,
     return rep_owner, rep_local
 
 
+@dataclasses.dataclass(frozen=True)
+class _ShardPlan:
+    """The host placement of one sharding: primaries (``owner``,
+    ``local``, ``t_local`` rows an owner), the replicas (``rep_owner``,
+    ``rep_local`` or None), every resident row (``owner_all``,
+    ``local_all`` reading global tile ``tiles_all``), ``t_rows`` rows an
+    owner and the planner's stats."""
+
+    owner: np.ndarray
+    local: np.ndarray
+    t_local: int
+    rep_owner: np.ndarray | None
+    rep_local: np.ndarray | None
+    owner_all: np.ndarray
+    local_all: np.ndarray
+    tiles_all: np.ndarray
+    t_rows: int
+    n_rep: int
+    pstats: dict
+
+
+def _plan_shards(member_counts: np.ndarray, d: int, prev_owner, cooc, heat,
+                 replicate_top: int) -> _ShardPlan:
+    """Capped LPT on the member counts (co-locating on ``cooc``), then
+    the replicas of the hottest tiles: host work, the same on every
+    rank of a mesh."""
+    if d == 1:
+        replicate_top = 0      # a second owner needs a second device
+    owner, local, t_local, pstats = placement.shard_tiles(
+        member_counts, d, prev_owner=prev_owner, cooc=cooc)
+    t = owner.shape[0]
+    rep_owner = rep_local = None
+    t_rows, n_rep = t_local, 0
+    owner_all, local_all, tiles_all = owner, local, np.arange(t)
+    if replicate_top > 0:
+        score = member_counts
+        if heat is not None and np.any(np.asarray(heat) > 0):
+            score = np.asarray(heat, np.float64)
+        rep_owner, rep_local = _plan_replicas(owner, score, t_local, d,
+                                              int(replicate_top), cooc=cooc)
+        t_rows = t_local + int(replicate_top)
+        reps = np.flatnonzero(rep_owner >= 0)
+        n_rep = int(reps.size)
+        owner_all = np.concatenate([owner, rep_owner[reps]])
+        local_all = np.concatenate([local, rep_local[reps]])
+        tiles_all = np.concatenate([tiles_all, reps])
+    return _ShardPlan(owner, local, t_local, rep_owner, rep_local, owner_all,
+                      local_all, tiles_all, t_rows, n_rep, pstats)
+
+
+def _sharded_result(plan: _ShardPlan, stats: dict, d: int, shards: tuple,
+                    probe_boxes, chunk_boxes, uni
+                    ) -> tuple["ShardedLayout", dict]:
+    """The ``ShardedLayout`` of ``plan`` over the built ``shards``
+    (canon, ids, alive, chunk) and its stats (``shard_bytes`` is one
+    owner's, whether ``shards`` hold every owner or one)."""
+    canon_sh, id_sh, alive_sh, chunk_sh = shards
+    slayout = ShardedLayout(canon_shards=canon_sh, id_shards=id_sh,
+                            alive_shards=alive_sh, chunk_shards=chunk_sh,
+                            probe_boxes=probe_boxes, chunk_boxes=chunk_boxes,
+                            uni=uni, owner=plan.owner, local=plan.local,
+                            rep_owner=plan.rep_owner,
+                            rep_local=plan.rep_local)
+    pstats = plan.pstats
+    stats = dict(stats, shards=d, t_local=plan.t_local,
+                 shard_bytes=sum(_nbytes(a) for a in (canon_sh, id_sh,
+                                                      alive_sh))
+                 // canon_sh.shape[0],
+                 placement_skew=pstats["skew"], replicated_tiles=plan.n_rep)
+    for key in ("cut_before", "cut_after"):
+        if key in pstats:
+            stats[key] = pstats[key]
+    if "moved" in pstats:
+        stats["moved_tiles"] = pstats["moved"]
+    return slayout, stats
+
+
 def shard_staged(layout: StagedLayout, stats: dict, n_shards: int,
                  mesh=None, prev_owner: np.ndarray | None = None,
                  cooc: np.ndarray | None = None,
@@ -404,63 +496,31 @@ def shard_staged(layout: StagedLayout, stats: dict, n_shards: int,
     owner has exactly ``t_local + replicate_top`` rows however many
     replicas place (``d == 1`` places none).  The replica rows are
     gathered from the staging on the device like the primaries.
-    ``timings``, when given, receives the host planning and the
-    device gather seconds (``plan_s``, ``scatter_s``).
+    Under a ``mesh`` (``launch.mesh.ProcessMesh``) only the rank's own
+    shard is built, ``(1, T_rows, ...)``: its primaries and the replicas
+    placed on it.  ``timings``, when given, receives the host planning
+    and the device gather seconds (``plan_s``, ``scatter_s``).
     -> ``(ShardedLayout, stats)``.  The reference also returns a host
     copy of the unsharded staging for its dense oracle; the port
     rebuilds that oracle on the device from the shards
-    (``ShardedTiles._oracle``).  A mesh raises (ROADMAP Queue 1 item
-    10).
+    (``ShardedTiles._oracle``).
     """
-    if mesh is not None:
-        raise not_ported("mesh", "Queue 1 item 10")
     t0 = time.perf_counter()
     d = max(1, int(n_shards))
-    if d == 1:
-        replicate_top = 0      # a second owner needs a second device
     member_counts = ((layout.ids >= 0).sum(1).cpu().numpy()
                      .astype(np.float64))
-    owner, local, t_local, pstats = placement.shard_tiles(
-        member_counts, d, prev_owner=prev_owner, cooc=cooc)
-    t = owner.shape[0]
-    rep_owner = rep_local = None
-    t_rows, n_rep = t_local, 0
-    owner_all, local_all, tiles_all = owner, local, np.arange(t)
-    if replicate_top > 0:
-        score = member_counts
-        if heat is not None and np.any(np.asarray(heat) > 0):
-            score = np.asarray(heat, np.float64)
-        rep_owner, rep_local = _plan_replicas(owner, score, t_local, d,
-                                              int(replicate_top), cooc=cooc)
-        t_rows = t_local + int(replicate_top)
-        reps = np.flatnonzero(rep_owner >= 0)
-        n_rep = int(reps.size)
-        owner_all = np.concatenate([owner, rep_owner[reps]])
-        local_all = np.concatenate([local, rep_local[reps]])
-        tiles_all = np.concatenate([tiles_all, reps])
+    plan = _plan_shards(member_counts, d, prev_owner, cooc, heat,
+                        replicate_top)
     t1 = time.perf_counter()
-    canon_sh, id_sh, alive_sh, chunk_sh = _scatter_shards(
+    shards = _scatter_shards(
         layout.canon_tiles, layout.ids, layout.alive, layout.chunk_boxes,
-        owner_all, local_all, tiles_all, t_rows, d)
+        plan.owner_all, plan.local_all, plan.tiles_all, plan.t_rows, d,
+        None if mesh is None else mesh.rank)
     if timings is not None:
-        _sync(canon_sh.device)
+        _sync(shards[1].device)
         timings.update(plan_s=t1 - t0, scatter_s=time.perf_counter() - t1)
-    slayout = ShardedLayout(canon_shards=canon_sh, id_shards=id_sh,
-                            alive_shards=alive_sh, chunk_shards=chunk_sh,
-                            probe_boxes=layout.probe_boxes,
-                            chunk_boxes=layout.chunk_boxes, uni=layout.uni,
-                            owner=owner, local=local, rep_owner=rep_owner,
-                            rep_local=rep_local)
-    stats = dict(stats, shards=d, t_local=t_local,
-                 shard_bytes=sum(_nbytes(a) for a in (canon_sh, id_sh,
-                                                      alive_sh)) // d,
-                 placement_skew=pstats["skew"], replicated_tiles=n_rep)
-    for key in ("cut_before", "cut_after"):
-        if key in pstats:
-            stats[key] = pstats[key]
-    if "moved" in pstats:
-        stats["moved_tiles"] = pstats["moved"]
-    return slayout, stats
+    return _sharded_result(plan, stats, d, shards, layout.probe_boxes,
+                           layout.chunk_boxes, layout.uni)
 
 
 def _sync(dev: torch.device) -> None:
@@ -666,12 +726,13 @@ class _TilesBase:
 
     mode = "base"
     shards = 1
-    n_devices = 1
 
     def __init__(self, parts: api.Partitioning, layout: StagedLayout,
-                 stats: dict, config: ServeConfig):
+                 stats: dict, config: ServeConfig, mesh=None):
         self.parts = parts
         self.config = config
+        self.mesh = mesh            # a launch.mesh.ProcessMesh, or None
+        self.n_devices = 1 if mesh is None else mesh.size
         self.stats = dict(stats, placement=config.placement,
                           probe=config.probe, restages=0, compactions=0,
                           n_total=stats["n"])
@@ -730,10 +791,13 @@ class _TilesBase:
         """The tightest tile's remaining slack (read off the device
         staging when a re-stage has just dropped the mirrors)."""
         if self._canon_np is None:
-            fill = int((self._device_ids() >= 0).sum(1).max())
+            fill = self._device_fill_max()
         else:
             fill = int(self._fill.max())
         return int(self.stats["cap"] - fill)
+
+    def _device_fill_max(self) -> int:
+        return int((self._device_ids() >= 0).sum(1).max())
 
     def _membership(self, new: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
         """MASJ membership with nearest-tile adoption of ``new`` on the
@@ -1120,22 +1184,28 @@ class _TilesBase:
         resident arrays are released first (the mirrors hold the data):
         staging at a grown capacity takes several times the staging in
         temporaries, and the card then holds one staging at a time.
-        Returns the bytes of the dataset uploaded."""
+        Under a mesh the ranks stage in turns (``launch.mesh.in_turns``),
+        each keeping its own rows.  Returns the bytes of the dataset
+        uploaded."""
         boxes, ids = self._dataset_np()
         if extra is not None and len(extra):
             boxes = np.concatenate([boxes, extra], axis=0)
             ids = np.concatenate([ids, np.asarray(extra_ids, np.int32)])
         dev = self.device
+        cfg = self.config.replace(capacity=None, slack=self._eff_slack)
         self._release()
-        layout, stats = stage_tiles(
-            self.parts, torch.from_numpy(boxes).to(dev),
-            self.config.replace(capacity=None, slack=self._eff_slack),
-            ids=torch.from_numpy(ids).to(dev))
-        for key in ("n", "t", "cap", "t_live", "chunks", "replication"):
-            self.stats[key] = stats[key]
-        self.stats["restages"] += 1
         self._drop_mirror()
-        self._install(layout)
+
+        def stage():
+            layout, stats = stage_tiles(
+                self.parts, torch.from_numpy(boxes).to(dev), cfg,
+                ids=torch.from_numpy(ids).to(dev))
+            for key in ("n", "t", "cap", "t_live", "chunks", "replication"):
+                self.stats[key] = stats[key]
+            self._install(layout)
+
+        mesh_lib.in_turns(self.mesh, stage)
+        self.stats["restages"] += 1
         return int(boxes.nbytes + ids.nbytes)
 
     @property
@@ -1144,13 +1214,16 @@ class _TilesBase:
 
 
 class ReplicatedTiles(_TilesBase):
-    """The full staging on the one device; only queries vary.
+    """The full staging on the device (on every rank of a mesh); only
+    queries vary.
 
     Each routed batch probes its candidate tiles with the gathered
     kernels (chunk-skipping when the staging carries a local index);
     the dense oracle probes every tile with the dense kernels.  Every
     probe passes the alive mask and its live extent (``extent``, one a
-    tile).  Stats dicts equal the reference's with ``mesh=None``.
+    tile).  Stats dicts equal the reference's with ``mesh=None``; under
+    a mesh each batch is query-sharded (``_per_rank``) and the stats
+    are the reference's LPT packing stats, as its mesh step's.
     """
 
     mode = "pruned"
@@ -1240,62 +1313,116 @@ class ReplicatedTiles(_TilesBase):
             self.extent[rows] = rops.live_extent(lay.alive[rows])
         return put.nbytes
 
+    # -- query sharding ----------------------------------------------------
+
+    def _per_rank(self, fn, qarrays: tuple, pads: tuple, costs):
+        """Run ``fn(*per_query_arrays)`` -> tensor or tuple of tensors.
+
+        Without a mesh: on the whole batch, stats ``skew=1.0``.  Under a
+        mesh (the reference's query-sharded ``shard_map`` step): the
+        batch is LPT-packed onto the ranks by ``costs``, each rank runs
+        its row of the packing (``pads`` fill its empty slots), and an
+        ``all_gather`` and ``_unpack_rows`` give every rank the whole
+        answer; stats are the packing's."""
+        if self.mesh is None:
+            return fn(*qarrays), dict(skew=1.0)
+        slots, pstats = pack_queries(costs, self.mesh.size)
+        mine = slots[self.mesh.rank:self.mesh.rank + 1]
+        out = fn(*(_pack_rows(a, mine, p)[0] for a, p in zip(qarrays, pads)))
+        n_q = qarrays[0].shape[0]
+
+        def back(x):
+            return _unpack_rows(self.mesh.all_gather(x), slots, n_q)
+        out = back(out) if isinstance(out, torch.Tensor) else tuple(
+            back(x) for x in out)
+        return out, pstats
+
+    def _cand_pad(self, cand: torch.Tensor) -> torch.Tensor:
+        return torch.full(cand.shape[1:], -1, dtype=cand.dtype,
+                          device=cand.device)
+
+    def _pad_pt(self) -> torch.Tensor:
+        uni = self.staged.uni
+        return (uni[:2] + uni[2:]) * 0.5
+
     # -- routed executors ------------------------------------------------
 
     def range_counts(self, qboxes, cand, costs):
         lay = self.staged
-        counts = range_mod.pruned_range_counts(
-            qboxes, lay.canon_tiles, cand, chunk_boxes=lay.chunk_boxes,
-            alive=lay.alive, extent=self.extent)
-        return counts, dict(skew=1.0)
+        return self._per_rank(
+            lambda qb, cd: range_mod.pruned_range_counts(
+                qb, lay.canon_tiles, cd, chunk_boxes=lay.chunk_boxes,
+                alive=lay.alive, extent=self.extent),
+            (qboxes, cand), (geometry.sentinel(qboxes.device),
+                             self._cand_pad(cand)), costs)
 
     def range_ids(self, qboxes, cand, costs, max_hits: int):
         lay = self.staged
-        hit_ids, counts, overflow = range_mod.pruned_range_ids(
-            qboxes, lay.canon_tiles, lay.ids, cand, max_hits,
-            chunk_boxes=lay.chunk_boxes, alive=lay.alive, extent=self.extent)
-        return hit_ids, counts, overflow, dict(skew=1.0)
+        (hit_ids, counts, overflow), stats = self._per_rank(
+            lambda qb, cd: range_mod.pruned_range_ids(
+                qb, lay.canon_tiles, lay.ids, cd, max_hits,
+                chunk_boxes=lay.chunk_boxes, alive=lay.alive,
+                extent=self.extent),
+            (qboxes, cand), (geometry.sentinel(qboxes.device),
+                             self._cand_pad(cand)), costs)
+        return hit_ids, counts, overflow, stats
 
     def knn_attempt(self, pts, k: int, max_cand: int, f: int):
         """One pruned kNN pass at frontier width ``f`` -> ``(nn_ids,
         nn_d2, radius, overflow, excluded, stats)``."""
         lay = self.staged
-        cand, _, excl = router.candidate_knn(lay.probe_boxes, pts, f)
-        nn_ids, nn_d2, radius, overflow, rounds = knn_mod.pruned_knn(
-            pts, k, lay.canon_tiles, lay.ids, lay.uni, cand, excl,
-            max_cand=max_cand, n_live=self.stats["n"],
-            chunk_boxes=lay.chunk_boxes, alive=lay.alive, extent=self.extent)
+        n_live = self.stats["n"]
+        cand, dist, excl = router.candidate_knn(lay.probe_boxes, pts, f)
+        costs = (None if self.mesh is None else
+                 _knn_cost_proxy(_host_np(lay.uni), n_live, dist, k))
+        (nn_ids, nn_d2, radius, overflow, rounds), stats = self._per_rank(
+            lambda p, cd, ex: knn_mod.pruned_knn(
+                p, k, lay.canon_tiles, lay.ids, lay.uni, cd, ex,
+                max_cand=max_cand, n_live=n_live,
+                chunk_boxes=lay.chunk_boxes, alive=lay.alive,
+                extent=self.extent),
+            (pts, cand, excl),
+            (self._pad_pt(), self._cand_pad(cand),
+             torch.tensor(np.inf, dtype=excl.dtype, device=excl.device)),
+            costs)
         return nn_ids, nn_d2, radius, overflow, excl, dict(
-            skew=1.0, rounds=_max_rounds(rounds))
+            stats, rounds=_max_rounds(rounds))
 
     # -- dense oracle ----------------------------------------------------
 
     def dense_range_counts(self, qboxes):
         lay = self.staged
-        counts = range_mod.range_counts(qboxes, lay.canon_tiles, lay.alive,
-                                        extent=self.extent)
-        return counts, dict(skew=1.0)
+        return self._per_rank(
+            lambda qb: range_mod.range_counts(qb, lay.canon_tiles, lay.alive,
+                                              extent=self.extent),
+            (qboxes,), (geometry.sentinel(qboxes.device),),
+            np.ones(qboxes.shape[0], np.float64))
 
     def dense_range_ids(self, qboxes, max_hits: int):
         lay = self.staged
-        hit_ids, counts, overflow = range_mod.range_ids(
-            qboxes, lay.canon_tiles, lay.ids, max_hits, lay.alive,
-            extent=self.extent)
-        return hit_ids, counts, overflow, dict(skew=1.0)
+        (hit_ids, counts, overflow), stats = self._per_rank(
+            lambda qb: range_mod.range_ids(qb, lay.canon_tiles, lay.ids,
+                                           max_hits, lay.alive,
+                                           extent=self.extent),
+            (qboxes,), (geometry.sentinel(qboxes.device),),
+            np.ones(qboxes.shape[0], np.float64))
+        return hit_ids, counts, overflow, stats
 
     def dense_knn(self, pts, k: int, max_cand: int):
         lay = self.staged
-        nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn(
-            pts, k, lay.canon_tiles, lay.ids, lay.uni, max_cand=max_cand,
-            n_live=self.stats["n"], alive=lay.alive, extent=self.extent)
+        (nn_ids, nn_d2, _, overflow, rounds), stats = self._per_rank(
+            lambda p: knn_mod.batched_knn(
+                p, k, lay.canon_tiles, lay.ids, lay.uni, max_cand=max_cand,
+                n_live=self.stats["n"], alive=lay.alive, extent=self.extent),
+            (pts,), (self._pad_pt(),), np.ones(pts.shape[0], np.float64))
         return nn_ids, nn_d2, overflow, dict(rounds=_max_rounds(rounds),
-                                             skew=1.0)
+                                             **stats)
 
 
 class ShardedTiles(_TilesBase):
     """Tiles shard across ``config.shards`` owners; queries travel to
-    them through the owner-routed exchange, the owners simulated on
-    the one device (``mesh=None``).
+    them through the owner-routed exchange: the owners simulated on the
+    one device (``mesh=None``), or one a rank of a process mesh.
 
     Staging shards by capped-LPT placement (``shard_staged``), built on
     the device from the staging, which is then dropped.  Each routed
@@ -1303,28 +1430,30 @@ class ShardedTiles(_TilesBase):
     translates their candidate lists into per-owner tables on the host
     (``router.owner_split``, timed into ``split_ms``) and runs one
     ``serve.exchange`` orchestration.  The live extent is kept a shard
-    row (``extent``, ``(D, T_rows)``).  The dense oracle probes an
-    unsharded staging rebuilt on the device from the shards at its
-    first call and dropped on every refresh.  A streaming re-stage
+    row (``extent``, ``(D, T_rows)``; ``(1, T_rows)`` on a rank).  The
+    dense oracle probes an unsharded staging rebuilt on the device from
+    the shards at its first call and dropped on every refresh; under a
+    mesh each rank probes its own primary rows and the answers merge
+    as the exchange's do (sum, union, top-k).  A streaming re-stage
     re-balances owners on the fresh member counts
     (``stats['moved_tiles']``) under the same ``ceil(T/D)`` bound;
     ``rebalance`` re-plans them on observed heat (co-locating tiles
-    that share queries).  Stats dicts equal the reference's with
-    ``mesh=None``.
+    that share queries), moving rows between ranks under a mesh.
+    Stats dicts equal the reference's with ``mesh=None``.
     """
 
     mode = "sharded"
 
     def __init__(self, parts: api.Partitioning, layout: StagedLayout,
-                 stats: dict, config: ServeConfig):
+                 stats: dict, config: ServeConfig, mesh=None):
         self.shards = 0        # set by the first _install
         self._owner = None     # the map a re-stage re-balances from
         self._heat = None      # last observed heat and co-occurrence
         self._cooc = None      # (rebalance feeds them; re-stages re-plan)
-        self._comm = exchange._Comm(None)
+        self._comm = exchange._Comm(mesh)
         self.split_ms = 0.0    # owner_split's host ms, the last batch
         self.rebalance_s: dict = {}   # the last rebalance's split seconds
-        super().__init__(parts, layout, stats, config)
+        super().__init__(parts, layout, stats, config, mesh)
 
     @property
     def _replicate_top(self) -> int:
@@ -1335,10 +1464,19 @@ class ShardedTiles(_TilesBase):
         cfg = self.config
         if not self.shards:
             self.shards = int(cfg.shards) if cfg.shards else self.n_devices
-        slayout, stats = shard_staged(
-            layout, self.stats, self.shards, prev_owner=self._owner,
-            cooc=self._cooc, heat=self._heat,
-            replicate_top=self._replicate_top, timings=timings)
+            if self.mesh is not None and self.shards != self.n_devices:
+                raise ValueError(
+                    "sharded serving places exactly one tile shard per "
+                    f"mesh rank ({self.n_devices}), got shards="
+                    f"{self.shards}")
+        self._adopt(*shard_staged(
+            layout, self.stats, self.shards, mesh=self.mesh,
+            prev_owner=self._owner, cooc=self._cooc, heat=self._heat,
+            replicate_top=self._replicate_top, timings=timings))
+
+    def _adopt(self, slayout: ShardedLayout, stats: dict) -> None:
+        """Take ``slayout`` as the resident shards: the stats, the row
+        maps and the live extent."""
         self.slayout = slayout
         self._owner = slayout.owner
         for key in ("shards", "t_local", "shard_bytes", "placement_skew",
@@ -1349,19 +1487,29 @@ class ShardedTiles(_TilesBase):
         d, t_rows, cap = slayout.id_shards.shape
         dev = slayout.id_shards.device
         # global tile -> its primary flat shard row owner * T_rows + local
-        # (the dense oracle and a rebalance read the primaries)
+        # (under a mesh: its local row on this rank, -1 on another; the
+        # dense oracle and a rebalance read the primaries)
         self._rows = torch.from_numpy(
-            slayout.owner.astype(np.int64) * t_rows + slayout.local).to(dev)
+            self._flat_rows(slayout.owner, slayout.local, t_rows)).to(dev)
         # global tile -> its replica's flat row, -1 where it has none
         self._rep_rows = None
         if slayout.rep_owner is not None:
-            ro = slayout.rep_owner.astype(np.int64)
-            self._rep_rows = torch.from_numpy(np.where(
-                ro >= 0, ro * t_rows + slayout.rep_local, -1)).to(dev)
+            self._rep_rows = torch.from_numpy(self._flat_rows(
+                slayout.rep_owner, slayout.rep_local, t_rows)).to(dev)
         # (D, T_rows) int32 live extent a shard row (0 in padding rows)
         self.extent = rops.live_extent(
             slayout.alive_shards.view(-1, cap)).view(d, t_rows)
         self._oracle_t = None
+
+    def _flat_rows(self, owner: np.ndarray, local: np.ndarray,
+                   t_rows: int) -> np.ndarray:
+        """Tiles' resident rows in the flat shard view: ``owner·T_rows
+        + local`` (``-1`` where owner is -1), or under a mesh ``local``
+        where the owner is this rank and -1 elsewhere."""
+        owner = owner.astype(np.int64)
+        if self.mesh is None:
+            return np.where(owner >= 0, owner * t_rows + local, -1)
+        return np.where(owner == self.mesh.rank, local, -1).astype(np.int64)
 
     def rebalance(self, heat=None, cooc=None) -> dict:
         """Re-plan the owners on observed heat under traffic.
@@ -1372,35 +1520,41 @@ class ShardedTiles(_TilesBase):
         (only tiles whose move pays travel), the heat placement's
         replicas re-chosen, and the shards re-gathered.  Tile contents,
         ids, slots, probe and chunk boxes stay, so answers are the same
-        bits before and after, and the shard shapes stay.  The unsharded
-        staging is rebuilt on the device from the primary rows (as the
-        dense oracle's is) and the old shards released before the new
-        ones are gathered: one staging and one set of shards at a time.
-        Returns the reference's report; ``rebalance_s`` keeps the
-        split seconds (``stage_s``, ``plan_s``, ``scatter_s``)."""
+        bits before and after, and the shard shapes stay.  In-process
+        the unsharded staging is rebuilt on the device from the primary
+        rows (as the dense oracle's is) and the old shards released
+        before the new ones are gathered: one staging and one set of
+        shards at a time.  Under a mesh the rows move between ranks
+        (``_move_rows``); no rank holds the whole staging.  Returns the
+        reference's report; ``rebalance_s`` keeps the split seconds
+        (``stage_s``, ``plan_s``, ``scatter_s``)."""
         if heat is not None:
             self._heat = np.asarray(heat, np.float64)
         if cooc is not None:
             self._cooc = np.asarray(cooc, np.float64)
-        t0 = time.perf_counter()
-        s = self.slayout
-        canon, ids, alive, _ = self._oracle()
-        layout = StagedLayout(
-            tiles=None, ids=ids, canon_tiles=canon, tile_boxes=None,
-            probe_boxes=s.probe_boxes, chunk_boxes=s.chunk_boxes,
-            alive=alive, uni=s.uni)
-        del s, canon, ids, alive
-        _sync(self.device)
-        timings = dict(stage_s=time.perf_counter() - t0)
-        self._release()
-        self._install(layout, timings)
-        del layout
-        self.rebalance_s = timings
+        if self.mesh is not None:
+            self._move_rows()
+        else:
+            t0 = time.perf_counter()
+            s = self.slayout
+            canon, ids, alive, _, _ = self._oracle()
+            layout = StagedLayout(
+                tiles=None, ids=ids, canon_tiles=canon, tile_boxes=None,
+                probe_boxes=s.probe_boxes, chunk_boxes=s.chunk_boxes,
+                alive=alive, uni=s.uni)
+            del s, canon, ids, alive
+            _sync(self.device)
+            timings = dict(stage_s=time.perf_counter() - t0)
+            self._release()
+            self._install(layout, timings)
+            del layout
+            self.rebalance_s = timings
         s = self.slayout
         nbytes = _nbytes(s.canon_shards) + _nbytes(s.id_shards) \
             + _nbytes(s.alive_shards)
         if s.chunk_shards is not None:
             nbytes += _nbytes(s.chunk_shards)
+        nbytes *= self.shards // s.id_shards.shape[0]    # every owner's
         return dict(placement=self.config.placement,
                     moved_tiles=self.stats.get("moved_tiles", 0),
                     replicated_tiles=self.stats.get("replicated_tiles", 0),
@@ -1408,25 +1562,95 @@ class ShardedTiles(_TilesBase):
                     cut_after=self.stats.get("cut_after"),
                     bytes_transferred=int(nbytes))
 
+    def _move_rows(self) -> None:
+        """The mesh form of a rebalance: the member counts are summed
+        over the ranks' primaries, every rank makes the same plan, and
+        each new resident row (primary or replica) is sent by the rank
+        holding the tile's old primary, in one ``all_to_all_single``
+        of packed rows (boxes, ids, alive and chunk boxes as bytes)."""
+        mesh, s, d = self.mesh, self.slayout, self.shards
+        t0 = time.perf_counter()
+        canon, ids, alive, chunk = self._flat()
+        dev = ids.device
+        t = s.owner.shape[0]
+        mine = torch.nonzero(self._rows >= 0).squeeze(1)
+        counts = torch.zeros(t, dtype=torch.int64, device=dev)
+        counts[mine] = (ids[self._rows[mine]] >= 0).sum(1)
+        counts = mesh.all_reduce(counts, "sum").cpu().numpy()
+        timings = dict(stage_s=time.perf_counter() - t0)
+        t1 = time.perf_counter()
+        plan = _plan_shards(counts.astype(np.float64), d, self._owner,
+                            self._cooc, self._heat, self._replicate_top)
+        t2 = time.perf_counter()
+        # entry e: new row (owner_all[e], local_all[e]) of tile tiles_all[e],
+        # read from the tile's old primary (s.owner, s.local)
+        src = s.owner[plan.tiles_all].astype(np.int64)
+        dst = plan.owner_all.astype(np.int64)
+        out = np.flatnonzero(src == mesh.rank)
+        out = out[np.argsort(dst[out], kind="stable")]
+        inc = np.flatnonzero(dst == mesh.rank)
+        inc = inc[np.argsort(src[inc], kind="stable")]
+        parts = [canon, ids, alive] + ([] if chunk is None else [chunk])
+        rows = torch.from_numpy(s.local[plan.tiles_all[out]].astype(
+            np.int64)).to(dev)
+        send = torch.cat([a[rows].reshape(rows.shape[0], -1)
+                          .view(torch.uint8) for a in parts], dim=1)
+        widths = [a[:1].reshape(1, -1).view(torch.uint8).shape[1]
+                  for a in parts]
+        shapes = [(a.dtype, tuple(a.shape[1:])) for a in parts]
+        del canon, ids, alive, chunk, parts
+        self._release()
+        recv = mesh.all_to_all_v(
+            send, np.bincount(dst[out], minlength=d).tolist(),
+            np.bincount(src[inc], minlength=d).tolist())
+        del send
+        sentinel = geometry.sentinel(dev)
+        fills = [sentinel, -1, False, sentinel]
+        new = []
+        at = torch.from_numpy(plan.local_all[inc].astype(np.int64)).to(dev)
+        col = 0
+        for w, (dtype, shape), fill in zip(widths, shapes, fills):
+            a = torch.empty((plan.t_rows,) + shape, dtype=dtype, device=dev)
+            a[:] = torch.as_tensor(fill, dtype=dtype, device=dev)
+            a[at] = recv[:, col:col + w].contiguous().view(dtype).view(
+                (-1,) + shape)
+            new.append(a.view((1, plan.t_rows) + shape))
+            col += w
+        del recv
+        if len(new) == 3:
+            new.append(None)
+        _sync(dev)
+        timings.update(plan_s=t2 - t1, scatter_s=time.perf_counter() - t2)
+        self._adopt(*_sharded_result(plan, self.stats, d, tuple(new),
+                                     s.probe_boxes, s.chunk_boxes, s.uni))
+        self.rebalance_s = timings
+
     def _release(self) -> None:
         self.slayout = self.extent = self._rows = self._rep_rows = None
         self._oracle_t = None
 
     def _placements(self, t: torch.Tensor):
-        """Every resident copy of global tiles ``t`` (int64 on the
-        device) -> ``(rows, sel)``: the primary flat shard rows, then
-        one replica row for each tile that has one; ``sel`` indexes the
-        replicated entries back into ``t`` (None when there are none),
-        so each write fans out to all copies and replicas stay
-        bit-exact."""
+        """Every resident copy on this device of global tiles ``t``
+        (int64 on the device) -> ``(rows, take)``: the primary flat
+        shard rows, then one replica row for each tile that has one;
+        ``take`` indexes each row's entry in ``t`` (None when the rows
+        are ``t``'s, one each), so each write fans out to all copies and
+        replicas stay bit-exact.  Under a mesh only the rank's own rows
+        are kept."""
         rows = self._rows[t]
+        take = None
+        if self.mesh is not None:
+            take = torch.nonzero(rows >= 0).squeeze(1)
+            rows = rows[take]
         if self._rep_rows is None:
-            return rows, None
+            return rows, take
         rr = self._rep_rows[t]
         sel = torch.nonzero(rr >= 0).squeeze(1)
         if not sel.numel():
-            return rows, None
-        return torch.cat([rows, rr[sel]]), sel
+            return rows, take
+        if take is None:
+            take = torch.arange(t.shape[0], device=t.device)
+        return torch.cat([rows, rr[sel]]), torch.cat([take, sel])
 
     def _flat(self):
         """The shard arrays as ``(D·T_rows, ...)`` views."""
@@ -1441,12 +1665,12 @@ class ShardedTiles(_TilesBase):
         """O(M) device refresh of the shards: each plan cell and row is
         written through every flat shard row holding its tile
         (``owner·T_rows + local``, and the replica's row where there is
-        one: ``_placements``) with ``index_put_``, the global probe and
-        chunk boxes and the universe beside.  The extent a shard row
-        rises to cover each slot written alive, stays on tombstones, and
-        is recomputed for rewritten rows, on replica rows as on their
-        primaries.  Drops the dense oracle's staging.  Returns the bytes
-        uploaded."""
+        one: ``_placements``; a rank writes its own rows only) with
+        ``index_put_``, the global probe and chunk boxes and the
+        universe beside.  The extent a shard row rises to cover each
+        slot written alive, stays on tombstones, and is recomputed for
+        rewritten rows, on replica rows as on their primaries.  Drops
+        the dense oracle's staging.  Returns the bytes uploaded."""
         if not plan:
             return 0
         s = self.slayout
@@ -1457,8 +1681,8 @@ class ShardedTiles(_TilesBase):
         def cells(key):
             idx, vals = plan[key]
             c = put(idx)
-            r, sel = self._placements(c[:, 0])
-            return (r, _fan(c[:, 1], sel)), _fan(put(vals), sel)
+            r, take = self._placements(c[:, 0])
+            return (r, _fan(c[:, 1], take)), _fan(put(vals), take)
 
         if "boxes" in plan:
             canon.index_put_(*cells("boxes"))
@@ -1484,14 +1708,14 @@ class ShardedTiles(_TilesBase):
         if "rows" in plan:
             e = plan["rows"]
             rows = put(e["rows"])
-            fr, sel = self._placements(rows)
-            canon[fr] = _fan(put(e["boxes"]), sel)
-            ids[fr] = _fan(put(e["ids"]), sel)
-            alive[fr] = _fan(put(e["alive"]), sel)
+            fr, take = self._placements(rows)
+            canon[fr] = _fan(put(e["boxes"]), take)
+            ids[fr] = _fan(put(e["ids"]), take)
+            alive[fr] = _fan(put(e["alive"]), take)
             s.probe_boxes[rows] = put(e["probe"])
             if e["chunk"] is not None:
                 if chunk is not None:
-                    chunk[fr] = _fan(put(e["chunk"]), sel)
+                    chunk[fr] = _fan(put(e["chunk"]), take)
                 if s.chunk_boxes is not None:
                     s.chunk_boxes[rows] = put(e["chunk"])
             extent[fr] = rops.live_extent(alive[fr])
@@ -1525,35 +1749,63 @@ class ShardedTiles(_TilesBase):
 
     def resident_tile_bytes(self) -> int:
         s = self.slayout
-        return (_nbytes(s.canon_shards) + _nbytes(s.id_shards)) // self.shards
+        return (_nbytes(s.canon_shards) + _nbytes(s.id_shards)) \
+            // s.id_shards.shape[0]
 
     def _device_arrays(self):
+        """The unsharded staging.  Under a mesh the ranks' primary rows
+        are gathered (every rank's first ``t_local`` rows, one
+        ``all_gather`` an array) onto the host: the ingest mirrors'
+        source, which every rank keeps whole."""
         canon, ids, alive, _ = self._flat()
         s, r = self.slayout, self._rows
-        return (canon[r], ids[r], s.probe_boxes, s.chunk_boxes, alive[r],
-                s.uni)
+        if self.mesh is None:
+            return (canon[r], ids[r], s.probe_boxes, s.chunk_boxes, alive[r],
+                    s.uni)
+        tl = self.stats["t_local"]
+        at = torch.from_numpy(s.owner.astype(np.int64) * tl + s.local)
+
+        def gather(a):
+            g = self.mesh.all_gather(a[:tl], host=True)
+            return g.reshape((-1,) + tuple(a.shape[1:]))[at]
+        return (gather(canon), gather(ids), s.probe_boxes, s.chunk_boxes,
+                gather(alive), s.uni)
 
     def _device_ids(self) -> torch.Tensor:
         return self._flat()[1]
 
+    def _device_fill_max(self) -> int:
+        """Under a mesh each rank reads its own rows; the maximum is
+        global."""
+        fill = (self._device_ids() >= 0).sum(1).max().view(1)
+        if self.mesh is not None:
+            fill = self.mesh.all_reduce(fill, "max")
+        return int(fill)
+
     def _oracle(self):
-        """The unsharded ``(canon, ids, alive, extent)`` staging of the
-        dense oracle, gathered from the shards on the device at first
-        use (the sharded executors never need it)."""
+        """The unsharded ``(canon, ids, alive, extent, tiles)`` staging
+        of the dense oracle, gathered from the shards on the device at
+        first use (the sharded executors never need it); under a mesh
+        the rank's own primary rows, in global tile order, and their
+        global tiles ``tiles`` (None in-process)."""
         if self._oracle_t is None:
             canon, ids, alive, _ = self._flat()
-            r = self._rows
+            r, tiles = self._rows, None
+            if self.mesh is not None:
+                tiles = torch.nonzero(r >= 0).squeeze(1)
+                r = r[tiles]
             self._oracle_t = (canon[r], ids[r], alive[r],
-                              self.extent.view(-1)[r])
+                              self.extent.view(-1)[r], tiles)
         return self._oracle_t
 
     # -- exchange plumbing -----------------------------------------------
 
-    def _exchange_plan(self, cand, costs: np.ndarray):
+    def _host_plan(self, cand, costs: np.ndarray):
         """Host plan of one batch: LPT query packing and the owner-local
         candidate tables (``router.owner_split``, one query at a time;
         its host ms land in ``split_ms``) -> ``(slots, send_slot,
-        send_cand, stats)``, the tables on the device."""
+        send_cand, stats)``, all host numpy and the same on every rank
+        of a mesh."""
         s = self.slayout
         slots, pstats = pack_queries(costs, self.shards)
         cand = _host_np(cand)
@@ -1562,9 +1814,30 @@ class ShardedTiles(_TilesBase):
             cand, slots, s.owner, s.local, alt_owner=s.rep_owner,
             alt_local=s.rep_local)
         self.split_ms = (time.perf_counter() - t0) * 1e3
+        return slots, send_slot, send_cand, {**pstats, **xstats}
+
+    def _exchange_plan(self, cand, costs: np.ndarray):
+        """``_host_plan`` with every home's tables on the device."""
+        slots, ss, sc, stats = self._host_plan(cand, costs)
         dev = self.device
-        return (slots, torch.from_numpy(send_slot).to(dev),
-                torch.from_numpy(send_cand).to(dev), {**pstats, **xstats})
+        return (slots, torch.from_numpy(ss).to(dev),
+                torch.from_numpy(sc).to(dev), stats)
+
+    def _home(self, x):
+        """The homes this device runs: every row in-process, the rank's
+        own (a leading axis of 1) under a mesh; host arrays go up."""
+        if self.mesh is not None:
+            x = x[self.mesh.rank:self.mesh.rank + 1]
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        return x
+
+    def _homes_back(self, x: torch.Tensor, slots: np.ndarray, n_q: int):
+        """Per-home answers -> per-query rows: under a mesh every rank's
+        ``(1, Qpd, ...)`` home is gathered first."""
+        if self.mesh is not None:
+            x = self.mesh.all_gather(x[0])
+        return _unpack_rows(x, slots, n_q)
 
     def _shards(self) -> exchange.Shards:
         canon, ids, alive, chunk = self._flat()
@@ -1574,22 +1847,24 @@ class ShardedTiles(_TilesBase):
     # -- routed executors ------------------------------------------------
 
     def range_counts(self, qboxes, cand, costs):
-        slots, ss, sc, xstats = self._exchange_plan(cand, costs)
-        qp = _pack_rows(qboxes, slots, _SENTINEL)
-        out = exchange.serve_range_counts(self._comm, qp, ss, sc,
-                                          self._shards())
-        return (_unpack_rows(out, slots, qboxes.shape[0]),
+        slots, ss, sc, xstats = self._host_plan(cand, costs)
+        qp = self._home(_pack_rows(qboxes, slots, _SENTINEL))
+        out = exchange.serve_range_counts(self._comm, qp, self._home(ss),
+                                          self._home(sc), self._shards())
+        return (self._homes_back(out, slots, qboxes.shape[0]),
                 dict(shards=self.shards, **xstats))
 
     def range_ids(self, qboxes, cand, costs, max_hits: int):
-        slots, ss, sc, xstats = self._exchange_plan(cand, costs)
-        qp = _pack_rows(qboxes, slots, _SENTINEL)
+        slots, ss, sc, xstats = self._host_plan(cand, costs)
+        qp = self._home(_pack_rows(qboxes, slots, _SENTINEL))
         cap = self.slayout.id_shards.shape[-1]
         mh_local = min(max_hits, sc.shape[3] * cap)
-        out = exchange.serve_range_ids(self._comm, qp, ss, sc, self._shards(),
+        out = exchange.serve_range_ids(self._comm, qp, self._home(ss),
+                                       self._home(sc), self._shards(),
                                        max_hits=max_hits, mh_local=mh_local)
         n_q = qboxes.shape[0]
-        hit_ids, counts, overflow = (_unpack_rows(x, slots, n_q) for x in out)
+        hit_ids, counts, overflow = (self._homes_back(x, slots, n_q)
+                                     for x in out)
         return hit_ids, counts, overflow, dict(shards=self.shards, **xstats)
 
     def knn_attempt(self, pts, k: int, max_cand: int, f: int):
@@ -1599,35 +1874,54 @@ class ShardedTiles(_TilesBase):
         uni = self.slayout.uni
         cand, dist, excl = router.candidate_knn(self.slayout.probe_boxes,
                                                 pts, f)
-        slots, ss, sc, xstats = self._exchange_plan(
+        slots, ss, sc, xstats = self._host_plan(
             cand, _knn_cost_proxy(_host_np(uni), n_live, dist, k))
-        pp = _pack_rows(pts, slots, (uni[:2] + uni[2:]) * 0.5)
-        dead = torch.from_numpy(slots < 0).to(self.device)
-        out = exchange.serve_knn(self._comm, pp, ss, sc, dead, self._shards(),
-                                 uni, n_live, k=k, max_cand=max_cand)
+        pp = self._home(_pack_rows(pts, slots, (uni[:2] + uni[2:]) * 0.5))
+        out = exchange.serve_knn(self._comm, pp, self._home(ss),
+                                 self._home(sc), self._home(slots < 0),
+                                 self._shards(), uni, n_live, k=k,
+                                 max_cand=max_cand)
         nn_ids, nn_d2, radius, overflow, rounds = (
-            _unpack_rows(x, slots, pts.shape[0]) for x in out)
+            self._homes_back(x, slots, pts.shape[0]) for x in out)
         return nn_ids, nn_d2, radius, overflow, excl, dict(
             xstats, shards=self.shards, rounds=_max_rounds(rounds))
 
     # -- dense oracle ----------------------------------------------------
 
     def dense_range_counts(self, qboxes):
-        canon, _, alive, extent = self._oracle()
-        return range_mod.range_counts(qboxes, canon, alive,
-                                      extent=extent), {}
+        canon, _, alive, extent, _ = self._oracle()
+        counts = range_mod.range_counts(qboxes, canon, alive, extent=extent)
+        if self.mesh is not None:
+            counts = self.mesh.all_reduce(counts, "sum")
+        return counts, {}
 
     def dense_range_ids(self, qboxes, max_hits: int):
-        canon, ids, alive, extent = self._oracle()
+        canon, ids, alive, extent, _ = self._oracle()
         hit_ids, counts, overflow = range_mod.range_ids(
             qboxes, canon, ids, max_hits, alive, extent=extent)
+        if self.mesh is not None:
+            # each rank's ascending ids (its smallest max_hits) and true
+            # counts merge as the exchange's partials: one message a
+            # query to every owner
+            q = qboxes.shape[0]
+            sl = torch.arange(q, dtype=torch.int32, device=qboxes.device)
+            sl = sl.expand(1, self.shards, q)
+            hit_ids, counts, overflow = (x[0] for x in range_mod.merge_owner_ids(
+                self.mesh.all_gather(hit_ids)[None],
+                self.mesh.all_gather(counts)[None], sl, q, max_hits))
         return hit_ids, counts, overflow, {}
 
     def dense_knn(self, pts, k: int, max_cand: int):
-        canon, ids, alive, extent = self._oracle()
-        nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn(
-            pts, k, canon, ids, self.slayout.uni, max_cand=max_cand,
-            n_live=self.stats["n"], alive=alive, extent=extent)
+        canon, ids, alive, extent, tiles = self._oracle()
+        if self.mesh is None:
+            nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn(
+                pts, k, canon, ids, self.slayout.uni, max_cand=max_cand,
+                n_live=self.stats["n"], alive=alive, extent=extent)
+        else:
+            nn_ids, nn_d2, _, overflow, rounds = knn_mod.batched_knn_ranks(
+                self.mesh, pts, k, canon, ids, tiles, self.stats["t"],
+                self.slayout.uni, max_cand=max_cand, n_live=self.stats["n"],
+                alive=alive, extent=extent)
         return nn_ids, nn_d2, overflow, dict(rounds=_max_rounds(rounds))
 
 
@@ -1659,10 +1953,10 @@ class HeatSharded(ShardedTiles):
         return self.config.policy.replicate_top
 
 
-def _fan(x: torch.Tensor, sel: torch.Tensor | None) -> torch.Tensor:
-    """Per-entry values ``x`` of a write, repeated for the replica rows
-    ``_placements`` appended (``sel`` indexes them into ``x``)."""
-    return x if sel is None else torch.cat([x, x[sel]])
+def _fan(x: torch.Tensor, take: torch.Tensor | None) -> torch.Tensor:
+    """Per-entry values ``x`` of a write, one a resident row that
+    ``_placements`` returned (``take`` indexes them into ``x``)."""
+    return x if take is None else x[take]
 
 
 def _max_rounds(rounds: torch.Tensor) -> int:
@@ -1674,8 +1968,12 @@ _PLACEMENT_CLS = {"replicated": ReplicatedTiles, "sharded": ShardedTiles,
 
 
 def build_tiles(parts: api.Partitioning, mbrs: torch.Tensor,
-                config: ServeConfig) -> _TilesBase:
+                config: ServeConfig, mesh=None) -> _TilesBase:
     """Stage ``mbrs`` and construct the placement ``config`` names (the
-    one place the placement string is dispatched)."""
-    layout, stats = stage_tiles(parts, mbrs, config)
-    return _PLACEMENT_CLS[config.placement](parts, layout, stats, config)
+    one place the placement string is dispatched).  Under a mesh the
+    ranks stage in turns, each keeping what its placement holds."""
+    def build():
+        layout, stats = stage_tiles(parts, mbrs, config)
+        return _PLACEMENT_CLS[config.placement](parts, layout, stats, config,
+                                                mesh)
+    return mesh_lib.in_turns(mesh, build)

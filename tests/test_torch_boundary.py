@@ -64,3 +64,21 @@ def test_the_lm_slice_is_in_the_walk():
               "repro_torch.launch.train", "repro_torch.models.moe",
               "repro_torch.models.rglru", "repro_torch.models.encdec"):
         assert m in mods, m
+
+
+def test_the_mesh_ranks_load_neither_jax_nor_repro():
+    """The mesh mode's module is in the walk, and the program the
+    spawned ranks of ``tests/test_torch_mesh.py`` unpickle imports the
+    port only."""
+    assert "repro_torch.launch.mesh" in [m for _, m in _modules()]
+    tests = Path(__file__).resolve().parent
+    code = (
+        "import json, sys\n"
+        f"sys.path.insert(0, {str(tests)!r})\n"
+        "import torch_mesh_ranks\n"
+        "print(json.dumps(sorted(n for n in sys.modules\n"
+        f"      if n.split('.')[0] in {FORBIDDEN!r})))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, timeout=120, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -1283,3 +1283,26 @@ def test_frontend_padded_batches_on_cuda_equal_direct_calls(placement):
                                                   w.cpu().numpy())
                     np.testing.assert_array_equal(np.asarray(a),
                                                   np.asarray(b))
+
+
+def test_two_gloo_ranks_on_the_card_match_the_simulation(tmp_path):
+    """The mesh mode on the one card: two spawned CUDA ranks over gloo
+    (NCCL refuses two ranks on one device) serve sharded counts, ids
+    and kNN equal to the in-process simulation of two owners, each rank
+    holding one shard."""
+    _need_cuda()
+    import pickle
+
+    import torch_mesh_ranks as tm
+    from repro_torch.launch import mesh as mesh_lib
+
+    mesh_lib.spawn(tm.cuda_main, (2, str(tmp_path)), 2, 300.0)
+    want = tm.cuda_answers(None, 2)
+    assert want["rows"] == 2
+    for r in range(2):
+        with open(tmp_path / f"cuda{r}.pkl", "rb") as f:
+            got = pickle.load(f)
+        assert got["rows"] == 1 and got["timers"]["calls"] > 0
+        np.testing.assert_array_equal(got["counts"], want["counts"])
+        for a, b in zip(got["ids"] + got["knn"], want["ids"] + want["knn"]):
+            np.testing.assert_array_equal(a, b)

@@ -6,8 +6,8 @@ repro's planned tiles; ``unique_pairs``; the LPT packers;
 ``plan_join``'s arrays and stats for the six layouts on 1 and 4
 devices; and the engine's counts on a 1-device mesh, at the sizes of
 ``tests/test_join_engine.py`` and on a denser box set.  Hit tables in
-row blocks give the same answers.  Unported execution raises, and the
-ETL command runs on the CPU.  Tolerance: exact equality throughout."""
+row blocks give the same answers, and the ETL command runs on the CPU
+(the mesh mode: tests/test_torch_mesh.py).  Tolerance: exact equality throughout."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
@@ -285,22 +285,6 @@ def test_dense_join_counts_and_truncation_match_repro(method):
     assert stats["truncated_tiles"] > 0 and short < oracle
     per_tile = tengine.tile_counts(got, dedup="none")
     assert stats["max_tile_pairs"] == int(per_tile.max())
-
-
-def test_unported_execution_raises(rs):
-    """A mesh raises on every entry point (plans for more devices run,
-    simulated on one: tests/test_torch_multidevice.py)."""
-    r, s = rs
-    plan4 = tengine.plan_join("bsp", r, s, 200, 4, device="cpu")
-    plan1 = tengine.plan_join("bsp", r, s, 200, 1, device="cpu")
-    calls = [lambda: tengine.run_join_count(plan4, mesh=object()),
-             lambda: tengine.tile_counts(plan4, object(), "d"),
-             lambda: tengine.run_join_pairs_masj(plan4, object(), "d"),
-             lambda: tengine.run_join_count(plan1, mesh=object()),
-             lambda: tengine.spatial_join_count(plan1, object(), "d")]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
 
 
 def test_plan_join_defaults_to_cuda(rs):

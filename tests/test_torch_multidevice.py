@@ -142,11 +142,6 @@ def test_parallel_partition_with_own_splitters_covers_every_object(d):
     assert spl.shape == (d - 1,) and bool((spl[1:] >= spl[:-1]).all())
 
 
-def test_unported_mesh_raises(rs):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tpp.parallel_partition(torch.zeros(8, 4), 4, 2, mesh=object())
-
-
 def test_etl_parallel_partitions_and_joins_on_the_cpu(capsys):
     assert partition_etl.main(["--device", "cpu", "--n", "3000", "--payload",
                                "300", "--parallel", "--join"]) == 0

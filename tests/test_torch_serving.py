@@ -6,8 +6,9 @@ Table-1 layouts x local_index "off"/"x"/"hilbert"; the dense
 range oracle through ``pruned=False`` and ``probe="dense"``; the
 replicated executors fed a staging carried across from repro; the
 ingest methods, the replicated rebalance, ``WidthPolicy.reset`` and
-explicit staging ids against repro's; the device rule and the unported
-features; and the generators' distribution against repro's.  Tolerance: exact equality for every answer and stat,
+explicit staging ids against repro's; the device rule; and the
+generators' distribution against repro's.  Tolerance: exact equality
+for every answer and stat,
 float32 kNN distances bit for bit; the distribution checks state
 theirs."""
 import os, sys  # noqa: E401
@@ -27,7 +28,6 @@ from repro_torch.core.partition import api as tapi
 from repro_torch.data import spatial_gen as tgen
 from repro_torch.kernels.range_probe import ops as tops
 from repro_torch.query import range as trange
-from repro_torch.serve import PlacementPolicy
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
 from repro_torch.serve import layout as tlayout
 from repro_torch.serve import router as trouter
@@ -217,27 +217,6 @@ def test_default_device_is_cuda_and_never_falls_back(data, make):
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour of a machine without CUDA")
     with pytest.raises(RuntimeError, match="cuda"):
-        make(data)
-
-
-def _on_a_mesh(d, config):
-    return TServer(tapi.partition("bsp", torch.from_numpy(d), 120), d,
-                   config, device="cpu", mesh=object())
-
-
-@pytest.mark.parametrize("make", [
-    lambda d: _on_a_mesh(d, TConfig(placement="sharded", shards=2)),
-    lambda d: _on_a_mesh(d, TConfig(placement="heat", shards=2)),
-    lambda d: _on_a_mesh(d, TConfig(
-        policy=PlacementPolicy(rebalance_every=2))),
-    lambda d: _on_a_mesh(d, None),
-], ids=["sharded", "heat", "rebalance_every", "mesh"])
-def test_unported_configurations_raise(data, make):
-    """Every placement (the sharded and heat ones, ``rebalance_every``)
-    is ported on one device; under a mesh each still raises, naming
-    ROADMAP Queue 1 item 10."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 "
-                                                  "item 10"):
         make(data)
 
 

@@ -10,9 +10,9 @@ server's, and every stat (the packing, ``m_per_pair``, ``f_local``,
 owner and local maps, ``t_local``, the shard arrays and the staging
 stats equal repro's (5 shards show the padding rows: sentinel, id -1,
 dead, extent 0); the dense oracle of a sharded server; the widen and
-retry ladder; the owner-folded launch of every move against a loop
-over the owners on the CPU's plain versions; and what still raises (a
-mesh).
+retry ladder; and the owner-folded launch of every move against a
+loop over the owners on the CPU's plain versions.  The mesh mode:
+tests/test_torch_mesh.py.
 Tolerance: exact equality throughout."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
@@ -299,17 +299,3 @@ def test_folded_launch_equals_a_loop_over_owners(data, servers, local_index):
     assert torch.equal(got.reshape(-1)[torch.from_numpy(slots.ravel() >= 0)],
                        srv.range_counts(qb)[0][torch.from_numpy(
                            slots.ravel()[slots.ravel() >= 0]).long()])
-
-
-# -- what still raises ---------------------------------------------------------
-
-@pytest.mark.parametrize("make", [
-    lambda d: TServer(tapi.partition("bsp", torch.from_numpy(d), PAYLOAD), d,
-                      TConfig(placement="sharded", shards=2), device="cpu",
-                      mesh=object()),
-    lambda d: texchange._Comm("d"),
-], ids=["mesh", "comm_mesh"])
-def test_unported_sharded_features_raise(data, make):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item "
-                                                  "10"):
-        make(data)

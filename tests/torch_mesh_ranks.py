@@ -1,0 +1,301 @@
+"""The cases of ``tests/test_torch_mesh.py``, run by each rank of a
+4-rank gloo process mesh on the CPU and, with ``mesh=None``, by the
+test process as the port's in-process simulation.
+
+This module imports the port only (no JAX, no repro): the ranks are
+spawned processes that unpickle ``main`` from here.  ``run_cases``
+returns a dict of host values; the test compares the ranks' dicts with
+each other, with the simulation's and with repro's answers.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.core.partition import api as tapi  # noqa: E402
+from repro_torch.data import spatial_gen  # noqa: E402
+from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.query import engine as tengine  # noqa: E402
+from repro_torch.query import parallel_partition as tpp  # noqa: E402
+from repro_torch.serve import PlacementPolicy, ServeConfig, SpatialServer  # noqa: E402,E501
+from repro_torch.serve import frontend as tfe  # noqa: E402
+from repro_torch.serve import router  # noqa: E402
+
+RANKS, PAYLOAD, K, MAX_HITS = 4, 150, 5, 2048
+TIMEOUT_S = 60.0
+LOCAL_INDEXES = ("x", "hilbert", "off")
+
+
+def host(x):
+    """Tensors (in any nesting) -> numpy, for pickling and comparing."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, (tuple, list)):
+        return type(x)(host(v) for v in x)
+    if isinstance(x, dict):
+        return {k: host(v) for k, v in x.items()}
+    return x
+
+
+def _parts(inp, method):
+    return tapi.Partitioning.from_numpy(inp[f"{method}_boxes"],
+                                        inp[f"{method}_valid"], "cpu")
+
+
+def resident(srv) -> dict:
+    """The shard rows this process holds: ``(1, T_rows, ...)`` on a
+    rank, every owner's ``(D, T_rows, ...)`` in the simulation."""
+    s = srv.slayout
+    return dict(canon=s.canon_shards, ids=s.id_shards, alive=s.alive_shards,
+                chunk=s.chunk_shards, extent=srv.tiles.extent,
+                owner=s.owner, local=s.local, rep_owner=s.rep_owner,
+                rep_local=s.rep_local)
+
+
+def answers(srv, qb, pts, dense=True) -> dict:
+    out = dict(counts=srv.range_counts(qb),
+               ids=srv.range_ids(qb, max_hits=MAX_HITS),
+               knn=srv.knn(pts, K))
+    if dense:
+        out.update(d_counts=srv.range_counts(qb, pruned=False),
+                   d_ids=srv.range_ids(qb, max_hits=MAX_HITS, pruned=False),
+                   d_knn=srv.knn(pts, K, pruned=False))
+    return out
+
+
+def sharded_cases(mesh, inp) -> dict:
+    """Sharded bsp and hc at every local index; on bsp "x" the resident
+    rows and the host plan of a counts batch and a kNN batch."""
+    out = {}
+    qb, pts = torch.from_numpy(inp["qb"]), torch.from_numpy(inp["pts"])
+    for m in ("bsp", "hc"):
+        for li in LOCAL_INDEXES:
+            srv = SpatialServer(_parts(inp, m), inp["mbrs"], ServeConfig(
+                placement="sharded", shards=RANKS, local_index=li),
+                device="cpu", method=m, mesh=mesh)
+            out[f"{m}/{li}"] = answers(srv, qb, pts)
+            if li == "x":
+                out[f"{m}/x/resident"] = resident(srv)
+                out[f"{m}/x/stats"] = dict(srv.stats)
+                hit = router.probe_overlap(srv.probe_boxes, qb)
+                cand, _, _ = router.candidates_from_overlap(hit, 16)
+                costs = hit.sum(1).numpy().astype(np.float64)
+                out[f"{m}/x/plan_counts"] = srv.tiles._host_plan(
+                    cand, costs)[:3]
+                kc, _, _ = router.candidate_knn(srv.probe_boxes, pts, 8)
+                out[f"{m}/x/plan_knn"] = srv.tiles._host_plan(
+                    kc, np.ones(pts.shape[0]))[:3]
+    return out
+
+
+def replicated_cases(mesh, inp) -> dict:
+    qb, pts = torch.from_numpy(inp["qb"]), torch.from_numpy(inp["pts"])
+    srv = SpatialServer(_parts(inp, "bsp"), inp["mbrs"], ServeConfig(),
+                        device="cpu", method="bsp", mesh=mesh)
+    out = dict(answers=answers(srv, qb, pts))
+    hit = router.probe_overlap(srv.probe_boxes, qb)
+    out["fanout"] = hit.sum(1).numpy()
+    return out
+
+
+def heat_cases(mesh, inp) -> dict:
+    """The reference's mesh heat case: hot counts batches, a rebalance
+    (tiles change owner), answers, then append, delete and compact
+    through the replicas."""
+    qh, pts = torch.from_numpy(inp["qhot"]), torch.from_numpy(inp["pts"])
+    cfg = ServeConfig(placement="heat", shards=RANKS, slack=64,
+                      compact_dead_frac=None,
+                      policy=PlacementPolicy(heat_decay=0.9, replicate_top=2))
+    srv = SpatialServer(_parts(inp, "bsp"), inp["mbrs"], cfg, device="cpu",
+                        method="bsp", mesh=mesh)
+    out = dict(before=resident(srv))
+    for _ in range(3):
+        srv.range_counts(qh)
+    out["rebalance"] = srv.rebalance()
+    out["after"] = resident(srv)
+    out["answers"] = answers(srv, qh, pts)
+    out["append"] = srv.append(inp["heat_append"])
+    out["delete"] = srv.delete(np.arange(0, 64, 4))
+    out["compact"] = srv.compact()
+    out["final"] = answers(srv, qh, pts)
+    out["resident"] = resident(srv)
+    out["stats"] = dict(srv.stats)
+    # rebalance_every: the server re-plans itself every 2 routed batches
+    srv = SpatialServer(_parts(inp, "bsp"), inp["mbrs"], ServeConfig(
+        placement="sharded", shards=RANKS,
+        policy=PlacementPolicy(rebalance_every=2)), device="cpu",
+        method="bsp", mesh=mesh)
+    out["every"] = dict(counts=[srv.range_counts(qh)[0] for _ in range(5)],
+                        owner=srv.slayout.owner, stats=dict(srv.stats),
+                        resident=resident(srv))
+    return out
+
+
+def ingest_cases(mesh, inp) -> dict:
+    """A stream on a sharded server: append, delete, update, compact and
+    an overflow re-stage; each rank's extent and alive rows after every
+    command, and the answers at the end."""
+    qb, pts = torch.from_numpy(inp["qb"]), torch.from_numpy(inp["pts"])
+    srv = SpatialServer(_parts(inp, "bsp"), inp["mbrs"], ServeConfig(
+        placement="sharded", shards=RANKS, slack=32), device="cpu",
+        method="bsp", mesh=mesh)
+    n = inp["mbrs"].shape[0]
+    steps = [("append", lambda: srv.append(inp["stream_append"])),
+             ("delete", lambda: srv.delete(inp["stream_delete"])),
+             ("update", lambda: srv.update(inp["stream_update_ids"],
+                                           inp["stream_update_boxes"])),
+             ("compact", srv.compact),
+             ("burst", lambda: srv.append(inp["stream_burst"]))]
+    out = {}
+    for name, fn in steps:
+        rep = fn()
+        out[name] = dict(report=rep, extent=srv.tiles.extent.clone(),
+                         alive=srv.slayout.alive_shards.clone(),
+                         stats={k: srv.stats[k] for k in (
+                             "n", "n_total", "cap", "t_live", "restages",
+                             "compactions", "shards", "t_local")})
+    out["answers"] = answers(srv, qb, pts)
+    out["n0"] = n
+    return out
+
+
+def frontend_cases(mesh, inp) -> dict:
+    """Padded batches and a seeded open-loop run through a sharded
+    server; the simulator is given a fixed service time, so the plane's
+    decisions are the same on every rank."""
+    qb, pts = inp["qb"], inp["pts"]
+    srv = SpatialServer(_parts(inp, "bsp"), inp["mbrs"], ServeConfig(
+        placement="sharded", shards=RANKS), device="cpu", method="bsp",
+        mesh=mesh)
+    nq = qb.shape[0]
+    reqs = [tfe.Request("range_ids", qb[i], (256,)) for i in range(nq)]
+    out = dict(batch=tfe.execute_batch(
+        srv, tfe.Batch("range_ids", (256,), reqs, 32, 0.0)))
+    rng = np.random.default_rng(9)
+    arrivals, t = [], 0.0
+    for i in range(48):
+        t += float(rng.exponential(2e-3))
+        u = rng.random()
+        if u < 0.6:
+            kind, q, params = "range_counts", qb[i % nq], ()
+        elif u < 0.85:
+            kind, q, params = "range_ids", qb[i % nq], (64,)
+        else:
+            kind, q, params = "knn", pts[i % nq], (3, 256)
+        arrivals.append(tfe.Arrival(t, kind, q, params, f"t{i % 3}"))
+
+    def execute(server, batch):
+        return tfe.execute_batch(server, batch), 1e-3
+
+    resp, metrics = tfe.simulate_open_loop(
+        srv, arrivals, tfe.FrontendConfig(ladder=(4, 8, 16),
+                                          max_delay=4e-3), execute=execute)
+    out["open_loop"] = [(r.outcome.name, r.value, r.queue_s)
+                        for r in resp]
+    out["metrics"] = metrics.snapshot()
+    return out
+
+
+def join_cases(mesh, inp) -> dict:
+    r, s = inp["join_r"], inp["join_s"]
+    out = {}
+    for m in ("bsp", "hc"):
+        plan = tengine.plan_join(m, r, s, 200, RANKS, device="cpu")
+        stats = {}
+        rid, sid, uniq = tengine.masj_pairs(plan, mesh, stats=stats)
+        out[m] = dict(
+            rp=tengine.run_join_count(plan, mesh),
+            raw=tengine.run_join_count(plan, mesh, dedup="none"),
+            masj=tengine.run_join_pairs_masj(plan, mesh),
+            spatial=tengine.spatial_join_count(plan, mesh),
+            short=tengine.run_join_pairs_masj(plan, mesh,
+                                              max_pairs_per_tile=16),
+            pairs=(rid, sid, uniq), pair_stats=stats)
+    return out
+
+
+def partition_cases(mesh, inp) -> dict:
+    mbrs = torch.from_numpy(inp["pp_mbrs"])
+    out = {}
+    for name, spl in (("given", torch.from_numpy(inp["pp_splitters"])),
+                      ("own", None)):
+        parts, stats = tpp.parallel_partition(mbrs, 100, RANKS, mesh,
+                                              splitters=spl)
+        out[name] = dict(boxes=parts.boxes, valid=parts.valid, stats=stats)
+    return out
+
+
+CASES = dict(sharded=sharded_cases, replicated=replicated_cases,
+             heat=heat_cases, ingest=ingest_cases, frontend=frontend_cases,
+             join=join_cases, partition=partition_cases)
+
+
+def run_cases(mesh, inp) -> dict:
+    return {name: host(fn(mesh, inp)) for name, fn in CASES.items()}
+
+
+def main(rank: int, size: int, path: str, fail_rank: int | None = None):
+    """One rank: join the gloo mesh through the ``file://`` store under
+    ``path``, run every case on ``path/inputs.npz`` and write
+    ``path/rank{rank}.pkl``.  With ``fail_rank`` that rank raises after
+    the join while the others wait in a collective."""
+    torch.set_num_threads(1)
+    mesh = mesh_lib.init_process_mesh("gloo", f"file://{path}/store", rank,
+                                      size, "cpu", timeout=TIMEOUT_S)
+    try:
+        if fail_rank is not None:
+            if rank == fail_rank:
+                raise RuntimeError(f"rank {rank} fails on purpose")
+            mesh.barrier()
+            return
+        with np.load(os.path.join(path, "inputs.npz")) as z:
+            inp = {k: z[k] for k in z.files}
+        out = run_cases(mesh, inp)
+        with open(os.path.join(path, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        mesh_lib.close(mesh)
+
+
+def cuda_inputs(n: int = 20_000, q: int = 64):
+    """The card test's objects, bsp partition, query boxes and points,
+    made on the card from fixed seeds (the same in every process)."""
+    mbrs = spatial_gen.osm_like(n, seed=3, device="cuda")
+    parts = tapi.partition("bsp", mbrs, PAYLOAD)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    c = torch.rand(q, 2, generator=g, device="cuda")
+    s = torch.rand(q, 2, generator=g, device="cuda") * 0.03
+    pts = torch.rand(q, 2, generator=g, device="cuda")
+    return mbrs, parts, torch.cat([c - s, c + s], 1), pts
+
+
+def cuda_answers(mesh, shards: int) -> dict:
+    mbrs, parts, qb, pts = cuda_inputs()
+    srv = SpatialServer(parts, mbrs, ServeConfig(placement="sharded",
+                                                 shards=shards),
+                        device="cuda", method="bsp", mesh=mesh)
+    out = dict(counts=srv.range_counts(qb)[0],
+               ids=srv.range_ids(qb, max_hits=MAX_HITS)[:3],
+               knn=srv.knn(pts, K)[:3], rows=srv.slayout.id_shards.shape[0])
+    if mesh is not None:
+        out["timers"] = dict(mesh.timers)
+    return host(out)
+
+
+def cuda_main(rank: int, size: int, path: str):
+    """One CUDA rank on the one card over gloo: the sharded answers of
+    ``cuda_answers`` -> ``path/cuda{rank}.pkl``."""
+    mesh = mesh_lib.init_process_mesh("gloo", f"file://{path}/store", rank,
+                                      size, "cuda", timeout=TIMEOUT_S)
+    try:
+        out = cuda_answers(mesh, size)
+        with open(os.path.join(path, f"cuda{rank}.pkl"), "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        mesh_lib.close(mesh)
