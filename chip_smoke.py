@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/H100 port's serving (replicated, sharded and
 heat-aware), request plane, ingest, partitioning and join paths, Mamba2
-inference and training, and the other model families' inference, on
-one CUDA card.
+inference and training, and the other model families' inference and
+training, on one CUDA card.
 
     python3 chip_smoke.py            # full size: 8 M osm-like objects served,
                                      # replicated and on 4 simulated owners
@@ -14,7 +14,8 @@ one CUDA card.
                                      # and 9 training steps at 8 x 2,048,
                                      # RecurrentGemma-9B prefill of 32,768
                                      # tokens and decode, and every other
-                                     # family at full width
+                                     # family at full width, served and
+                                     # trained
 
 Phases, each printing JSON lines (launch counts are set to 0 just
 before each path and read just after it) and its wall seconds:
@@ -337,11 +338,45 @@ before each path and read just after it) and its wall seconds:
    max(16, experts): a decode step routes 2 tokens, and below that a
    step could drop a choice the forward keeps).
    Every kernel's launch count must stay 0 over phases 16-19.
+20. fam_train -- every family but ssm trains at full width, float32
+   weights, bf16 activations, TF32 off, AdamW (warmup 1), remat
+   "full", each model freed before the next: qwen1.5-4b (20 of 40
+   layers, 4 x 2,048 tokens), gemma2-27b (2 of 46: a local and a global
+   layer, 2 x 2,048: the batch cut from 4, its float32 logits do not
+   fit beside its state), mixtral-8x22b (1 of 56, 4 x 2,048),
+   recurrentgemma-9b (3 of 38: one super-block, 2 x 4,096, past 2,559
+   where the reference's windowed attention and its gradient are NaN),
+   internvl2-26b (4 of 48, 256 image tokens + 2,048, batch 4) and
+   whisper-medium (24 + 24 layers, 1,500 frames + 448 tokens, batch
+   8); the depth cut is what 80 GB holds at 16 bytes a parameter
+   (weights, gradients, two moments) with room for the activations;
+   the allocator grows expandable segments over phases 20 and 21.
+   Four timed steps and one profiled, all on one repeated batch: the
+   median of the last three step seconds, tokens/s, peak memory, the
+   profiled step's device ms, idle share, largest kernels and
+   operators, the first loss against ln(vocab); fails unless every
+   loss and ``grad_norm`` is finite (a finite norm is a finite
+   gradient everywhere) and the loss falls.
+21. fam_train_check -- fails unless (a) for each of the six at one
+   super-block (whisper: one encoder and one decoder layer), full
+   width, B = 2, L = 64, float32 inputs, the float32 gradients (TF32
+   off) of every leaf are within 1e-4 of its largest |g| of the same
+   loss's in float64 (mixtral's smallest router top-2 margin printed:
+   a margin below rounding could flip an expert); (b) ``launch/
+   train.py --preset 100m`` at the launcher's defaults (100 steps,
+   batch 8, seq 256: at 30 steps the loss of a fresh batch a step had
+   not yet fallen), once whole and once with a checkpoint every 30 and
+   a failure at step 32, under deterministic algorithms, gives the
+   same loss trail bit for bit (steps 30 and 31 run twice), and its
+   loss falls; (c) the launcher with no arguments (the ``20m`` preset,
+   100 steps), its loss falling.  Every kernel's launch count must stay 0 over phases 20
+   and 21.
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
 join's two batched passes; ``launches_by_path`` holds each row's
-launches on the ingest, the sharded, the heat, the frontend and the
-families paths, and row 12's on the train path),
+launches on the ingest, the sharded, the heat, the frontend, the
+families and the families' training paths, and row 12's on the train
+path),
 the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
@@ -441,6 +476,24 @@ FAMILIES = {  # arch -> layers run (None: all), each at full width
 FAMILY_L, WHISPER_L = 5_120, 448   # a bf16 prefill's text tokens, B = 1
 FAMILY_DECODE = (32, 16, 16)       # batch, prompt, gen
 FAMILY_CHECK_B, FAMILY_CHECK_L = 2, 64
+FAM_TRAIN = {  # arch -> (layers run (None: all), batch, text tokens)
+    # gemma2's batch cut from 4 to 2: its softcapped float32 logits
+    # (4 x 2,048 x 256,000, 8.4 GB a pass, four or five live in the
+    # backward) do not fit beside 37 GB of state
+    "qwen15_4b": (20, 4, 2_048), "gemma2_27b": (2, 2, 2_048),
+    "mixtral_8x22b": (1, 4, 2_048), "recurrentgemma_9b": (3, 2, 4_096),
+    "internvl2_26b": (4, 4, 2_048), "whisper_medium": (None, 8, 448),
+}
+FAM_TRAIN_STEPS = 4        # timed steps on one repeated batch; one more
+                           # is profiled
+FAM_GRAD_B, FAM_GRAD_L = 2, 64     # fam_train_check (a), one super-block
+FAM_GRAD_TOL = 1e-4        # float32 gradients against float64, of the
+                           # leaf's largest |g|
+# (b) and (c) run the launcher at its defaults (100 steps of 8 x 256
+# tokens): at 30 steps of the 100m preset, or 20 of the 20m, the loss
+# of a fresh batch a step had not yet fallen below the first.  (b)'s
+# restart: three checkpoints of 1.5 GB, a failure two steps after one
+PRESET_STEPS, PRESET_EVERY, PRESET_FAIL_AT = 100, 30, 32
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:41"
 NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
@@ -4783,6 +4836,287 @@ def families_alone(torch, dev):
     return counts, wall
 
 
+def fam_train_row(torch, dev, arch, layers_run, b, l):
+    """One family's training at full width: float32 weights, bf16
+    activations, AdamW (warmup 1), remat "full", FAM_TRAIN_STEPS timed
+    steps and one profiled, all on one repeated batch -> its JSON row."""
+    import dataclasses
+    import math
+    from repro_torch import configs
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    full = configs.get(arch)
+    cfg = (full if layers_run is None
+           else dataclasses.replace(full, n_layers=layers_run))
+    model = api.build(cfg, dev)
+    opt = AdamWConfig(warmup=1, total_steps=FAM_TRAIN_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats()
+    state = api.init_train_state(model, torch.Generator(dev).manual_seed(
+        SEED), opt)
+    n_params = sum(p.numel() for p in state.params.parameters())
+    step = api.make_train_step(model, opt, remat="full")
+    batch = family_batch(torch, dev, cfg, b, l, SEED + 40)
+    seen, secs = [], []
+    for _ in range(FAM_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        seen.append({k: float(v) for k, v in metrics.items()})
+    out = {}
+
+    def profiled():
+        out["state"], out["metrics"] = step(state, batch)
+
+    t0 = time.perf_counter()
+    dev_ms, top, ops = device_ops(torch, profiled, 1, n=10)
+    profile_s = time.perf_counter() - t0
+    seen.append({k: float(v) for k, v in out["metrics"].items()})
+    peak = torch.cuda.max_memory_allocated()
+    del state, out, model, batch, step
+    torch.cuda.empty_cache()
+    med = median(secs[1:])
+    extra = cfg.vis_tokens or 0
+    losses = [m["loss"] for m in seen]
+    row = dict(
+        arch=cfg.name, family=cfg.family, layers=cfg.n_layers,
+        layers_published=full.n_layers, enc_layers=cfg.enc_layers or None,
+        depth_cut=(None if layers_run is None else
+                   f"{full.n_layers} -> {layers_run} layers"),
+        batch=b, seq=l, extra_tokens=extra or None,
+        src_len=cfg.src_len if cfg.family == "encdec" else None,
+        n_params=n_params, state_bytes=16 * n_params, dtype=cfg.dtype,
+        remat="full", steps=len(seen), step_s=med, step_s_all=secs,
+        tokens_per_s=b * l / med, max_memory_allocated=peak,
+        profiled_device_ms=dev_ms, idle_share=1 - dev_ms / (med * 1e3),
+        profile_s=profile_s, top_device=top, top_ops=ops, losses=losses,
+        ln_vocab=math.log(cfg.vocab), first_loss_minus_ln_vocab=(
+            losses[0] - math.log(cfg.vocab)),
+        loss_falls=losses[-1] < losses[0],
+        grad_norms=[m["grad_norm"] for m in seen],
+        grads_finite=all(np.isfinite(m["grad_norm"]) for m in seen),
+        moe_stats={k: [m[k] for m in seen] for k in seen[0]
+                   if "skew" in k or "drop" in k} or None,
+        model_flops_per_step=8 * cfg.n_params() * b * (l + extra),
+        model_flops_bound_s=(8 * cfg.n_params() * b * (l + extra)
+                             / BF16_FLOPS_PER_S))
+    if not (row["grads_finite"] and all(np.isfinite(losses))
+            and row["loss_falls"]):
+        raise AssertionError(f"{arch}: training gave a non-finite loss or "
+                             f"gradient, or the loss did not fall: "
+                             f"{losses}, {row['grad_norms']}")
+    return row
+
+
+def fam_train_phase(torch, dev):
+    """Every family but ssm trains at full width (depth cut to what 80
+    GB holds at 16 bytes a parameter), FAM_TRAIN's shapes."""
+    reset_kernel_launches()
+    rows = []
+    for arch, (layers_run, b, l) in FAM_TRAIN.items():
+        t0 = time.perf_counter()
+        row = fam_train_row(torch, dev, arch, layers_run, b, l)
+        row["seconds_all"] = time.perf_counter() - t0
+        emit(dict(phase="fam_train_row", card=card_line(), **row))
+        rows.append(row)
+    counts = no_kernel_launched("fam_train")
+    emit(dict(phase="fam_train", archs=[r["arch"] for r in rows],
+              kernel_launches=sum(counts.values())))
+    return counts
+
+
+def one_super_block(cfg):
+    """``cfg`` at one super-block: its pattern's layers (the
+    encoder-decoder one encoder and one decoder layer)."""
+    import dataclasses
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=1, enc_layers=1)
+    return dataclasses.replace(cfg, n_layers=len(cfg.pattern))
+
+
+def router_margin(torch, moe_mod, fn):
+    """Run ``fn`` with the MoE layer's inputs captured -> the smallest
+    gap between the second and third router probabilities over the
+    tokens (a gap below rounding could flip a choice between two
+    precisions)."""
+    seen = []
+    ffn = moe_mod.moe_ffn
+
+    def capture(x, p, cfg):
+        with torch.no_grad():
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).double()
+                                  @ p.wr.double(), -1)
+            top = torch.topk(probs, 3, -1).values
+            seen.append(float((top[:, 1] - top[:, 2]).min()))
+        return ffn(x, p, cfg)
+
+    moe_mod.moe_ffn = capture
+    try:
+        out = fn()
+    finally:
+        moe_mod.moe_ffn = ffn
+    return out, min(seen)
+
+
+def grad_check(torch, dev, arch):
+    """(a) one family at full width and one super-block, FAM_GRAD_B x
+    FAM_GRAD_L tokens (float32 frames and image tokens): the float32
+    loss's gradients (TF32 off) against the same loss's in float64 ->
+    its row."""
+    import copy
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import api, lm, moe
+
+    cfg32 = dataclasses.replace(one_super_block(configs.get(arch)),
+                                dtype="float32")
+    cfg64 = dataclasses.replace(cfg32, dtype="float64")
+    model32, model64 = api.build(cfg32, dev), api.build(cfg64, dev)
+    params = model32.init_params(torch.Generator(dev).manual_seed(
+        SEED + 50)).requires_grad_(True)
+    batch = family_batch(torch, dev, cfg32, FAM_GRAD_B, FAM_GRAD_L,
+                         SEED + 51, dtype=torch.float32)
+
+    def grads(model, p, b):
+        loss, _ = model.loss_fn(p, b)
+        named = lm.named_leaves(p, model.cfg)
+        return float(loss.detach()), dict(zip(named, torch.autograd.grad(
+            loss, list(named.values()))))
+
+    loss32, g32 = grads(model32, params, batch)
+    params64 = copy.deepcopy(params).double()
+    del params
+    torch.cuda.empty_cache()
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    margin = None
+    if cfg32.n_experts:
+        (loss64, g64), margin = router_margin(
+            torch, moe, lambda: grads(model64, params64, b64))
+    else:
+        loss64, g64 = grads(model64, params64, b64)
+    worst, worst_leaf, finite = 0.0, None, True
+    for k, g in g32.items():
+        finite &= bool(torch.isfinite(g).all())
+        scale = float(g64[k].abs().max())
+        err = float((g.double() - g64[k]).abs().max())
+        ratio = err / scale if scale else (0.0 if err == 0 else np.inf)
+        if ratio > worst:
+            worst, worst_leaf = ratio, k
+    del params64, g32, g64
+    torch.cuda.empty_cache()
+    return dict(arch=cfg32.name, layers=cfg32.n_layers,
+                enc_layers=cfg32.enc_layers or None, batch=FAM_GRAD_B,
+                seq=FAM_GRAD_L, loss32=loss32, loss64=loss64,
+                loss_rel_err=abs(loss32 - loss64) / abs(loss64),
+                max_grad_err_of_leaf_max=worst, worst_leaf=worst_leaf,
+                tolerance=FAM_GRAD_TOL, grads_finite=finite,
+                router_top2_margin=margin,
+                ok=finite and worst <= FAM_GRAD_TOL)
+
+
+def launcher_trail(torch, dev, argv):
+    """``launch/train.main`` with ``argv`` on the card, in a temporary
+    checkpoint directory -> every completed step's loss, in order, and
+    the launcher's last line."""
+    from repro_torch.launch import train
+
+    losses = []
+    d = tempfile.mkdtemp(prefix="fam_train_ckpt_")
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = train.main(argv + ["--ckpt-dir", d, "--device", str(dev),
+                                    "--log-every", "1000"],
+                            on_step=lambda i, m: losses.append(m["loss"]))
+    except BaseException:
+        sys.stderr.write(out.getvalue())
+        raise
+    finally:
+        shutil.rmtree(d)
+    if rc != 0:
+        raise AssertionError(f"launch/train.py {argv} returned {rc}")
+    return losses, out.getvalue().splitlines()[-1]
+
+
+def fam_train_check_phase(torch, dev):
+    """(a) every family's float32 gradients against float64 at one
+    super-block; (b) the 100m preset at the launcher's defaults, whole
+    and restarted after a failure, deterministic: the same loss trail
+    bit for bit; (c) the launcher with no arguments (the 20m preset)."""
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    checks = [grad_check(torch, dev, arch) for arch in FAM_TRAIN]
+    t1 = time.perf_counter()
+    with deterministic(torch) as nondeterministic:
+        whole, _ = launcher_trail(torch, dev, [
+            "--preset", "100m", "--ckpt-every", str(PRESET_STEPS + 1)])
+        again, last = launcher_trail(torch, dev, [
+            "--preset", "100m", "--ckpt-every", str(PRESET_EVERY),
+            "--inject-failure-at", str(PRESET_FAIL_AT)])
+    redo = PRESET_FAIL_AT - PRESET_FAIL_AT // PRESET_EVERY * PRESET_EVERY
+    bit_equal = (again[:PRESET_FAIL_AT] + again[PRESET_FAIL_AT + redo:]
+                 == whole and again[PRESET_FAIL_AT:PRESET_FAIL_AT + redo]
+                 == whole[PRESET_FAIL_AT - redo:PRESET_FAIL_AT])
+    t2 = time.perf_counter()
+    default, default_last = launcher_trail(torch, dev, [])
+    t3 = time.perf_counter()
+    counts = no_kernel_launched("fam_train_check")
+    preset = dict(preset="100m", steps=PRESET_STEPS,
+                  ckpt_every=PRESET_EVERY, fail_at=PRESET_FAIL_AT,
+                  losses=whole, restarted_losses=again,
+                  restarted_last_line=last, bit_equal=bit_equal,
+                  loss_falls=whole[-1] < whole[0],
+                  nondeterministic_ops=nondeterministic, seconds=t2 - t1)
+    dflt = dict(preset="20m (default)", steps=len(default), losses=default,
+                last_line=default_last, loss_falls=default[-1] < default[0],
+                seconds=t3 - t2)
+    emit(dict(phase="fam_train_check", card=card_line(), grads=checks,
+              grads_seconds=t1 - t0, preset_100m=preset, default_20m=dflt,
+              kernel_launches=sum(counts.values())))
+    bad = [c["arch"] for c in checks if not c["ok"]]
+    if bad:
+        raise AssertionError(f"float32 gradients differ from float64 past "
+                             f"{FAM_GRAD_TOL} of the leaf's largest: {bad}")
+    if not (bit_equal and preset["loss_falls"]
+            and len(again) == PRESET_STEPS + redo):
+        raise AssertionError(f"the 100m preset's restarted trail differs "
+                             f"or its loss did not fall: {preset}")
+    if not dflt["loss_falls"]:
+        raise AssertionError(f"the default preset's loss did not fall: "
+                             f"{default}")
+    return counts
+
+
+def fam_train_alone(torch, dev):
+    """The two training phases of the other families, run by ``main``
+    after the families' serving phases or on their own (no kernel is
+    built: these paths launch none) -> their launch counts (all 0) and
+    wall seconds.  The caching allocator grows expandable segments over
+    these phases: a step allocates and frees float32 logits and weight
+    casts of several GB, and fixed segments fragment under them (an
+    out-of-memory with 23.68 GB reserved and free, gemma2 at batch 4)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        t0 = time.perf_counter()
+        counts = fam_train_phase(torch, dev)
+        t1 = time.perf_counter()
+        check = fam_train_check_phase(torch, dev)
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(
+            "expandable_segments:False")
+    return ({k: v + check[k] for k, v in counts.items()},
+            dict(fam_train_s=t1 - t0,
+                 fam_train_check_s=time.perf_counter() - t1))
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4923,11 +5257,14 @@ def main() -> int:
                 lm_train_check_s=time.perf_counter() - t12)
     family_launches, family_wall = families_alone(torch, dev)
     wall.update(family_wall)
+    fam_train_launches, fam_train_wall = fam_train_alone(torch, dev)
+    wall.update(fam_train_wall)
     ssd_entry["launches_by_path"] = dict(train=train_launches)
     ssd_entry["launches_per_train_step"] = per_step
     entries.append(ssd_entry)
     for e in entries:
         e["launches_by_path"]["families"] = family_launches[e["name"]]
+        e["launches_by_path"]["fam_train"] = fam_train_launches[e["name"]]
         e["launches_by_path"]["mesh"] = mesh_launches_of(mesh_launches,
                                                          e["name"])
     emit(dict(phase="kernel", **ssd_entry))

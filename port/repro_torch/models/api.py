@@ -2,11 +2,9 @@
 train state and step, and the inference steps, prefill and greedy
 decode.
 
-Every family serves: prefill and greedy decode run under
-``torch.no_grad()``.  Only the ssm family (Mamba2) trains: the train
-step differentiates the loss with ``torch.autograd.grad`` and updates
-the state in place, and for any other family ``make_train_step`` and
-the model's ``loss_fn`` raise (ROADMAP Queue 1 item 14c).  The
+Every family serves and trains.  Prefill and greedy decode run under
+``torch.no_grad()``; the train step differentiates the model's loss
+with ``torch.autograd.grad`` and updates the state in place.  The
 encoder-decoder family has no ``init_cache``, as in the reference: its
 cache comes from ``encdec.init_cache(params, frames, cfg, max_len)``.
 """
@@ -43,11 +41,10 @@ def build(cfg: ModelConfig, device=None) -> Model:
         return family.init_params(gen, cfg)
 
     if cfg.family == "encdec":
-        def loss_fn(p, b, remat="full"):
-            raise lm.no_training(cfg)
-
         return Model(
-            cfg=cfg, init_params=init_params, loss_fn=loss_fn,
+            cfg=cfg, init_params=init_params,
+            loss_fn=lambda p, b, remat="full": encdec.loss_fn(p, b, cfg,
+                                                              remat),
             init_cache=None,
             decode_step=lambda p, c, t, pos: encdec.decode_step(p, c, t, pos,
                                                                 cfg))
@@ -62,7 +59,7 @@ def build(cfg: ModelConfig, device=None) -> Model:
 
 @dataclasses.dataclass
 class TrainState:
-    params: lm.LM                     # float32, requires_grad
+    params: lm.LM | encdec.EncDec     # float32, requires_grad
     opt: adamw.OptState               # keyed by the parameters' names
     step: torch.Tensor                # int32, 0-d
 
@@ -81,7 +78,9 @@ def init_train_state(model: Model, gen: torch.Generator,
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                     remat: str = "full", n_micro: int = 1,
                     bf16_weight_gather: bool = False):
-    """``step(state, batch) -> (state, {"loss", "grad_norm", "lr"})``.
+    """``step(state, batch) -> (state, {"loss", "grad_norm", "lr",
+    ...})``, and with ``n_micro`` 1 every aux of the loss whose key holds
+    "skew" or "drop" (the MoE payload stats), as the reference's.
 
     ``n_micro`` > 1 accumulates the gradients of sequential microbatches
     in float32 and divides them by ``n_micro``.  ``bf16_weight_gather``
@@ -89,11 +88,9 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     or more to bf16 before the loss (the reference casts them before its
     FSDP gather); their gradients reach the float32 parameters.  The
     parameters and moments are updated in place, and the state is
-    returned.  Only the ssm family trains yet.
+    returned.
     """
     cfg = model.cfg
-    if cfg.family != "ssm":
-        raise lm.no_training(cfg)
 
     def view(params):
         if not bf16_weight_gather:
@@ -103,14 +100,17 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             p.dtype == torch.float32 and nd[k] >= 2) else p)
 
     def loss_and_grads(params, named, mb):
-        loss, _ = model.loss_fn(view(params), mb, remat)
+        loss, aux = model.loss_fn(view(params), mb, remat)
         grads = torch.autograd.grad(loss, list(named.values()))
-        return loss.detach(), dict(zip(named, grads))
+        return loss.detach(), dict(zip(named, grads)), aux
 
     def step(state: TrainState, batch):
         named = lm.named_leaves(state.params, cfg)
+        stats = {}
         if n_micro == 1:
-            loss, grads = loss_and_grads(state.params, named, batch)
+            loss, grads, aux = loss_and_grads(state.params, named, batch)
+            stats = {k: v.detach() for k, v in aux.items()
+                     if "skew" in k or "drop" in k}
         else:
             mbs = {k: v.reshape((n_micro, v.shape[0] // n_micro)
                                 + tuple(v.shape[1:]))
@@ -121,8 +121,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             loss = torch.zeros((), dtype=torch.float32,
                                device=state.step.device)
             for i in range(n_micro):
-                li, gi = loss_and_grads(state.params, named,
-                                        {k: v[i] for k, v in mbs.items()})
+                li, gi, _ = loss_and_grads(state.params, named,
+                                           {k: v[i] for k, v in mbs.items()})
                 for k, g in gi.items():
                     grads[k] += g.float()
                 loss = loss + li
@@ -134,7 +134,8 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                                   lm.ref_ndims(named, cfg))
         del grads
         return TrainState(params=state.params, opt=opt,
-                          step=state.step + 1), {"loss": loss, **om}
+                          step=state.step + 1), {"loss": loss, **om,
+                                                 **stats}
     return step
 
 

@@ -9,6 +9,10 @@ are roped with their own positions, in the cross-attention too, as the
 reference does.  The logits take no sqrt(d) embedding scale (unlike
 ``lm``).
 
+Training differentiates the forward with autograd, each encoder and
+decoder layer rematerialised in the backward, as the reference
+checkpoints its layer bodies whatever ``remat`` says.
+
 Parameters: ``embed``, ``enc[i]`` (``norm1``, ``attn``, ``norm2``,
 ``mlp``), ``dec[i]`` (``norm1``, ``attn``, ``normx``, ``xattn``,
 ``norm2``, ``mlp``), ``enc_norm``, ``final_norm``: ``enc.i.attn.wq`` is
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from . import blocks, layers, lm
 from .config import ModelConfig
@@ -70,21 +75,43 @@ def _mha(x, kv_src, p, cfg, *, causal, positions, kv_positions):
     return out.reshape(b, s, h * hd) @ p.wo.to(x.dtype)
 
 
+def _remat(fn, *args):
+    """``fn(*args)``, rematerialised in the backward when grad is on."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    return ckpt.checkpoint(fn, *args, use_reentrant=False)
+
+
+def _enc_layer(x, p, cfg, pos):
+    hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+    x = x + _mha(hn, hn, p.attn, cfg, causal=False, positions=pos,
+                 kv_positions=pos)
+    return x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps), p.mlp,
+                          cfg)
+
+
+def _dec_layer(x, p, enc_out, cfg, pos, kv_pos):
+    hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
+    x = x + _mha(hn, hn, p.attn, cfg, causal=True, positions=pos,
+                 kv_positions=pos)
+    hx = layers.rms_norm(x, p.normx, cfg.norm_eps)
+    x = x + _mha(hx, enc_out, p.xattn, cfg, causal=False, positions=pos,
+                 kv_positions=kv_pos)
+    return x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps), p.mlp,
+                          cfg)
+
+
 def encode(params: EncDec, frames, cfg: ModelConfig):
     x = frames.to(lm._dt(cfg))
     b, s, _ = x.shape
     pos = _positions(b, s, x.device)
     for p in params.enc:
-        hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
-        x = x + _mha(hn, hn, p.attn, cfg, causal=False, positions=pos,
-                     kv_positions=pos)
-        x = x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps),
-                           p.mlp, cfg)
+        x = _remat(_enc_layer, x, p, cfg, pos)
     return layers.rms_norm(x, params.enc_norm, cfg.norm_eps)
 
 
 def _logits_of(x, params: EncDec, cfg):
-    logits = (x @ params.embed.to(x.dtype).T).float()
+    logits = layers.up(x @ params.embed.to(x.dtype).T)
     if cfg.vocab_padded != cfg.vocab:
         iota = torch.arange(logits.shape[-1], device=logits.device)
         logits = torch.where(iota < cfg.vocab, logits, -1e9)
@@ -92,7 +119,11 @@ def _logits_of(x, params: EncDec, cfg):
 
 
 def _embed(params: EncDec, tokens, dtype):
-    # gathered first, then cast: the reference's values, no (V, D) copy
+    # cast, then gathered in training, as the reference does (the
+    # embedding's gradient accumulates in the activations' type there);
+    # inference gathers first: the same values, no (V, D) copy
+    if torch.is_grad_enabled():
+        return params.embed.to(dtype)[tokens]
     return params.embed[tokens].to(dtype)
 
 
@@ -105,18 +136,20 @@ def forward(params: EncDec, frames, tokens, cfg: ModelConfig,
     pos = _positions(b, s, x.device)
     kv_pos = _positions(b, enc_out.shape[1], x.device)
     for p in params.dec:
-        hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
-        x = x + _mha(hn, hn, p.attn, cfg, causal=True, positions=pos,
-                     kv_positions=pos)
-        hx = layers.rms_norm(x, p.normx, cfg.norm_eps)
-        x = x + _mha(hx, enc_out, p.xattn, cfg, causal=False,
-                     positions=pos, kv_positions=kv_pos)
-        x = x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps),
-                           p.mlp, cfg)
+        x = _remat(_dec_layer, x, p, enc_out, cfg, pos, kv_pos)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     if logits_mode == "last":
         x = x[:, -1:]
     return _logits_of(x, params, cfg), {}
+
+
+def loss_fn(params: EncDec, batch: dict, cfg: ModelConfig,
+            remat: str = "full"):
+    """Next-token cross-entropy and z-loss of the decoder's tokens ->
+    (loss, {}).  batch: {frames, tokens}.  ``remat`` is taken and not
+    read, as in the reference: every layer is rematerialised."""
+    logits, aux = forward(params, batch["frames"], batch["tokens"], cfg)
+    return lm.nll(logits, batch["tokens"]), aux
 
 
 # ------------------------------ decode ------------------------------------

@@ -17,6 +17,10 @@ reference gets finite:
   Every chunk it skips is masked for all its queries, and such a chunk
   leaves the carry as it was (``corr`` is 1, ``p`` is 0).
 
+Training differentiates this forward with autograd (the reference has
+no attention backward of its own either); the stand-in keeps the
+gradient finite where the reference's is NaN.
+
 The reference's launcher switches ``FAST_ATTN`` and
 ``UNROLL_INNER_SCANS`` belong to the dry-run launchers and are not
 ported (ROADMAP Queue 1 item 14c).
@@ -47,12 +51,24 @@ def dense_init(gen: torch.Generator, shape: tuple) -> torch.Tensor:
     return torch.randn(shape, generator=gen, device=gen.device) * INIT_STD
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """float32, the type of the reference's sums, softmaxes and norms;
+    float64 for a float64 run of the model (the yardstick its float32
+    gradients are held to)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def up(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``acc_dtype`` of its type."""
+    return x.to(acc_dtype(x.dtype))
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """Scale by ``(1 + scale)`` in float32, cast back to x's type."""
-    xf = x.float()
+    xf = up(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * (1.0 + scale.float())).to(x.dtype)
+    return (y * (1.0 + up(scale))).to(x.dtype)
 
 
 def causal_dconv(u, w):
@@ -71,9 +87,10 @@ def rope(x, positions, theta):
     rotated halves are cast back to x's type, an odd tail passes."""
     hd = x.shape[-1]
     half = hd // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
-    ang = positions[..., :, None, None].float() * freq
+    acc = acc_dtype(x.dtype)
+    freq = theta ** (-torch.arange(0, half, dtype=acc, device=x.device)
+                     / half)
+    ang = positions[..., :, None, None].to(acc) * freq
     sin, cos = torch.sin(ang), torch.cos(ang)
     x1, x2 = x[..., :half], x[..., half:2 * half]
     out1 = x1 * cos - x2 * sin
@@ -113,21 +130,21 @@ def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
     scale = hd ** -0.5
-    qf = (q.float() * scale).reshape(b, sq, kv, rep, hd)
+    qf = (up(q) * scale).reshape(b, sq, kv, rep, hd)
+    acc_t = dict(dtype=qf.dtype, device=q.device)
     nchunks = -(-sk // chunk)
     pad = nchunks * chunk - sk
-    kp = F.pad(k, (0, 0, 0, 0, 0, pad)).float()
-    vp = F.pad(v, (0, 0, 0, 0, 0, pad)).float()
-    out = torch.empty((b, sq, kv, rep, hd), dtype=torch.float32,
-                      device=q.device)
+    kp = up(F.pad(k, (0, 0, 0, 0, 0, pad)))
+    vp = up(F.pad(v, (0, 0, 0, 0, 0, pad)))
+    out = torch.empty((b, sq, kv, rep, hd), **acc_t)
     arange = torch.arange(chunk, device=q.device)
     for q0 in range(0, sq, Q_BLOCK):
         q1 = min(sq, q0 + Q_BLOCK)
         qb = qf[:, q0:q1]
         q_pos = q_offset + torch.arange(q0, q1, device=q.device)
-        m = torch.full((b, q1 - q0, kv, rep), -torch.inf, device=q.device)
-        l_ = torch.zeros((b, q1 - q0, kv, rep), device=q.device)
-        acc = torch.zeros((b, q1 - q0, kv, rep, hd), device=q.device)
+        m = torch.full((b, q1 - q0, kv, rep), -torch.inf, **acc_t)
+        l_ = torch.zeros((b, q1 - q0, kv, rep), **acc_t)
+        acc = torch.zeros((b, q1 - q0, kv, rep, hd), **acc_t)
         for c in _chunk_range(q0, q1, sk, causal=causal, window=window,
                               chunk=chunk, q_offset=q_offset):
             k_blk = kp[:, c * chunk:(c + 1) * chunk]

@@ -3,8 +3,9 @@ moe, ssm, hybrid and vlm families: embed (and the vlm image prefix), a
 ``nn.ModuleList`` of blocks walked in a Python loop (the reference scans
 stacked super-blocks, then its ``rest`` layers), final norm, tied or
 separate unembed with the padded vocab rows masked to -1e9, and the
-training loss (ssm only: the other families' training waits for ROADMAP
-Queue 1 item 14c).
+training loss of every family.  ``cfg.dtype`` "float64" runs every
+family but ssm in float64 (given float64 parameters): the yardstick the
+float32 gradients are held to, where the reference's own are NaN too.
 
 ``remat`` rematerialises each layer in the backward, as the reference
 checkpoints its super-block body (one layer for the ssm pattern):
@@ -28,7 +29,6 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
-from ..device import not_ported
 from . import blocks, layers
 from .config import ModelConfig
 
@@ -132,8 +132,12 @@ def param_view(params: "LM", fn) -> types.SimpleNamespace:
     return walk(params, "")
 
 
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float64": torch.float64}
+
+
 def _dt(cfg):
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    return _DTYPES[cfg.dtype]
 
 
 def _embed_in(params: LM, tokens, cfg, img=None):
@@ -154,7 +158,7 @@ def _embed_in(params: LM, tokens, cfg, img=None):
 
 def _logits_of(x, params: LM, cfg):
     w_out = params.embed if cfg.tie_embeddings else params.unembed
-    logits = (x @ w_out.to(x.dtype).T).float()
+    logits = layers.up(x @ w_out.to(x.dtype).T)
     if cfg.logit_softcap:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
     if cfg.vocab_padded != cfg.vocab:   # mask pad rows out of the softmax
@@ -214,11 +218,6 @@ def forward(params: LM, tokens, cfg: ModelConfig, img=None,
     return _logits_of(x, params, cfg), aux
 
 
-def no_training(cfg: ModelConfig) -> NotImplementedError:
-    return not_ported(f"training of the {cfg.family} family",
-                      "Queue 1 item 14c")
-
-
 def nll(logits, tokens):
     """Mean next-token cross-entropy of ``tokens`` under ``logits`` (the
     text positions are the last S), plus the z-loss."""
@@ -231,14 +230,13 @@ def nll(logits, tokens):
 
 
 def loss_fn(params: LM, batch: dict, cfg: ModelConfig, remat: str = "full"):
-    """Next-token cross-entropy -> (loss, aux).  batch: {tokens}.
+    """Next-token cross-entropy -> (loss, aux).  batch: {tokens, [img]},
+    every decoder-only family.
 
     Single pass: nll = logsumexp(logits) - logits[label] over the text
-    positions, then the z-loss ``1e-4 * mean(lse ** 2)``, then the MoE
-    load-balance terms (the ssm family has none).  Only the ssm family
-    trains yet."""
-    if cfg.family != "ssm":
-        raise no_training(cfg)
+    positions (the vlm's image prefix carries no labels), then the
+    z-loss ``1e-4 * mean(lse ** 2)``, then ``0.01 *`` each MoE
+    load-balance term of ``aux``."""
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg, img=batch.get("img"),
                           remat=remat)

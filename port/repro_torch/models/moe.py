@@ -7,6 +7,10 @@ choice) its rank within its expert; ranks below the capacity ``cap``
 fill a fixed (E, cap, D) buffer and the rest are dropped (the analogue
 of a partition's overflow); batched einsums run all experts; the
 inverse permutation gathers the outputs back, weighted by the gates.
+Training differentiates it with autograd: the buffer's writes pass the
+gradient back to the kept choices only (the trash row is cut before the
+experts run), and the gates' gradient reaches the router through
+``topk``.
 
 The reference's shard_map form (``set_local_moe``, ``moe_ffn_local``)
 dispatches each device's own tokens under a mesh: it waits for the
@@ -69,7 +73,7 @@ def moe_ffn(x, p, cfg):
     cap = max(1, int(cfg.capacity_factor * t * k / e))
     xt = x.reshape(t, d)
 
-    logits = xt.float() @ p.wr.float()
+    logits = layers.up(xt) @ layers.up(p.wr)
     probs = torch.softmax(logits, dim=-1)                     # (T, E)
     gate, eids = torch.topk(probs, k, dim=-1)                 # (T, k)
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
@@ -97,7 +101,8 @@ def moe_ffn(x, p, cfg):
 
     # aux: Switch-style load-balance loss + payload skew (paper metric)
     me = probs.mean(dim=0)
-    ce = torch.nn.functional.one_hot(eids[:, 0], e).float().mean(dim=0)
+    ce = torch.nn.functional.one_hot(eids[:, 0], e).to(probs.dtype).mean(
+        dim=0)
     lb_loss = e * torch.sum(me * ce)
     payload = dp["counts"].float()
     # the reference runs jitted (its layer scan, its decode step), and

@@ -7,7 +7,8 @@
 Prefill scans the (a, b) pairs in float32 by Hillis-Steele doubling
 (log2 L passes over the sequence, the reference's associative operator
 in another order than ``lax.associative_scan``'s tree); decode is the
-one-step recurrence.  The block is Griffin's: (linear → conv1d →
+one-step recurrence.  Training differentiates the doubling scan with
+autograd.  The block is Griffin's: (linear → conv1d →
 RG-LRU) gated by (linear → gelu), then projected out.
 """
 from __future__ import annotations
@@ -40,7 +41,7 @@ def _gelu(x):
 
 
 def _gates(u, p):
-    uf = u.float()
+    uf = layers.up(u)
     r = torch.sigmoid(uf @ p.w_r)
     i = torch.sigmoid(uf @ p.w_i)
     # softplus as jax's logaddexp(x, 0): torch's returns x above 20

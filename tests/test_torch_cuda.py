@@ -951,6 +951,77 @@ def test_model_family_on_cuda_matches_cpu(arch):
     assert not any(kernel.LAUNCHES.values())
 
 
+@pytest.mark.parametrize("arch", ["gemma2_27b", "stablelm_12b", "qwen15_4b",
+                                  "command_r_35b", "whisper_medium",
+                                  "mixtral_8x22b", "arctic_480b",
+                                  "internvl2_26b", "recurrentgemma_9b"])
+def test_family_train_step_on_cuda_matches_cpu(arch):
+    """Each family's smoke config in float32, TF32 off: the loss within
+    1e-5 relative and every gradient within 1e-5 of its largest, then a
+    train step's loss, grad_norm and lr, and the parameters within 2 lr
+    (Adam's first step is sign-like), card against CPU; no kernel
+    launches."""
+    _need_cuda()
+    import copy
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.models import api, lm
+    from repro_torch.optim import adamw
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(configs.smoke(arch), dtype="float32")
+        opt = adamw.AdamWConfig(warmup=0)
+        models = {d: api.build(cfg, d) for d in ("cpu", "cuda")}
+        states = {"cpu": api.init_train_state(
+            models["cpu"], torch.Generator().manual_seed(0), opt)}
+        states["cuda"] = copy.deepcopy(states["cpu"])
+        states["cuda"].params.to("cuda")
+        states["cuda"].opt = adamw.init_state(
+            lm.named_leaves(states["cuda"].params, cfg), opt)
+        states["cuda"].step = states["cuda"].step.cuda()
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (2, 40)).astype(np.int32))}
+        if cfg.family == "vlm":
+            batch["img"] = torch.randn(2, cfg.vis_tokens, cfg.vis_dim)
+        if cfg.family == "encdec":
+            batch["frames"] = torch.randn(2, cfg.src_len, cfg.d_model)
+        skernel.reset_launches()
+        kernel.reset_launches()
+        out = {}
+        for d in ("cpu", "cuda"):
+            b = {k: v.to(d) for k, v in batch.items()}
+            loss, _ = models[d].loss_fn(states[d].params, b)
+            named = lm.named_leaves(states[d].params, cfg)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            out[d] = (float(loss.detach()), dict(zip(named, grads)))
+        assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(
+            out["cpu"][0])
+        for k, g in out["cpu"][1].items():
+            assert float((out["cuda"][1][k].cpu() - g).abs().max()) <= \
+                1e-5 * float(g.abs().max()), k
+        metrics = {}
+        for d in ("cpu", "cuda"):
+            states[d], metrics[d] = api.make_train_step(models[d], opt)(
+                states[d], {k: v.to(d) for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            assert abs(float(metrics["cuda"][k]) - float(metrics["cpu"][k])) \
+                <= 1e-5 * abs(float(metrics["cpu"][k])), k
+        assert abs(float(metrics["cuda"]["lr"]) - float(
+            metrics["cpu"]["lr"])) <= 1e-6 * float(metrics["cpu"]["lr"])
+        lr = float(metrics["cpu"]["lr"])
+        for (k, a), (_, c) in zip(
+                states["cpu"].params.named_parameters(),
+                states["cuda"].params.named_parameters()):
+            assert float((c.detach().cpu() - a.detach()).abs().max()) <= \
+                2 * lr + 1e-7, k
+        assert not any(skernel.LAUNCHES.values())
+        assert not any(kernel.LAUNCHES.values())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
 # -- the sharded placement (owners simulated on the card) ---------------------
 
 SHARD_FIELDS = ("canon_shards", "id_shards", "alive_shards", "chunk_shards",

@@ -82,10 +82,26 @@ def test_encoder_pads_1500_frames_as_repro():
 
 
 def test_encdec_model_has_no_lm_cache_and_does_not_train():
-    model = api.build(configs.smoke(ARCH), "cpu")
+    """No LM cache, as in repro; and one train step runs: finite loss
+    and grad_norm, every parameter moved (the tests of the loss against
+    repro's are in ``tests/test_torch_train_families.py``)."""
+    from repro_torch.optim import adamw
+    tcfg = configs.smoke(ARCH)
+    model = api.build(tcfg, "cpu")
     assert model.init_cache is None
-    with pytest.raises(NotImplementedError, match="14c"):
-        model.loss_fn(None, {})
+    opt = adamw.AdamWConfig(warmup=0)
+    state = api.init_train_state(model, torch.Generator().manual_seed(0),
+                                 opt)
+    before = [p.detach().clone() for p in state.params.parameters()]
+    g = torch.Generator().manual_seed(1)
+    batch = {"tokens": torch.randint(0, tcfg.vocab, (2, 8), generator=g),
+             "frames": torch.randn(2, tcfg.src_len, tcfg.d_model,
+                                   generator=g)}
+    state, metrics = api.make_train_step(model, opt)(state, batch)
+    assert sorted(metrics) == ["grad_norm", "loss", "lr"]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+    assert all(not torch.equal(a, p.detach()) for a, p in zip(
+        before, state.params.parameters()))
 
 
 def test_serve_launcher_runs_on_cpu(capsys):

@@ -177,9 +177,11 @@ def test_prefill_and_serve_steps_give_repro_tokens(dtype):
 
 
 def test_unported_features_raise_naming_their_item():
-    """Since item 14c's serving part every family builds and serves, the
-    vlm image prefix runs and every block kind inits; training of a
-    family other than ssm still raises, naming item 14c."""
+    """Since item 14c every family builds, serves and trains: the vlm
+    image prefix runs, every block kind inits, and a train step of each
+    family gives a finite loss and grad_norm; the shard_map MoE dispatch
+    still raises, naming item 10."""
+    from repro_torch.models import moe
     from repro_torch.optim import adamw
     for arch in ("gemma2_27b", "whisper_medium", "recurrentgemma_9b",
                  "mixtral_8x22b", "internvl2_26b"):
@@ -191,14 +193,24 @@ def test_unported_features_raise_naming_their_item():
                   if tc.family == "encdec" else None)
         out = serve.generate(model, p, prompt, 2, frames=frames)
         assert out.shape == (2, 2)
-        with pytest.raises(NotImplementedError, match="14c"):
-            api.make_train_step(model, adamw.AdamWConfig())
-        with pytest.raises(NotImplementedError, match="14c"):
-            model.loss_fn(p, {"tokens": prompt})
+        batch = {"tokens": prompt}
+        if frames is not None:
+            batch["frames"] = frames
         if tc.family == "vlm":
-            img = torch.randn(2, tc.vis_tokens, tc.vis_dim)
-            logits, _ = lm.forward(p, prompt, tc, img=img)
+            batch["img"] = torch.randn(2, tc.vis_tokens, tc.vis_dim)
+        state = api.init_train_state(model, torch.Generator().manual_seed(0),
+                                     adamw.AdamWConfig())
+        state, metrics = api.make_train_step(model, adamw.AdamWConfig())(
+            state, batch)
+        assert int(state.step) == 1
+        loss, _ = model.loss_fn(p, batch)
+        for v in (metrics["loss"], metrics["grad_norm"], loss):
+            assert bool(torch.isfinite(v))
+        if tc.family == "vlm":
+            logits, _ = lm.forward(p, prompt, tc, img=batch["img"])
             assert logits.shape == (2, tc.vis_tokens + 4, tc.vocab_padded)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        moe.set_local_moe(object())
     cfg, tcfg = _cfgs("float32")
     _, tp = _params(cfg, tcfg)
     toks = torch.from_numpy(_tokens(cfg, 1, 8))

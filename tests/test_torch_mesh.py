@@ -15,11 +15,13 @@ and a rebalance that moves tiles between ranks, and ``rebalance_every``;
 an ingest stream with
 each rank's extent and alive rows after every command; the request
 plane over a mesh server; the join's rp count and MASJ pairs on bsp
-and hc plans; ``parallel_partition`` at D = 4; that a rank holds only
+and hc plans; ``parallel_partition`` at D = 4; ``compressed_psum``'s
+error feedback; that a rank holds only
 its own rows; that the host plans agree on every rank; and that a rank
 which raises fails the run within its deadline.  Only this process
 imports repro; the ranks import only the port.  Tolerance: exact
-equality throughout."""
+equality throughout, but for ``compressed_psum``'s float32 sum over the
+ranks (2 ulps: gloo's order of summation is its own)."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
@@ -40,6 +42,7 @@ from repro.serve import ServeConfig as JConfig, SpatialServer as JServer
 from repro.serve import layout as jlayout
 from repro_torch.core import metrics
 from repro_torch.core.partition import partition_counts
+from repro_torch.dist import compress
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.query import parallel_partition as tpp
 
@@ -87,6 +90,8 @@ def _inputs() -> dict:
                                           3000))
     inp["pp_mbrs"] = np.array(jgen.dataset("osm", jax.random.PRNGKey(6),
                                            4000))
+    inp["compress_x"] = np.random.default_rng(12).standard_normal(
+        (tm.RANKS, 20, 64)).astype(np.float32)
     inp["pp_splitters"] = tpp.coarse_splitters(
         torch.from_numpy(inp["pp_mbrs"]), tm.RANKS, seed=11).numpy()
     return inp
@@ -326,6 +331,39 @@ def test_parallel_partition_over_ranks(run, which):
                              valid=torch.from_numpy(want["valid"]))
     _, copies = partition_counts(torch.from_numpy(inp["pp_mbrs"]), parts)
     assert float(metrics.coverage(copies)) == 1.0
+
+
+def test_compressed_psum_over_ranks(run):
+    """``compressed_psum`` on 4 gloo ranks, each its own gradients for 20
+    steps: every rank's residuals equal the in-process computation of
+    its own (quantise, dequantise, keep the error) bit for bit, and the
+    reduction, the same on every rank, equals the in-process mean of the
+    4 dequantised values within 2 float32 ulps of its largest (gloo sums
+    the ranks in an order of its own); the reference's drift case stays
+    under 1% (``tests/test_multidevice.py``).  Without a mesh the
+    reduction is the rank's own dequantised value."""
+    got, sim, _, inp = run
+    xs = torch.from_numpy(inp["compress_x"])
+    err = torch.zeros(xs.shape[0], xs.shape[2])
+    for s in range(xs.shape[1]):
+        y = xs[:, s] + err
+        deq = torch.stack([compress.dequantize(*compress.quantize(y[r]))
+                           for r in range(tm.RANKS)])
+        err = y - deq
+        mean = deq.sum(0) / tm.RANKS
+        for r in range(tm.RANKS):
+            red = torch.from_numpy(got[r]["compress"]["red"][s])
+            np.testing.assert_array_equal(got[r]["compress"]["err"][s],
+                                          err[r].numpy())
+            _eq(red.numpy(), got[0]["compress"]["red"][s], f"rank {r}")
+            ulp = float(torch.finfo(torch.float32).eps * mean.abs().max())
+            assert float((red - mean).abs().max()) <= 2 * ulp
+        if s == 0:
+            np.testing.assert_array_equal(sim["compress"]["red"][0],
+                                          deq[0].numpy())
+    for r in range(tm.RANKS):
+        assert got[r]["compress"]["drift"] < 0.01
+    assert sim["compress"]["drift"] < 0.01
 
 
 def test_a_failing_rank_fails_the_run_within_its_deadline(tmp_path):

@@ -212,6 +212,20 @@ def test_train_launcher_runs_on_cpu_through_a_failure(capsys):
 
 @pytest.mark.parametrize("argv", [[], ["--preset", "100m"],
                                   ["--preset", "20m"]])
-def test_train_launcher_dense_presets_raise_naming_their_item(argv):
-    with pytest.raises(NotImplementedError, match="14c"):
-        train.main(argv + ["--device", "cpu"])
+def test_train_launcher_dense_presets_raise_naming_their_item(argv,
+                                                              monkeypatch):
+    """The dense presets (and the default, ``20m``) run on the CPU: two
+    steps at 2 x 8 tokens on step 0's batch repeated (a fresh batch of
+    16 uniform tokens moves the loss more than a step's training), the
+    loss falling as the launcher checks."""
+    made = train.make_batch
+    monkeypatch.setattr(train, "make_batch",
+                        lambda pipe, cfg, step, dev: made(pipe, cfg, 0, dev))
+    seen = []
+    with tempfile.TemporaryDirectory() as d:
+        assert train.main(argv + [
+            "--device", "cpu", "--steps", "2", "--batch", "2", "--seq", "8",
+            "--ckpt-dir", d], on_step=lambda i, m: seen.append(m)) == 0
+    assert len(seen) == 2 and seen[1]["loss"] < seen[0]["loss"]
+    assert train.config_of(argv[1] if argv else None, None, False) is \
+        train.PRESETS[argv[1] if argv else "20m"]

@@ -20,6 +20,7 @@ import torch  # noqa: E402
 
 from repro_torch.core.partition import api as tapi  # noqa: E402
 from repro_torch.data import spatial_gen  # noqa: E402
+from repro_torch.dist import compress  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
 from repro_torch.query import engine as tengine  # noqa: E402
 from repro_torch.query import parallel_partition as tpp  # noqa: E402
@@ -231,9 +232,35 @@ def partition_cases(mesh, inp) -> dict:
     return out
 
 
+def compress_cases(mesh, inp) -> dict:
+    """``compressed_psum`` with error feedback over the ranks: rank r
+    reduces row r of ``compress_x`` a step (the simulation, one rank,
+    row 0), each step's reduction and residual; and the reference's
+    drift case, the same ``linspace`` on every rank for 20 steps."""
+    xs = torch.from_numpy(inp["compress_x"][0 if mesh is None
+                                            else mesh.rank])
+    err = {"w": torch.zeros(xs.shape[1])}
+    reds, errs = [], []
+    for x in xs:
+        red, err = compress.compressed_psum({"w": x}, mesh, err)
+        reds.append(red["w"])
+        errs.append(err["w"])
+    g = {"w": torch.linspace(-1, 1, 64)}
+    err = {"w": torch.zeros(64)}
+    acc_true, acc_q = torch.zeros(64), torch.zeros(64)
+    for _ in range(20):
+        red, err = compress.compressed_psum(g, mesh, err)
+        acc_true += g["w"]
+        acc_q += red["w"]
+    return dict(red=torch.stack(reds), err=torch.stack(errs),
+                drift=float((acc_q - acc_true).abs().max()
+                            / acc_true.abs().max()))
+
+
 CASES = dict(sharded=sharded_cases, replicated=replicated_cases,
              heat=heat_cases, ingest=ingest_cases, frontend=frontend_cases,
-             join=join_cases, partition=partition_cases)
+             join=join_cases, partition=partition_cases,
+             compress=compress_cases)
 
 
 def run_cases(mesh, inp) -> dict:
