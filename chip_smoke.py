@@ -15,7 +15,9 @@ training, on one CUDA card.
                                      # RecurrentGemma-9B prefill of 32,768
                                      # tokens and decode, and every other
                                      # family at full width, served and
-                                     # trained
+                                     # trained, and qwen1.5-4b trained
+                                     # sharded on 4 gloo ranks, a (2, 2)
+                                     # ("data", "model") mesh
 
 Phases, each printing JSON lines (launch counts are set to 0 just
 before each path and read just after it) and its wall seconds:
@@ -325,11 +327,13 @@ before each path and read just after it) and its wall seconds:
    within 1e-4 (``tests/test_models_smoke.py``'s tolerance), greedy
    tokens agreeing wherever the top-two margin exceeds 2e-4.
 19. families -- every other family at full width, each model freed
-   before the next: qwen1.5-4b (40 layers, all), gemma2-27b (4 of 46),
-   mixtral-8x22b (2 of 56), arctic-480b (1 of 35), internvl2-26b (4 of
-   48, 256 seeded image tokens of width 3,200) and whisper-medium (24 +
-   24 layers, all, 1,500 seeded frames); the depth cut is the most of
-   each that 80 GB holds in float32 weights with room to run.  For each:
+   before the next: qwen1.5-4b (20 of 40 layers), gemma2-27b (4 of
+   46), mixtral-8x22b (2 of 56), arctic-480b (1 of 35), internvl2-26b
+   (4 of 48, 256 seeded image tokens of width 3,200) and whisper-medium
+   (12 + 12 of 24 + 24 layers, 1,500 seeded frames); the depth cut is
+   the most of each that 80 GB holds in float32 weights with room to
+   run, qwen's and whisper's halved from their whole depth (the
+   script's time).  For each:
    a bf16 prefill at B = 1, L = 5,120 text tokens (past 4,607, where
    the reference's 4,096 windows are NaN; whisper 448 decoder tokens),
    a warm and a timed run, logits finite; the greedy loop at batch 32,
@@ -340,16 +344,18 @@ before each path and read just after it) and its wall seconds:
    Every kernel's launch count must stay 0 over phases 16-19.
 20. fam_train -- every family but ssm trains at full width, float32
    weights, bf16 activations, TF32 off, AdamW (warmup 1), remat
-   "full", each model freed before the next: qwen1.5-4b (20 of 40
+   "full", each model freed before the next: qwen1.5-4b (10 of 40
    layers, 4 x 2,048 tokens), gemma2-27b (2 of 46: a local and a global
    layer, 2 x 2,048: the batch cut from 4, its float32 logits do not
    fit beside its state), mixtral-8x22b (1 of 56, 4 x 2,048),
    recurrentgemma-9b (3 of 38: one super-block, 2 x 4,096, past 2,559
    where the reference's windowed attention and its gradient are NaN),
    internvl2-26b (4 of 48, 256 image tokens + 2,048, batch 4) and
-   whisper-medium (24 + 24 layers, 1,500 frames + 448 tokens, batch
-   8); the depth cut is what 80 GB holds at 16 bytes a parameter
-   (weights, gradients, two moments) with room for the activations;
+   whisper-medium (12 + 12 of 24 + 24 layers, 1,500 frames + 448
+   tokens, batch 8); the depth cut is what 80 GB holds at 16 bytes a
+   parameter (weights, gradients, two moments) with room for the
+   activations, qwen's and whisper's halved from that (the script's
+   time);
    the allocator grows expandable segments over phases 20 and 21.
    Four timed steps and one profiled, all on one repeated batch: the
    median of the last three step seconds, tokens/s, peak memory, the
@@ -371,12 +377,35 @@ before each path and read just after it) and its wall seconds:
    loss falls; (c) the launcher with no arguments (the ``20m`` preset,
    100 steps), its loss falling.  Every kernel's launch count must stay 0 over phases 20
    and 21.
+22. mesh_model -- the sharded train step: 4 spawned gloo ranks on the
+   one card (NCCL refuses two ranks on one device) laid out as a (2, 2)
+   ``("data", "model")`` mesh.  (a) qwen1.5-4b at full width, 2 of 40
+   layers, float32 activations, TF32 off, AdamW (warmup 1), 5 steps on
+   one sequence of 1,024 tokens a data rank (cut from 2,048: four
+   ranks' replicated embedding and head state, 13.7 GB a rank, leave
+   no room for more float32 logits); a rank's step seconds, tokens/s,
+   the collectives' share of a step (``mesh.timers``) and peak memory;
+   after the ranks exit the one-device step on the same 2 x 1,024
+   must give every step's loss and ``grad_norm`` within 1e-4
+   (relative).  (c) the state after (a) saved from (2, 2) (gathered,
+   rank 0 writes) and restored onto (1, 4): every leaf, gathered and
+   cut back to its (2, 2) block, equal to the saved rank's block bit
+   for bit (two int64 checksums of its bits).  (b) mixtral-8x22b's MoE
+   layer at full width (8 experts F-split, bf16), 2 x 2,048 tokens a
+   data rank, forward and backward of ``sum(y * gy) + lb_loss``, in
+   the local (``set_local_moe``) and the GSPMD form: outputs, input
+   and router gradients and strided samples of the expert gradients
+   within 3e-2 of their largest against the one-device math (the local
+   form on each data rank's rows, the GSPMD form on the global batch;
+   bf16 partial sums over F), the aux against the data shards' mean.
+   Every kernel's launch count must stay 0 over phase 22 (the ranks'
+   and this process's).
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
 join's two batched passes; ``launches_by_path`` holds each row's
 launches on the ingest, the sharded, the heat, the frontend, the
-families and the families' training paths, and row 12's on the train
-path),
+families, the families' training and the mesh_model paths, and row
+12's on the train path),
 the card's
 name and power limit as ``nvidia-smi`` prints them, and ``{"ok": true,
 "device": ...}`` as the last line.  Any failure raises and the script
@@ -394,6 +423,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 from pathlib import Path
 
@@ -469,9 +499,11 @@ REMAT_B, REMAT_L = 2, 256          # lm_train_check (c), float32
 FAM_ARCH = "recurrentgemma_9b"     # fam_prefill, fam_decode, fam_check
 FAM_L, FAM_L_CUT, FAM_CUT_S = 32_768, 16_384, 30.0
 FAM_CHECK_L, FAM_WRAP_L = 200, 2_600   # fam_check (a) and (b), B = 2
-FAMILIES = {  # arch -> layers run (None: all), each at full width
-    "qwen15_4b": None, "gemma2_27b": 4, "mixtral_8x22b": 2,
-    "arctic_480b": 1, "internvl2_26b": 4, "whisper_medium": None,
+FAMILIES = {  # arch -> layers run (None: all), each at full width;
+    # qwen1.5-4b and whisper-medium cut to half depth (from all 40 and 24
+    # + 24) to keep the script's time near 1,000 s
+    "qwen15_4b": 20, "gemma2_27b": 4, "mixtral_8x22b": 2,
+    "arctic_480b": 1, "internvl2_26b": 4, "whisper_medium": 12,
 }
 FAMILY_L, WHISPER_L = 5_120, 448   # a bf16 prefill's text tokens, B = 1
 FAMILY_DECODE = (32, 16, 16)       # batch, prompt, gen
@@ -480,9 +512,12 @@ FAM_TRAIN = {  # arch -> (layers run (None: all), batch, text tokens)
     # gemma2's batch cut from 4 to 2: its softcapped float32 logits
     # (4 x 2,048 x 256,000, 8.4 GB a pass, four or five live in the
     # backward) do not fit beside 37 GB of state
-    "qwen15_4b": (20, 4, 2_048), "gemma2_27b": (2, 2, 2_048),
+    # qwen1.5-4b and whisper-medium at half the depth 80 GB holds (from
+    # 20 and 24 + 24) to keep the script's time near 1,000 s: their
+    # profiled steps' bookkeeping took 16 and 38 s
+    "qwen15_4b": (10, 4, 2_048), "gemma2_27b": (2, 2, 2_048),
     "mixtral_8x22b": (1, 4, 2_048), "recurrentgemma_9b": (3, 2, 4_096),
-    "internvl2_26b": (4, 4, 2_048), "whisper_medium": (None, 8, 448),
+    "internvl2_26b": (4, 4, 2_048), "whisper_medium": (12, 8, 448),
 }
 FAM_TRAIN_STEPS = 4        # timed steps on one repeated batch; one more
                            # is profiled
@@ -494,6 +529,19 @@ FAM_GRAD_TOL = 1e-4        # float32 gradients against float64, of the
 # of a fresh batch a step had not yet fallen below the first.  (b)'s
 # restart: three checkpoints of 1.5 GB, a failure two steps after one
 PRESET_STEPS, PRESET_EVERY, PRESET_FAIL_AT = 100, 30, 32
+MM_DIMS, MM_ELASTIC = (2, 2), (1, 4)   # mesh_model's ("data", "model")
+MM_AXES = ("data", "model")
+MM_ARCH, MM_LAYERS = "qwen15_4b", 2    # (a): full width, depth cut
+MM_SEQ, MM_STEPS = 1_024, 5    # a sequence a data rank (cut from 2,048:
+                               # four ranks' float32 logits beside 4 x 13 GB
+                               # of replicated embedding and head state)
+MM_STEP_TOL = 1e-4             # loss and grad_norm against one device,
+                               # relative (float32 activations, TF32 off)
+MM_MOE_ARCH = "mixtral_8x22b"  # (b): the MoE layer alone, full width
+MM_MOE_B, MM_MOE_L = 2, 2_048  # sequences a data rank
+MM_MOE_TOL = 3e-2              # bf16 outputs and gradients, of the largest
+MM_SAMPLE = (61, 53)           # strides of the expert-gradient samples
+MM_DEADLINE_S = 600.0          # the mesh_model phase's ranks, spawn to join
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:41"
 NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
@@ -3231,7 +3279,7 @@ def dense_hits_entry(torch, kernel, ops, ref, srv, qi, pts, tiles, alives,
             bound_ms=work["bound_ms"], bound_by=work["bound_by"],
             bound_ms_full_cap=work["bound_ms_full_cap"],
             old_extraction_ms=cuda_ms(torch, lambda: old_dense_extraction(
-                torch, kernel, ops, qq, tiles, al0), 3),
+                torch, kernel, ops, qq, tiles, al0), 1),   # 1.6 s a call
             stages=stages, q=qq.shape[0], cases=cases)
 
     ids = pipeline(qi)
@@ -4507,20 +4555,29 @@ def no_kernel_launched(phase):
     return counts
 
 
+def cut_depth(cfg, n_layers):
+    """``cfg`` at ``n_layers`` layers (the encoder-decoder's encoder
+    too); None leaves it whole."""
+    import dataclasses
+    if n_layers is None:
+        return cfg
+    kw = dict(n_layers=n_layers)
+    if cfg.family == "encdec":
+        kw["enc_layers"] = n_layers
+    return dataclasses.replace(cfg, **kw)
+
+
 def family_model(torch, dev, arch, n_layers=None):
     """The published configuration of ``arch`` at full width (depth cut
     to ``n_layers``), random float32 weights from a seeded generator on
     the card, TF32 off."""
-    import dataclasses
     from repro_torch import configs
     from repro_torch.models import api
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     assert not torch.backends.cuda.matmul.allow_tf32
-    cfg = configs.get(arch)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = cut_depth(configs.get(arch), n_layers)
     model = api.build(cfg, dev)
     params = model.init_params(torch.Generator(dev).manual_seed(SEED))
     return cfg, model, params
@@ -4840,7 +4897,6 @@ def fam_train_row(torch, dev, arch, layers_run, b, l):
     """One family's training at full width: float32 weights, bf16
     activations, AdamW (warmup 1), remat "full", FAM_TRAIN_STEPS timed
     steps and one profiled, all on one repeated batch -> its JSON row."""
-    import dataclasses
     import math
     from repro_torch import configs
     from repro_torch.models import api
@@ -4848,8 +4904,7 @@ def fam_train_row(torch, dev, arch, layers_run, b, l):
 
     assert not torch.backends.cuda.matmul.allow_tf32
     full = configs.get(arch)
-    cfg = (full if layers_run is None
-           else dataclasses.replace(full, n_layers=layers_run))
+    cfg = cut_depth(full, layers_run)
     model = api.build(cfg, dev)
     opt = AdamWConfig(warmup=1, total_steps=FAM_TRAIN_STEPS + 1)
     torch.cuda.reset_peak_memory_stats()
@@ -4945,13 +5000,13 @@ def router_margin(torch, moe_mod, fn):
     seen = []
     ffn = moe_mod.moe_ffn
 
-    def capture(x, p, cfg):
+    def capture(x, p, cfg, par=None):
         with torch.no_grad():
             probs = torch.softmax(x.reshape(-1, x.shape[-1]).double()
                                   @ p.wr.double(), -1)
             top = torch.topk(probs, 3, -1).values
             seen.append(float((top[:, 1] - top[:, 2]).min()))
-        return ffn(x, p, cfg)
+        return ffn(x, p, cfg, par)
 
     moe_mod.moe_ffn = capture
     try:
@@ -5117,6 +5172,424 @@ def fam_train_alone(torch, dev):
                  fam_train_check_s=time.perf_counter() - t1))
 
 
+def mm_train_cfg():
+    """(a)'s configuration: the published qwen1.5-4b at ``MM_LAYERS``
+    layers, float32 activations (the check against one device)."""
+    import dataclasses
+    from repro_torch import configs
+    return dataclasses.replace(configs.get(MM_ARCH), n_layers=MM_LAYERS,
+                               dtype="float32")
+
+
+def mm_tokens(torch, dev, cfg):
+    """(a)'s global batch, one sequence a data rank, seeded."""
+    g = torch.Generator(dev).manual_seed(SEED + 50)
+    return torch.randint(0, cfg.vocab, (MM_DIMS[0], MM_SEQ), generator=g,
+                         device=dev)
+
+
+def mm_moe_inputs(torch, dev, cfg):
+    """(b)'s global tokens and upstream gradient (bf16), and the MoE
+    layer's weights in ``moe.init_params``' order, each from its own
+    seeded generator: ``(x, gy, {name: (shape, seed)})``."""
+    g = torch.Generator(dev).manual_seed(SEED + 60)
+    shape = (MM_DIMS[0] * MM_MOE_B, MM_MOE_L, cfg.d_model)
+    x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    gy = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    d, e, f = cfg.d_model, cfg.n_experts, cfg.moe_ff or cfg.d_ff
+    return x, gy, {"wr": ((d, e), SEED + 61), "w1": ((e, d, f), SEED + 62),
+                   "w3": ((e, d, f), SEED + 63), "w2": ((e, f, d), SEED + 64)}
+
+
+def mm_weight(torch, dev, shape, seed):
+    from repro_torch.models import layers
+    return layers.dense_init(torch.Generator(dev).manual_seed(seed), shape)
+
+
+def mm_moe_run(torch, fn, x, gy, p, lb_scale):
+    """One forward and backward of an MoE form: ``sum(y * gy) +
+    lb_scale * lb_loss`` -> its outputs, aux, gradients (x, wr, w1, w2)
+    and seconds."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = x.detach().requires_grad_(True)
+    y, aux = fn(x, p)
+    loss = (y.float() * gy.float()).sum() + lb_scale * aux["lb_loss"]
+    dx, dwr, dw1, dw2 = torch.autograd.grad(loss, [x, p.wr, p.w1, p.w2])
+    torch.cuda.synchronize()
+    return dict(y=y.detach(),
+                aux={k: float(v.detach()) for k, v in aux.items()},
+                dx=dx, dwr=dwr, dw1=dw1, dw2=dw2,
+                s=time.perf_counter() - t0)
+
+
+def mm_sample(g):
+    """The strided sample of an expert gradient the parent compares."""
+    a, b = MM_SAMPLE
+    return g[:, ::a, ::b].float().cpu()
+
+
+def bit_sums(torch, t, chunk=1 << 25):
+    """Two int64 checksums of ``t``'s bits (their sum, and their sum
+    weighted by position): equal tensors give equal sums."""
+    bits = t.detach().contiguous().view(
+        torch.int32 if t.element_size() == 4 else torch.int16).flatten()
+    s0 = s1 = 0
+    for i in range(0, bits.numel(), chunk):
+        b = bits[i:i + chunk].long()
+        w = torch.arange(i + 1, i + 1 + b.numel(), device=b.device)
+        s0 += int(b.sum())
+        s1 += int((b * w).sum())
+    return s0, s1
+
+
+def mesh_model_rank(rank, size, path):
+    """One rank of the mesh_model phase (spawned, gloo on the card):
+    (a) qwen1.5-4b's sharded train step on the (2, 2) mesh, (c) its state
+    saved from (2, 2) and restored onto (1, 4), (b) mixtral-8x22b's MoE
+    layer in the local and the GSPMD form -> ``path/rank{rank}.json``
+    and ``path/moe{rank}.pt``."""
+    import json
+
+    import torch
+    from repro_torch import configs
+    from repro_torch.checkpoint import store
+    from repro_torch.dist import parallel, sharding
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import api, lm, moe
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    base = mesh_lib.init_process_mesh("gloo", f"file://{path}/store", rank,
+                                      size, "cuda", timeout=MM_DEADLINE_S)
+    dev = base.device
+    m = mesh_lib.make_mesh(base, MM_DIMS, MM_AXES, timeout=MM_DEADLINE_S)
+    m14 = mesh_lib.make_mesh(base, MM_ELASTIC, MM_AXES,
+                             timeout=MM_DEADLINE_S)
+    reset_kernel_launches()
+    out = dict(rank=rank, coords=m.coords, coords_elastic=m14.coords)
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    # (a) the sharded train step
+    cfg = mm_train_cfg()
+    model = api.build(cfg, dev)
+    opt = AdamWConfig(warmup=1, total_steps=MM_STEPS + 1)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = api.init_train_state(model, torch.Generator(dev).manual_seed(
+        SEED), opt, mesh=m)
+    specs = sharding.param_specs(sharding.abstract_params(cfg), cfg,
+                                 shard_experts=cfg.shard_experts, mesh=m)
+    step = api.make_train_step(model, opt, remat="full", mesh=m)
+    tokens = mm_tokens(torch, dev, cfg)
+    steps = []
+    for _ in range(MM_STEPS):
+        m.reset_timers()
+        sync()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        sync()
+        steps.append(dict(s=time.perf_counter() - t0,
+                          **{k: float(v) for k, v in metrics.items()},
+                          **{f"timer_{k}": v for k, v in m.timers.items()}))
+    out["train"] = dict(
+        steps=steps, peak_bytes=torch.cuda.max_memory_allocated(dev),
+        local_params=sum(p.numel() for p in state.params.parameters()),
+        shapes={k: list(p.shape) for k, p in
+                lm.named_leaves(state.params, cfg).items()})
+    del step
+
+    # (c) save from (2, 2), restore onto (1, 4)
+    named = lm.named_leaves(state.params, cfg)
+    leaves = {f"params/{k}": p for k, p in named.items()}
+    leaves.update({f"opt/{part}/{k}": getattr(state.opt, part)[k]
+                   for part in ("m", "v") for k in named})
+    sums = {k: bit_sums(torch, t) for k, t in leaves.items()}
+    ckpt = os.path.join(path, "ckpt")
+    sync()
+    t0 = time.perf_counter()
+    store.save(ckpt, state, MM_STEPS, parallel.StateSpecs(m, specs))
+    save_s = time.perf_counter() - t0
+    with torch.no_grad():      # the state's structure only, memory freed
+        for p in state.params.parameters():
+            p.data = torch.empty(0, device=dev)
+        for part in (state.opt.m, state.opt.v):
+            for k in part:
+                part[k] = torch.empty(0, device=dev)
+    del leaves, named
+    torch.cuda.empty_cache()
+    specs14 = sharding.param_specs(sharding.abstract_params(cfg), cfg,
+                                   shard_experts=cfg.shard_experts, mesh=m14)
+    t0 = time.perf_counter()
+    state, at = store.restore(ckpt, state,
+                              shardings=parallel.StateSpecs(m14, specs14))
+    sync()
+    restore_s = time.perf_counter() - t0
+    named = lm.named_leaves(state.params, cfg)
+    equal = at == MM_STEPS and int(state.opt.step) == MM_STEPS
+    for k, p in named.items():
+        for name, t in ((f"params/{k}", p), (f"opt/m/{k}", state.opt.m[k]),
+                        (f"opt/v/{k}", state.opt.v[k])):
+            whole = parallel.unshard(t.detach(), specs14[k], m14)
+            back = parallel.shard(whole, specs[k], m)
+            equal &= bit_sums(torch, back) == sums[name]
+    out["restore"] = dict(
+        save_s=save_s, restore_s=restore_s, equal=bool(equal),
+        leaves=len(sums),
+        ckpt_bytes=sum(os.path.getsize(os.path.join(d, f))
+                       for d, _, fs in os.walk(ckpt) for f in fs),
+        local_params_elastic=sum(p.numel() for p in named.values()))
+    del state, named
+    torch.cuda.empty_cache()
+
+    # (b) the MoE layer: the local (shard_map) and the GSPMD forms
+    mcfg = configs.get(MM_MOE_ARCH)
+    x, gy, weights = mm_moe_inputs(torch, dev, mcfg)
+    mspecs = sharding.param_specs(
+        {f"blocks.0.moe.{k}": torch.empty(shape, device="meta")
+         for k, (shape, _) in weights.items()}, mcfg,
+        shard_experts=False, mesh=m)
+    torch.cuda.reset_peak_memory_stats(dev)
+    p = {}
+    for k, (shape, seed) in weights.items():
+        whole = mm_weight(torch, dev, shape, seed)
+        p[k] = parallel.shard(whole, mspecs[f"blocks.0.moe.{k}"],
+                              m).requires_grad_(True)
+        del whole
+    p = types.SimpleNamespace(**p)
+    d = m.coords["data"]
+    rows = slice(d * MM_MOE_B, (d + 1) * MM_MOE_B)
+    par = parallel.Parallel.of(m, x.shape[0])
+    def held(r):
+        """What the parent holds a run to, on the host: the run's
+        gradients leave the card before the next run starts."""
+        return dict(s=r["s"], aux=r["aux"], **{
+            k: mm_sample(r[k]) if k in ("dw1", "dw2") else r[k].cpu()
+            for k in ("y", "dx", "dwr", "dw1", "dw2")})
+
+    moe.set_local_moe((m, ("data",), "model", "data"))
+    try:
+        for _ in range(2):              # warm, then timed
+            m.reset_timers()
+            local = held(mm_moe_run(
+                torch, lambda a, w: moe.moe_ffn(a, w, mcfg), x[rows],
+                gy[rows], p, 1.0))
+            local_timers = dict(m.timers)
+    finally:
+        moe.set_local_moe(None)
+    for _ in range(2):
+        m.reset_timers()
+        gspmd = held(mm_moe_run(
+            torch, lambda a, w: moe.moe_ffn(a, w, mcfg, par), x[rows],
+            gy[rows], p, 1.0 / MM_DIMS[0]))
+        gspmd_timers = dict(m.timers)
+    out["moe"] = dict(
+        local_s=local["s"], gspmd_s=gspmd["s"], local_timers=local_timers,
+        gspmd_timers=gspmd_timers, local_aux=local["aux"],
+        gspmd_aux=gspmd["aux"],
+        peak_bytes=torch.cuda.max_memory_allocated(dev),
+        shard_params=sum(t.numel() for t in vars(p).values()))
+    torch.save({"local": local, "gspmd": gspmd},
+               os.path.join(path, f"moe{rank}.pt"))
+    out["launches"] = {k: v for k, v in kernel_launches().items() if v}
+    with open(os.path.join(path, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh_lib.close(base)
+
+
+def mm_close(torch, got, want, tol, what):
+    """``got`` within ``tol`` of ``want``'s largest |value| -> the
+    relative gap; raises past it."""
+    got, want = got.double(), want.double()
+    scale = float(want.abs().max())
+    gap = float((got - want).abs().max()) / max(scale, 1e-30)
+    if not gap <= tol:
+        raise AssertionError(f"mesh_model {what}: {gap} of the largest "
+                             f"{scale}, past {tol}")
+    return gap
+
+
+def mesh_model_phase(torch, dev):
+    """Item 10's model side on the card: ``SHARDS`` spawned gloo ranks
+    on the one card as a (2, 2) ``("data", "model")`` mesh (``(1, 4)``
+    for the elastic restore), held after they exit to the port's one
+    device: (a)'s losses and gradient norms against the one-device
+    step on the global batch, (b)'s MoE outputs and gradients against
+    the one-device math (the local form on each data rank's rows, the
+    GSPMD form on the global batch), (c) the restore bit for bit (by
+    checksums on the ranks) -> the launch counts (all 0)."""
+    import json
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import api, moe
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    reset_kernel_launches()
+    torch.cuda.empty_cache()
+    cfg = mm_train_cfg()
+    n_rep = 2 * cfg.vocab_padded * cfg.d_model        # embedding and head
+    n_layer = cfg.n_params() - 2 * cfg.vocab * cfg.d_model
+    free, total = torch.cuda.mem_get_info(dev)
+    plan = dict(phase="mesh_model_memory_plan", ranks=SHARDS,
+                state_bytes_a_rank=16 * (n_rep + n_layer // MM_DIMS[1]),
+                logits_bytes_a_rank=4 * MM_SEQ * cfg.vocab_padded,
+                parent_allocated=torch.cuda.memory_allocated(dev),
+                parent_reserved=torch.cuda.memory_reserved(dev),
+                card_free_bytes=free, card_bytes=total, card=card_line())
+    emit(plan)
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.perf_counter()
+        mesh_lib.spawn(mesh_model_rank, (SHARDS, path), SHARDS,
+                       MM_DEADLINE_S)
+        ranks_s = time.perf_counter() - t0
+        rows, moe_rows = [], []
+        for r in range(SHARDS):
+            with open(os.path.join(path, f"rank{r}.json")) as f:
+                rows.append(json.load(f))
+            moe_rows.append(torch.load(os.path.join(path, f"moe{r}.pt")))
+    t1 = time.perf_counter()
+    for row in rows:
+        if row["launches"]:
+            raise AssertionError(f"mesh_model rank {row['rank']} launched "
+                                 f"{row['launches']}")
+        if not row["restore"]["equal"]:
+            raise AssertionError(f"mesh_model rank {row['rank']}: the state "
+                                 f"restored onto (1, 4) differs")
+        for k in ("loss", "grad_norm"):
+            if [s[k] for s in row["train"]["steps"]] != [
+                    s[k] for s in rows[0]["train"]["steps"]]:
+                raise AssertionError(f"mesh_model: the ranks' {k} differ")
+    # (a) against the one-device step on the global batch
+    model = api.build(cfg, dev)
+    opt = AdamWConfig(warmup=1, total_steps=MM_STEPS + 1)
+    state = api.init_train_state(model, torch.Generator(dev).manual_seed(
+        SEED), opt)
+    step = api.make_train_step(model, opt, remat="full")
+    tokens = mm_tokens(torch, dev, cfg)
+    one = []
+    for _ in range(MM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, {"tokens": tokens})
+        torch.cuda.synchronize()
+        one.append(dict(s=time.perf_counter() - t0,
+                        **{k: float(v) for k, v in metrics.items()}))
+    del state, step, model
+    torch.cuda.empty_cache()
+    gaps = {}
+    for k in ("loss", "grad_norm"):
+        gaps[k] = max(abs(s[k] - o[k]) / abs(o[k]) for s, o in zip(
+            rows[0]["train"]["steps"], one))
+        if not gaps[k] <= MM_STEP_TOL:
+            raise AssertionError(f"mesh_model (a): {k} {gaps[k]} from the "
+                                 f"one-device step, past {MM_STEP_TOL}")
+    # (b) against the one-device MoE math
+    mcfg = configs.get(MM_MOE_ARCH)
+    x, gy, weights = mm_moe_inputs(torch, dev, mcfg)
+    p = types.SimpleNamespace(**{
+        k: mm_weight(torch, dev, shape, seed).requires_grad_(True)
+        for k, (shape, seed) in weights.items()})
+    f_loc = (mcfg.moe_ff or mcfg.d_ff) // MM_DIMS[1]
+    a, b = MM_SAMPLE
+    moe_gaps = {}
+
+    def hold(form, r, want, cols, summed=None):
+        got = summed or moe_rows[r][form]
+        for k in ("y", "dx", "dwr"):
+            key = f"{form} {k}"
+            moe_gaps[key] = max(moe_gaps.get(key, 0.0), mm_close(
+                torch, got[k], want[k].cpu(), MM_MOE_TOL, key))
+        for k, w in (("dw1", want["dw1"][..., cols]),
+                     ("dw2", want["dw2"][:, cols])):
+            key = f"{form} {k}"
+            moe_gaps[key] = max(moe_gaps.get(key, 0.0), mm_close(
+                torch, got[k], mm_sample(w), MM_MOE_TOL, key))
+
+    for d in range(MM_DIMS[0]):
+        rows_d = slice(d * MM_MOE_B, (d + 1) * MM_MOE_B)
+        want = mm_moe_run(torch, lambda a_, w: moe._moe_math(a_, w, mcfg),
+                          x[rows_d], gy[rows_d], p, 1.0)
+        for mi in range(MM_DIMS[1]):
+            r = d * MM_DIMS[1] + mi
+            hold("local", r, want, slice(mi * f_loc, (mi + 1) * f_loc))
+            for k, v in want["aux"].items():
+                moe_gaps.setdefault(f"local aux {k}", []).append(
+                    (rows[r]["moe"]["local_aux"][k], v))
+        del want
+    want = mm_moe_run(torch, lambda a_, w: moe.moe_ffn(a_, w, mcfg), x, gy,
+                      p, 1.0)
+    for mi in range(MM_DIMS[1]):
+        ranks = [d * MM_DIMS[1] + mi for d in range(MM_DIMS[0])]
+        for d, r in enumerate(ranks):
+            rows_d = slice(d * MM_MOE_B, (d + 1) * MM_MOE_B)
+            got = dict(moe_rows[r]["gspmd"])
+            got.update({k: sum(moe_rows[q]["gspmd"][k] for q in ranks)
+                        for k in ("dwr", "dw1", "dw2")})
+            hold("gspmd", r, dict(want, y=want["y"][rows_d],
+                                  dx=want["dx"][rows_d]),
+                 slice(mi * f_loc, (mi + 1) * f_loc), got)
+            for k, v in want["aux"].items():
+                if abs(rows[r]["moe"]["gspmd_aux"][k] - v) > 1e-6 * max(
+                        abs(v), 1e-30):
+                    raise AssertionError(f"mesh_model (b) gspmd aux {k}")
+    one_moe_s = want["s"]
+    del want, p, x, gy
+    torch.cuda.empty_cache()
+    for key in [k for k in moe_gaps if " aux " in k]:
+        pairs = moe_gaps.pop(key)
+        mean = sum(v for _, v in pairs[::MM_DIMS[1]]) / MM_DIMS[0]
+        got = pairs[0][0]
+        if abs(got - mean) > 1e-5 * max(abs(mean), 1e-30):
+            raise AssertionError(f"mesh_model (b) {key}: {got} against the "
+                                 f"shards' mean {mean}")
+    counts = no_kernel_launched("mesh_model")
+    card = card_line()
+    for row in rows:
+        tr = row["train"]["steps"]
+        med = median([s["s"] for s in tr[1:]])
+        emit(dict(phase="mesh_model_rank", card=card, rank=row["rank"],
+                  coords=row["coords"], backend="gloo",
+                  step_s=med, step_s_all=[s["s"] for s in tr],
+                  tokens_per_s=MM_DIMS[0] * MM_SEQ / med,
+                  comm_share=median([s["timer_comm_s"] / s["s"]
+                                     for s in tr[1:]]),
+                  copy_share=median([s["timer_copy_s"] / s["s"]
+                                     for s in tr[1:]]),
+                  comm_calls=tr[-1]["timer_calls"],
+                  comm_bytes=tr[-1]["timer_bytes"],
+                  peak_gb=row["train"]["peak_bytes"] / 1e9,
+                  local_params=row["train"]["local_params"],
+                  losses=[s["loss"] for s in tr],
+                  grad_norms=[s["grad_norm"] for s in tr],
+                  restore=row["restore"], moe=row["moe"]))
+    emit(dict(phase="mesh_model", card=card, ranks=SHARDS, dims=MM_DIMS,
+              arch=cfg.name, layers=cfg.n_layers, seq=MM_SEQ,
+              steps=MM_STEPS, ranks_s=ranks_s,
+              one_device_step_s=median([o["s"] for o in one[1:]]),
+              one_device_losses=[o["loss"] for o in one],
+              step_gaps=gaps, step_tol=MM_STEP_TOL, moe_arch=mcfg.name,
+              moe_tokens_a_rank=MM_MOE_B * MM_MOE_L, moe_gaps=moe_gaps,
+              moe_tol=MM_MOE_TOL, one_device_moe_s=one_moe_s,
+              check_s=time.perf_counter() - t1,
+              kernel_launches=sum(counts.values())))
+    return counts
+
+
+def mesh_model_alone(torch, dev):
+    """The mesh_model phase, run by ``main`` after the families'
+    training or on its own (no kernel is built: it launches none) ->
+    its launch counts (all 0) and wall seconds."""
+    t0 = time.perf_counter()
+    counts = mesh_model_phase(torch, dev)
+    return counts, dict(mesh_model_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5259,12 +5732,15 @@ def main() -> int:
     wall.update(family_wall)
     fam_train_launches, fam_train_wall = fam_train_alone(torch, dev)
     wall.update(fam_train_wall)
+    mesh_model_launches, mesh_model_wall = mesh_model_alone(torch, dev)
+    wall.update(mesh_model_wall)
     ssd_entry["launches_by_path"] = dict(train=train_launches)
     ssd_entry["launches_per_train_step"] = per_step
     entries.append(ssd_entry)
     for e in entries:
         e["launches_by_path"]["families"] = family_launches[e["name"]]
         e["launches_by_path"]["fam_train"] = fam_train_launches[e["name"]]
+        e["launches_by_path"]["mesh_model"] = mesh_model_launches[e["name"]]
         e["launches_by_path"]["mesh"] = mesh_launches_of(mesh_launches,
                                                          e["name"])
     emit(dict(phase="kernel", **ssd_entry))

@@ -7,6 +7,13 @@ rename), so a crash mid-save never corrupts the latest checkpoint: the
 FT runtime (``repro_torch.ft``) relies on it.  ``restore`` places each
 leaf on ``map_location``, or on the device of the leaf it replaces.
 
+Under a mesh (``shardings``, a ``dist.parallel.StateSpecs``) ``save``
+gathers each leaf to its logical shape on every rank, rank 0 writes it
+and the others wait at a barrier; ``restore`` cuts each logical leaf
+to this rank's block under the target mesh's specs, which need not be
+the mesh that saved it (elastic), and without ``shardings`` it restores
+the whole state on one device.
+
 A state is a tensor, a dict, a dataclass (``TrainState``,
 ``OptState``) or a module (its parameters), nested; a leaf is named by
 its path, joined by "/" (``params/blocks.0.ssm.in_proj``,
@@ -24,6 +31,8 @@ import tempfile
 import numpy as np
 import torch
 from torch import nn
+
+from ..dist import parallel
 
 
 def _flatten(state, prefix: str = ""):
@@ -60,16 +69,39 @@ def _rebuild(like, leaves: dict, prefix: str = ""):
     return {k: _rebuild(v, leaves, f"{prefix}{k}/") for k, v in like.items()}
 
 
-def save(path: str, state, step: int) -> str:
-    """Atomically write ``state`` to ``path/step_<N>``."""
+def save(path: str, state, step: int, shardings=None) -> str:
+    """Atomically write ``state`` to ``path/step_<N>``; every rank of
+    ``shardings.mesh`` calls it (module docstring)."""
     items = _flatten(state)
     final = os.path.join(path, f"step_{step:08d}")
+    if shardings is None:
+        return _write(path, final, step, items, None)
+    try:
+        if shardings.mesh.rank == 0:
+            return _write(path, final, step, items, shardings)
+        for name, leaf in items:        # the gathers rank 0 writes from
+            _logical(leaf, name, shardings)
+        return final
+    finally:
+        shardings.mesh.barrier()
+
+
+def _logical(leaf: torch.Tensor, name: str, shardings) -> torch.Tensor:
+    """The leaf's logical (whole) value, gathered over the mesh."""
+    t = leaf.detach()
+    if shardings is None:
+        return t
+    return parallel.unshard(t, shardings.leaf(name, t.dim()),
+                            shardings.mesh)
+
+
+def _write(path: str, final: str, step: int, items: list, shardings) -> str:
     os.makedirs(path, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=path, prefix=".tmp_ckpt_")
     manifest = {"step": step, "leaves": []}
     try:
         for i, (name, leaf) in enumerate(items):
-            t = leaf.detach().cpu()
+            t = _logical(leaf, name, shardings).cpu()
             dtype = str(t.dtype).removeprefix("torch.")
             if t.dtype == torch.bfloat16:   # numpy has no bf16
                 arr = t.view(torch.int16).numpy().view(np.uint16)
@@ -98,10 +130,13 @@ def latest_step(path: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore(path: str, like, step: int | None = None, map_location=None):
+def restore(path: str, like, step: int | None = None, map_location=None,
+            shardings=None):
     """Restore into the structure of ``like`` -> (state, step): the
     latest step unless ``step`` is given, each leaf on
-    ``map_location`` or else on the device of ``like``'s leaf."""
+    ``map_location`` or else on the device of ``like``'s leaf, and cut
+    to this rank's block under ``shardings`` (a
+    ``dist.parallel.StateSpecs``) where given."""
     if step is None:
         step = latest_step(path)
         if step is None:
@@ -118,6 +153,9 @@ def restore(path: str, like, step: int | None = None, map_location=None):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
+        if shardings is not None:
+            t = parallel.shard(t, shardings.leaf(name, t.dim()),
+                               shardings.mesh)
         leaves[name] = t.to(leaf.device if map_location is None
                             else map_location)
     return _rebuild(like, leaves), manifest["step"]

@@ -26,9 +26,22 @@ def centroids(mbrs: torch.Tensor) -> torch.Tensor:
     return (mbrs[..., :2] + mbrs[..., 2:]) * 0.5
 
 
-def universe(mbrs: torch.Tensor) -> torch.Tensor:
-    """Tight bounding box of the whole dataset -> (4,)."""
-    return torch.cat([mbrs[:, :2].amin(dim=0), mbrs[:, 2:].amax(dim=0)])
+def areas(mbrs: torch.Tensor) -> torch.Tensor:
+    """(N, 4) -> (N,) box areas (degenerate and inverted boxes: 0)."""
+    w = torch.clamp_min(mbrs[..., XMAX] - mbrs[..., XMIN], 0.0)
+    h = torch.clamp_min(mbrs[..., YMAX] - mbrs[..., YMIN], 0.0)
+    return w * h
+
+
+def universe(mbrs: torch.Tensor, valid: torch.Tensor | None = None
+             ) -> torch.Tensor:
+    """Tight bounding box of the whole dataset -> (4,); ``valid`` masks
+    out padding rows."""
+    lo, hi = mbrs[:, :2], mbrs[:, 2:]
+    if valid is not None:
+        lo = torch.where(valid[:, None], lo, torch.inf)
+        hi = torch.where(valid[:, None], hi, -torch.inf)
+    return torch.cat([lo.amin(dim=0), hi.amax(dim=0)])
 
 
 def intersects(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -40,3 +53,24 @@ def intersects(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def intersect_matrix(r: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """(N, 4) x (M, 4) -> (N, M) bool intersect table."""
     return intersects(r[:, None, :], s[None, :, :])
+
+
+def contains_point(boxes: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """(K, 4) boxes x (N, 2) points -> (N, K) closed containment."""
+    x, y = pts[:, None, 0], pts[:, None, 1]
+    return ((boxes[None, :, XMIN] <= x) & (x <= boxes[None, :, XMAX])
+            & (boxes[None, :, YMIN] <= y) & (y <= boxes[None, :, YMAX]))
+
+
+def box_union(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.cat([torch.minimum(a[..., :2], b[..., :2]),
+                      torch.maximum(a[..., 2:], b[..., 2:])], dim=-1)
+
+
+def clip_box(inner: torch.Tensor, outer: torch.Tensor) -> torch.Tensor:
+    """``inner`` clamped into ``outer`` corner by corner (the
+    reference's ``jnp.clip``: the lower bound first, then the upper)."""
+    lo, hi = outer[..., :2], outer[..., 2:]
+    return torch.cat([torch.minimum(torch.maximum(inner[..., :2], lo), hi),
+                      torch.minimum(torch.maximum(inner[..., 2:], lo), hi)],
+                     dim=-1)

@@ -17,9 +17,3 @@ def resolve(device: str | torch.device | None = None) -> torch.device:
             "repro_torch runs on cuda by default, and torch.cuda is not "
             "available here; pass device='cpu' to run the plain versions")
     return dev
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error every unported feature raises, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP.md {item})")

@@ -35,17 +35,22 @@ class StepFailure(RuntimeError):
 
 
 def run_loop(step_fn: Callable, state, batches, cfg: FTConfig,
-             map_location=None, inject_failure_at: int | None = None):
+             map_location=None, inject_failure_at: int | None = None,
+             shardings=None):
     """Run ``step_fn`` over ``batches`` with checkpoint and restart.
 
     ``inject_failure_at``: test hook, raises StepFailure once at that
-    step to exercise the restart path.
+    step to exercise the restart path.  ``shardings``: a
+    ``dist.parallel.StateSpecs`` under a mesh (every rank runs the loop
+    alike); checkpoints are written and restored through it, onto
+    whatever mesh it names.
     """
     start = store.latest_step(cfg.ckpt_dir)
     step = 0
     if start is not None:
         state, step = store.restore(cfg.ckpt_dir, state,
-                                    map_location=map_location)
+                                    map_location=map_location,
+                                    shardings=shardings)
         log.info("resumed from step %d", step)
 
     restarts = 0
@@ -73,7 +78,8 @@ def run_loop(step_fn: Callable, state, batches, cfg: FTConfig,
             last = store.latest_step(cfg.ckpt_dir)
             if last is not None:
                 state, ck = store.restore(cfg.ckpt_dir, state,
-                                          map_location=map_location)
+                                          map_location=map_location,
+                                          shardings=shardings)
                 i = ck - step
             continue
         dt = time.perf_counter() - t0
@@ -82,7 +88,7 @@ def run_loop(step_fn: Callable, state, batches, cfg: FTConfig,
                         gstep, dt, sum(times) / len(times))
         times.append(dt)
         if (gstep + 1) % cfg.ckpt_every == 0:
-            store.save(cfg.ckpt_dir, state, gstep + 1)
+            store.save(cfg.ckpt_dir, state, gstep + 1, shardings)
         i += 1
     return state, metrics, {"restarts": restarts, "steps": len(pending),
                             "mean_step_s": sum(times) / max(len(times), 1)}

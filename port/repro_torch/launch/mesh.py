@@ -9,7 +9,12 @@ program on the same inputs, makes the same host plan (stable sorts and
 deterministic planners, held bit for bit against the reference), and
 keeps only its own shard on its device; the collectives below move what
 the reference's ``all_to_all``, ``psum`` and ``all_gather`` move.  A
-``ProcessMesh`` has one axis, ``"d"``, of ``size`` ranks.
+``ProcessMesh`` from ``init_process_mesh`` has one axis, ``"d"``, of
+``size`` ranks (the spatial path's); ``make_mesh`` lays the same ranks
+out on named axes, row-major as ``make_host_mesh`` reshapes its devices
+(a ``("data", "model")`` mesh of ``(2, 2)``: rank = data index x 2 +
+model index), with one process group a row or column, and the
+collectives that take ``axis=`` run over this rank's group along it.
 
 The caller names the backend; nothing picks one.  ``gloo`` serves CPU
 ranks and, on one card, CUDA ranks (NCCL refuses two ranks on one
@@ -29,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import time
 
@@ -60,14 +66,39 @@ class ProcessMesh:
     axis: str = AXIS
     timers: dict = dataclasses.field(default_factory=lambda: dict(
         calls=0, comm_s=0.0, copy_s=0.0, bytes=0))
+    axes: tuple = ()            # named axes (``make_mesh``); () is ``axis``
+    dims: tuple = ()            # their extents, row-major over the ranks
+    groups: dict = dataclasses.field(default_factory=dict)  # axis -> group
 
     @property
     def shape(self) -> dict:
-        return {self.axis: self.size}
+        """Axis name -> extent, as ``jax.sharding.Mesh.shape``."""
+        if not self.axes:
+            return {self.axis: self.size}
+        return dict(zip(self.axes, self.dims))
 
     @property
     def axis_names(self) -> tuple[str, ...]:
-        return (self.axis,)
+        return self.axes or (self.axis,)
+
+    @property
+    def coords(self) -> dict:
+        """Axis name -> this rank's index along it (row-major)."""
+        out, rest = {}, self.rank
+        for name, n in reversed(self.shape.items()):
+            out[name] = rest % n
+            rest //= n
+        return {name: out[name] for name in self.axis_names}
+
+    def _group(self, axis: str | None):
+        """(process group, its size) of ``axis`` (None: every rank); an
+        axis of one rank needs no group."""
+        if axis is None or (not self.axes and axis == self.axis):
+            return self.group, self.size
+        if axis not in self.shape:
+            raise ValueError(f"no axis {axis!r} on a mesh of "
+                             f"{self.axis_names}")
+        return self.groups.get(axis), self.shape[axis]
 
     @property
     def host_staging(self) -> bool:
@@ -138,16 +169,24 @@ class ProcessMesh:
             src.numel() * src.element_size())
         return self._back(dst, x.dtype)
 
-    def all_gather(self, x: torch.Tensor, host: bool = False
+    def all_gather(self, x: torch.Tensor, host: bool = False, *,
+                   axis: str | None = None, dim: int | None = None
                    ) -> torch.Tensor:
         """Every rank's ``x`` (same shape everywhere) stacked on a new
-        leading axis in rank order; ``host`` leaves the result in host
-        memory under host staging (a host mirror's source)."""
+        leading axis in rank order, or with ``dim`` concatenated along
+        it (the reference's tiled ``all_gather``); ``axis`` gathers over
+        this rank's group along that axis only; ``host`` leaves the
+        result in host memory under host staging (a host mirror's
+        source)."""
+        group, n = self._group(axis)
+        if n == 1:
+            return x.unsqueeze(0) if dim is None else x
         src = self._out(x)
-        parts = [torch.empty_like(src) for _ in range(self.size)]
-        self._run(lambda: dist.all_gather(parts, src, group=self.group),
+        parts = [torch.empty_like(src) for _ in range(n)]
+        self._run(lambda: dist.all_gather(parts, src, group=group),
                   src.numel() * src.element_size())
-        return self._back(torch.stack(parts), x.dtype, host)
+        out = torch.stack(parts) if dim is None else torch.cat(parts, dim)
+        return self._back(out, x.dtype, host)
 
     def all_gather_v(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` (leading lengths may differ) concatenated
@@ -162,14 +201,23 @@ class ProcessMesh:
         g = self.all_gather(x)
         return torch.cat([g[r, :n[r]] for r in range(self.size)])
 
-    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """Elementwise ``"sum"`` or ``"max"`` over the ranks (the
-        reference's ``psum``, and its global ``any``)."""
-        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    def all_reduce(self, x: torch.Tensor, op: str = "sum", *,
+                   axis: str | None = None) -> torch.Tensor:
+        """Elementwise ``"sum"``, ``"mean"`` or ``"max"`` over the ranks
+        (the reference's ``psum``, ``pmean`` and its global ``any``), or
+        over this rank's group along ``axis``."""
+        red = {"sum": dist.ReduceOp.SUM, "mean": dist.ReduceOp.SUM,
+               "max": dist.ReduceOp.MAX}[op]
+        group, n = self._group(axis)
+        if n == 1:
+            return x.clone()
         buf = self._out(x).clone()
-        self._run(lambda: dist.all_reduce(buf, op=red, group=self.group),
+        self._run(lambda: dist.all_reduce(buf, op=red, group=group),
                   buf.numel() * buf.element_size())
-        return self._back(buf, x.dtype)
+        out = self._back(buf, x.dtype)
+        if op == "mean":    # the reference's pmean: psum / n
+            out = out / torch.full((), n, dtype=out.dtype, device=out.device)
+        return out
 
     def any(self, flag: torch.Tensor) -> bool:
         """Global ``any`` of a bool tensor, the same on every rank (it
@@ -229,6 +277,31 @@ def launched() -> bool:
     return "RANK" in os.environ and "WORLD_SIZE" in os.environ
 
 
+def make_mesh(base: ProcessMesh, dims: tuple[int, ...],
+              axes: tuple[str, ...], *,
+              timeout: float = DEFAULT_TIMEOUT_S) -> ProcessMesh:
+    """``base``'s ranks laid out on named ``axes`` of extents ``dims``
+    (row-major, as ``make_host_mesh`` reshapes its devices), with a
+    process group for each row or column along each axis.  Every rank
+    of ``base`` calls this with the same arguments: each creates every
+    group, in the same order, as ``dist.new_group`` requires."""
+    if len(dims) != len(axes) or math.prod(dims) != base.size:
+        raise ValueError(f"a mesh of {dims} over {axes} on {base.size} "
+                         f"ranks")
+    grid = torch.arange(base.size).reshape(dims)
+    groups = {}
+    for a, name in enumerate(axes):
+        lines = grid.movedim(a, -1).reshape(-1, dims[a])
+        for line in lines.tolist():
+            g = dist.new_group(line, timeout=datetime.timedelta(
+                seconds=timeout))
+            if base.rank in line:
+                groups[name] = g
+    return ProcessMesh(base.group, base.rank, base.size, base.device,
+                       base.backend, axes=tuple(axes), dims=tuple(dims),
+                       groups=groups)
+
+
 def close(mesh: ProcessMesh | None) -> None:
     """Leave the process group (a no-op without a mesh)."""
     if mesh is not None and dist.is_initialized():
@@ -242,7 +315,8 @@ def axis_size(mesh: ProcessMesh | None, name: str) -> int:
 
 def dp_axes(mesh: ProcessMesh | None) -> tuple[str, ...]:
     """The pure data-parallel axes: the reference's ``pod`` and
-    ``data``; a process mesh's one axis ``"d"`` is neither."""
+    ``data`` (``("data",)`` on a ``("data", "model")`` mesh); a process
+    mesh's one axis ``"d"`` is neither."""
     if mesh is None:
         return ()
     return tuple(a for a in ("pod", "data") if a in mesh.axis_names)

@@ -7,6 +7,13 @@ Every family serves and trains.  Prefill and greedy decode run under
 with ``torch.autograd.grad`` and updates the state in place.  The
 encoder-decoder family has no ``init_cache``, as in the reference: its
 cache comes from ``encdec.init_cache(params, frames, cfg, max_len)``.
+
+``make_train_step(..., mesh=)`` is the reference's sharded train step
+(its GSPMD step under ``dist.sharding.param_specs``) on one rank of a
+``("data", "model")`` process mesh: the state holds this rank's shards
+(``dist.sharding.shard_train_state``), every rank is given the same
+global batch and takes its rows, and the loss, the gradients, their
+norm and the update are the one-device step's over the global batch.
 """
 from __future__ import annotations
 
@@ -16,8 +23,9 @@ from typing import Callable
 import torch
 
 from .. import device as device_mod
+from ..dist import parallel, sharding
 from ..optim import adamw
-from . import encdec, lm
+from . import blocks, encdec, lm
 from .config import ModelConfig
 
 
@@ -25,7 +33,8 @@ from .config import ModelConfig
 class Model:
     cfg: ModelConfig
     init_params: Callable             # (torch.Generator) -> lm.LM | EncDec
-    loss_fn: Callable                 # (params, batch) -> (loss, aux)
+    loss_fn: Callable                 # (params, batch[, remat, par]) ->
+    #                                   (loss, aux)
     init_cache: Callable | None       # (batch, max_len) -> cache
     decode_step: Callable             # (params, cache, token, pos) -> ...
 
@@ -43,14 +52,15 @@ def build(cfg: ModelConfig, device=None) -> Model:
     if cfg.family == "encdec":
         return Model(
             cfg=cfg, init_params=init_params,
-            loss_fn=lambda p, b, remat="full": encdec.loss_fn(p, b, cfg,
-                                                              remat),
+            loss_fn=lambda p, b, remat="full", par=None: encdec.loss_fn(
+                p, b, cfg, remat, par),
             init_cache=None,
             decode_step=lambda p, c, t, pos: encdec.decode_step(p, c, t, pos,
                                                                 cfg))
     return Model(
         cfg=cfg, init_params=init_params,
-        loss_fn=lambda p, b, remat="full": lm.loss_fn(p, b, cfg, remat),
+        loss_fn=lambda p, b, remat="full", par=None: lm.loss_fn(
+            p, b, cfg, remat, par),
         init_cache=lambda batch, max_len: lm.init_cache(cfg, batch, max_len,
                                                         dev),
         decode_step=lambda p, c, t, pos: lm.decode_step(p, c, t, pos, cfg),
@@ -65,10 +75,16 @@ class TrainState:
 
 
 def init_train_state(model: Model, gen: torch.Generator,
-                     opt_cfg: adamw.AdamWConfig) -> TrainState:
+                     opt_cfg: adamw.AdamWConfig, mesh=None) -> TrainState:
     """Random parameters from ``gen`` (which stands for the reference's
-    key), with grad on, and zero moments."""
+    key), with grad on, and zero moments; under ``mesh`` the parameters
+    are cut to this rank's shards (``dist.sharding.param_specs`` with
+    the config's ``shard_experts``) before the moments are made."""
     params = model.init_params(gen).requires_grad_(True)
+    if mesh is not None:
+        sharding.shard_params(params, sharding.param_specs(
+            params, model.cfg, shard_experts=model.cfg.shard_experts,
+            mesh=mesh), mesh)
     return TrainState(
         params=params,
         opt=adamw.init_state(lm.named_leaves(params, model.cfg), opt_cfg),
@@ -77,52 +93,116 @@ def init_train_state(model: Model, gen: torch.Generator,
 
 def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
                     remat: str = "full", n_micro: int = 1,
-                    bf16_weight_gather: bool = False):
+                    bf16_weight_gather: bool = False, mesh=None):
     """``step(state, batch) -> (state, {"loss", "grad_norm", "lr",
     ...})``, and with ``n_micro`` 1 every aux of the loss whose key holds
     "skew" or "drop" (the MoE payload stats), as the reference's.
 
     ``n_micro`` > 1 accumulates the gradients of sequential microbatches
-    in float32 and divides them by ``n_micro``.  ``bf16_weight_gather``
-    casts the float32 parameters whose reference leaf has two dimensions
-    or more to bf16 before the loss (the reference casts them before its
-    FSDP gather); their gradients reach the float32 parameters.  The
-    parameters and moments are updated in place, and the state is
-    returned.
+    (microbatch i is the batch's i-th slice) in float32 and divides them
+    by ``n_micro``.  ``bf16_weight_gather`` casts the float32 parameters
+    whose reference leaf has two dimensions or more to bf16 before the
+    loss (the reference casts them before its FSDP gather); their
+    gradients reach the float32 parameters.  The parameters and moments
+    are updated in place, and the state is returned.
+
+    ``mesh``: a ``("data", "model")`` ``launch.mesh`` ``ProcessMesh``, for
+    the step on one rank of it.  Each microbatch splits over the data
+    axes when it divides (each rank's rows), else it stays whole on
+    every rank.  The loss each rank differentiates is its part of the
+    microbatch's global loss (the global mean from all-reduced sums and
+    counts, ``dist.parallel.Parallel.objective``); every gradient is
+    summed over the data axes, and those of the parameters a
+    tensor-parallel attention uses in slices (``blocks.model_partial``)
+    over "model" too.  The global norm counts each replicated leaf once
+    and sums the split leaves' squares over "model".  AdamW then updates
+    each shard in place.  The encoder-decoder's attention has no
+    tensor-parallel form: its split weights are gathered whole for the
+    forward.
     """
     cfg = model.cfg
+    gather = split = partial = want = None
+    if mesh is not None:
+        full = sharding.abstract_params(cfg)
+        specs = sharding.param_specs(full, cfg,
+                                     shard_experts=cfg.shard_experts,
+                                     mesh=mesh)
+        tp = max(sharding.model_size(mesh), 1)
+        gather = cfg.family == "encdec"
+        split = {k for k, sp in specs.items() if "model" in sp}
+        partial = set() if gather else blocks.model_partial(specs, cfg, tp)
+        want = {k: tuple(n // tp if a else n
+                         for n, a in zip(p.shape, specs[k]))
+                for k, p in full.items()}
 
-    def view(params):
-        if not bf16_weight_gather:
+    def view(params, nd, par):
+        if not (bf16_weight_gather or gather):
             return params
-        nd = lm.ref_ndims(dict(params.named_parameters()), cfg)
-        return lm.param_view(params, lambda k, p: p.to(torch.bfloat16) if (
-            p.dtype == torch.float32 and nd[k] >= 2) else p)
 
-    def loss_and_grads(params, named, mb):
-        loss, aux = model.loss_fn(view(params), mb, remat)
-        grads = torch.autograd.grad(loss, list(named.values()))
-        return loss.detach(), dict(zip(named, grads)), aux
+        def fn(k, p):
+            if bf16_weight_gather and p.dtype == torch.float32 \
+                    and nd[k] >= 2:
+                p = p.to(torch.bfloat16)
+            if gather and k in split:
+                p = par.gather(p, specs[k].index("model"), "own")
+            return p
+        return lm.param_view(params, fn)
+
+    def reduce(grads, loss, par):
+        """Sum the gradients and the loss over the mesh in place ->
+        (loss, the gradients' global norm)."""
+        for k in grads:
+            g = grads[k]
+            if k in partial:
+                g = mesh.all_reduce(g, axis="model")
+            grads[k] = par.sum_data(g)
+        whole_sq = split_sq = torch.zeros((), dtype=torch.float32,
+                                          device=loss.device)
+        for k, g in grads.items():
+            sq = torch.sum(torch.square(g.float()))
+            if k in split:
+                split_sq = split_sq + sq
+            else:
+                whole_sq = whole_sq + sq
+        if par.tp > 1:
+            split_sq = mesh.all_reduce(split_sq, axis="model")
+        return par.sum_data(loss), torch.sqrt(whole_sq + split_sq)
 
     def step(state: TrainState, batch):
         named = lm.named_leaves(state.params, cfg)
+        for k, p in named.items():
+            if want is not None and tuple(p.shape) != want[k]:
+                raise ValueError(
+                    f"{k} is {tuple(p.shape)} on this rank, not its shard "
+                    f"{want[k]}: cut the state with "
+                    f"dist.sharding.shard_train_state")
+        nd = lm.ref_ndims(named, cfg)
+        rows = batch["tokens"].shape[0] // n_micro
+        par = None if mesh is None else parallel.Parallel.of(mesh, rows)
+
+        def loss_and_grads(i):
+            mb = batch if n_micro == 1 else {
+                k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            if par is not None:
+                mb = {k: par.rows(v) for k, v in mb.items()}
+            loss, aux = model.loss_fn(view(state.params, nd, par), mb,
+                                      remat, par)
+            grads = torch.autograd.grad(loss, list(named.values()))
+            return loss.detach(), dict(zip(named, grads)), aux
+
         stats = {}
         if n_micro == 1:
-            loss, grads, aux = loss_and_grads(state.params, named, batch)
+            loss, grads, aux = loss_and_grads(0)
             stats = {k: v.detach() for k, v in aux.items()
                      if "skew" in k or "drop" in k}
         else:
-            mbs = {k: v.reshape((n_micro, v.shape[0] // n_micro)
-                                + tuple(v.shape[1:]))
-                   for k, v in batch.items()}
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in named.items()}
             loss = torch.zeros((), dtype=torch.float32,
                                device=state.step.device)
             for i in range(n_micro):
-                li, gi, _ = loss_and_grads(state.params, named,
-                                           {k: v[i] for k, v in mbs.items()})
+                li, gi, _ = loss_and_grads(i)
                 for k, g in gi.items():
                     grads[k] += g.float()
                 loss = loss + li
@@ -130,8 +210,11 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
             for g in grads.values():
                 g.div_(n_micro)
             loss = loss / n_micro
-        _, opt, om = adamw.update(grads, state.opt, named, opt_cfg,
-                                  lm.ref_ndims(named, cfg))
+        gnorm = None
+        if par is not None:
+            loss, gnorm = reduce(grads, loss, par)
+        _, opt, om = adamw.update(grads, state.opt, named, opt_cfg, nd,
+                                  gnorm=gnorm)
         del grads
         return TrainState(params=state.params, opt=opt,
                           step=state.step + 1), {"loss": loss, **om,

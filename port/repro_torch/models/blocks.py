@@ -7,8 +7,25 @@ pre-norm residuals, gemma2's post-norms (``norm1b``, ``norm2b``).
 The reference stacks each kind's parameters over a leading super-block
 axis for one ``lax.scan``; here a block is one layer's module and the
 model walks them in a Python loop.
+
+Under a ``("data", "model")`` mesh (``par``, a ``dist.parallel.Parallel``)
+a block holds this rank's shards of ``dist.sharding.param_specs`` and
+runs Megatron's scheme: ``wq``, ``wk``, ``wv``, ``w1`` and ``w3`` as
+column shards after ``par.copy``, ``wo`` and ``w2`` as row shards
+before ``par.reduce``.  A rank holds the query heads ``[r·H/tp,
+(r+1)·H/tp)``; each meets kv head ``h // (H/n_kv)`` in global head
+numbering, so where the kv heads do not split with them (``n_kv % tp``,
+or ``wk`` replicated because ``n_kv·hd`` does not divide) the rank forms
+the whole K and V (gathering a split ``wk``) and takes its heads' kv
+heads out of it.  Qwen's ``bq``, ``bk`` and ``bv`` are replicated and
+each rank adds its columns' slice, as it does with a replicated ``wk``:
+their gradients are partial on each model rank (``model_partial``).
+Where the heads do not split (``H % tp``), the block gathers its
+attention weights and runs whole on every rank.
 """
 from __future__ import annotations
+
+import types
 
 import torch
 from torch import nn
@@ -86,10 +103,36 @@ def block_init(gen: torch.Generator, cfg, kind: str) -> Block:
 
 # ---------------------------- forward -------------------------------------
 
-def mlp(x, p, cfg):
-    """The gated MLP with ``p``'s float32 weights cast to x's type."""
-    return layers.gated_mlp(x, p.w1.to(x.dtype), p.w3.to(x.dtype),
-                            p.w2.to(x.dtype), cfg.act)
+def mlp(x, p, cfg, par=None):
+    """The gated MLP with ``p``'s float32 weights cast to x's type;
+    under a mesh with F split, on this rank's columns and rows."""
+    w1, w3, w2 = p.w1.to(x.dtype), p.w3.to(x.dtype), p.w2.to(x.dtype)
+    if par is None or w1.shape[-1] == cfg.d_ff:
+        return layers.gated_mlp(x, w1, w3, w2, cfg.act)
+    return par.reduce(layers.gated_mlp(par.copy(x), w1, w3, w2, cfg.act))
+
+
+def splits_heads(cfg, tp: int, wq_cols: int) -> bool:
+    """True where a rank holding ``wq_cols`` columns of ``wq`` runs its
+    own query heads (the tensor-parallel attention)."""
+    h = cfg.n_heads
+    return tp > 1 and wq_cols * tp == h * cfg.hd and h % tp == 0
+
+
+def model_partial(specs: dict, cfg, tp: int) -> set:
+    """The replicated parameters that a tensor-parallel attention uses
+    in slices (the QKV biases, a replicated ``wk`` and ``wv``): their
+    gradients are partial on each model rank and are summed over
+    ``"model"`` before the update."""
+    out = set()
+    for name, spec in specs.items():
+        layer, _, leaf = name.rpartition(".")
+        wq = specs.get(f"{layer}.wq")
+        if (leaf in ("bq", "bk", "bv", "wk", "wv") and wq is not None
+                and "model" in wq and "model" not in spec
+                and splits_heads(cfg, tp, cfg.n_heads * cfg.hd // tp)):
+            out.add(name)
+    return out
 
 
 def _qkv(x, p, cfg):
@@ -103,7 +146,9 @@ def _qkv(x, p, cfg):
     return q, k, v
 
 
-def _attn_apply(x, p, cfg, kind, positions):
+def _attn_apply(x, p, cfg, kind, positions, par=None):
+    if par is not None and par.tp > 1:
+        return _attn_tp(x, p, cfg, kind, positions, par)
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     q, k, v = _qkv(x, p, cfg)
@@ -115,37 +160,92 @@ def _attn_apply(x, p, cfg, kind, positions):
     return out.reshape(b, s, h * hd) @ p.wo.to(x.dtype)
 
 
-def _ffn(x, p: Block, cfg, kind):
+def _attn_tp(x, p, cfg, kind, positions, par):
+    """The attention on this model rank's query heads (module
+    docstring); the row-parallel ``wo`` product summed over "model"."""
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    tp, r = par.tp, par.tp_rank
+    if not splits_heads(cfg, tp, p.wq.shape[-1]):
+        return _attn_apply(x, _whole_attn(p, cfg, par), cfg, kind, positions)
+    hl = h // tp                                    # this rank's q heads
+    dt = x.dtype
+    xi = par.copy(x)
+    q = xi @ p.wq.to(dt)
+    if cfg.qkv_bias:
+        q = q + p.bq[r * hl * hd:(r + 1) * hl * hd].to(dt)
+    if p.wk.shape[-1] * tp == kv * hd and kv % tp == 0:
+        kvl = kv // tp                              # its own kv heads
+        cols = slice(r * kvl * hd, (r + 1) * kvl * hd)
+        k, v = xi @ p.wk.to(dt), xi @ p.wv.to(dt)
+        if cfg.qkv_bias:
+            k, v = k + p.bk[cols].to(dt), v + p.bv[cols].to(dt)
+        k, v = k.reshape(b, s, kvl, hd), v.reshape(b, s, kvl, hd)
+    else:                  # the whole K and V, then its heads' kv heads
+        wk, wv = p.wk, p.wv
+        if wk.shape[-1] != kv * hd:
+            wk, wv = par.gather(wk, -1), par.gather(wv, -1)
+        k, v = xi @ wk.to(dt), xi @ wv.to(dt)
+        if cfg.qkv_bias:
+            k, v = k + p.bk.to(dt), v + p.bv.to(dt)
+        idx = (r * hl + torch.arange(hl, device=x.device)) // (h // kv)
+        k = k.reshape(b, s, kv, hd)[:, :, idx]
+        v = v.reshape(b, s, kv, hd)[:, :, idx]
+    q = layers.rope(q.reshape(b, s, hl, hd), positions, cfg.rope_theta)
+    k = layers.rope(k, positions, cfg.rope_theta)
+    out = layers.chunked_attention(
+        q, k, v, causal=True, window=window_for(kind, cfg),
+        softcap=cfg.attn_softcap)
+    return par.reduce(out.reshape(b, s, hl * hd) @ p.wo.to(dt))
+
+
+def _whole_attn(p, cfg, par):
+    """``p`` with each split weight gathered whole (every model rank
+    then computes the same, and takes its own block of the gradient)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    full = {"wq": (-1, h * hd), "wk": (-1, kv * hd), "wv": (-1, kv * hd),
+            "wo": (0, h * hd)}
+    out = dict(p.named_parameters()) if isinstance(p, torch.nn.Module) \
+        else dict(vars(p))
+    for n, (dim, size) in full.items():
+        if out[n].shape[dim] != size:
+            out[n] = par.gather(out[n], dim, "own")
+    return types.SimpleNamespace(**out)
+
+
+def _ffn(x, p: Block, cfg, kind, par=None):
     """The residual's second half: norm2, the MLP or the experts (and
     the dense residual), post-norm -> (x, aux)."""
     eps = cfg.norm_eps
     hin = layers.rms_norm(x, p.norm2, eps)
     aux = {}
     if kind == "moe":
-        m, aux = moe.moe_ffn(hin, p.moe, cfg)
+        m, aux = moe.moe_ffn(hin, p.moe, cfg, par)
         if cfg.dense_residual:
-            m = m + mlp(hin, p.mlp, cfg)
+            m = m + mlp(hin, p.mlp, cfg, par)
     else:
-        m = mlp(hin, p.mlp, cfg)
+        m = mlp(hin, p.mlp, cfg, par)
     if cfg.post_norms:
         m = layers.rms_norm(m, p.norm2b, eps)
     return x + m, aux
 
 
-def apply_block(x, p: Block, cfg, kind: str, positions=None):
-    """One block, prefill form. x: (B, S, D) -> (x, aux)."""
+def apply_block(x, p: Block, cfg, kind: str, positions=None, par=None):
+    """One block, prefill form. x: (B, S, D) -> (x, aux); ``par`` the
+    rank's place on a mesh (module docstring), None on one device."""
     eps = cfg.norm_eps
     if kind == "ssm":
         return x + ssm.forward(layers.rms_norm(x, p.norm1, eps),
                                p.ssm, cfg), {}
     if kind == "rec":
         x = x + rglru.forward(layers.rms_norm(x, p.norm1, eps), p.rec, cfg)
-        return x + mlp(layers.rms_norm(x, p.norm2, eps), p.mlp, cfg), {}
+        return x + mlp(layers.rms_norm(x, p.norm2, eps), p.mlp, cfg,
+                       par), {}
     a = _attn_apply(layers.rms_norm(x, p.norm1, eps), p.attn, cfg, kind,
-                    positions)
+                    positions, par)
     if cfg.post_norms:
         a = layers.rms_norm(a, p.norm1b, eps)
-    return _ffn(x + a, p, cfg, kind)
+    return _ffn(x + a, p, cfg, kind, par)
 
 
 # ---------------------------- decode --------------------------------------

@@ -144,11 +144,17 @@ def forward(params: EncDec, frames, tokens, cfg: ModelConfig,
 
 
 def loss_fn(params: EncDec, batch: dict, cfg: ModelConfig,
-            remat: str = "full"):
+            remat: str = "full", par=None):
     """Next-token cross-entropy and z-loss of the decoder's tokens ->
     (loss, {}).  batch: {frames, tokens}.  ``remat`` is taken and not
-    read, as in the reference: every layer is rematerialised."""
+    read, as in the reference: every layer is rematerialised.  Under a
+    mesh (``par``) the loss is this rank's part of the global loss, the
+    forward whole on every model rank (the train step hands it the
+    gathered weights)."""
     logits, aux = forward(params, batch["frames"], batch["tokens"], cfg)
+    if par is not None:
+        return par.objective(*lm.nll_sums(logits, batch["tokens"]),
+                             aux), aux
     return lm.nll(logits, batch["tokens"]), aux
 
 

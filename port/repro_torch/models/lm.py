@@ -183,11 +183,15 @@ _REMAT = {
 
 
 def forward(params: LM, tokens, cfg: ModelConfig, img=None,
-            remat: str = "none", logits_mode: str = "all") -> tuple:
+            remat: str = "none", logits_mode: str = "all",
+            par=None) -> tuple:
     """Teacher-forcing forward -> (logits float32, aux).
 
     logits_mode="last" computes the unembed only for the final position
-    (the prefill path): the (B, S, V) tensor never exists.
+    (the prefill path): the (B, S, V) tensor never exists.  ``par``: the
+    rank's place on a ``("data", "model")`` mesh (``models.blocks``),
+    ``tokens`` its rows of the batch; the embedding, norms and head are
+    replicated and run whole on every model rank.
     """
     if remat != "none" and remat not in _REMAT:
         raise ValueError(f"remat must be none, full or dots: {remat!r}")
@@ -198,10 +202,10 @@ def forward(params: LM, tokens, cfg: ModelConfig, img=None,
     stacked, aux = {}, {}
     for i, (blk, kind) in enumerate(zip(params.blocks, kinds(cfg))):
         if remat == "none":
-            x, a = blocks.apply_block(x, blk, cfg, kind, positions)
+            x, a = blocks.apply_block(x, blk, cfg, kind, positions, par)
         else:
             x, a = ckpt.checkpoint(blocks.apply_block, x, blk, cfg, kind,
-                                   positions, use_reentrant=False,
+                                   positions, par, use_reentrant=False,
                                    context_fn=_REMAT[remat])
         # the reference's keys: a pattern position's aux averaged over
         # the super-blocks, a rest layer's as it is
@@ -218,28 +222,45 @@ def forward(params: LM, tokens, cfg: ModelConfig, img=None,
     return _logits_of(x, params, cfg), aux
 
 
-def nll(logits, tokens):
-    """Mean next-token cross-entropy of ``tokens`` under ``logits`` (the
-    text positions are the last S), plus the z-loss."""
+def _lse_true(logits, tokens):
     txt = logits[:, -tokens.shape[1]:][:, :-1]
     tgt = tokens[:, 1:].long()
     lse = torch.logsumexp(txt, dim=-1)
-    true = torch.gather(txt, -1, tgt[..., None])[..., 0]
+    return lse, torch.gather(txt, -1, tgt[..., None])[..., 0]
+
+
+def nll(logits, tokens):
+    """Mean next-token cross-entropy of ``tokens`` under ``logits`` (the
+    text positions are the last S), plus the z-loss."""
+    lse, true = _lse_true(logits, tokens)
     loss = torch.mean(lse - true)
     return loss + 1e-4 * torch.mean(lse ** 2)
 
 
-def loss_fn(params: LM, batch: dict, cfg: ModelConfig, remat: str = "full"):
+def nll_sums(logits, tokens) -> tuple:
+    """``nll``'s terms summed, not averaged -> (sum of cross-entropies,
+    sum of lse², the count of labelled positions): a mesh forms the
+    global mean from all-reduced sums and counts."""
+    lse, true = _lse_true(logits, tokens)
+    return torch.sum(lse - true), torch.sum(lse ** 2), lse.numel()
+
+
+def loss_fn(params: LM, batch: dict, cfg: ModelConfig, remat: str = "full",
+            par=None):
     """Next-token cross-entropy -> (loss, aux).  batch: {tokens, [img]},
     every decoder-only family.
 
     Single pass: nll = logsumexp(logits) - logits[label] over the text
     positions (the vlm's image prefix carries no labels), then the
     z-loss ``1e-4 * mean(lse ** 2)``, then ``0.01 *`` each MoE
-    load-balance term of ``aux``."""
+    load-balance term of ``aux``.  Under a mesh (``par``, ``batch`` the
+    rank's rows) the loss is this rank's part of the global loss
+    (``dist.parallel.Parallel.objective``)."""
     tokens = batch["tokens"]
     logits, aux = forward(params, tokens, cfg, img=batch.get("img"),
-                          remat=remat)
+                          remat=remat, par=par)
+    if par is not None:
+        return par.objective(*nll_sums(logits, tokens), aux), aux
     loss = nll(logits, tokens)
     for k, v in aux.items():
         if k.endswith("lb_loss"):

@@ -12,16 +12,38 @@ gradient back to the kept choices only (the trash row is cut before the
 experts run), and the gates' gradient reaches the router through
 ``topk``.
 
-The reference's shard_map form (``set_local_moe``, ``moe_ffn_local``)
-dispatches each device's own tokens under a mesh: it waits for the
-mesh mode (ROADMAP Queue 1 item 10).
+Under a ``("data", "model")`` mesh (``par``, ``dist.parallel.Parallel``)
+two forms run, as in the reference:
+
+- ``moe_ffn`` with ``par`` is the answer of the reference's GSPMD step:
+  the one-device math over the global batch.  The tokens are gathered
+  over the data axes before the dispatch (capacity from the global
+  token count) and each data rank keeps its rows of the output.  The
+  experts run on this rank's shard: F-split (``shard_experts=False``)
+  after ``par.copy``, their outputs summed over "model"; or E-split
+  (``shard_experts=True``), each rank its E/tp experts on its rows of
+  the (E, cap, D) buffer, the outputs gathered over "model" (the
+  E-split router is gathered whole first).  The gated combine then runs
+  whole on every model rank, so the gates' and the router's gradients
+  are whole there too.
+- ``set_local_moe((mesh, dp_axes, "model", "data"))`` turns on the
+  reference's ``shard_map`` form, ``moe_ffn_local``: each data rank
+  dispatches its own tokens into a local capacity buffer (capacity from
+  its local token count), the F-split experts' outputs are summed over
+  "model", and the aux terms are ``pmean``'d over "model", then over the
+  data axes.  The reference gathers FSDP weight shards over "data"
+  first; the port keeps the weights whole over "data"
+  (``dist.sharding.param_specs`` splits over "model" only), so there is
+  nothing to gather.
 """
 from __future__ import annotations
+
+import types
 
 import torch
 
 from ..core.fma import fma32
-from ..device import not_ported
+from ..dist.parallel import Parallel
 from . import layers
 
 
@@ -36,13 +58,74 @@ def init_params(gen: torch.Generator, cfg) -> layers.Params:
     })
 
 
+# The reference's switch of the local-dispatch form, set by its launcher:
+# (mesh, dp_axes, tp_axis, fsdp_axis) or None.
+_LOCAL_SPEC = None
+
+
 def set_local_moe(spec) -> None:
-    if spec is not None:
-        raise not_ported("the shard_map MoE dispatch", "Queue 1 item 10")
+    global _LOCAL_SPEC
+    _LOCAL_SPEC = spec
 
 
 def moe_ffn_local(x, p, cfg):
-    raise not_ported("the shard_map MoE dispatch", "Queue 1 item 10")
+    """The reference's ``shard_map`` form on this rank: ``x`` is its
+    data rank's tokens (replicated over "model"), ``p`` its F-split
+    expert shards and the whole router -> (y, aux), y summed over
+    "model", each aux ``pmean``'d over "model", then the data axes."""
+    mesh, dp, tp, _ = _LOCAL_SPEC
+    par = Parallel(mesh, tp, tuple(dp))
+    fe = cfg.moe_ff or cfg.d_ff
+    if par.tp > 1 and (p.w1.shape[0] != cfg.n_experts
+                       or p.w1.shape[-1] * par.tp != fe):
+        raise ValueError("the local MoE form takes F-split expert weights "
+                         "(param_specs with shard_experts=False), as the "
+                         "reference's launcher sets them")
+    y, aux = _moe_math(x, p, cfg, _sharded_experts(par, cfg))
+    return y, {k: par.mean(v, (tp,) + tuple(dp)) for k, v in aux.items()}
+
+
+def experts_ffn(buf, w1, w3, w2, act):
+    """(E, C, D) capacity buffer -> (E, C, D): every expert's gated MLP
+    on its rows, batched over E, each weight cast to the buffer's type
+    where it is used (outside autograd each cast is freed before the
+    next: arctic's three bf16 expert copies are 8.9 GB each)."""
+    dt = buf.dtype
+    h = layers.act_fn(act)(torch.einsum("ecd,edf->ecf", buf, w1.to(dt))) \
+        * torch.einsum("ecd,edf->ecf", buf, w3.to(dt))
+    return torch.einsum("ecf,efd->ecd", h, w2.to(dt))
+
+
+def _sharded_experts(par, cfg):
+    """The expert step on this model rank's shard -> the whole (E, C, D)
+    output on every model rank (module docstring)."""
+    e, fe, tp = cfg.n_experts, cfg.moe_ff or cfg.d_ff, par.tp
+
+    def run(buf, w1, w3, w2):
+        d = buf.shape[-1]
+        shapes = (tuple(w1.shape), tuple(w2.shape))
+        if tp > 1 and shapes == ((e, d, fe // tp), (e, fe // tp, d)):
+            buf = par.copy(buf)                               # F split
+            return par.reduce(experts_ffn(buf, w1, w3, w2, cfg.act))
+        if tp > 1 and shapes == ((e // tp, d, fe), (e // tp, fe, d)):
+            el = e // tp                                      # E split
+            mine = par.copy(buf)[par.tp_rank * el:(par.tp_rank + 1) * el]
+            return par.gather(experts_ffn(mine, w1, w3, w2, cfg.act), 0,
+                              "own")
+        # whole, or split elsewhere (the expert rule on an unstacked
+        # ``rest`` layer splits D, as the reference's does): gathered
+        # whole, the same work on every rank
+        w1, w3 = (_whole(par, w, (e, d, fe)) for w in (w1, w3))
+        return experts_ffn(buf, w1, w3, _whole(par, w2, (e, fe, d)),
+                           cfg.act)
+    return run
+
+
+def _whole(par, w, shape):
+    for dim, n in enumerate(shape):
+        if w.shape[dim] != n:
+            w = par.gather(w, dim, "own")
+    return w
 
 
 def dispatch(eids: torch.Tensor, e: int, cap: int) -> dict:
@@ -63,10 +146,27 @@ def dispatch(eids: torch.Tensor, e: int, cap: int) -> dict:
                 slot=torch.where(keep, rank_sorted, cap))
 
 
-def moe_ffn(x, p, cfg):
+def moe_ffn(x, p, cfg, par=None):
     """x: (B, S, D); p: one layer's {wr, w1, w3, w2} -> (y, aux), aux
-    the load-balance loss and the expert-payload stats (the reference's
-    ``_moe_math``: its ``moe_ffn`` takes it off a mesh)."""
+    the load-balance loss and the expert-payload stats.  The local form
+    when ``set_local_moe`` set one; under ``par`` the GSPMD form (module
+    docstring); else the one-device math."""
+    if _LOCAL_SPEC is not None:
+        return moe_ffn_local(x, p, cfg)
+    if par is None:
+        return _moe_math(x, p, cfg)
+    if p.wr.shape[-1] != cfg.n_experts:     # E split: the router whole
+        p = types.SimpleNamespace(wr=par.gather(p.wr, -1, "own"), w1=p.w1,
+                                  w3=p.w3, w2=p.w2)
+    xg = par.gather_batch(x)
+    y, aux = _moe_math(xg, p, cfg, _sharded_experts(par, cfg))
+    return par.rows(y), aux
+
+
+def _moe_math(x, p, cfg, experts=None):
+    """The reference's ``_moe_math``: the router, the stable-sort
+    dispatch, ``experts(buf, w1, w3, w2)`` (all of them on this device
+    by default), the gated combine and the aux."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     t = b * s
@@ -86,10 +186,8 @@ def moe_ffn(x, p, cfg):
     buf = buf[:, :cap]                                        # (E, C, D)
 
     # ---- expert compute (batched over E) ----
-    h = layers.act_fn(cfg.act)(
-        torch.einsum("ecd,edf->ecf", buf, p.w1.to(x.dtype))
-    ) * torch.einsum("ecd,edf->ecf", buf, p.w3.to(x.dtype))
-    y_e = torch.einsum("ecf,efd->ecd", h, p.w2.to(x.dtype))
+    y_e = (experts_ffn(buf, p.w1, p.w3, p.w2, cfg.act) if experts is None
+           else experts(buf, p.w1, p.w3, p.w2))
     y_e = torch.cat([y_e, torch.zeros((e, 1, d), dtype=y_e.dtype,
                                       device=x.device)], dim=1)
 

@@ -99,10 +99,13 @@ def global_norm(tree: dict) -> torch.Tensor:
 
 @torch.no_grad()
 def update(grads: dict, state: OptState, params: dict, cfg: AdamWConfig,
-           ndims: dict | None = None):
+           ndims: dict | None = None, gnorm: torch.Tensor | None = None):
     """One AdamW step -> (params, state, {"grad_norm", "lr"}); ``params``
-    and the state's moments are updated in place."""
-    gnorm = global_norm(grads)
+    and the state's moments are updated in place.  ``gnorm``: the
+    gradients' global norm where ``grads`` are one rank's shards of
+    them (``global_norm`` of ``grads`` if None)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     dev = gnorm.device
     scale = torch.minimum(_f32(1.0, dev), _f32(cfg.grad_clip, dev)
                           / torch.maximum(gnorm, _f32(1e-9, dev)))
@@ -112,16 +115,31 @@ def update(grads: dict, state: OptState, params: dict, cfg: AdamWConfig,
     bc1 = 1.0 - torch.pow(_f32(cfg.b1, dev), stepf)
     bc2 = 1.0 - torch.pow(_f32(cfg.b2, dev), stepf)
     for k, p in params.items():
-        g = grads[k].float() * scale
-        m, v = state.m[k], state.v[k]
-        m32 = m.float() * cfg.b1 + (1 - cfg.b1) * g
-        v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
-        u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
-        p32 = p.float()
         nd = p.dim() if ndims is None else ndims[k]
         decay = cfg.weight_decay if nd >= 2 else 0.0
-        p.copy_(p32 - lr * (u + decay * p32))
-        m.copy_(m32)
-        v.copy_(v32)
+        for p_, g, m, v in _chunks(p, grads[k], state.m[k], state.v[k]):
+            g = g.float() * scale
+            m32 = m.float() * cfg.b1 + (1 - cfg.b1) * g
+            v32 = v.float() * cfg.b2 + (1 - cfg.b2) * g * g
+            u = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+            p32 = p_.float()
+            p_.copy_(p32 - lr * (u + decay * p32))
+            m.copy_(m32)
+            v.copy_(v32)
     return params, OptState(m=state.m, v=state.v, step=step), {
         "grad_norm": gnorm, "lr": lr}
+
+
+_CHUNK = 1 << 26     # elements an update pass takes at once
+
+
+def _chunks(*ts):
+    """Matching flat blocks of ``_CHUNK`` elements of contiguous tensors
+    (the whole tensors otherwise): the update is elementwise, so its
+    float32 temporaries need only a block's room (an embedding of 389 M
+    parameters would take about 6 GB of them whole)."""
+    if ts[0].numel() <= _CHUNK or not all(t.is_contiguous() for t in ts):
+        return [ts]
+    flat = [t.view(-1) for t in ts]
+    return [[f[i:i + _CHUNK] for f in flat]
+            for i in range(0, flat[0].numel(), _CHUNK)]

@@ -11,6 +11,12 @@ unique counts and id sets with no dedup work.  Two executors:
 - pruned (``pruned_range_counts``, ``pruned_range_ids``): each query's
   routed ``(Q, F)`` candidate tiles only, O(Q·F·cap).
 
+The reference-point research paths (``range_counts_rp``,
+``routed_range_counts``) count exact unique hits on the full MASJ tiles
+of a non-overlapping covering layout (fg, bsp, slc, bos) with no
+canonical mark: a hit counts in the tile that holds the low corner of
+the query's and the object's intersection.
+
 Both id executors keep only the hits, as ``(query, tile, slot)``
 triples in the reference's flat order (``dense_hits``,
 ``gathered_hits``); ``query.knn`` refines from the same triples.  They
@@ -25,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core import geometry
 from ..kernels.range_probe import ops as rops
 
 _BIG_ID = 2**30
@@ -243,3 +250,55 @@ def merge_owner_ids(pids: torch.Tensor, pcounts: torch.Tensor,
     hit_ids = torch.where(top < _BIG_ID, top, -1)
     counts = merge_owner_counts(pcounts, slots, qpd)
     return hit_ids, counts, counts > max_hits
+
+
+# --------------------------------------------------------------------------
+# reference-point path (non-overlapping covering layouts)
+# --------------------------------------------------------------------------
+
+def _rp_owned(q: torch.Tensor, boxes: torch.Tensor, tile_box: torch.Tensor,
+              uni: torch.Tensor) -> torch.Tensor:
+    """Reference-point ownership, broadcast over the leading dimensions:
+    the low corner of ``q`` ∩ ``boxes`` lies in ``tile_box``, half-open
+    on its high edges but where they reach the universe's."""
+    rpx = torch.maximum(q[..., 0], boxes[..., 0])
+    rpy = torch.maximum(q[..., 1], boxes[..., 1])
+    hi_x = torch.where(tile_box[..., 2] >= uni[2], rpx <= tile_box[..., 2],
+                       rpx < tile_box[..., 2])
+    hi_y = torch.where(tile_box[..., 3] >= uni[3], rpy <= tile_box[..., 3],
+                       rpy < tile_box[..., 3])
+    return (rpx >= tile_box[..., 0]) & hi_x & (rpy >= tile_box[..., 1]) \
+        & hi_y
+
+
+def range_counts_rp(qboxes: torch.Tensor, tiles: torch.Tensor,
+                    tile_boxes: torch.Tensor, uni: torch.Tensor
+                    ) -> torch.Tensor:
+    """Exact unique counts by reference-point ownership (fg, bsp, slc,
+    bos) over the full MASJ ``tiles`` (T, cap, 4) -> (Q,) int32: the
+    full hit table, each hit counted in the tile that owns it."""
+    hits = rops.probe_mask(qboxes, tiles)                 # (Q, T, cap)
+    own = _rp_owned(qboxes[:, None, None], tiles[None],
+                    tile_boxes[None, :, None], uni)
+    return torch.sum(hits & own, dim=(1, 2), dtype=torch.int32)
+
+
+def routed_range_counts(qboxes: torch.Tensor, tiles: torch.Tensor,
+                        tile_boxes: torch.Tensor, uni: torch.Tensor,
+                        route_mask: torch.Tensor, max_fanout: int
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The pruned reference-point probe: each query gathers its routed
+    tiles only (``route_mask`` (Q, T) bool, routed first in tile order,
+    the first ``max_fanout``) -> ``(counts[Q] int32, overflow[Q])``;
+    a query routed to more than ``max_fanout`` tiles undercounts and is
+    flagged."""
+    fanout = torch.sum(route_mask, dim=1, dtype=torch.int32)
+    order = torch.argsort((~route_mask).to(torch.uint8), dim=1, stable=True)
+    routed = order[:, :max_fanout]                          # (Q, F)
+    live = torch.take_along_dim(route_mask, routed, dim=1)  # (Q, F)
+    tb = tile_boxes[routed][:, :, None]                     # (Q, F, 1, 4)
+    mb = tiles[routed]                                      # (Q, F, cap, 4)
+    q = qboxes[:, None, None]
+    hits = _rp_owned(q, mb, tb, uni) & geometry.intersects(q, mb)
+    counts = torch.sum(hits & live[..., None], dim=(1, 2), dtype=torch.int32)
+    return counts, fanout > max_fanout

@@ -179,8 +179,11 @@ def test_prefill_and_serve_steps_give_repro_tokens(dtype):
 def test_unported_features_raise_naming_their_item():
     """Since item 14c every family builds, serves and trains: the vlm
     image prefix runs, every block kind inits, and a train step of each
-    family gives a finite loss and grad_norm; the shard_map MoE dispatch
-    still raises, naming item 10."""
+    family gives a finite loss and grad_norm; and since item 10's model
+    side no call raises: the shard_map MoE dispatch (``set_local_moe``)
+    runs, here on a (1, 1) ``("data", "model")`` mesh, and gives the
+    one-device train step's loss and gradients' norm bit for bit."""
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.models import moe
     from repro_torch.optim import adamw
     for arch in ("gemma2_27b", "whisper_medium", "recurrentgemma_9b",
@@ -209,8 +212,20 @@ def test_unported_features_raise_naming_their_item():
         if tc.family == "vlm":
             logits, _ = lm.forward(p, prompt, tc, img=batch["img"])
             assert logits.shape == (2, tc.vis_tokens + 4, tc.vocab_padded)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.set_local_moe(object())
+        if tc.family == "moe":
+            mesh = mesh_lib.ProcessMesh(
+                None, 0, 1, torch.device("cpu"), "gloo",
+                axes=("data", "model"), dims=(1, 1))
+            state = api.init_train_state(
+                model, torch.Generator().manual_seed(0), adamw.AdamWConfig())
+            moe.set_local_moe((mesh, ("data",), "model", "data"))
+            try:
+                _, local = api.make_train_step(model, adamw.AdamWConfig())(
+                    state, batch)
+            finally:
+                moe.set_local_moe(None)
+            for k in ("loss", "grad_norm"):
+                assert torch.equal(local[k], metrics[k]), k
     cfg, tcfg = _cfgs("float32")
     _, tp = _params(cfg, tcfg)
     toks = torch.from_numpy(_tokens(cfg, 1, 8))

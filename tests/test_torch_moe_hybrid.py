@@ -26,6 +26,9 @@ Tolerances as there (float32 1e-4, bf16 3e-2), and:
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
+import dataclasses
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,11 +165,35 @@ def test_moe_routing_drops_and_aux_match_repro(arch, shift):
 
 
 def test_moe_shard_map_path_waits_for_the_mesh():
-    moe.set_local_moe(None)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.set_local_moe(("mesh", "data", "model", None))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        moe.moe_ffn_local(None, None, None)
+    """The shard_map MoE form (``set_local_moe``) runs: on a (1, 1)
+    ``("data", "model")`` mesh, whose axes need no process group, it is
+    the one-device math bit for bit; it refuses E-split experts, as the
+    reference's launcher forces F-split ones.  Its 4-rank cases are in
+    ``tests/test_torch_mesh.py``."""
+    from repro_torch.launch import mesh as mesh_lib
+    cfg = dataclasses.replace(configs.smoke("mixtral_8x22b"),
+                              dtype="float32")
+    p = moe.init_params(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 8, cfg.d_model)).astype(np.float32))
+    mesh = mesh_lib.ProcessMesh(None, 0, 1, torch.device("cpu"), "gloo",
+                                axes=("data", "model"), dims=(1, 1))
+    want, waux = moe.moe_ffn(x, p, cfg)
+    moe.set_local_moe((mesh, ("data",), "model", "data"))
+    try:
+        got, aux = moe.moe_ffn(x, p, cfg)
+        wide = mesh_lib.ProcessMesh(None, 0, 2, torch.device("cpu"), "gloo",
+                                    axes=("data", "model"), dims=(1, 2))
+        moe.set_local_moe((wide, ("data",), "model", "data"))
+        e_split = types.SimpleNamespace(wr=p.wr[:, :4], w1=p.w1[:4],
+                                        w3=p.w3[:4], w2=p.w2[:4])
+        with pytest.raises(ValueError, match="F-split"):
+            moe.moe_ffn(x, e_split, cfg)
+    finally:
+        moe.set_local_moe(None)
+    assert torch.equal(got, want)
+    assert {k: float(v) for k, v in aux.items()} == {
+        k: float(v) for k, v in waux.items()}
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 64, 1000, 1024])

@@ -417,3 +417,32 @@ def test_ssd_forward_gradient_matches_repro():
     (ops.ssd_forward(*ins) * torch.from_numpy(w)).sum().backward()
     for t, wnt in zip(ins, want):
         _close(t.grad.numpy(), wnt)
+
+
+def test_update_in_blocks_is_bit_identical(monkeypatch):
+    """AdamW updates a large leaf in flat blocks of ``_CHUNK`` elements
+    (its float32 temporaries a block's size): the parameters and
+    moments equal the whole-leaf update bit for bit, over three steps,
+    on contiguous and non-contiguous leaves."""
+    gen = torch.Generator().manual_seed(7)
+    leaves = {"w": torch.randn(300, 37, generator=gen),
+              "t": torch.randn(37, 300, generator=gen).T,
+              "b": torch.randn(50, generator=gen)}
+    grads = {k: torch.randn(p.shape, generator=gen) for k, p in
+             leaves.items()}
+    cfg = adamw.AdamWConfig(warmup=1)
+
+    def run(chunk):
+        monkeypatch.setattr(adamw, "_CHUNK", chunk)
+        p = {k: v.clone() for k, v in leaves.items()}
+        p["t"] = leaves["t"].clone().T.T      # keep it non-contiguous
+        st = adamw.init_state(p, cfg)
+        for _ in range(3):
+            adamw.update(grads, st, p, cfg)
+        return p, st
+
+    (pa, sa), (pb, sb) = run(1 << 26), run(1000)
+    assert not pb["t"].is_contiguous()
+    for k in leaves:
+        assert torch.equal(pa[k], pb[k]), k
+        assert torch.equal(sa.m[k], sb.m[k]) and torch.equal(sa.v[k], sb.v[k])

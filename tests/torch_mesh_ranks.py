@@ -9,19 +9,25 @@ each other, with the simulation's and with repro's answers.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 import sys
+import types
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch import configs  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.core.partition import api as tapi  # noqa: E402
 from repro_torch.data import spatial_gen  # noqa: E402
-from repro_torch.dist import compress  # noqa: E402
+from repro_torch.dist import compress, parallel, sharding  # noqa: E402
 from repro_torch.launch import mesh as mesh_lib  # noqa: E402
+from repro_torch.models import api, lm, moe  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.query import engine as tengine  # noqa: E402
 from repro_torch.query import parallel_partition as tpp  # noqa: E402
 from repro_torch.serve import PlacementPolicy, ServeConfig, SpatialServer  # noqa: E402,E501
@@ -257,10 +263,239 @@ def compress_cases(mesh, inp) -> dict:
                             / acc_true.abs().max()))
 
 
+MODEL_ARCHS = ("mixtral_8x22b", "qwen15_4b")
+MICRO_ARCH = "mixtral_8x22b"    # also stepped with n_micro 2 on (2, 2)
+AXES = ("data", "model")
+MESHES = {"2x2": (2, 2), "1x4": (1, 4)}
+
+
+def model_cfg(arch: str):
+    """The smoke config at vocab 512 in float32 (the sharded step's
+    cases)."""
+    return dataclasses.replace(configs.smoke(arch), vocab=512,
+                               dtype="float32")
+
+
+def initial_state(inp, arch: str):
+    """The train state the test process carried across from repro's
+    ``init_train_state`` (a checkpoint of step 0) -> (cfg, model, opt,
+    state), the state whole on the CPU."""
+    cfg = model_cfg(arch)
+    model, opt = api.build(cfg, "cpu"), adamw.AdamWConfig()
+    like = api.init_train_state(model, torch.Generator().manual_seed(0),
+                                opt)
+    state, _ = store.restore(os.path.join(str(inp["model_ckpt"]), arch),
+                             like)
+    return cfg, model, opt, state
+
+
+def whole_state(state, specs: dict, mesh, cfg) -> dict:
+    """Parameters and moments gathered to their logical shapes."""
+    named = lm.named_leaves(state.params, cfg)
+
+    def g(t, k):
+        t = t.detach()
+        return t if mesh is None else parallel.unshard(t, specs[k], mesh)
+
+    return dict(params={k: g(p, k) for k, p in named.items()},
+                m={k: g(state.opt.m[k], k) for k in named},
+                v={k: g(state.opt.v[k], k) for k in named})
+
+
+def _axes_case(meshes) -> dict:
+    """Each mesh's coordinates, its collectives along each axis (a sum
+    and a tiled gather of the global rank), and a mean."""
+    out = {}
+    for name, m in meshes.items():
+        r = torch.tensor([float(m.rank)])
+        out[name] = dict(
+            coords=m.coords, shape=m.shape, dp=mesh_lib.dp_axes(m),
+            **{f"sum_{a}": m.all_reduce(r, axis=a) for a in AXES},
+            **{f"gather_{a}": m.all_gather(r, axis=a, dim=0) for a in AXES},
+            mean_model=m.all_reduce(r, "mean", axis="model"))
+    return out
+
+
+def _local_moe_case(meshes, inp) -> dict:
+    """Mixtral's layer-0 MoE on ``moe_x`` (4 rows): the local form and
+    the GSPMD form on the (2, 2) mesh, each rank its data rows, forward
+    and backward against ``moe_gy``; with ``meshes`` None the one-device
+    math on each data shard and on the whole batch."""
+    cfg, _, _, state = initial_state(inp, "mixtral_8x22b")
+    whole = state.params.blocks[0].moe
+    x, gy = (torch.from_numpy(inp[k]) for k in ("moe_x", "moe_gy"))
+    named = dict(whole.named_parameters())
+
+    def run(fn, xs, gys, p, lb_scale=1.0):
+        xs = xs.clone().requires_grad_(True)
+        y, aux = fn(xs, p)
+        loss = (y * gys).sum() + lb_scale * aux["lb_loss"]
+        leaves = [xs] + [getattr(p, k) for k in ("wr", "w1", "w2")]
+        grads = torch.autograd.grad(loss, leaves)
+        return dict(y=y.detach(), aux={k: v.detach() for k, v in aux.items()},
+                    dx=grads[0], **{f"d{k}": g for k, g in zip(
+                        ("wr", "w1", "w2"), grads[1:])})
+
+    with torch.no_grad():
+        for t in named.values():
+            t.requires_grad_(True)
+    if meshes is None:
+        return dict(
+            local=[run(lambda a, p: moe._moe_math(a, p, cfg), x[i:i + 2],
+                       gy[i:i + 2], whole) for i in (0, 2)],
+            gspmd=run(lambda a, p: moe.moe_ffn(a, p, cfg), x, gy, whole))
+    m = meshes["2x2"]
+    specs = sharding.param_specs(named, cfg, shard_experts=False, mesh=m)
+    shard = types.SimpleNamespace(**{
+        k: parallel.shard(t.detach(), specs[f"{k}"], m).requires_grad_(True)
+        for k, t in named.items()})
+    par = parallel.Parallel.of(m, x.shape[0])
+    rows = slice(2 * m.coords["data"], 2 * m.coords["data"] + 2)
+    moe.set_local_moe((m, ("data",), "model", "data"))
+    try:
+        local = run(lambda a, p: moe.moe_ffn(a, p, cfg), x[rows], gy[rows],
+                    shard)
+    finally:
+        moe.set_local_moe(None)
+    gspmd = run(lambda a, p: moe.moe_ffn(a, p, cfg, par), x[rows], gy[rows],
+                shard, 0.5)
+    return dict(local=local, gspmd=gspmd, specs=specs)
+
+
+def model_cases(mesh, inp) -> dict:
+    """The sharded train step of each ``MODEL_ARCHS`` on a (2, 2) and a
+    (1, 4) ``("data", "model")`` mesh over the same ranks (one step on
+    ``tokens_<arch>``, the state gathered after it; ``MICRO_ARCH`` on
+    (2, 2) with ``n_micro`` 2 as well), mixtral's state
+    saved from (2, 2) and restored onto (1, 4), and the MoE layer's two
+    mesh forms; with ``mesh`` None the one-device step and math."""
+    meshes = None if mesh is None else {
+        name: mesh_lib.make_mesh(mesh, dims, AXES, timeout=TIMEOUT_S)
+        for name, dims in MESHES.items()}
+    out = {} if meshes is None else dict(axes=_axes_case(meshes))
+    ckpt = os.path.join(str(inp["model_ckpt"]), "after_2x2")
+    runs = [(arch, name, m, 1) for arch in MODEL_ARCHS
+            for name, m in ({"one": None} if meshes is None
+                            else meshes).items()]
+    runs += [(MICRO_ARCH, name, m, 2) for arch, name, m, _ in runs
+             if arch == MICRO_ARCH and name != "1x4"]
+    for arch, name, m, n_micro in runs:
+        cfg, model, opt, state = initial_state(inp, arch)
+        specs = sharding.param_specs(state.params, cfg,
+                                     shard_experts=cfg.shard_experts,
+                                     mesh=m)
+        if m is not None:
+            state = sharding.shard_train_state(state, specs, m)
+        step = api.make_train_step(model, opt, n_micro=n_micro, mesh=m)
+        tokens = torch.from_numpy(inp[f"tokens_{arch}"])
+        state, metrics = step(state, {"tokens": tokens})
+        key = f"{arch}/{name}" + ("" if n_micro == 1 else "/micro2")
+        out[key] = dict(metrics={k: float(v) for k, v in metrics.items()},
+                        **whole_state(state, specs, m, cfg))
+        if arch == "mixtral_8x22b" and name == "2x2" and n_micro == 1:
+            store.save(ckpt, state, 1, parallel.StateSpecs(m, specs))
+    if meshes is not None:
+        m = meshes["1x4"]
+        cfg, _, _, like = initial_state(inp, "mixtral_8x22b")
+        specs = sharding.param_specs(like.params, cfg,
+                                     shard_experts=cfg.shard_experts, mesh=m)
+        like = sharding.shard_train_state(like, specs, m)
+        state, step = store.restore(ckpt, like,
+                                    shardings=parallel.StateSpecs(m, specs))
+        out["restore"] = dict(
+            step=step, local={k: tuple(p.shape) for k, p in
+                              state.params.named_parameters()},
+            **whole_state(state, specs, m, cfg))
+    out["moe"] = _local_moe_case(meshes, inp)
+    out["extra"] = _extra_step_cases(None if meshes is None
+                                     else meshes["2x2"])
+    out["ft"] = _ft_case(None if meshes is None else meshes["2x2"],
+                         str(inp["model_ckpt"]))
+    return out
+
+
+# port-only cases of the (2, 2) step against one device: arch -> the
+# step's options, the global batch's rows (3 does not split over 2 data
+# ranks: the batch stays whole on every rank) and config changes (two
+# super-blocks of two MoE layers and a `rest` one, whose unstacked
+# experts the reference's rule splits on D)
+EXTRA_STEPS = {
+    "arctic_480b": ({}, 4, {}),        # E-split experts, dense residual
+    "whisper_medium": ({}, 4, {}),     # encdec: weights gathered whole
+    "internvl2_26b": ({}, 4, {}),      # the vlm's image prefix
+    "gemma2_27b": ({}, 4, {}),         # softcaps, post-norms, local/global
+    "mixtral_8x22b/rest": ({}, 4, dict(block_pattern=("moe", "moe"),
+                                       n_layers=5, shard_experts=True)),
+    "qwen15_4b/micro2": ({"n_micro": 2}, 4, {}),
+    "qwen15_4b/bf16": ({"bf16_weight_gather": True}, 4, {}),
+    "qwen15_4b/rows3": ({}, 3, {}),
+}
+
+
+def extra_batch(cfg, rows: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {"tokens": torch.from_numpy(
+        rng.integers(0, cfg.vocab, (rows, 16)).astype(np.int64))}
+    if cfg.family == "vlm":
+        out["img"] = torch.from_numpy(rng.standard_normal(
+            (rows, cfg.vis_tokens, cfg.vis_dim)).astype(np.float32))
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (rows, cfg.src_len, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _extra_step_cases(mesh) -> dict:
+    """Two steps of each ``EXTRA_STEPS`` case from the port's own seeded
+    init, on ``mesh`` (None: one device) -> metrics and the gathered
+    state."""
+    out = {}
+    for name, (kw, rows, change) in EXTRA_STEPS.items():
+        cfg = dataclasses.replace(model_cfg(name.split("/")[0]), **change)
+        model, opt = api.build(cfg, "cpu"), adamw.AdamWConfig()
+        state = api.init_train_state(model, torch.Generator().manual_seed(3),
+                                     opt, mesh=mesh)
+        specs = sharding.param_specs(sharding.abstract_params(cfg), cfg,
+                                     shard_experts=cfg.shard_experts,
+                                     mesh=mesh)
+        step = api.make_train_step(model, opt, mesh=mesh, **kw)
+        metrics = []
+        for i in range(2):
+            state, m = step(state, extra_batch(cfg, rows, 30 + i))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out[name] = dict(metrics=metrics,
+                         **whole_state(state, specs, mesh, cfg))
+    return out
+
+
+def _ft_case(mesh, root: str) -> dict:
+    """``ft.run_loop`` over 4 steps of the qwen smoke config, a
+    checkpoint each step and a failure injected at step 2, on ``mesh``
+    (its checkpoints written and restored through ``StateSpecs``) ->
+    the restarts and the gathered state."""
+    from repro_torch.ft import runtime
+    cfg = model_cfg("qwen15_4b")
+    model, opt = api.build(cfg, "cpu"), adamw.AdamWConfig()
+    state = api.init_train_state(model, torch.Generator().manual_seed(5),
+                                 opt, mesh=mesh)
+    specs = sharding.param_specs(sharding.abstract_params(cfg), cfg,
+                                 shard_experts=cfg.shard_experts, mesh=mesh)
+    ft = runtime.FTConfig(os.path.join(
+        root, "ft_" + ("one" if mesh is None else "2x2")), ckpt_every=1)
+    batches = [extra_batch(cfg, 4, 40 + i) for i in range(4)]
+    state, metrics, info = runtime.run_loop(
+        api.make_train_step(model, opt, mesh=mesh), state, batches, ft,
+        inject_failure_at=2, shardings=None if mesh is None
+        else parallel.StateSpecs(mesh, specs))
+    return dict(info={k: info[k] for k in ("restarts", "steps")},
+                loss=float(metrics["loss"]), step=int(state.step),
+                **whole_state(state, specs, mesh, cfg))
+
+
 CASES = dict(sharded=sharded_cases, replicated=replicated_cases,
              heat=heat_cases, ingest=ingest_cases, frontend=frontend_cases,
              join=join_cases, partition=partition_cases,
-             compress=compress_cases)
+             compress=compress_cases, model=model_cases)
 
 
 def run_cases(mesh, inp) -> dict:
