@@ -22,6 +22,11 @@ training, on one CUDA card.
 Phases, each printing JSON lines (launch counts are set to 0 just
 before each path and read just after it) and its wall seconds:
 
+0. checker -- the port's hazard checker (``python -m
+   repro_torch.analysis repro_torch`` from ``port/``) over the
+   checkout's ``port/repro_torch``: one line with the findings by rule
+   and the report's counts.  Fails on any finding, on a kernel build
+   (refused for its run) and on any launch count above 0 after it.
 1. build  -- compile the four kernel sources of the checkout (range
    probe, Hilbert encode, MBR join, SSD) with one nvcc each, all at
    once (sm_90a), and report the compiler's register/spill summary.
@@ -185,9 +190,11 @@ before each path and read just after it) and its wall seconds:
    the ascending live ids), the dense counts equal the pruned ones, 256
    kNN points equal the brute force, and the extent covers every alive
    slot after every step (tight after compact and re-stage).  Then two
-   shorter streams, ``"hilbert"`` and ``"off"``, on the same commands
-   (2 appends, 2 deletes, a forced compact, whose "hilbert" branch
-   must launch the encode), whose answers must be equal.  Prints each
+   shorter streams, ``"hilbert"`` and ``"off"``, from the first
+   1,000,000 of the staged objects on the same partitioning, on the
+   same commands (2 appends, 2 deletes, a forced compact, whose
+   "hilbert" branch must launch the encode), whose answers must be
+   equal.  Prints each
    operation's wall ms and bytes uploaded, the host mirrors' build
    time, compact and re-stage seconds, peak memory, the tiles whose
    extent is above tight, the p50 of a counts batch on the ingested
@@ -327,12 +334,12 @@ before each path and read just after it) and its wall seconds:
    within 1e-4 (``tests/test_models_smoke.py``'s tolerance), greedy
    tokens agreeing wherever the top-two margin exceeds 2e-4.
 19. families -- every other family at full width, each model freed
-   before the next: qwen1.5-4b (20 of 40 layers), gemma2-27b (4 of
+   before the next: qwen1.5-4b (10 of 40 layers), gemma2-27b (4 of
    46), mixtral-8x22b (2 of 56), arctic-480b (1 of 35), internvl2-26b
    (4 of 48, 256 seeded image tokens of width 3,200) and whisper-medium
-   (12 + 12 of 24 + 24 layers, 1,500 seeded frames); the depth cut is
+   (6 + 6 of 24 + 24 layers, 1,500 seeded frames); the depth cut is
    the most of each that 80 GB holds in float32 weights with room to
-   run, qwen's and whisper's halved from their whole depth (the
+   run, qwen's and whisper's a quarter of their whole depth (the
    script's time).  For each:
    a bf16 prefill at B = 1, L = 5,120 text tokens (past 4,607, where
    the reference's 4,096 windows are NaN; whisper 448 decoder tokens),
@@ -344,17 +351,17 @@ before each path and read just after it) and its wall seconds:
    Every kernel's launch count must stay 0 over phases 16-19.
 20. fam_train -- every family but ssm trains at full width, float32
    weights, bf16 activations, TF32 off, AdamW (warmup 1), remat
-   "full", each model freed before the next: qwen1.5-4b (10 of 40
+   "full", each model freed before the next: qwen1.5-4b (5 of 40
    layers, 4 x 2,048 tokens), gemma2-27b (2 of 46: a local and a global
    layer, 2 x 2,048: the batch cut from 4, its float32 logits do not
    fit beside its state), mixtral-8x22b (1 of 56, 4 x 2,048),
    recurrentgemma-9b (3 of 38: one super-block, 2 x 4,096, past 2,559
    where the reference's windowed attention and its gradient are NaN),
    internvl2-26b (4 of 48, 256 image tokens + 2,048, batch 4) and
-   whisper-medium (12 + 12 of 24 + 24 layers, 1,500 frames + 448
+   whisper-medium (6 + 6 of 24 + 24 layers, 1,500 frames + 448
    tokens, batch 8); the depth cut is what 80 GB holds at 16 bytes a
    parameter (weights, gradients, two moments) with room for the
-   activations, qwen's and whisper's halved from that (the script's
+   activations, qwen's and whisper's a quarter of that (the script's
    time);
    the allocator grows expandable segments over phases 20 and 21.
    Four timed steps and one profiled, all on one repeated batch: the
@@ -372,15 +379,16 @@ before each path and read just after it) and its wall seconds:
    train.py --preset 100m`` at the launcher's defaults (100 steps,
    batch 8, seq 256: at 30 steps the loss of a fresh batch a step had
    not yet fallen), once whole and once with a checkpoint every 30 and
-   a failure at step 32, under deterministic algorithms, gives the
-   same loss trail bit for bit (steps 30 and 31 run twice), and its
-   loss falls; (c) the launcher with no arguments (the ``20m`` preset,
-   100 steps), its loss falling.  Every kernel's launch count must stay 0 over phases 20
-   and 21.
+   a failure at step 32, cut after 40 steps of its 100-step schedule,
+   under deterministic algorithms, gives the same loss trail bit for
+   bit as the whole run's first 40 (steps 30 and 31 run twice), and
+   the whole run's loss falls; (c) the launcher with no arguments (the
+   ``20m`` preset, 100 steps), its loss falling.  Every kernel's launch
+   count must stay 0 over phases 20 and 21.
 22. mesh_model -- the sharded train step: 4 spawned gloo ranks on the
    one card (NCCL refuses two ranks on one device) laid out as a (2, 2)
    ``("data", "model")`` mesh.  (a) qwen1.5-4b at full width, 2 of 40
-   layers, float32 activations, TF32 off, AdamW (warmup 1), 5 steps on
+   layers, float32 activations, TF32 off, AdamW (warmup 1), 4 steps on
    one sequence of 1,024 tokens a data rank (cut from 2,048: four
    ranks' replicated embedding and head state, 13.7 GB a rank, leave
    no room for more float32 logits); a rank's step seconds, tokens/s,
@@ -430,7 +438,8 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "port"))
+PORT = ROOT / "port"
+sys.path.insert(0, str(PORT))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published
 FP32_OPS_PER_S = 67e12         # H100 SXM, float32 outside the tensor cores
@@ -500,10 +509,10 @@ FAM_ARCH = "recurrentgemma_9b"     # fam_prefill, fam_decode, fam_check
 FAM_L, FAM_L_CUT, FAM_CUT_S = 32_768, 16_384, 30.0
 FAM_CHECK_L, FAM_WRAP_L = 200, 2_600   # fam_check (a) and (b), B = 2
 FAMILIES = {  # arch -> layers run (None: all), each at full width;
-    # qwen1.5-4b and whisper-medium cut to half depth (from all 40 and 24
-    # + 24) to keep the script's time near 1,000 s
-    "qwen15_4b": 20, "gemma2_27b": 4, "mixtral_8x22b": 2,
-    "arctic_480b": 1, "internvl2_26b": 4, "whisper_medium": 12,
+    # qwen1.5-4b and whisper-medium cut to a quarter of their depth (from
+    # all 40 and 24 + 24) to keep the script's time under 1,050 s
+    "qwen15_4b": 10, "gemma2_27b": 4, "mixtral_8x22b": 2,
+    "arctic_480b": 1, "internvl2_26b": 4, "whisper_medium": 6,
 }
 FAMILY_L, WHISPER_L = 5_120, 448   # a bf16 prefill's text tokens, B = 1
 FAMILY_DECODE = (32, 16, 16)       # batch, prompt, gen
@@ -512,12 +521,12 @@ FAM_TRAIN = {  # arch -> (layers run (None: all), batch, text tokens)
     # gemma2's batch cut from 4 to 2: its softcapped float32 logits
     # (4 x 2,048 x 256,000, 8.4 GB a pass, four or five live in the
     # backward) do not fit beside 37 GB of state
-    # qwen1.5-4b and whisper-medium at half the depth 80 GB holds (from
-    # 20 and 24 + 24) to keep the script's time near 1,000 s: their
-    # profiled steps' bookkeeping took 16 and 38 s
-    "qwen15_4b": (10, 4, 2_048), "gemma2_27b": (2, 2, 2_048),
+    # qwen1.5-4b and whisper-medium at a quarter of the depth 80 GB holds
+    # (from 20 and 24 + 24) to keep the script's time under 1,050 s:
+    # their profiled steps' bookkeeping took 8-9 and 19-22 s at half
+    "qwen15_4b": (5, 4, 2_048), "gemma2_27b": (2, 2, 2_048),
     "mixtral_8x22b": (1, 4, 2_048), "recurrentgemma_9b": (3, 2, 4_096),
-    "internvl2_26b": (4, 4, 2_048), "whisper_medium": (12, 8, 448),
+    "internvl2_26b": (4, 4, 2_048), "whisper_medium": (6, 8, 448),
 }
 FAM_TRAIN_STEPS = 4        # timed steps on one repeated batch; one more
                            # is profiled
@@ -529,10 +538,12 @@ FAM_GRAD_TOL = 1e-4        # float32 gradients against float64, of the
 # of a fresh batch a step had not yet fallen below the first.  (b)'s
 # restart: three checkpoints of 1.5 GB, a failure two steps after one
 PRESET_STEPS, PRESET_EVERY, PRESET_FAIL_AT = 100, 30, 32
+PRESET_STOP = 40           # steps of progress the restarted 100m run
+                           # makes (its schedule still PRESET_STEPS long)
 MM_DIMS, MM_ELASTIC = (2, 2), (1, 4)   # mesh_model's ("data", "model")
 MM_AXES = ("data", "model")
 MM_ARCH, MM_LAYERS = "qwen15_4b", 2    # (a): full width, depth cut
-MM_SEQ, MM_STEPS = 1_024, 5    # a sequence a data rank (cut from 2,048:
+MM_SEQ, MM_STEPS = 1_024, 4    # a sequence a data rank (cut from 2,048:
                                # four ranks' float32 logits beside 4 x 13 GB
                                # of replicated embedding and head state)
 MM_STEP_TOL = 1e-4             # loss and grad_norm against one device,
@@ -564,6 +575,7 @@ INGEST_DELETE = 200_000    # ids a delete
 INGEST_DELETES = 4
 INGEST_UPDATE = 100_000    # ids the update moves
 SHORT_APPENDS, SHORT_DELETES = 2, 2    # the "hilbert" and "off" streams
+SHORT_BASE = 1_000_000     # of the INGEST_BASE staged, what they start from
 SHARDS = 4                 # owners of the sharded servers, join plans and
                            # parallel partitioning, simulated on the card
 SHARD_OFF_BATCHES = (4, 2, 2)   # counts, ids, kNN batches of sharded "off"
@@ -637,13 +649,21 @@ def check_ids(torch, geometry, mbrs, q, hit_ids, counts, overflow,
 def device_busy(torch, fn, reps: int):
     """Device time per call from torch.profiler (kernels, copies and
     sets on the card), and the five largest device consumers."""
-    return device_ops(torch, fn, reps)[:2]
+    return device_items(profile_of(torch, fn, reps), reps)
 
 
 def device_ops(torch, fn, reps: int, n: int = 8):
     """``device_busy`` with the operators too: device ms per call, the
     five largest kernels and the ``n`` largest operators by the device
     time of the kernels they launch (ms per call, calls per call)."""
+    prof = profile_of(torch, fn, reps)
+    dev_ms, top = device_items(prof, reps)
+    return dev_ms, top, [[k, ms / reps, c / reps]
+                         for k, ms, c in top_ops(prof, n)]
+
+
+def profile_of(torch, fn, reps: int):
+    """``fn`` run ``reps`` times under torch.profiler -> the profile."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -651,9 +671,7 @@ def device_ops(torch, fn, reps: int, n: int = 8):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    dev_ms, top = device_items(prof, reps)
-    return dev_ms, top, [[k, ms / reps, c / reps]
-                         for k, ms, c in top_ops(prof, n)]
+    return prof
 
 
 def device_items(prof, reps: int, top: int = 5):
@@ -1164,11 +1182,12 @@ def ingest_phase(torch, dev):
     kernel.reset_launches()
     hkernel.reset_launches()
     answers, short = {}, {}
+    short_base = base[:SHORT_BASE]
     for li in ("hilbert", "off"):
         gs = torch.Generator(device=dev).manual_seed(SEED + 4)
-        log, model = [], LiveSet(torch, base, gs)
-        srv = SpatialServer(parts, base, ServeConfig(local_index=li,
-                                                     slack=slack),
+        log, model = [], LiveSet(torch, short_base, gs)
+        srv = SpatialServer(parts, short_base, ServeConfig(local_index=li,
+                                                           slack=slack),
                             device=dev)
         t0 = time.perf_counter()
         srv.tiles._ensure_mirror()
@@ -1211,9 +1230,10 @@ def ingest_phase(torch, dev):
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on the ingest "
                                  f"path: {launches}")
-    emit(dict(phase="ingest_short", streams=short, hilbert_equals_off=True,
-              brute_force_counts=CHECK_Q, launches=launches))
-    del answers, model, mbrs, base, held
+    emit(dict(phase="ingest_short", base=SHORT_BASE, streams=short,
+              hilbert_equals_off=True, brute_force_counts=CHECK_Q,
+              launches=launches))
+    del answers, model, mbrs, base, held, short_base
     torch.cuda.empty_cache()
     return launches
 
@@ -4555,6 +4575,43 @@ def no_kernel_launched(phase):
     return counts
 
 
+def checker_phase(torch):
+    """Phase 0: the port's hazard checker (``repro_torch.analysis``)
+    over the checkout's port tree, as ``python -m repro_torch.analysis
+    repro_torch`` runs it -> its report's counts.  It reads the sources
+    and calls the range probe's plain twins on small CPU tensors: a
+    build of any kernel source raises here, and every launch count must
+    still be 0 after it.  Fails on any finding."""
+    from repro_torch.analysis import api
+    from repro_torch.kernels import cuda_build
+
+    def no_build(sources):
+        raise AssertionError(f"the checker built a kernel: {sources}")
+
+    reset_kernel_launches()
+    build_all, cuda_build.build_all = cuda_build.build_all, no_build
+    t0 = time.perf_counter()
+    try:
+        report = api.run(PORT / "repro_torch",
+                         baseline=PORT / "repro_torch" / "analysis"
+                         / "baseline.json")
+    finally:
+        cuda_build.build_all = build_all
+    seconds = time.perf_counter() - t0
+    launches = sum(kernel_launches().values())
+    by_rule = {rid: sum(f.rule == rid for f in report.findings)
+               for rid in api.RULE_IDS}
+    emit(dict(phase="checker", seconds=seconds, findings=by_rule,
+              counts=report.to_json()["counts"], kernel_launches=launches,
+              card=card_line()))
+    if report.findings or launches:
+        raise AssertionError(
+            "the hazard checker found: " + "; ".join(
+                f.render() for f in report.findings)
+            + f" (kernel launches {launches})")
+    return seconds
+
+
 def cut_depth(cfg, n_layers):
     """``cfg`` at ``n_layers`` layers (the encoder-decoder's encoder
     too); None leaves it whole."""
@@ -5073,20 +5130,35 @@ def grad_check(torch, dev, arch):
                 ok=finite and worst <= FAM_GRAD_TOL)
 
 
-def launcher_trail(torch, dev, argv):
+class _TrailCut(Exception):
+    """Raised from the launcher's ``on_step`` to end its run early."""
+
+
+def launcher_trail(torch, dev, argv, stop_after=None):
     """``launch/train.main`` with ``argv`` on the card, in a temporary
     checkpoint directory -> every completed step's loss, in order, and
-    the launcher's last line."""
+    the launcher's last line (None when the run was cut after
+    ``stop_after`` completed steps, redone ones included)."""
     from repro_torch.launch import train
 
     losses = []
+
+    def on_step(i, m):
+        losses.append(m["loss"])
+        if len(losses) == stop_after:
+            raise _TrailCut
+
     d = tempfile.mkdtemp(prefix="fam_train_ckpt_")
     out = io.StringIO()
+    cut = False
     try:
         with contextlib.redirect_stdout(out):
-            rc = train.main(argv + ["--ckpt-dir", d, "--device", str(dev),
-                                    "--log-every", "1000"],
-                            on_step=lambda i, m: losses.append(m["loss"]))
+            try:
+                rc = train.main(argv + ["--ckpt-dir", d, "--device",
+                                        str(dev), "--log-every", "1000"],
+                                on_step=on_step)
+            except _TrailCut:
+                rc, cut = 0, True
     except BaseException:
         sys.stderr.write(out.getvalue())
         raise
@@ -5094,7 +5166,7 @@ def launcher_trail(torch, dev, argv):
         shutil.rmtree(d)
     if rc != 0:
         raise AssertionError(f"launch/train.py {argv} returned {rc}")
-    return losses, out.getvalue().splitlines()[-1]
+    return losses, None if cut else out.getvalue().splitlines()[-1]
 
 
 def fam_train_check_phase(torch, dev):
@@ -5109,18 +5181,21 @@ def fam_train_check_phase(torch, dev):
     with deterministic(torch) as nondeterministic:
         whole, _ = launcher_trail(torch, dev, [
             "--preset", "100m", "--ckpt-every", str(PRESET_STEPS + 1)])
+        redo = PRESET_FAIL_AT - PRESET_FAIL_AT // PRESET_EVERY * PRESET_EVERY
         again, last = launcher_trail(torch, dev, [
             "--preset", "100m", "--ckpt-every", str(PRESET_EVERY),
-            "--inject-failure-at", str(PRESET_FAIL_AT)])
-    redo = PRESET_FAIL_AT - PRESET_FAIL_AT // PRESET_EVERY * PRESET_EVERY
+            "--inject-failure-at", str(PRESET_FAIL_AT)],
+            stop_after=PRESET_STOP + redo)
     bit_equal = (again[:PRESET_FAIL_AT] + again[PRESET_FAIL_AT + redo:]
-                 == whole and again[PRESET_FAIL_AT:PRESET_FAIL_AT + redo]
+                 == whole[:PRESET_STOP]
+                 and again[PRESET_FAIL_AT:PRESET_FAIL_AT + redo]
                  == whole[PRESET_FAIL_AT - redo:PRESET_FAIL_AT])
     t2 = time.perf_counter()
     default, default_last = launcher_trail(torch, dev, [])
     t3 = time.perf_counter()
     counts = no_kernel_launched("fam_train_check")
     preset = dict(preset="100m", steps=PRESET_STEPS,
+                  restarted_steps=PRESET_STOP,
                   ckpt_every=PRESET_EVERY, fail_at=PRESET_FAIL_AT,
                   losses=whole, restarted_losses=again,
                   restarted_last_line=last, bit_equal=bit_equal,
@@ -5137,7 +5212,7 @@ def fam_train_check_phase(torch, dev):
         raise AssertionError(f"float32 gradients differ from float64 past "
                              f"{FAM_GRAD_TOL} of the leaf's largest: {bad}")
     if not (bit_equal and preset["loss_falls"]
-            and len(again) == PRESET_STEPS + redo):
+            and len(again) == PRESET_STOP + redo):
         raise AssertionError(f"the 100m preset's restarted trail differs "
                              f"or its loss did not fall: {preset}")
     if not dflt["loss_falls"]:
@@ -5605,7 +5680,7 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = card_line()
-    wall = {}
+    wall = {"checker_s": checker_phase(torch)}
     t0 = time.perf_counter()
     libs = cuda_build.build_all([kernel.SOURCE, hkernel.SOURCE,
                                  mkernel.SOURCE, skernel.SOURCE])

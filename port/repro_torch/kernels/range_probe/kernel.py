@@ -458,6 +458,10 @@ def mask(qboxes, tiles, *, alive=None) -> torch.Tensor:
     return _dense("mask", qboxes, tiles, None, alive, True)
 
 
+# reprolint: disable=kernel-twin-parity -- count and mask are the
+# block-per-tile first designs, yardsticks off every path; the dense
+# path's extent-aware passes are dense_counts and dense_hits, and this
+# pair was redesigned to stop at the extent
 def count_skip(qboxes, tiles, cboxes, *, alive=None,
                extent=None) -> torch.Tensor:
     """Chunk-skipping dense counts, tile-major (a query a thread, the
@@ -467,6 +471,8 @@ def count_skip(qboxes, tiles, cboxes, *, alive=None,
     return _dense_counts("count_skip", qboxes, tiles, cboxes, alive, extent)
 
 
+# reprolint: disable=kernel-twin-parity -- see count_skip: mask is the
+# block-per-tile yardstick, this table stops at the extent
 def mask_skip(qboxes, tiles, cboxes, *, alive=None,
               extent=None) -> torch.Tensor:
     """Chunk-skipping dense hit table, slot-parallel (a thread 16 slots,

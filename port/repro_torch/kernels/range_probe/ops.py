@@ -61,6 +61,9 @@ def _gather(table: torch.Tensor, cand: torch.Tensor, pad_value
     return out
 
 
+# reprolint: disable=kernel-twin-parity -- pure data mover: gathers raw
+# member boxes for downstream twins; tombstones are enforced where the
+# hits are computed, via the parallel gathered_alive mask
 def gathered_rows(tiles: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """(T, cap, 4) x (Q, F) -> (Q, F, cap, 4), -1 -> all-sentinel tile."""
     return _gather(tiles.float(), cand, sentinel(tiles.device))
@@ -128,6 +131,10 @@ def probe_counts_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
                                  cboxes.float(), alive)
 
 
+# reprolint: disable=kernel-twin-parity -- no executor takes either
+# table (the dense ids take dense_hit_list); on the card probe_mask is
+# the table yardstick, which walks all of cap, and its skip twin stops
+# at the extent; the plain versions of both ignore it
 def probe_mask_skip(qboxes: torch.Tensor, tiles: torch.Tensor,
                     cboxes: torch.Tensor, *,
                     alive: torch.Tensor | None = None,
@@ -293,6 +300,9 @@ def hit_table_blocks(cand: torch.Tensor, cap: int, budget: int | None = None
     budget = _HIT_TABLE_BYTES if budget is None else budget
     q, f = cand.shape
     col = torch.arange(1, f + 1, device=cand.device)
+    # reprolint: disable=host-sync -- the plain hit list's blocking: one
+    # read of the batch's widths, only where no kernel runs (CPU
+    # tensors, and the card's comparisons against the plain version)
     width = ((cand >= 0) * col).amax(1).tolist() if f else [0] * q
     blocks, i = [], 0
     while i < q:

@@ -271,6 +271,9 @@ def _rp_owned(q: torch.Tensor, boxes: torch.Tensor, tile_box: torch.Tensor,
         & hi_y
 
 
+# reprolint: disable=kernel-twin-parity -- reference-point research path
+# over full MASJ tiles of a static layout; not part of the tombstone
+# serving surface (serving goes through range_counts/pruned_*)
 def range_counts_rp(qboxes: torch.Tensor, tiles: torch.Tensor,
                     tile_boxes: torch.Tensor, uni: torch.Tensor
                     ) -> torch.Tensor:
@@ -283,6 +286,9 @@ def range_counts_rp(qboxes: torch.Tensor, tiles: torch.Tensor,
     return torch.sum(hits & own, dim=(1, 2), dtype=torch.int32)
 
 
+# reprolint: disable=kernel-twin-parity -- reference-point research path
+# (see range_counts_rp): static layouts only, outside the tombstone
+# serving surface
 def routed_range_counts(qboxes: torch.Tensor, tiles: torch.Tensor,
                         tile_boxes: torch.Tensor, uni: torch.Tensor,
                         route_mask: torch.Tensor, max_fanout: int

@@ -309,6 +309,8 @@ class SpatialServer:
         batch's true max probe fan-out and is ratcheted through the width
         cache.  -> ``(cand[Q, F], costs[Q], F)``."""
         hit = router.probe_overlap(self.probe_boxes, qboxes)
+        # reprolint: disable=host-sync -- routing is host-side by design:
+        # one fold of the overlap matrix feeds the width ratchet + packing
         pf = hit.sum(1, dtype=torch.int32).cpu().numpy()
         floor = _f_width(int(pf.max(initial=0)), self.stats["t_live"])
         f = self.widths.at_least("range", floor)
@@ -378,6 +380,8 @@ class SpatialServer:
             nn_ids, nn_d2, overflow, xstats = self.tiles.dense_knn(
                 pts, k, max_cand)
             mode_stats = dict(mode="dense", **xstats)
+        # reprolint: disable=host-sync -- the paper's fan-out metric in the
+        # batch's stats: one read a kNN batch, after its answers
         fanout = knn_mod.knn_fanout(pts, nn_d2[:, -1], self.parts.boxes,
                                     self.parts.valid).cpu().numpy()
         stats = dict(fanout_mean=float(fanout.mean()),

@@ -268,6 +268,8 @@ def _merge_plans(a: dict, b: dict) -> dict:
 def _to_host(t: torch.Tensor) -> np.ndarray:
     """A writable host copy of ``t`` (never a view of a CPU staging, so
     the device staging changes only through ``_scatter``)."""
+    # reprolint: disable=host-sync -- the host mirrors' download: called
+    # by _ensure_mirror only, once per (re)install
     a = t.detach().cpu().numpy()
     return a.copy() if t.device.type == "cpu" else a
 
@@ -525,6 +527,8 @@ def shard_staged(layout: StagedLayout, stats: dict, n_shards: int,
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
+        # reprolint: disable=host-sync -- timing fence of the staging and
+        # rebalance reports' seconds: once a (re)stage or rebalance
         torch.cuda.synchronize(dev)
 
 
@@ -605,6 +609,8 @@ def _knn_cost_proxy(uni_np: np.ndarray, n: int, dist, k: int) -> np.ndarray:
     float32; the packing decides the exchange tables, so a one-ulp
     radius would change them."""
     diag = float(np.linalg.norm(uni_np[2:] - uni_np[:2]))
+    # reprolint: disable=host-sync -- a CPU scalar: the initial radius of
+    # a host float, no device involved
     r0 = float(knn_mod.initial_radius(
         torch.tensor(diag, dtype=torch.float32), k, n))
     return (1.0 + np.sum(_host_np(dist) <= r0, axis=1)).astype(np.float64)
@@ -1090,6 +1096,9 @@ class _TilesBase:
             return [c for _, c in rows]
         b = np.concatenate([self._canon_np[t, c] for t, c in rows])
         dev = self.device
+        # reprolint: disable=host-sync -- the "hilbert" compaction's slot
+        # order, planned on the host with the ingest bookkeeping: one
+        # encode and one download a compaction
         keys = hilbert_ops.hilbert_keys(
             torch.from_numpy((b[:, :2] + b[:, 2:]) * 0.5).to(dev),
             torch.from_numpy(self._uni_np).to(dev)).cpu().numpy()
@@ -1960,6 +1969,9 @@ def _fan(x: torch.Tensor, take: torch.Tensor | None) -> torch.Tensor:
 
 
 def _max_rounds(rounds: torch.Tensor) -> int:
+    # reprolint: disable=host-sync -- the kNN stats' rounds as a host int,
+    # as the reference reports them: one read a batch, queued after the
+    # answers the caller reads anyway
     return int(rounds.max()) if rounds.numel() else 0
 
 
