@@ -364,8 +364,8 @@ before each path and read just after it) and its wall seconds:
    activations, qwen's and whisper's a quarter of that (the script's
    time);
    the allocator grows expandable segments over phases 20 and 21.
-   Four timed steps and one profiled, all on one repeated batch: the
-   median of the last three step seconds, tokens/s, peak memory, the
+   Three timed steps and one profiled, all on one repeated batch: the
+   median of the last two step seconds, tokens/s, peak memory, the
    profiled step's device ms, idle share, largest kernels and
    operators, the first loss against ln(vocab); fails unless every
    loss and ``grad_norm`` is finite (a finite norm is a finite
@@ -388,7 +388,7 @@ before each path and read just after it) and its wall seconds:
 22. mesh_model -- the sharded train step: 4 spawned gloo ranks on the
    one card (NCCL refuses two ranks on one device) laid out as a (2, 2)
    ``("data", "model")`` mesh.  (a) qwen1.5-4b at full width, 2 of 40
-   layers, float32 activations, TF32 off, AdamW (warmup 1), 4 steps on
+   layers, float32 activations, TF32 off, AdamW (warmup 1), 3 steps on
    one sequence of 1,024 tokens a data rank (cut from 2,048: four
    ranks' replicated embedding and head state, 13.7 GB a rank, leave
    no room for more float32 logits); a rank's step seconds, tokens/s,
@@ -408,6 +408,26 @@ before each path and read just after it) and its wall seconds:
    bf16 partial sums over F), the aux against the data shards' mean.
    Every kernel's launch count must stay 0 over phase 22 (the ranks'
    and this process's).
+23. dryrun -- the dry-run sweep (``repro_torch.launch.dryrun``), host
+   only: every arch x shape cell on the single (16, 16) recording mesh,
+   extrapolated from its depth-1 and depth-2 runs on fake tensors,
+   started in ``DRYRUN_WORKERS`` worker processes right after phase 1
+   on half the host's cores, the main process keeping the other half.
+   It overlaps phases 2-5 (serve, knn, dense, kernels) only: the main
+   process waits for its last cell before phase 6, stops the workers
+   and takes every core back, and its records are printed here.  One
+   line a
+   cell and the report's summary and table; fails on a ``fail`` cell,
+   a skip without the reference's reason, or a kernel launched in a
+   worker.
+24. dryrun_check -- the dry-run held to the card: qwen1.5-4b at full
+   width, 2 layers, a prefill of 1 x 4,096 and a train step of 1 x
+   2,048 on a (1, 1) mesh, once on fake tensors (``launch.cells``, in
+   phase 23's workers) and once on the card.  Fails unless ``FlopCounterMode`` counts the
+   dry-run's FLOPs exactly on the card's step and the card's peak
+   (``max_memory_allocated`` over the step, counted from the same
+   starting state) is within 10% of the dry-run's; prints the measured
+   step seconds beside max(t_compute, t_memory).  No kernel launched.
 
 Then one ``{"kernels": [...]}`` line (all twelve kernels and the
 join's two batched passes; ``launches_by_path`` holds each row's
@@ -528,7 +548,7 @@ FAM_TRAIN = {  # arch -> (layers run (None: all), batch, text tokens)
     "mixtral_8x22b": (1, 4, 2_048), "recurrentgemma_9b": (3, 2, 4_096),
     "internvl2_26b": (4, 4, 2_048), "whisper_medium": (6, 8, 448),
 }
-FAM_TRAIN_STEPS = 4        # timed steps on one repeated batch; one more
+FAM_TRAIN_STEPS = 3        # timed steps on one repeated batch; one more
                            # is profiled
 FAM_GRAD_B, FAM_GRAD_L = 2, 64     # fam_train_check (a), one super-block
 FAM_GRAD_TOL = 1e-4        # float32 gradients against float64, of the
@@ -543,7 +563,7 @@ PRESET_STOP = 40           # steps of progress the restarted 100m run
 MM_DIMS, MM_ELASTIC = (2, 2), (1, 4)   # mesh_model's ("data", "model")
 MM_AXES = ("data", "model")
 MM_ARCH, MM_LAYERS = "qwen15_4b", 2    # (a): full width, depth cut
-MM_SEQ, MM_STEPS = 1_024, 4    # a sequence a data rank (cut from 2,048:
+MM_SEQ, MM_STEPS = 1_024, 3    # a sequence a data rank (cut from 2,048:
                                # four ranks' float32 logits beside 4 x 13 GB
                                # of replicated embedding and head state)
 MM_STEP_TOL = 1e-4             # loss and grad_norm against one device,
@@ -553,6 +573,11 @@ MM_MOE_B, MM_MOE_L = 2, 2_048  # sequences a data rank
 MM_MOE_TOL = 3e-2              # bf16 outputs and gradients, of the largest
 MM_SAMPLE = (61, 53)           # strides of the expert-gradient samples
 MM_DEADLINE_S = 600.0          # the mesh_model phase's ranks, spawn to join
+DRYRUN_WORKERS = 4             # processes of the dry-run sweep (host only)
+DRYRUN_DEADLINE_S = 900.0      # the sweep, from its start to its last cell
+DRYRUN_CHECK_ARCH, DRYRUN_CHECK_LAYERS = "qwen15_4b", 2
+DRYRUN_CHECK = (("prefill", 4_096), ("train", 2_048))   # batch 1
+DRYRUN_PEAK_TOL = 0.10         # the card's peak against the dry-run's
 SSD_TPU = "src/repro/kernels/ssd/kernel.py:41"
 NEW_CASES = {  # the join's kernels -> the TPU kernel each replaces
     "hilbert_encode": "src/repro/kernels/hilbert/kernel.py:41",
@@ -5665,12 +5690,262 @@ def mesh_model_alone(torch, dev):
     return counts, dict(mesh_model_s=time.perf_counter() - t0)
 
 
+def dryrun_cell(arch, shape):
+    """One cell of the dry-run sweep, in a worker process ->
+    (``dryrun.run_cell``'s record on the single mesh, extrapolated; the
+    worker's kernel launches so far)."""
+    import torch
+    from repro_torch.launch import dryrun
+
+    torch.set_num_threads(1)
+    rec = dryrun.run_cell(arch, shape, False, verbose=False)
+    return rec, sum(kernel_launches().values())
+
+
+def dryrun_check_dry(kind, seq):
+    """Phase 24's dry-run side, in a worker process: the
+    ``DRYRUN_CHECK_ARCH`` cell at ``DRYRUN_CHECK_LAYERS`` layers, batch
+    1, on a (1, 1) recording mesh -> (``roofline.Counts``, its seconds,
+    the worker's kernel launches so far)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.launch import cells, mesh as mesh_lib, shapes
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    counts = cells.build_cell(
+        DRYRUN_CHECK_ARCH, shapes.ShapeSpec(f"{kind}_{seq}", seq, 1, kind),
+        mesh_lib.RecordingMesh.of((1, 1), MM_AXES),
+        cfg_override=cut_depth(configs.get(DRYRUN_CHECK_ARCH),
+                               DRYRUN_CHECK_LAYERS)).run_fn()
+    return (counts, time.perf_counter() - t0,
+            sum(kernel_launches().values()))
+
+
+def pin_worker(cores) -> None:
+    """A sweep worker's initializer: it runs on ``cores`` only."""
+    os.sched_setaffinity(0, cores)
+
+
+def pin_threads(cores) -> None:
+    """Every thread of this process on ``cores`` (a thread keeps the
+    cores it was started with: the pools torch starts while the sweep
+    runs too)."""
+    for tid in os.listdir("/proc/self/task"):
+        with contextlib.suppress(ProcessLookupError):
+            os.sched_setaffinity(int(tid), cores)
+
+
+class DryrunSweep:
+    """Phase 23's sweep in ``DRYRUN_WORKERS`` spawned processes on the
+    second half of the host's cores, the main process on the first:
+    ``start`` submits every cell, the slowest (prefill) first; ``join``
+    waits for every cell, stops the workers and gives the main process
+    its cores back; ``collect`` prints the records; leaving the ``with``
+    block kills the workers, finished or not."""
+
+    def __init__(self):
+        self.pool = self.futs = self.check = self.t0 = self.cores = None
+        self.done = []          # each cell's finish time
+        self.waited_s = 0.0
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        self.unpin()
+
+    def close(self) -> None:
+        """Kill the workers, finished or not (a finished cell's record
+        stays in its future)."""
+        if self.pool is not None:
+            for proc in list(getattr(self.pool, "_processes", {}).values()):
+                if proc.is_alive():
+                    proc.kill()
+            self.pool.shutdown(wait=True, cancel_futures=True)
+            self.pool = None
+
+    def unpin(self) -> None:
+        if self.cores:
+            pin_threads(self.cores)
+            self.cores = None
+
+    def start(self) -> None:
+        import concurrent.futures as cf
+        import multiprocessing as mp
+        from repro_torch import configs
+        from repro_torch.launch import shapes
+
+        cores = sorted(os.sched_getaffinity(0))
+        half = len(cores) // 2
+        if half:
+            self.cores = cores
+            pin_threads(cores[:half])
+        self.pool = cf.ProcessPoolExecutor(
+            DRYRUN_WORKERS, mp_context=mp.get_context("spawn"),
+            initializer=pin_worker, initargs=(cores[half:],))
+        order = {"prefill": 0, "train": 1, "decode": 2}
+        cells = sorted(((a, s) for a in configs.ARCHS
+                        for s in shapes.SHAPES),
+                       key=lambda c: order[shapes.SHAPES[c[1]].kind])
+        self.check = {kind: self.pool.submit(dryrun_check_dry, kind, seq)
+                      for kind, seq in DRYRUN_CHECK}
+        self.t0 = time.perf_counter()
+        self.futs = [(a, s, self.pool.submit(dryrun_cell, a, s))
+                     for a, s in cells]
+        for _, _, fut in self.futs:
+            fut.add_done_callback(
+                lambda _f: self.done.append(time.perf_counter()))
+
+    def join(self) -> None:
+        """Wait for every cell (the records, or the exceptions
+        ``collect`` raises), stop the workers and give the main process
+        its cores back."""
+        import concurrent.futures as cf
+
+        t_wait = time.perf_counter()
+        cf.wait([f for *_, f in self.futs] + list(self.check.values()),
+                timeout=max(1.0, self.t0 + DRYRUN_DEADLINE_S - t_wait))
+        self.waited_s = time.perf_counter() - t_wait
+        self.close()
+        self.unpin()
+
+    def collect(self) -> dict:
+        """Phase 23: one line a cell, then the report's summary and
+        table -> its seconds (from its start, and waited for in
+        ``join``).  Fails on a failed or unfinished cell, a skip without
+        the reference's reason, or a kernel launched in a worker."""
+        from repro_torch import configs
+        from repro_torch.launch import report, shapes
+
+        recs, launches = [], 0
+        for _, _, fut in self.futs:
+            rec, n = fut.result(timeout=0)
+            launches = max(launches, n)
+            recs.append(rec)
+            emit(dict(phase="dryrun", **{k: v for k, v in rec.items()
+                                         if k != "trace"}))
+        summary = report.summary(recs)
+        emit(dict(phase="dryrun_summary", summary=summary,
+                  table=report.roofline_table(recs, "single"),
+                  kernel_launches=launches,
+                  seconds=max(self.done) - self.t0,
+                  waited_s=self.waited_s, workers=DRYRUN_WORKERS,
+                  cell_s=sum(r.get("t_lower_s") or 0 for r in recs)))
+        bad = [r for r in recs if r["status"] == "fail" or (
+            r["status"] == "skipped" and r["why"] != shapes.cell_supported(
+                configs.get(r["arch"]), shapes.SHAPES[r["shape"]])[1])]
+        if bad or launches or len(recs) != len(configs.ARCHS) * len(
+                shapes.SHAPES):
+            raise AssertionError(
+                f"dry-run: {summary}; kernel launches {launches}; "
+                f"{[r.get('error') for r in bad]}")
+        return dict(dryrun_s=max(self.done) - self.t0,
+                    dryrun_waited_s=self.waited_s)
+
+
+def held_bytes(torch, tensors) -> int:
+    """Bytes of the distinct storages under ``tensors``."""
+    seen = {}
+    for t in tensors:
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def dryrun_check_phase(torch, dev, sweep: DryrunSweep) -> list:
+    """Phase 24 (module docstring; its dry-run side ran in ``sweep``'s
+    workers) -> its rows."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch import configs
+    from repro_torch.launch import cells, mesh as mesh_lib, roofline
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = cut_depth(configs.get(DRYRUN_CHECK_ARCH), DRYRUN_CHECK_LAYERS)
+    reset_kernel_launches()
+    rows = []
+    for kind, seq in DRYRUN_CHECK:
+        dry, dry_s, dry_launches = sweep.check[kind].result(
+            timeout=DRYRUN_DEADLINE_S)
+        rl = roofline.analyze(dry)
+        mesh = mesh_lib.RecordingMesh.of((1, 1), MM_AXES, dev)
+        model = api.build(cfg, dev)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        batch = {"tokens": torch.randint(0, cfg.vocab, (1, seq),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32)}
+        if kind == "train":
+            opt = AdamWConfig()
+            state = api.init_train_state(model, gen, opt, mesh=mesh)
+            step = api.make_train_step(model, opt, mesh=mesh)
+            held = cells.state_tensors([state, batch])
+
+            def run():
+                step(state, batch)
+        else:
+            params = model.init_params(gen)
+            step = api.make_prefill_step(model, mesh=mesh)
+            held = cells.state_tensors([params, batch])
+
+            def run():
+                step(params, batch)
+        run()                       # warm: cuBLAS workspaces and pools
+        torch.cuda.synchronize()
+        start = held_bytes(torch, held)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        with FlopCounterMode(display=False) as fc:
+            run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base + start
+        secs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t1)
+        row = dict(
+            arch=cfg.name, layers=cfg.n_layers, kind=kind, batch=1, seq=seq,
+            dry_flops=dry.flops, card_flops=fc.get_total_flops(),
+            dry_peak_bytes=dry.peak_memory, card_peak_bytes=peak,
+            peak_gap=(dry.peak_memory - peak) / peak, held_bytes=start,
+            base_bytes=base, dry_run_s=dry_s, step_s=median(secs),
+            step_s_all=secs, t_compute_s=rl.t_compute,
+            t_memory_s=rl.t_memory, bound_s=max(rl.t_compute, rl.t_memory),
+            hbm_bytes=dry.hbm_bytes, dry_kernel_launches=dry_launches)
+        emit(dict(phase="dryrun_check", card=card_line(), **row))
+        rows.append(row)
+        del run, step, held, batch, model
+        if kind == "train":
+            del state
+        else:
+            del params
+        torch.cuda.empty_cache()
+        if row["dry_flops"] != row["card_flops"] or dry_launches \
+                or abs(row["peak_gap"]) > DRYRUN_PEAK_TOL:
+            raise AssertionError(f"dryrun_check {kind}: {row}")
+    no_kernel_launched("dryrun_check")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; torch.cuda is not "
               "available", file=sys.stderr)
         return 2
+    wall = {"checker_s": checker_phase(torch)}
+    with DryrunSweep() as sweep:
+        return phases(torch, wall, sweep)
+
+
+def phases(torch, wall: dict, sweep: DryrunSweep) -> int:
+    """Phases 1-24 (module docstring); phase 23's sweep runs in
+    ``sweep``'s workers from the end of the build to the end of phase 5."""
     from repro_torch.kernels import cuda_build
     from repro_torch.kernels.hilbert import kernel as hkernel
     from repro_torch.kernels.mbr_join import kernel as mkernel
@@ -5680,7 +5955,6 @@ def main() -> int:
     dev = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
     smi = card_line()
-    wall = {"checker_s": checker_phase(torch)}
     t0 = time.perf_counter()
     libs = cuda_build.build_all([kernel.SOURCE, hkernel.SOURCE,
                                  mkernel.SOURCE, skernel.SOURCE])
@@ -5689,6 +5963,7 @@ def main() -> int:
                         if "registers" in ln or "spill" in ln]
              for lib in libs}
     wall["build_s"] = time.perf_counter() - t0
+    sweep.start()
     emit(dict(phase="build", seconds=wall["build_s"],
               libraries=[lib.name for lib in libs], device=name,
               nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda,
@@ -5714,6 +5989,8 @@ def main() -> int:
     t4 = time.perf_counter()
     wall.update(serve_s=t1 - t0, knn_s=t2 - t1, dense_s=t3 - t2,
                 kernels_s=t4 - t3)
+    sweep.join()             # no later phase shares the host with it
+    t4 = time.perf_counter()
     servers = {"x": servers["x"]}
     parts = servers["x"].parts
     del qc, qi, pts, pruned_knn
@@ -5809,6 +6086,10 @@ def main() -> int:
     wall.update(fam_train_wall)
     mesh_model_launches, mesh_model_wall = mesh_model_alone(torch, dev)
     wall.update(mesh_model_wall)
+    t0 = time.perf_counter()
+    dryrun_check_phase(torch, dev, sweep)
+    wall["dryrun_check_s"] = time.perf_counter() - t0
+    wall.update(sweep.collect())
     ssd_entry["launches_by_path"] = dict(train=train_launches)
     ssd_entry["launches_per_train_step"] = per_step
     entries.append(ssd_entry)

@@ -24,7 +24,8 @@ Every rank of the mesh makes the same calls in the same order: each of
 these is a collective over its row or column of ranks.
 
 ``shard`` cuts a full tensor to this rank's block of a spec (a tuple
-of ``None`` or an axis name a dimension, ``dist.sharding.param_specs``)
+of ``None``, an axis name or a tuple of axis names a dimension,
+``dist.sharding.param_specs``, ``launch.cells.cache_specs``)
 and ``unshard`` gathers it back; ``StateSpecs`` names the spec of each
 leaf of a checkpointed train state, for ``checkpoint.store``.
 """
@@ -184,17 +185,35 @@ class Parallel:
         return loss
 
 
+def spec_axes(entry) -> tuple:
+    """The mesh axes of one entry of a spec: None, an axis name, or a
+    tuple of names (split over their product, row-major, as a
+    ``PartitionSpec`` entry that is a tuple)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def block_index(mesh, axes: tuple) -> tuple:
+    """(this rank's block, the block count) over ``axes``, row-major."""
+    i, n = 0, 1
+    for a in axes:
+        size = axis_size(mesh, a)
+        i, n = i * size + mesh.coords[a], n * size
+    return i, n
+
+
 def _blocks(shape: tuple, spec: tuple, mesh) -> list:
     """(dim, index, count) of each split dimension of ``spec``."""
-    coords = mesh.coords
     out = []
-    for dim, axis in enumerate(spec):
-        if axis is not None:
-            n = mesh.shape[axis]
+    for dim, entry in enumerate(spec):
+        axes = spec_axes(entry)
+        if axes:
+            i, n = block_index(mesh, axes)
             if shape[dim] % n:
                 raise ValueError(f"{shape} does not split {n} ways on "
                                  f"dimension {dim}")
-            out.append((dim, coords[axis], n))
+            out.append((dim, i, n))
     return out
 
 
@@ -210,8 +229,8 @@ def shard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
 def unshard(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """The full tensor of this rank's block ``t`` under ``spec``: a
     tiled all-gather along each split dimension (every rank calls it)."""
-    for dim, axis in enumerate(spec):
-        if axis is not None:
+    for dim, entry in enumerate(spec):
+        for axis in reversed(spec_axes(entry)):
             t = mesh.all_gather(t, axis=axis, dim=dim)
     return t
 

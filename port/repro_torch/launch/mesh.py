@@ -27,8 +27,10 @@ collective waits forever.
 
 Run under ``python -m torch.distributed.run`` with ``from_env``; tests
 spawn ranks with ``spawn`` and a ``file://`` store.  The reference's
-``make_production_mesh`` (TPU pods of 256 and 512 chips) has no
-counterpart: a process group is as large as its launcher makes it.
+``make_production_mesh`` (TPU pods of 256 and 512 chips) returns a
+``RecordingMesh``: one rank's view of such a mesh with no process
+group, whose collectives return tensors of the right shape and type and
+record what they would move (the dry-run's collective term).
 """
 from __future__ import annotations
 
@@ -133,7 +135,11 @@ class ProcessMesh:
             self.timers["copy_s"] += time.perf_counter() - t0
         return x
 
-    def _run(self, fn, nbytes: int) -> None:
+    def _run(self, fn, nbytes: int, kind: str = "", result: int = 0,
+             n: int = 1) -> None:
+        """Run the collective ``fn`` (``nbytes`` sent; ``kind``, the
+        ``result`` bytes and the group's size ``n`` are what a
+        ``RecordingMesh`` records in its place)."""
         t0 = time.perf_counter()
         fn()
         if self.device.type == "cuda" and not self.host_staging:
@@ -153,8 +159,9 @@ class ProcessMesh:
                              f"{self.size} ranks")
         src = self._out(x)
         dst = torch.empty_like(src)
+        nb = src.numel() * src.element_size()
         self._run(lambda: dist.all_to_all_single(dst, src, group=self.group),
-                  src.numel() * src.element_size())
+                  nb, "all-to-all", nb, self.size)
         return self._back(dst, x.dtype)
 
     def all_to_all_v(self, x: torch.Tensor, send: list[int],
@@ -166,7 +173,8 @@ class ProcessMesh:
         dst = src.new_empty((sum(recv),) + tuple(src.shape[1:]))
         self._run(lambda: dist.all_to_all_single(
             dst, src, list(recv), list(send), group=self.group),
-            src.numel() * src.element_size())
+            src.numel() * src.element_size(), "all-to-all",
+            dst.numel() * dst.element_size(), self.size)
         return self._back(dst, x.dtype)
 
     def all_gather(self, x: torch.Tensor, host: bool = False, *,
@@ -183,8 +191,9 @@ class ProcessMesh:
             return x.unsqueeze(0) if dim is None else x
         src = self._out(x)
         parts = [torch.empty_like(src) for _ in range(n)]
+        nb = src.numel() * src.element_size()
         self._run(lambda: dist.all_gather(parts, src, group=group),
-                  src.numel() * src.element_size())
+                  nb, "all-gather", n * nb, n)
         out = torch.stack(parts) if dim is None else torch.cat(parts, dim)
         return self._back(out, x.dtype, host)
 
@@ -212,8 +221,9 @@ class ProcessMesh:
         if n == 1:
             return x.clone()
         buf = self._out(x).clone()
+        nb = buf.numel() * buf.element_size()
         self._run(lambda: dist.all_reduce(buf, op=red, group=group),
-                  buf.numel() * buf.element_size())
+                  nb, "all-reduce", nb, n)
         out = self._back(buf, x.dtype)
         if op == "mean":    # the reference's pmean: psum / n
             out = out / torch.full((), n, dtype=out.dtype, device=out.device)
@@ -227,7 +237,8 @@ class ProcessMesh:
         return bool(self.all_reduce(f, "max").item())
 
     def barrier(self) -> None:
-        self._run(lambda: dist.barrier(group=self.group), 0)
+        self._run(lambda: dist.barrier(group=self.group), 0, "barrier", 0,
+                  self.size)
 
 
 def _device(device, local_rank: int) -> torch.device:
@@ -300,6 +311,52 @@ def make_mesh(base: ProcessMesh, dims: tuple[int, ...],
     return ProcessMesh(base.group, base.rank, base.size, base.device,
                        base.backend, axes=tuple(axes), dims=tuple(dims),
                        groups=groups)
+
+
+@dataclasses.dataclass
+class RecordingMesh(ProcessMesh):
+    """One rank's view of a mesh of ``dims`` ranks on named ``axes``,
+    with no process group: the dry-run's stand-in for a production mesh
+    (``launch.dryrun``).  Each collective returns a tensor of the shape
+    and type the real one returns (its values are not computed: run the
+    step on fake tensors) and appends ``(kind, result bytes, group
+    size)`` to ``ops``, in the reference's HLO names (``"all-reduce"``,
+    ``"all-gather"``, ``"all-to-all"``; ``"barrier"`` moves nothing);
+    ``timers`` counts the calls and bytes sent where a ``ProcessMesh``
+    would.  An axis of one rank records nothing, as a ``ProcessMesh``
+    runs nothing there."""
+
+    ops: list = dataclasses.field(default_factory=list)
+
+    @classmethod
+    def of(cls, dims: tuple[int, ...], axes: tuple[str, ...],
+           device="cpu", rank: int = 0) -> "RecordingMesh":
+        if len(dims) != len(axes):
+            raise ValueError(f"a mesh of {dims} over {axes}")
+        return cls(None, rank, math.prod(dims), torch.device(device),
+                   "record", axes=tuple(axes), dims=tuple(dims))
+
+    def _run(self, fn, nbytes: int, kind: str = "", result: int = 0,
+             n: int = 1) -> None:
+        self.timers["calls"] += 1
+        self.timers["bytes"] += nbytes
+        self.ops.append((kind, result, n))
+
+    def reset_timers(self) -> None:
+        super().reset_timers()
+        self.ops.clear()
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="cpu") -> RecordingMesh:
+    """The reference's production mesh seen from rank 0: (16, 16) over
+    ``("data", "model")``, or (2, 16, 16) over ``("pod", "data",
+    "model")`` with ``multi_pod`` (``pod`` folds into the data axes,
+    ``dp_axes``)."""
+    if multi_pod:
+        return RecordingMesh.of((2, 16, 16), ("pod", "data", "model"),
+                                device)
+    return RecordingMesh.of((16, 16), ("data", "model"), device)
 
 
 def close(mesh: ProcessMesh | None) -> None:

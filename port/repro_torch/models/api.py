@@ -222,29 +222,82 @@ def make_train_step(model: Model, opt_cfg: adamw.AdamWConfig,
     return step
 
 
-def make_prefill_step(model: Model):
+def make_prefill_step(model: Model, mesh=None):
     """Inference prefill: no-grad forward, last-position logits.  batch:
-    {tokens, [img] (vlm), [frames] (encdec)}."""
+    {tokens, [img] (vlm), [frames] (encdec)}.
+
+    ``mesh``: a ``("data", "model")`` ``launch.mesh`` mesh, for the step
+    on one rank of it, ``params`` this rank's shards of
+    ``dist.sharding.param_specs``.  Every rank is given the global
+    batch and takes its rows (``dist.parallel.Parallel``); the forward
+    runs as the sharded train step's (the encoder-decoder's split
+    weights gathered whole), and the rank returns its block of the (B,
+    V) logits: its rows, and its vocabulary columns where the padded
+    vocabulary splits over "model" (the reference's prefill cell's
+    output sharding)."""
     cfg = model.cfg
+    specs = None
+    if mesh is not None and cfg.family == "encdec":
+        specs = sharding.param_specs(sharding.abstract_params(cfg), cfg,
+                                     shard_experts=cfg.shard_experts,
+                                     mesh=mesh)
 
     @torch.no_grad()
     def step(params, batch):
+        par = None
+        if mesh is not None:
+            par = parallel.Parallel.of(mesh, batch["tokens"].shape[0])
+            batch = {k: par.rows(v) for k, v in batch.items()}
         if cfg.family == "encdec":
+            if par is not None:
+                params = _gathered(params, specs, par)
             logits, _ = encdec.forward(params, batch["frames"],
                                        batch["tokens"], cfg,
                                        logits_mode="last")
         else:
             logits, _ = lm.forward(params, batch["tokens"], cfg,
                                    img=batch.get("img"), remat="none",
-                                   logits_mode="last")
-        return logits[:, -1]
+                                   logits_mode="last", par=par)
+        logits = logits[:, -1]
+        if par is not None and par.tp > 1 \
+                and cfg.vocab_padded % par.tp == 0:
+            v = cfg.vocab_padded // par.tp
+            logits = logits[:, par.tp_rank * v:(par.tp_rank + 1) * v]
+        return logits
     return step
 
 
-def make_serve_step(model: Model):
-    """One decode step (greedy): token + cache -> next token + cache."""
+def _gathered(params, specs: dict, par):
+    """``params`` (this rank's shards of ``specs``) with every split
+    weight gathered whole, as a namespace tree (``lm.param_view``)."""
+    def fn(k, p):
+        if "model" in specs[k]:
+            p = par.gather(p, specs[k].index("model"), "own")
+        return p
+    return lm.param_view(params, fn)
+
+
+def make_serve_step(model: Model, mesh=None, specs=None):
+    """One decode step (greedy): token + cache -> next token + cache.
+
+    ``mesh``: the step on one rank of a ``("data", "model")`` mesh:
+    ``params`` this rank's shards, ``cache`` its blocks of ``specs``
+    (``launch.cells.cache_specs`` of the whole cache); every rank is
+    given the global batch's tokens and returns its rows' next tokens
+    (``lm.decode_step``, ``encdec.decode_step``)."""
+    cfg = model.cfg
+    family = encdec if cfg.family == "encdec" else lm
+    if mesh is not None and specs is None:
+        raise ValueError("a serve step under a mesh needs its cache's "
+                         "specs (launch.cells.cache_specs)")
+
     @torch.no_grad()
     def step(params, cache, token, pos):
-        logits, new_cache = model.decode_step(params, cache, token, pos)
+        if mesh is None:
+            logits, new_cache = model.decode_step(params, cache, token, pos)
+        else:
+            par = parallel.Parallel.of(mesh, token.shape[0])
+            logits, new_cache = family.decode_step(
+                params, cache, par.rows(token), pos, cfg, par, specs)
         return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
     return step

@@ -135,10 +135,34 @@ def model_partial(specs: dict, cfg, tp: int) -> set:
     return out
 
 
-def _qkv(x, p, cfg):
-    q = x @ p.wq.to(x.dtype)
-    k = x @ p.wk.to(x.dtype)
-    v = x @ p.wv.to(x.dtype)
+def proj(x, w, cols: int, par=None):
+    """``x @ w`` with ``cols`` output columns.  Where a mesh (``par``)
+    splits ``w``'s columns over "model", this rank's columns' product
+    is gathered whole: the activations cross the mesh, not the weight."""
+    y = x @ w.to(x.dtype)
+    if par is not None and w.shape[-1] != cols:
+        y = par.mesh.all_gather(y, axis=par.tp_axis, dim=-1)
+    return y
+
+
+def out_proj(a, w, par=None):
+    """``a @ w`` for a whole ``a``.  Where a mesh (``par``) splits
+    ``w``'s rows over "model", this rank's rows times its block of
+    ``a``, summed over "model"."""
+    rows = w.shape[0]
+    if par is None or rows == a.shape[-1]:
+        return a @ w.to(a.dtype)
+    r = par.tp_rank
+    part = a[..., r * rows:(r + 1) * rows] @ w.to(a.dtype)
+    return par.mesh.all_reduce(part, axis=par.tp_axis)
+
+
+def _qkv(x, p, cfg, par=None):
+    """Q, K and V of ``x``, whole (``proj``)."""
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = proj(x, p.wq, h * hd, par)
+    k = proj(x, p.wk, kv * hd, par)
+    v = proj(x, p.wv, kv * hd, par)
     if cfg.qkv_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
@@ -269,16 +293,28 @@ def block_cache_init(cfg, kind: str, batch: int, max_len: int, dtype,
     return attn_cache_init(cfg, kind, batch, max_len, dtype, device)
 
 
-def _attn_decode(x, p, cache, cfg, pos):
+def _attn_decode(x, p, cache, cfg, pos, par=None, spec=None):
     """One token's attention; K and V are written in place at slot
     ``pos % W`` (the ring holds exactly the window, so the read needs
-    no window mask)."""
+    no window mask).  Under a mesh (``par``), ``cache`` holds this
+    rank's block of the K and V of ``spec`` (``launch.cells.cache_specs``:
+    batch rows, then slots, kv heads or head dimensions over mesh axes);
+    each model rank projects with its block of the split weights and the
+    products are gathered (``proj``), so every rank holds every head's
+    query, ``layers.sharded_decode_attention`` writes the slot where
+    this rank holds it and combines the ranks' parts, and ``wo``'s
+    partial products are summed (``out_proj``)."""
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q, k, v = _qkv(x, p, cfg)
+    q, k, v = _qkv(x, p, cfg, par)
     posv = torch.full((b, 1), pos, device=x.device)
     q = layers.rope(q.reshape(b, 1, h, hd), posv, cfg.rope_theta)
     k = layers.rope(k.reshape(b, 1, kv, hd), posv, cfg.rope_theta)
+    if par is not None:
+        out = layers.sharded_decode_attention(
+            q, cache, pos + 1, par.mesh, spec, new_kv=(
+                k[:, 0], v.reshape(b, kv, hd)), softcap=cfg.attn_softcap)
+        return out_proj(out.reshape(b, 1, h * hd), p.wo, par), cache
     slot = pos % cache["k"].shape[1]
     cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][:, slot] = v.reshape(b, kv, hd).to(cache["v"].dtype)
@@ -287,21 +323,26 @@ def _attn_decode(x, p, cache, cfg, pos):
     return out.reshape(b, 1, h * hd) @ p.wo.to(x.dtype), cache
 
 
-def decode_block(x, p: Block, cache: dict, cfg, kind: str, pos):
+def decode_block(x, p: Block, cache: dict, cfg, kind: str, pos, par=None,
+                 spec=None):
     """One layer's decode step -> (x, cache); caches are updated in
-    place where the reference donates them."""
+    place where the reference donates them.  ``par`` and ``spec``: the
+    rank's place on a mesh and its cache block's spec (``_attn_decode``;
+    the SSM and RG-LRU states split over "model" in ``ssm`` and
+    ``rglru``), the MLP and the experts as in the forward."""
     eps = cfg.norm_eps
     if kind == "ssm":
         y, nc = ssm.decode_step(layers.rms_norm(x, p.norm1, eps),
-                                cache, p.ssm, cfg)
+                                cache, p.ssm, cfg, par, spec)
         return x + y, nc
     if kind == "rec":
         y, nc = rglru.decode_step(layers.rms_norm(x, p.norm1, eps),
-                                  cache, p.rec, cfg)
+                                  cache, p.rec, cfg, par, spec)
         x = x + y
-        return x + mlp(layers.rms_norm(x, p.norm2, eps), p.mlp, cfg), nc
+        return x + mlp(layers.rms_norm(x, p.norm2, eps), p.mlp, cfg,
+                       par), nc
     a, nc = _attn_decode(layers.rms_norm(x, p.norm1, eps), p.attn, cache,
-                         cfg, pos)
+                         cfg, pos, par, spec)
     if cfg.post_norms:
         a = layers.rms_norm(a, p.norm1b, eps)
-    return _ffn(x + a, p, cfg, kind)[0], nc
+    return _ffn(x + a, p, cfg, kind, par)[0], nc

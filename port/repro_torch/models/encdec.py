@@ -24,6 +24,7 @@ import torch
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from ..dist.parallel import block_index, spec_axes
 from . import blocks, layers, lm
 from .config import ModelConfig
 
@@ -179,31 +180,56 @@ def init_cache(params: EncDec, frames, cfg: ModelConfig, max_len: int):
     return {"self": self_c, "cross": cross}
 
 
-def decode_step(params: EncDec, cache: dict, token, pos, cfg: ModelConfig):
+def decode_step(params: EncDec, cache: dict, token, pos, cfg: ModelConfig,
+                par=None, specs=None):
     """One decode step.  token: (B,) -> (logits, cache); the
-    self-attention cache is written at ``pos`` in place."""
+    self-attention cache is written at ``pos`` in place.  Under a mesh
+    (``par``; ``token`` this rank's rows) the self and cross caches hold
+    this rank's blocks of ``specs`` (``launch.cells.cache_specs``) and
+    run through ``layers.sharded_decode_attention``, the split attention
+    weights' products gathered or summed (``blocks.proj``,
+    ``blocks.out_proj``)."""
     x = _embed(params, token[:, None], lm._dt(cfg))
     b = x.shape[0]
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     posv = torch.full((b, 1), pos, device=x.device)
-    for p, selfc, crossc in zip(params.dec, cache["self"], cache["cross"]):
+    for i, (p, selfc, crossc) in enumerate(zip(params.dec, cache["self"],
+                                               cache["cross"])):
+        attn, xattn = p.attn, p.xattn
         hn = layers.rms_norm(x, p.norm1, cfg.norm_eps)
-        q = (hn @ p.attn.wq.to(hn.dtype)).reshape(b, 1, h, hd)
-        k = (hn @ p.attn.wk.to(hn.dtype)).reshape(b, 1, kv, hd)
-        v = (hn @ p.attn.wv.to(hn.dtype)).reshape(b, kv, hd)
+        q = blocks.proj(hn, attn.wq, h * hd, par).reshape(b, 1, h, hd)
+        k = blocks.proj(hn, attn.wk, kv * hd, par).reshape(b, 1, kv, hd)
+        v = blocks.proj(hn, attn.wv, kv * hd, par).reshape(b, kv, hd)
         q = layers.rope(q, posv, cfg.rope_theta)
         k = layers.rope(k, posv, cfg.rope_theta)
-        selfc["k"][:, pos] = k[:, 0].to(selfc["k"].dtype)
-        selfc["v"][:, pos] = v.to(selfc["v"].dtype)
-        a = layers.decode_attention(q, selfc["k"], selfc["v"], pos + 1)
-        x = x + a.reshape(b, 1, h * hd) @ p.attn.wo.to(hn.dtype)
+        src = crossc["k"].shape[1]
+        if par is None:
+            selfc["k"][:, pos] = k[:, 0].to(selfc["k"].dtype)
+            selfc["v"][:, pos] = v.to(selfc["v"].dtype)
+            a = layers.decode_attention(q, selfc["k"], selfc["v"], pos + 1)
+        else:
+            a = layers.sharded_decode_attention(
+                q, selfc, pos + 1, par.mesh, specs["self"][i],
+                new_kv=(k[:, 0], v))
+            src *= _slot_blocks(par.mesh, specs["cross"][i])
+        x = x + blocks.out_proj(a.reshape(b, 1, h * hd), attn.wo, par)
         hx = layers.rms_norm(x, p.normx, cfg.norm_eps)
-        qx = (hx @ p.xattn.wq.to(hx.dtype)).reshape(b, 1, h, hd)
+        qx = blocks.proj(hx, xattn.wq, h * hd, par).reshape(b, 1, h, hd)
         qx = layers.rope(qx, posv, cfg.rope_theta)
-        ax = layers.decode_attention(qx, crossc["k"], crossc["v"],
-                                     crossc["k"].shape[1])
-        x = x + ax.reshape(b, 1, h * hd) @ p.xattn.wo.to(hx.dtype)
+        if par is None:
+            ax = layers.decode_attention(qx, crossc["k"], crossc["v"],
+                                         src)
+        else:
+            ax = layers.sharded_decode_attention(qx, crossc, src,
+                                                 par.mesh,
+                                                 specs["cross"][i])
+        x = x + blocks.out_proj(ax.reshape(b, 1, h * hd), xattn.wo, par)
         x = x + blocks.mlp(layers.rms_norm(x, p.norm2, cfg.norm_eps),
-                           p.mlp, cfg)
+                           p.mlp, cfg, par)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits_of(x[:, 0], params, cfg), cache
+
+
+def _slot_blocks(mesh, spec: dict) -> int:
+    """How many blocks the slots of a K/V leaf of ``spec`` split into."""
+    return block_index(mesh, spec_axes(spec["k"][1]))[1]

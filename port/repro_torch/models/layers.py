@@ -21,9 +21,12 @@ Training differentiates this forward with autograd (the reference has
 no attention backward of its own either); the stand-in keeps the
 gradient finite where the reference's is NaN.
 
-The reference's launcher switches ``FAST_ATTN`` and
-``UNROLL_INNER_SCANS`` belong to the dry-run launchers and are not
-ported (ROADMAP Queue 1 item 14c).
+``FAST_ATTN`` is the reference's launcher switch for the dry-run's
+A/B cells (``launch.cells.build_cell(fast_attn=)``): bf16 scores and
+probabilities in ``chunked_attention``, the running max, denominator
+and accumulator in float32.  The reference's ``UNROLL_INNER_SCANS`` has
+no counterpart: the port's loops run eagerly, so its counters see every
+iteration.
 """
 from __future__ import annotations
 
@@ -31,9 +34,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..dist.parallel import block_index, spec_axes
+
 INIT_STD = 0.02
 CHUNK = 512          # keys a step of the online softmax
 Q_BLOCK = 2048       # queries a block of ``chunked_attention``
+
+# bf16 score and probability products in ``chunked_attention``; set by
+# the dry-run's cell builder, as the reference's launcher sets its own
+FAST_ATTN = False
 
 
 class Params(nn.Module):
@@ -130,12 +139,18 @@ def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
     sk, kv = k.shape[1], k.shape[2]
     rep = h // kv
     scale = hd ** -0.5
-    qf = (up(q) * scale).reshape(b, sq, kv, rep, hd)
-    acc_t = dict(dtype=qf.dtype, device=q.device)
+    if FAST_ATTN:
+        score_dt = torch.bfloat16
+        qf = (q.to(score_dt) * rounded(scale, score_dt)).reshape(
+            b, sq, kv, rep, hd)
+    else:
+        qf = (up(q) * scale).reshape(b, sq, kv, rep, hd)
+        score_dt = qf.dtype
+    acc_t = dict(dtype=acc_dtype(q.dtype), device=q.device)
     nchunks = -(-sk // chunk)
     pad = nchunks * chunk - sk
-    kp = up(F.pad(k, (0, 0, 0, 0, 0, pad)))
-    vp = up(F.pad(v, (0, 0, 0, 0, 0, pad)))
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad)).to(score_dt)
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad)).to(score_dt)
     out = torch.empty((b, sq, kv, rep, hd), **acc_t)
     arange = torch.arange(chunk, device=q.device)
     for q0 in range(0, sq, Q_BLOCK):
@@ -149,7 +164,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
                               chunk=chunk, q_offset=q_offset):
             k_blk = kp[:, c * chunk:(c + 1) * chunk]
             v_blk = vp[:, c * chunk:(c + 1) * chunk]
-            s = torch.einsum("bqgrh,bcgh->bqgrc", qb, k_blk)
+            s = up(torch.einsum("bqgrh,bcgh->bqgrc", qb, k_blk))
             if softcap is not None:
                 s = _softcap(s, softcap)
             k_pos = c * chunk + arange
@@ -166,8 +181,8 @@ def chunked_attention(q, k, v, *, causal=True, window=None, softcap=None,
             p = torch.exp(s - m_use[..., None])
             corr = torch.exp(m - m_use)
             l_ = l_ * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqgrc,bcgh->bqgrh", p, v_blk)
+            acc = acc * corr[..., None] + up(torch.einsum(
+                "bqgrc,bcgh->bqgrh", p.to(score_dt), v_blk))
             m = m_new
         out[:, q0:q1] = acc / torch.clamp(l_[..., None], min=1e-30)
     return out.reshape(b, sq, h, hd).to(q.dtype)
@@ -196,6 +211,70 @@ def decode_attention(q, k_cache, v_cache, length, *, softcap=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrw,bwgh->bgrh", p.to(k_cache.dtype).float(),
                        v_cache.float())
+    return out.reshape(b, 1, h, hd).to(q.dtype)
+
+
+def sharded_decode_attention(q, cache: dict, length, mesh, spec: dict, *,
+                             new_kv=None, softcap=None):
+    """``decode_attention`` over a cache split across ``mesh``: ``cache``
+    holds this rank's block of K and V, (B, W/nw, KV/nk, hd/nh), as
+    ``spec["k"]`` says (batch rows, then slots, kv heads or head
+    dimensions over mesh axes; ``launch.cells.cache_specs``); q (B, 1,
+    H, hd) holds every head on every rank.
+
+    ``new_kv``: this token's K and V, (B, KV, hd) each, written at slot
+    ``(length - 1) % W`` by the ranks whose block holds it.  Where the
+    head dimension is split, each rank's partial dot products are
+    summed over its axes.  Where the slots are split (the reference's
+    distributed flash-decode), each rank forms its partial (max, sum,
+    out) over its slots: one all-reduce of the max and one of the sums
+    and outputs combine them, and a rank whose slots are all past
+    ``length`` adds exactly 0 (the ``-inf`` stand-in of
+    ``chunked_attention``).  The probabilities meet the values before
+    they are normalised, so in bf16 their rounding is not the one-device
+    form's; in float32 the two agree to rounding.  Every rank makes the
+    same collectives, whatever ``length``.  -> (B, 1, H, hd) in q's
+    type.
+    """
+    k_c, v_c = cache["k"], cache["v"]
+    b, wl, kvl, hdl = k_c.shape
+    h, hd = q.shape[2], q.shape[3]
+    _, w_ax, kv_ax, hd_ax = (spec_axes(e) for e in spec["k"])
+    wi, nw = block_index(mesh, w_ax)
+    ki, nk = block_index(mesh, kv_ax)
+    hi, nh = block_index(mesh, hd_ax)
+    kv, w = kvl * nk, wl * nw
+    kvs, hds = slice(ki * kvl, (ki + 1) * kvl), slice(hi * hdl, (hi + 1) * hdl)
+    if new_kv is not None:
+        slot = (length - 1) % w - wi * wl
+        if 0 <= slot < wl:          # this rank holds the slot
+            k_c[:, slot] = new_kv[0][:, kvs, hds].to(k_c.dtype)
+            v_c[:, slot] = new_kv[1][:, kvs, hds].to(v_c.dtype)
+    rep = h // kv
+    qf = (q.to(k_c.dtype) * rounded(hd ** -0.5, k_c.dtype)
+          ).reshape(b, kv, rep, hd)[:, kvs, :, hds]
+    s = torch.einsum("bgrh,bwgh->bgrw", qf.float(), k_c.float())
+    for a in hd_ax:
+        s = mesh.all_reduce(s, axis=a)
+    if softcap is not None:
+        s = _softcap(s, softcap)
+    pos = wi * wl + torch.arange(wl, device=q.device)
+    s = torch.where(pos < min(length, w), s, -torch.inf)
+    m = s.amax(dim=-1)
+    for a in w_ax:
+        m = mesh.all_reduce(m, "max", axis=a)
+    m = torch.where(torch.isneginf(m), 0.0, m)
+    e = torch.exp(s - m[..., None])
+    acc = torch.einsum("bgrw,bwgh->bgrh", e.to(k_c.dtype).float(),
+                       v_c.float())
+    both = torch.cat([e.sum(dim=-1)[..., None], acc], dim=-1)
+    for a in w_ax:
+        both = mesh.all_reduce(both, axis=a)
+    out = both[..., 1:] / both[..., :1]
+    for a in reversed(hd_ax):
+        out = mesh.all_gather(out, axis=a, dim=-1)
+    for a in reversed(kv_ax):
+        out = mesh.all_gather(out, axis=a, dim=1)
     return out.reshape(b, 1, h, hd).to(q.dtype)
 
 

@@ -277,13 +277,19 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for k in kinds(cfg)]
 
 
-def decode_step(params: LM, cache: list, token, pos, cfg: ModelConfig):
+def decode_step(params: LM, cache: list, token, pos, cfg: ModelConfig,
+                par=None, specs=None):
     """One greedy decode step.  token: (B,) int -> (logits, cache); the
-    SSM states and the K/V caches are updated in place."""
+    SSM states and the K/V caches are updated in place.  Under a mesh
+    (``par``; ``token`` this rank's rows) ``cache`` holds this rank's
+    blocks of ``specs`` (``launch.cells.cache_specs``, one dict a
+    layer); the head is replicated, so the logits of the rank's rows are
+    whole on every model rank."""
     x = _embed_in(params, token[:, None], cfg)
     new_cache = []
-    for blk, c, kind in zip(params.blocks, cache, kinds(cfg)):
-        x, nc = blocks.decode_block(x, blk, c, cfg, kind, pos)
+    specs = [None] * len(cache) if specs is None else specs
+    for blk, c, kind, sp in zip(params.blocks, cache, kinds(cfg), specs):
+        x, nc = blocks.decode_block(x, blk, c, cfg, kind, pos, par, sp)
         new_cache.append(nc)
     x = layers.rms_norm(x, params.final_norm, cfg.norm_eps)
     return _logits_of(x[:, 0], params, cfg), new_cache

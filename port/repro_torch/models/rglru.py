@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.parallel import block_index, spec_axes
 from . import layers
 
 _C = 8.0
@@ -84,11 +85,22 @@ def init_cache(cfg, batch: int, dtype, device) -> dict:
     }
 
 
-def decode_step(x, cache: dict, p, cfg):
-    """x: (B, 1, D) -> (y, new cache)."""
+def decode_step(x, cache: dict, p, cfg, par=None, spec=None):
+    """x: (B, 1, D) -> (y, new cache).  Under a mesh (``par``) whose
+    cache ``spec`` splits the channels W over mesh axes
+    (``launch.cells.cache_specs``), the conv history is gathered, the
+    gates run whole on every rank, each rank keeps its channels of the
+    state and of the new history, and the state is gathered for the
+    output."""
+    mesh = None if par is None else par.mesh
+    c_ax = () if mesh is None else spec_axes(spec["conv"][-1])
+    h_ax = () if mesh is None else spec_axes(spec["h"][-1])
+    conv = cache["conv"]
+    for a in reversed(c_ax):
+        conv = mesh.all_gather(conv, axis=a, dim=-1)
     u = x @ p.in_x.to(x.dtype)
     gate = _gelu(x @ p.in_gate.to(x.dtype))
-    hist = torch.cat([cache["conv"], u], dim=1)               # (B, 4, W)
+    hist = torch.cat([conv, u], dim=1)                        # (B, 4, W)
     # the reference's einsum "bkw,kw->bw" (float32 sums of the exact
     # products, one rounding) as a product and a sum: torch runs the
     # einsum as W batched matrix-vector products, strided, 0.7 of a
@@ -96,6 +108,17 @@ def decode_step(x, cache: dict, p, cfg):
     w = p.conv_w.to(x.dtype).float()
     u_c = (hist.float() * w).sum(dim=1).to(x.dtype)[:, None, :]
     a, b = _gates(u_c, p)
-    h = cache["h"] * a[:, 0] + b[:, 0]
+    hi, nh = (0, 1) if mesh is None else block_index(mesh, h_ax)
+    wl = a.shape[-1] // nh
+    own = slice(hi * wl, (hi + 1) * wl)
+    h_own = cache["h"] * a[:, 0, own] + b[:, 0, own]
+    h = h_own
+    for ax in reversed(h_ax):
+        h = mesh.all_gather(h, axis=ax, dim=-1)
     y = (h[:, None, :].to(x.dtype) * gate) @ p.out.to(x.dtype)
-    return y, {"conv": hist[:, 1:], "h": h}
+    if not c_ax:
+        return y, {"conv": hist[:, 1:], "h": h_own}
+    ci, nc = block_index(mesh, c_ax)
+    cl = hist.shape[-1] // nc
+    return y, {"conv": hist[:, 1:, ci * cl:(ci + 1) * cl].contiguous(),
+               "h": h_own}

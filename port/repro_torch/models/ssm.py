@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..dist.parallel import block_index, spec_axes
 from ..kernels.ssd import ops as ssd_ops
 from . import layers
 
@@ -89,37 +90,63 @@ def init_cache(cfg, batch: int, dtype, device) -> dict:
     }
 
 
-def decode_step(x, cache: dict, p: Mixer, cfg):
+def decode_step(x, cache: dict, p: Mixer, cfg, par=None, spec=None):
     """x: (B, 1, D) -> (y, cache); O(1) in sequence length.
 
     The reference donates its cache; here the state is updated in place
     (``cache["state"]`` is the same tensor afterwards) and the conv
     history is a new tensor.  B and C stay grouped: heads are viewed as
-    (group, head of the group).
+    (group, head of the group).  Under a mesh (``par``) whose cache
+    ``spec`` splits the state's heads or the conv channels over mesh
+    axes (``launch.cells.cache_specs``), the conv history is gathered,
+    the projections and the conv run whole on every rank, each rank
+    updates its heads' state (B and C taken a head) and keeps its
+    channels of the new history, and the heads' outputs are gathered.
     """
+    mesh = None if par is None else par.mesh
+    c_ax = () if mesh is None else spec_axes(spec["conv"][-1])
+    h_ax = () if mesh is None else spec_axes(spec["state"][1])
     b = x.shape[0]
     din, h, hp, g, s = dims(cfg)
     rep = h // g
+    conv = cache["conv"]
+    for a in reversed(c_ax):
+        conv = mesh.all_gather(conv, axis=a, dim=-1)
     proj = x @ p.in_proj.to(x.dtype)
     z, xbc, dt = _split(proj, cfg)
-    hist = torch.cat([cache["conv"], xbc], dim=1)
+    hist = torch.cat([conv, xbc], dim=1)
     xbc_c = F.silu(torch.einsum("bkc,kc->bc", hist, p.conv_w.to(x.dtype)))
-    new_conv = hist[:, 1:]
-    xs = xbc_c[..., :din].reshape(b, g, rep, hp).float()
-    bmat = xbc_c[..., din:din + g * s].reshape(b, g, 1, s).float()
+    hi, nh = (0, 1) if mesh is None else block_index(mesh, h_ax)
+    hl = h // nh
+    heads = slice(hi * hl, (hi + 1) * hl)
+    xs = xbc_c[..., :din].reshape(b, h, hp).float()
+    bmat = xbc_c[..., din:din + g * s].reshape(b, g, s).float()
     cmat = xbc_c[..., din + g * s:].reshape(b, g, s).float()
-    dtv = F.softplus(dt.float() + p.dt_bias)[:, 0]            # (B, H)
-    a = torch.exp(dtv * (-torch.exp(p.a_log)))                # (B, H)
-    state = cache["state"].view(b, g, rep, s, hp)
-    state.mul_(a.reshape(b, g, rep, 1, 1))
+    if nh == 1:
+        gv, rv = g, rep
+    else:
+        grp = torch.arange(hi * hl, (hi + 1) * hl, device=x.device) // rep
+        gv, rv, bmat, cmat = hl, 1, bmat[:, grp], cmat[:, grp]
+    dtv = F.softplus(dt.float() + p.dt_bias)[:, 0, heads]     # (B, hl)
+    a = torch.exp(dtv * (-torch.exp(p.a_log[heads])))         # (B, hl)
+    state = cache["state"].view(b, gv, rv, s, hp)
+    state.mul_(a.reshape(b, gv, rv, 1, 1))
     # state += (dt . B) (x) x, one rank-1 update a head
-    state.addcmul_((dtv.reshape(b, g, rep, 1) * bmat)[..., None],
-                   xs[..., None, :])
+    state.addcmul_((dtv.reshape(b, gv, rv, 1) * bmat[:, :, None])[..., None],
+                   xs[:, heads].reshape(b, gv, rv, 1, hp))
     # C . state as a broadcast matmul over the state's own layout (an
     # einsum would permute a copy of the whole state first)
     y = torch.matmul(cmat[:, :, None, None, :], state)[..., 0, :]
-    y = y + xs * p.d_skip.reshape(g, rep, 1)
+    y = y.reshape(b, hl, hp)
+    for ax in reversed(h_ax):
+        y = mesh.all_gather(y, axis=ax, dim=1)
+    y = y + xs * p.d_skip[:, None]
     y = y.reshape(b, 1, din).to(x.dtype) * F.silu(z)
     y = layers.rms_norm(y, p.gnorm, cfg.norm_eps)
+    new_conv = hist[:, 1:]
+    if c_ax:
+        ci, nc = block_index(mesh, c_ax)
+        cl = hist.shape[-1] // nc
+        new_conv = new_conv[..., ci * cl:(ci + 1) * cl].contiguous()
     return y @ p.out_proj.to(x.dtype), {"conv": new_conv,
                                         "state": cache["state"]}

@@ -11,9 +11,15 @@ on bsp; the ``"sharded"`` server's rebalance; ``rebalance_every``; the
 memory bound; an ingest stream through the replicas with a forced
 compaction and an overflow re-stage, each replica row's extent equal to
 its primary's after every command; and every routed candidate resolving
-to exactly one resident copy.  Tolerance: exact equality throughout."""
+to exactly one resident copy.  repro's side of the heat-server and
+ingest cases runs first, every case's in threads (``torch_refs``), its
+state copied after each step; the port's then replays the steps.
+Tolerance: exact equality throughout."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
+
+import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +38,7 @@ from repro_torch.kernels.range_probe import ops as tops
 from repro_torch.serve import HeatSharded, PlacementPolicy
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
 from repro_torch.serve import layout as tlayout
+from torch_refs import References
 
 torch.set_num_threads(1)
 LAYOUTS = ["hc", "str", "fg", "bsp", "slc", "bos"]
@@ -69,24 +76,31 @@ def _cfg(placement="heat", top=TOP, every=None, shards=SHARDS, **kw):
                     policy=PlacementPolicy(**pol), **kw))
 
 
-_DATA: dict = {}
-
-
+@functools.cache
 def _data(dataset):
-    if dataset not in _DATA:
-        _DATA[dataset] = np.array(jgen.dataset(dataset, jax.random.PRNGKey(0),
-                                               N))
-    return _DATA[dataset]
+    return np.array(jgen.dataset(dataset, jax.random.PRNGKey(0), N))
+
+
+def _jserver(dataset, method, placement="heat", every=None, **kw):
+    """repro's server and its partitioning's boxes and flags."""
+    data = _data(dataset)
+    jparts = japi.partition(method, jnp.asarray(data), PAYLOAD)
+    jc, _ = _cfg(placement, every=every, **kw)
+    return (JServer(jparts, jnp.asarray(data), jc, method=method),
+            (np.asarray(jparts.boxes), np.asarray(jparts.valid)))
+
+
+def _tserver(dataset, method, parts, placement="heat", every=None, **kw):
+    """The port's server on repro's data and partitioning (``parts``)."""
+    tparts = tapi.Partitioning.from_numpy(*parts, "cpu")
+    _, tc = _cfg(placement, every=every, **kw)
+    return TServer(tparts, _data(dataset), tc, device="cpu", method=method)
 
 
 def _pair(dataset, method, placement="heat", every=None, **kw):
     """repro's server and the port's on repro's data and partitioning."""
-    data = _data(dataset)
-    jparts = japi.partition(method, jnp.asarray(data), PAYLOAD)
-    tparts = tapi.Partitioning.from_numpy(jparts.boxes, jparts.valid, "cpu")
-    jc, tc = _cfg(placement, every=every, **kw)
-    return (JServer(jparts, jnp.asarray(data), jc, method=method),
-            TServer(tparts, data, tc, device="cpu", method=method))
+    js, parts = _jserver(dataset, method, placement, every, **kw)
+    return js, _tserver(dataset, method, parts, placement, every, **kw)
 
 
 def _assert_replicas(ts):
@@ -107,25 +121,42 @@ def _assert_replicas(ts):
     return reps.size
 
 
-def _assert_same_placement(js, ts):
-    """Maps, replica maps, shards, stats and the extent equal repro's."""
-    s, w = ts.slayout, js.slayout
-    for name in ("owner", "local", "rep_owner", "rep_local"):
-        want = getattr(w, name)
-        if want is None:
+MAPS = ("owner", "local", "rep_owner", "rep_local")
+
+
+def _copy(v):
+    return None if v is None else np.array(v)
+
+
+def _placement(js) -> dict:
+    """repro's maps, replica maps, shards, stats and resident bytes,
+    copied."""
+    w = js.slayout
+    return dict(maps={n: _copy(getattr(w, n)) for n in MAPS},
+                shards={n: _copy(getattr(w, n)) for n in SHARD_FIELDS},
+                stats=copy.deepcopy(js.stats),
+                resident=js.resident_tile_bytes())
+
+
+def _assert_same_placement(want, ts):
+    """Maps, replica maps, shards, stats and the extent equal repro's
+    (``want``, a ``_placement``)."""
+    s = ts.slayout
+    for name in MAPS:
+        w = want["maps"][name]
+        if w is None:
             assert getattr(s, name) is None, name
         else:
-            np.testing.assert_array_equal(getattr(s, name), want,
+            np.testing.assert_array_equal(getattr(s, name), w,
                                           err_msg=name)
     for name in SHARD_FIELDS:
-        got, want = getattr(s, name), getattr(w, name)
-        if want is None:
+        got, w = getattr(s, name), want["shards"][name]
+        if w is None:
             assert got is None, name
         else:
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
-                                          err_msg=name)
-    assert ts.stats == js.stats
-    assert ts.resident_tile_bytes() == js.resident_tile_bytes()
+            np.testing.assert_array_equal(got.numpy(), w, err_msg=name)
+    assert ts.stats == want["stats"]
+    assert ts.resident_tile_bytes() == want["resident"]
     ext = ts.tiles.extent
     assert torch.equal(ext, tops.live_extent(
         s.alive_shards.flatten(0, 1)).view(ext.shape))
@@ -133,23 +164,36 @@ def _assert_same_placement(js, ts):
         _assert_replicas(ts)
 
 
-def _assert_same_answers(js, ts, qb, pts, pruned=None, hits=(8, 2048)):
-    want, wstats = js.range_counts(jnp.asarray(qb), pruned=pruned)
+def _copied(answer):
+    """An answer's arrays as numpy, its stats copied."""
+    return tuple(copy.deepcopy(a) if isinstance(a, dict) else np.array(a)
+                 for a in answer)
+
+
+def _answers(js, qb, pts, pruned=None, hits=(8, 2048)) -> dict:
+    """repro's range counts, id lists at each of ``hits`` and kNN."""
+    return dict(counts=_copied(js.range_counts(jnp.asarray(qb),
+                                               pruned=pruned)),
+                ids=[_copied(js.range_ids(jnp.asarray(qb), max_hits=m,
+                                          pruned=pruned)) for m in hits],
+                knn=_copied(js.knn(jnp.asarray(pts), K, pruned=pruned)))
+
+
+def _assert_same_answers(want, ts, qb, pts, pruned=None, hits=(8, 2048)):
+    """The port's answers equal repro's (``want``, an ``_answers`` of the
+    same arguments)."""
     got, stats = ts.range_counts(qb, pruned=pruned)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert stats == wstats
-    for max_hits in hits:
-        want = js.range_ids(jnp.asarray(qb), max_hits=max_hits,
-                            pruned=pruned)
+    np.testing.assert_array_equal(got.numpy(), want["counts"][0])
+    assert stats == want["counts"][1]
+    for max_hits, w_ids in zip(hits, want["ids"]):
         got = ts.range_ids(qb, max_hits=max_hits, pruned=pruned)
-        for g, w in zip(got[:3], want[:3]):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-        assert got[3] == want[3]
-    want = js.knn(jnp.asarray(pts), K, pruned=pruned)
+        for g, w in zip(got[:3], w_ids[:3]):
+            np.testing.assert_array_equal(g.numpy(), w)
+        assert got[3] == w_ids[3]
     got = ts.knn(pts, K, pruned=pruned)
-    for g, w in zip(got[:3], want[:3]):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    assert got[3] == want[3]
+    for g, w in zip(got[:3], want["knn"][:3]):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert got[3] == want["knn"][3]
     return got
 
 
@@ -179,39 +223,61 @@ def test_plan_replicas_matches_repro(t, d, top, with_cooc):
 
 # -- the heat server against repro's -------------------------------------------
 
-@pytest.mark.parametrize("dataset,method", [("osm", m) for m in LAYOUTS]
-                         + [("pi", "bsp"), ("pi", "slc")])
+HEAT_CASES = [("osm", m) for m in LAYOUTS] + [("pi", "bsp"), ("pi", "slc")]
+
+
+@pytest.mark.parametrize("dataset,method", HEAT_CASES)
 def test_heat_server_matches_repro_through_a_rebalance(dataset, method):
     """Cold (replicas by member counts), then rebalanced on three hot
     batches' heat: maps, shards, stats, the report and every routed and
     dense answer equal repro's; the routed answers equal the brute
     force."""
-    js, ts = _pair(dataset, method)
+    want = REFS["heat", dataset, method]
+    ts = _tserver(dataset, method, want["parts"])
     assert isinstance(ts.tiles, HeatSharded) and ts.tiles.mode == "heat"
     qb, pts = _hot_qboxes(1, NQ), _pts(2, NQ)
     data = _data(dataset)
     ref = jrange.range_query_ref(data, qb)
     ref_ids, _ = jknn.knn_ref(data, pts, K)
     for round_ in range(2):
-        _assert_same_placement(js, ts)
-        got = _assert_same_answers(js, ts, qb, pts,
+        _assert_same_placement(want["placement"][round_], ts)
+        got = _assert_same_answers(want["answers"][round_], ts, qb, pts,
                                    hits=((8,), (2048,))[round_])
         assert got[3]["mode"] == "heat"
         np.testing.assert_array_equal(got[0].numpy()[~got[2].numpy()],
                                       ref_ids[~got[2].numpy()])
         counts, stats = ts.range_counts(qb)
-        js.range_counts(jnp.asarray(qb))
         assert [int(c) for c in counts] == [len(r) for r in ref]
         assert stats["mode"] == "heat"
         if round_ == 0:
             if method == "bsp":       # the dense oracle of a heat server
-                _assert_same_answers(js, ts, qb, pts, pruned=False,
-                                     hits=(8,))
-            want, got = js.rebalance(), ts.rebalance()
-            assert got == want and set(got) == set(REPORT_KEYS)
+                _assert_same_answers(want["dense"], ts, qb, pts,
+                                     pruned=False, hits=(8,))
+            got = ts.rebalance()
+            assert got == want["report"] and set(got) == set(REPORT_KEYS)
             assert ts.rebalance_s.keys() >= {"snapshot_s", "stage_s",
                                               "plan_s", "scatter_s"}
-    assert ts._batches_since_rebalance == js._batches_since_rebalance
+    assert ts._batches_since_rebalance == want["batches"]
+
+
+def _heat_reference(dataset, method):
+    """repro's side of ``test_heat_server_matches_repro_through_a_rebalance``:
+    each round's placement and answers, the dense oracle's (bsp) and
+    the rebalance's report between them."""
+    js, parts = _jserver(dataset, method)
+    qb, pts = _hot_qboxes(1, NQ), _pts(2, NQ)
+    out = dict(parts=parts, placement=[], answers=[])
+    for round_ in range(2):
+        out["placement"].append(_placement(js))
+        out["answers"].append(_answers(js, qb, pts,
+                                       hits=((8,), (2048,))[round_]))
+        js.range_counts(jnp.asarray(qb))
+        if round_ == 0:
+            if method == "bsp":
+                out["dense"] = _answers(js, qb, pts, pruned=False, hits=(8,))
+            out["report"] = copy.deepcopy(js.rebalance())
+    out["batches"] = js._batches_since_rebalance
+    return out
 
 
 @pytest.mark.parametrize("method", ["bsp", "hc"])
@@ -230,10 +296,10 @@ def test_sharded_rebalance_matches_repro(method):
     assert got == want and got["replicated_tiles"] == 0
     assert got["cut_after"] <= got["cut_before"]
     assert ts.slayout.rep_owner is None
-    _assert_same_placement(js, ts)
+    _assert_same_placement(_placement(js), ts)
     assert torch.equal(ts.range_counts(qb)[0], before)
     js.range_counts(jnp.asarray(qb))
-    _assert_same_answers(js, ts, qb, pts)
+    _assert_same_answers(_answers(js, qb, pts), ts, qb, pts)
 
 
 def test_rebalance_every_matches_repro():
@@ -254,7 +320,7 @@ def test_rebalance_every_matches_repro():
             np.testing.assert_array_equal(g.numpy(), np.asarray(w))
         assert got[3] == want[3]
         assert ts._batches_since_rebalance == js._batches_since_rebalance
-        _assert_same_placement(js, ts)
+        _assert_same_placement(_placement(js), ts)
     assert "moved_tiles" in ts.stats and ts.heat.batches == 10
 
 
@@ -278,7 +344,7 @@ def test_one_shard_places_no_replicas():
     ``replicate_top``, as repro does."""
     js, ts = _pair("osm", "bsp", shards=1)
     assert ts.stats["replicated_tiles"] == 0
-    _assert_same_placement(js, ts)
+    _assert_same_placement(_placement(js), ts)
     assert ts.slayout.id_shards.shape[1] == ts.stats["t"]
 
 
@@ -313,28 +379,78 @@ def _ingest_boxes(rng, m, scale=0.05):
     return np.concatenate([lo, lo + ex], axis=1)
 
 
-def _check_ingest(js, ts, jrep, trep, tight):
+def _check_ingest(want, ts, trep, tight):
     """After a command: the report but ``bytes_transferred``, maps,
-    shards, stats and replicas equal repro's; each replica row's extent
+    shards, stats and replicas equal repro's (``want``, a
+    ``_placement`` with the ``report``); each replica row's extent
     equals its primary's and covers its alive slots."""
     drop = lambda r: {k: v for k, v in r.items()  # noqa: E731
                       if k != "bytes_transferred"}
-    assert drop(trep) == drop(jrep)
+    assert drop(trep) == drop(want["report"])
     s = ts.slayout
-    for name in ("owner", "local", "rep_owner", "rep_local"):
-        np.testing.assert_array_equal(getattr(s, name),
-                                      getattr(js.slayout, name))
+    for name in MAPS:
+        np.testing.assert_array_equal(getattr(s, name), want["maps"][name])
     for name in SHARD_FIELDS:
-        want = getattr(js.slayout, name)
         np.testing.assert_array_equal(getattr(s, name).numpy(),
-                                      np.asarray(want), err_msg=name)
-    assert ts.stats == js.stats
+                                      want["shards"][name], err_msg=name)
+    assert ts.stats == want["stats"]
     assert _assert_replicas(ts) > 0
     ext = ts.tiles.extent
     live = tops.live_extent(s.alive_shards.flatten(0, 1)).view(ext.shape)
     assert bool((ext >= live).all())
     if tight:
         assert torch.equal(ext, live)
+
+
+INGEST_STREAM = [("append", 40), ("delete", 25), ("update", 10),
+                 ("compact",), ("burst",), ("delete", 30), ("append", 20)]
+INGEST_CFG = dict(slack=64, compact_dead_frac=None)
+
+
+def _ingest_reference(dataset):
+    """repro's side of ``test_ingest_through_replicas_with_forced_compaction``:
+    the rebalance's report, each command's inputs (drawn with numpy)
+    and repro's state after it, and the answers after the stream."""
+    js, parts = _jserver(dataset, "bsp", **INGEST_CFG)
+    qb = _hot_qboxes(1, NQ)
+    for _ in range(3):
+        js.range_counts(jnp.asarray(qb))
+    report = copy.deepcopy(js.rebalance())
+    rng = np.random.default_rng(1)
+    live = set(range(N))
+    steps = []
+    for op in INGEST_STREAM:
+        kind = op[0]
+        if kind == "append":
+            args = (_ingest_boxes(rng, op[1]),)
+        elif kind == "burst":
+            tb = np.asarray(js.parts.boxes)[0]
+            ctr = [(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2]
+            args = (np.tile(np.asarray(ctr + ctr, np.float32),
+                            (js.stats["cap"] + 1, 1)),)
+        elif kind == "delete":
+            args = (rng.choice(np.array(sorted(live)), op[1],
+                               replace=False),)
+        elif kind == "update":
+            ids = rng.choice(np.array(sorted(live)), op[1], replace=False)
+            args = (ids, _ingest_boxes(rng, op[1]))
+        else:
+            args = ()
+        if kind in ("append", "burst"):
+            jrep = js.append(jnp.asarray(args[0]))
+            n0 = jrep["n_total"] - args[0].shape[0]
+            live |= set(range(n0, jrep["n_total"]))
+        elif kind == "delete":
+            jrep = js.delete(args[0])
+            live -= set(args[0].tolist())
+        elif kind == "update":
+            jrep = js.update(args[0], jnp.asarray(args[1]))
+        else:
+            jrep = js.compact()
+        steps.append((kind, args, dict(_placement(js),
+                                       report=copy.deepcopy(jrep))))
+    return dict(parts=parts, rebalance=report, steps=steps,
+                answers=_answers(js, qb, _pts(2, NQ)))
 
 
 @pytest.mark.parametrize("dataset", ["osm", "pi"])
@@ -344,57 +460,52 @@ def test_ingest_through_replicas_with_forced_compaction(dataset):
     the stored heat) and churn after it; every write fans out to the
     replica rows.  Then the answers equal repro's and the brute force of
     the surviving set."""
-    js, ts = _pair(dataset, "bsp", slack=64, compact_dead_frac=None)
+    want = REFS["ingest", dataset]
+    ts = _tserver(dataset, "bsp", want["parts"], **INGEST_CFG)
     qb = _hot_qboxes(1, NQ)
     for _ in range(3):
-        js.range_counts(jnp.asarray(qb))
         ts.range_counts(qb)
-    want, got = js.rebalance(), ts.rebalance()
-    assert got == want and got["replicated_tiles"] > 0
-    rng = np.random.default_rng(1)
+    got = ts.rebalance()
+    assert got == want["rebalance"] and got["replicated_tiles"] > 0
     live = {i: _data(dataset)[i] for i in range(N)}
-    stream = [("append", 40), ("delete", 25), ("update", 10), ("compact",),
-              ("burst",), ("delete", 30), ("append", 20)]
-    for op in stream:
-        if op[0] in ("append", "burst"):
-            if op[0] == "append":
-                nb = _ingest_boxes(rng, op[1])
-            else:
-                tb = np.asarray(js.parts.boxes)[0]
-                ctr = [(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2]
-                nb = np.tile(np.asarray(ctr + ctr, np.float32),
-                             (js.stats["cap"] + 1, 1))
-            jrep, trep = js.append(jnp.asarray(nb)), ts.append(nb)
-            assert trep["restaged"] == (op[0] == "burst")
+    for kind, args, w in want["steps"]:
+        if kind in ("append", "burst"):
+            nb = args[0]
+            trep = ts.append(nb)
+            assert trep["restaged"] == (kind == "burst")
             n0 = trep["n_total"] - nb.shape[0]
             live.update({n0 + i: nb[i] for i in range(nb.shape[0])})
-        elif op[0] == "delete":
-            ids = rng.choice(np.array(sorted(live)), op[1], replace=False)
-            jrep, trep = js.delete(ids), ts.delete(ids)
-            for i in ids:
+        elif kind == "delete":
+            trep = ts.delete(args[0])
+            for i in args[0]:
                 del live[int(i)]
-        elif op[0] == "update":
-            ids = rng.choice(np.array(sorted(live)), op[1], replace=False)
-            nb = _ingest_boxes(rng, op[1])
-            jrep, trep = js.update(ids, jnp.asarray(nb)), ts.update(ids, nb)
+        elif kind == "update":
+            ids, nb = args
+            trep = ts.update(ids, nb)
             live.update({int(i): nb[j] for j, i in enumerate(ids)})
         else:
-            jrep, trep = js.compact(), ts.compact()
+            trep = ts.compact()
             assert trep["compacted_tiles"] > 0
-        _check_ingest(js, ts, jrep, trep,
-                      op[0] == "compact" or trep["restaged"])
+        _check_ingest(w, ts, trep, kind == "compact" or trep["restaged"])
     assert ts.stats["restages"] == 1
     ids_live = np.array(sorted(live))
     boxes_live = np.stack([live[i] for i in ids_live])
     ref = jrange.range_query_ref(boxes_live, qb)
-    got = _assert_same_answers(js, ts, qb, _pts(2, NQ))
+    got = _assert_same_answers(want["answers"], ts, qb, _pts(2, NQ))
     hit_ids, _, ovf, _ = ts.range_ids(qb, max_hits=2048)
-    js.range_ids(jnp.asarray(qb), max_hits=2048)
     assert not ovf.any() and got[3]["mode"] == "heat"
     for qi, rows in enumerate(ref):
         row = hit_ids[qi].numpy()
         np.testing.assert_array_equal(np.sort(row[row >= 0]),
                                       np.sort(ids_live[rows]))
+
+
+REFS = References({
+    **{("heat", d, m): functools.partial(_heat_reference, d, m)
+       for d, m in HEAT_CASES},
+    **{("ingest", d): functools.partial(_ingest_reference, d)
+       for d in ("osm", "pi")},
+})
 
 
 # -- routing to one resident copy -----------------------------------------------

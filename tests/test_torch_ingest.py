@@ -2,7 +2,10 @@
 ``compact``, the compaction policy and the overflow re-stage) against
 repro's, the two servers driven through the same commands on the same
 inputs: repro's data and ``Partitioning`` carried across, the
-commands' objects and ids drawn with numpy.  After every command the
+commands' objects and ids drawn with numpy.  repro's server runs its
+stream first (every case's in threads, ``torch_refs``) and its state
+is copied after each command; the port's then replays the commands.
+After every command the
 port's device staging (``canon_tiles``, ``ids``, ``alive``,
 ``probe_boxes``, ``chunk_boxes``, ``uni``) equals repro's bit for bit,
 so do the bookkeeping (``_fill``, ``_dead``, ``_n_free``,
@@ -14,6 +17,9 @@ dead-slot reuse and the scatter's upload bound.  Tolerance: exact
 equality throughout."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
+
+import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +33,7 @@ from repro.serve import ServeConfig as JConfig, SpatialServer as JServer
 from repro_torch.core.partition import api as tapi
 from repro_torch.kernels.range_probe import ops
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
+from torch_refs import References
 
 torch.set_num_threads(1)
 N_BASE, PAYLOAD = 400, 64
@@ -57,42 +64,80 @@ def _boxes(rng, m, scale=0.01):
     return np.concatenate([lo, lo + ex], axis=1)
 
 
-def _servers(method, dataset, seed, **cfg):
-    """repro's server and the port's on repro's data and partitioning."""
+def _jserver(method, dataset, seed, **cfg):
+    """repro's data, partitioning and server."""
     full = np.array(jgen.dataset(dataset, jax.random.PRNGKey(seed), N_BASE))
     jparts = japi.partition(method, jnp.asarray(full), PAYLOAD)
-    tparts = tapi.Partitioning.from_numpy(jparts.boxes, jparts.valid, "cpu")
-    return (JServer(jparts, jnp.asarray(full), JConfig(**cfg)),
-            TServer(tparts, full, TConfig(**cfg), device="cpu"))
+    return full, jparts, JServer(jparts, jnp.asarray(full), JConfig(**cfg))
 
 
-def _assert_same_state(js, ts, jrep, trep, tight):
-    """The staging (the shards and owner maps under the sharded
-    placement), bookkeeping, report and stats equal repro's, and the
-    extent (a tile, or a shard row) covers every alive slot."""
+def _tserver(ref, **cfg):
+    """The port's server on repro's data and partitioning (``ref``)."""
+    tparts = tapi.Partitioning.from_numpy(ref["boxes"], ref["valid"], "cpu")
+    return TServer(tparts, ref["full"], TConfig(**cfg), device="cpu")
+
+
+def _jcall(js, kind, args):
+    if kind in ("append", "burst"):
+        return js.append(jnp.asarray(args[0]))
+    if kind == "delete":
+        return js.delete(args[0])
+    if kind == "update":
+        return js.update(args[0], jnp.asarray(args[1]))
+    return js.compact()
+
+
+def _tcall(ts, kind, args):
+    if kind in ("append", "burst"):
+        return ts.append(args[0])
+    if kind == "delete":
+        return ts.delete(args[0])
+    if kind == "update":
+        return ts.update(*args)
+    return ts.compact()
+
+
+def _state(js, jrep) -> dict:
+    """repro's staging (the shards and owner maps under the sharded
+    placement), bookkeeping, report and stats after a command, copied."""
     if js.slayout is None:
-        fields, jlay, tlay = LAYOUT_FIELDS, js.layout, ts.layout
+        lay, fields = js.layout, LAYOUT_FIELDS
+    else:
+        lay, fields = js.slayout, SHARD_FIELDS + ("owner", "local")
+    return dict(
+        sharded=js.slayout is not None,
+        layout={n: None if getattr(lay, n) is None
+                else np.array(getattr(lay, n)) for n in fields},
+        book={n: np.array(getattr(js.tiles, n)) for n in BOOKKEEPING},
+        report=copy.deepcopy(jrep), stats=copy.deepcopy(js.stats))
+
+
+def _assert_same_state(want, ts, trep, tight):
+    """The port's staging, bookkeeping, report and stats equal repro's
+    (``want``, a ``_state``), and the extent (a tile, or a shard row)
+    covers every alive slot."""
+    if not want["sharded"]:
+        fields, tlay = LAYOUT_FIELDS, ts.layout
         alive = ts.layout.alive
     else:
-        fields, jlay, tlay = SHARD_FIELDS, js.slayout, ts.slayout
+        fields, tlay = SHARD_FIELDS, ts.slayout
         alive = ts.slayout.alive_shards.flatten(0, 1)
-        np.testing.assert_array_equal(tlay.owner, jlay.owner)
-        np.testing.assert_array_equal(tlay.local, jlay.local)
+        np.testing.assert_array_equal(tlay.owner, want["layout"]["owner"])
+        np.testing.assert_array_equal(tlay.local, want["layout"]["local"])
     for name in fields:
-        want, got = getattr(jlay, name), getattr(tlay, name)
-        if want is None:
+        w, got = want["layout"][name], getattr(tlay, name)
+        if w is None:
             assert got is None
         else:
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want),
-                                          err_msg=name)
+            np.testing.assert_array_equal(got.numpy(), w, err_msg=name)
     ts.tiles._ensure_mirror()
     for name in BOOKKEEPING:
         np.testing.assert_array_equal(getattr(ts.tiles, name),
-                                      getattr(js.tiles, name), err_msg=name)
+                                      want["book"][name], err_msg=name)
     drop = lambda r: {k: v for k, v in r.items()  # noqa: E731
                       if k != "bytes_transferred"}
-    assert drop(trep) == drop(jrep)
-    assert ts.stats == js.stats
+    assert drop(trep) == drop(want["report"])
+    assert ts.stats == want["stats"]
     ext = ts.tiles.extent
     want = ops.live_extent(alive).view(ext.shape)
     assert bool((ext >= want).all())
@@ -100,80 +145,153 @@ def _assert_same_state(js, ts, jrep, trep, tight):
         assert torch.equal(ext, want)
 
 
-def _run(js, ts, commands, seed):
+def _record(js, commands, seed):
+    """repro's server driven through ``commands`` -> each command's
+    kind, its inputs (drawn with numpy) and repro's state after it."""
     rng = np.random.default_rng(seed)
     live = set(range(N_BASE))
+    steps = []
     for op in commands:
         kind = op[0]
         if kind == "append":
-            nb = _boxes(rng, op[1])
-            jrep, trep = js.append(jnp.asarray(nb)), ts.append(nb)
-            live |= set(range(jrep["n_total"] - op[1], jrep["n_total"]))
+            args = (_boxes(rng, op[1]),)
         elif kind in ("delete", "update"):
             pool = np.array(sorted(live))
             count = (max(1, int(op[1] * len(live))) if kind == "delete"
                      else op[1])
             ids = rng.choice(pool, size=min(count, pool.size - 60),
                              replace=False)
-            if kind == "delete":
-                jrep, trep = js.delete(ids), ts.delete(ids)
-                live -= set(ids.tolist())
-            else:
-                nb = _boxes(rng, ids.size)
-                jrep, trep = js.update(ids, jnp.asarray(nb)), ts.update(ids,
-                                                                        nb)
+            args = (ids,) if kind == "delete" else (ids,
+                                                    _boxes(rng, ids.size))
         elif kind == "compact":
-            jrep, trep = js.compact(), ts.compact()
+            args = ()
         else:                                        # burst: cap + 1 copies
             tb = np.asarray(js.parts.boxes)[0]
             ctr = [(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2]
-            nb = np.tile(np.asarray(ctr + ctr, np.float32),
-                         (js.stats["cap"] + 1, 1))
-            jrep, trep = js.append(jnp.asarray(nb)), ts.append(nb)
+            args = (np.tile(np.asarray(ctr + ctr, np.float32),
+                            (js.stats["cap"] + 1, 1)),)
+        jrep = _jcall(js, kind, args)
+        if kind in ("append", "burst"):
+            m = args[0].shape[0]
+            live |= set(range(jrep["n_total"] - m, jrep["n_total"]))
+        elif kind == "delete":
+            live -= set(args[0].tolist())
+        steps.append((kind, args, _state(js, jrep)))
+    return steps
+
+
+def _replay(ts, steps, after=None):
+    """The port's server through repro's recorded commands, its state
+    held to repro's after each (tightly after a compaction or a
+    re-stage); ``after(kind)`` runs after each command's checks."""
+    for kind, args, want in steps:
+        trep = _tcall(ts, kind, args)
+        if kind == "burst":
             assert trep["restaged"]
-            live |= set(range(jrep["n_total"] - nb.shape[0],
-                              jrep["n_total"]))
-        _assert_same_state(js, ts, jrep, trep,
-                           kind == "compact" or jrep.get("restaged"))
-    return live
+        _assert_same_state(want, ts, trep, kind == "compact"
+                           or want["report"].get("restaged"))
+        if after is not None:
+            after(kind)
 
 
-def _assert_same_answers(js, ts, seed):
+def _answer_queries(seed):
     rng = np.random.default_rng(seed)
     c = rng.random((16, 2)).astype(np.float32)
-    qb = np.concatenate([c - 0.05, c + 0.05], -1)
-    np.testing.assert_array_equal(ts.range_counts(qb)[0].numpy(),
-                                  np.asarray(js.range_counts(
-                                      jnp.asarray(qb))[0]))
-    np.testing.assert_array_equal(
-        ts.range_ids(qb, max_hits=256)[0].numpy(),
-        np.asarray(js.range_ids(jnp.asarray(qb), max_hits=256)[0]))
+    return np.concatenate([c - 0.05, c + 0.05], -1)
 
 
-@pytest.mark.parametrize("method,dataset", [
-    ("bsp", "osm"), ("hc", "osm"), ("str", "osm"), ("hc", "pi")])
+def _answers(js, seed):
+    """repro's range counts and id lists for ``_answer_queries(seed)``."""
+    qb = jnp.asarray(_answer_queries(seed))
+    return (np.asarray(js.range_counts(qb)[0]),
+            np.asarray(js.range_ids(qb, max_hits=256)[0]))
+
+
+def _assert_same_answers(ref, ts, seed):
+    qb = _answer_queries(seed)
+    counts, ids = ref["answers"]
+    np.testing.assert_array_equal(ts.range_counts(qb)[0].numpy(), counts)
+    np.testing.assert_array_equal(ts.range_ids(qb, max_hits=256)[0].numpy(),
+                                  ids)
+
+
+def reference(method, dataset, seed, commands, answers_seed=None, **cfg):
+    """repro's side of a stream: its data and partitioning, the
+    recorded commands (``_record``), its widths after them and its
+    answers to ``answers_seed``'s queries."""
+    full, jparts, js = _jserver(method, dataset, seed, **cfg)
+    steps = _record(js, commands, seed)
+    return dict(full=full, boxes=np.asarray(jparts.boxes),
+                valid=np.asarray(jparts.valid), steps=steps,
+                widths=(js.widths.cap, dict(js.widths._w)),
+                answers=None if answers_seed is None
+                else _answers(js, answers_seed))
+
+
+def _reuse_reference():
+    """repro's side of ``test_deleted_slots_reused_before_slack``: six
+    deletes of 40 live ids, each followed by 40 appends."""
+    full, jparts, js = _jserver("bsp", "osm", 5, slack=64,
+                                compact_dead_frac=None)
+    rng = np.random.default_rng(17)
+    live = np.arange(N_BASE)
+    steps = []
+    for _ in range(6):
+        ids = rng.choice(live, size=40, replace=False)
+        live = np.setdiff1d(live, ids)
+        steps.append(("delete", (ids,), _state(js, js.delete(ids))))
+        nb = _boxes(rng, 40)
+        jrep = js.append(jnp.asarray(nb))
+        steps.append(("append", (nb,), _state(js, jrep)))
+        live = np.concatenate([live, np.arange(jrep["n_total"] - 40,
+                                               jrep["n_total"])])
+    return dict(full=full, boxes=np.asarray(jparts.boxes),
+                valid=np.asarray(jparts.valid), steps=steps)
+
+
+FIXED_CASES = [("bsp", "osm"), ("hc", "osm"), ("str", "osm"), ("hc", "pi")]
+SHORT_CASES = [("hilbert", 256, "bsp", "osm"), ("off", 128, "str", "pi")]
+
+
+def _short_cfg(local_index, chunk):
+    return dict(slack=128, local_index=local_index, chunk=chunk,
+                compact_dead_frac=0.25)
+
+
+REFS = References({
+    **{("fixed", m, d): functools.partial(
+        reference, m, d, 7, FIXED_STREAM, 8, slack=256)
+       for m, d in FIXED_CASES},
+    **{("short", li, c, m, d): functools.partial(
+        reference, m, d, 9, SHORT_STREAM, 10, **_short_cfg(li, c))
+       for li, c, m, d in SHORT_CASES},
+    "reuse": _reuse_reference,
+})
+
+
+@pytest.mark.parametrize("method,dataset", FIXED_CASES)
 def test_fixed_stream_matches_repro(method, dataset):
     """hc and str do not cover the universe, so their appends exercise
     nearest-tile adoption."""
-    js, ts = _servers(method, dataset, 7, slack=256)
-    _run(js, ts, FIXED_STREAM, seed=7)
+    ref = REFS["fixed", method, dataset]
+    ts = _tserver(ref, slack=256)
+    _replay(ts, ref["steps"])
     assert ts.stats["restages"] == 1 and ts.stats["compactions"] >= 1
-    assert ts.widths.cap == js.widths.cap and ts.widths._w == js.widths._w
-    _assert_same_answers(js, ts, 8)
+    assert (ts.widths.cap, ts.widths._w) == ref["widths"]
+    _assert_same_answers(ref, ts, 8)
 
 
-@pytest.mark.parametrize("local_index,chunk,method,dataset", [
-    ("hilbert", 256, "bsp", "osm"), ("off", 128, "str", "pi")])
+@pytest.mark.parametrize("local_index,chunk,method,dataset", SHORT_CASES)
 def test_short_stream_other_local_indexes_match_repro(local_index, chunk,
                                                       method, dataset):
     """Compaction's Hilbert slot order (the encode over the current
     universe; chunk boxes of 256 slots, each stored twice) and its
     unindexed branch, forced and by threshold."""
-    js, ts = _servers(method, dataset, 9, slack=128, local_index=local_index,
-                      chunk=chunk, compact_dead_frac=0.25)
-    _run(js, ts, SHORT_STREAM, seed=9)
+    ref = REFS["short", local_index, chunk, method, dataset]
+    ts = _tserver(ref, **_short_cfg(local_index, chunk))
+    _replay(ts, ref["steps"])
     assert ts.stats["compactions"] >= 1
-    _assert_same_answers(js, ts, 10)
+    _assert_same_answers(ref, ts, 10)
 
 
 # -- the error contract -----------------------------------------------------
@@ -228,21 +346,16 @@ def test_deleted_slots_reused_before_slack():
     """Dead canonical slots opened by deletes are refilled by later
     appends before any fresh slack: delete/append churn holds the fill
     frontier (and so the overflow re-stage) flat, as repro's does."""
-    js, ts = _servers("bsp", "osm", 5, slack=64, compact_dead_frac=None)
+    ref = REFS["reuse"]
+    ts = _tserver(ref, slack=64, compact_dead_frac=None)
     ts.tiles._ensure_mirror()
     fill0 = int(ts.tiles._fill.sum())
-    rng = np.random.default_rng(17)
-    live = np.arange(N_BASE)
-    for _ in range(6):
-        ids = rng.choice(live, size=40, replace=False)
-        live = np.setdiff1d(live, ids)
-        _assert_same_state(js, ts, js.delete(ids), ts.delete(ids), False)
-        assert ts.tiles._n_free.sum() > 0         # slots opened for reuse
-        nb = _boxes(rng, 40)
-        jrep, trep = js.append(jnp.asarray(nb)), ts.append(nb)
-        _assert_same_state(js, ts, jrep, trep, False)
-        live = np.concatenate([live, np.arange(trep["n_total"] - 40,
-                                               trep["n_total"])])
+
+    def opened(kind):
+        if kind == "delete":
+            assert ts.tiles._n_free.sum() > 0     # slots opened for reuse
+
+    _replay(ts, ref["steps"], opened)
     # 240 inserted copies against 240 freed slots: without reuse the
     # frontier would march >= 240 slots
     assert int(ts.tiles._fill.sum()) - fill0 <= 120

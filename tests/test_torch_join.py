@@ -7,9 +7,14 @@ repro's planned tiles; ``unique_pairs``; the LPT packers;
 devices; and the engine's counts on a 1-device mesh, at the sizes of
 ``tests/test_join_engine.py`` and on a denser box set.  Hit tables in
 row blocks give the same answers, and the ETL command runs on the CPU
-(the mesh mode: tests/test_torch_mesh.py).  Tolerance: exact equality throughout."""
+(the mesh mode: tests/test_torch_mesh.py).  repro's engine side runs
+ahead, every case's in threads (``torch_refs``).  Tolerance: exact
+equality throughout."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
+
+import copy
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -29,6 +34,7 @@ from repro_torch.kernels.mbr_join import ref as tmref
 from repro_torch.launch import partition_etl
 from repro_torch.query import balance as tbalance, dedup as tdedup
 from repro_torch.query import engine as tengine, join as tjoin
+from torch_refs import References
 
 torch.set_num_threads(1)
 METHODS = ["fg", "bsp", "slc", "bos", "str", "hc"]
@@ -221,67 +227,112 @@ def test_packers_match_repro(n_devices):
 
 # -- the engine ------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def rs():
+@functools.lru_cache(maxsize=None)
+def _rs():
     r = np.array(jgen.dataset("osm", jax.random.PRNGKey(0), 1200))
     s = np.array(jgen.dataset("osm", jax.random.PRNGKey(9), 900))
     return r, s
+
+
+@pytest.fixture(scope="module")
+def rs():
+    return _rs()
 
 
 _PLAN_ARRAYS = ("r_tiles", "r_ids", "s_tiles", "s_ids", "tile_boxes",
                 "universe")
 
 
+@functools.lru_cache(maxsize=None)
+def _tplan(method, n_devices):
+    """The port's plan of ``_rs()``, made once a module."""
+    r, s = _rs()
+    return tengine.plan_join(method, r, s, 200, n_devices, device="cpu")
+
+
+def _dense_rs():
+    return _boxes(700, 20, 0.03), _boxes(600, 21, 0.03)
+
+
+def _engine_reference(method):
+    """repro's side of the engine cases for ``method``: its plans of
+    ``_rs()`` on 1 and 4 devices (arrays and stats), the 1-device
+    plan's counts, and the dense join's counts."""
+    r, s = _rs()
+    out = {"plans": {}}
+    for n in (1, 4):
+        plan = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 200,
+                                 n)
+        out["plans"][n] = ({k: np.asarray(getattr(plan, k))
+                            for k in _PLAN_ARRAYS}, copy.deepcopy(plan.stats))
+        if n == 1:
+            out["counts"] = dict(
+                join=jengine.spatial_join_count(plan, _mesh(), "d",
+                                                max_pairs_per_tile=8192),
+                **{d: jengine.run_join_count(plan, _mesh(), "d", dedup=d)
+                   for d in ("rp", "none")},
+                masj=jengine.run_join_pairs_masj(plan, _mesh(), "d",
+                                                 max_pairs_per_tile=8192))
+    r, s = _dense_rs()
+    plan = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 150, 1)
+    out["dense"] = dict(
+        none=jengine.run_join_count(plan, _mesh(), "d", dedup="none"),
+        masj16=jengine.run_join_pairs_masj(plan, _mesh(), "d",
+                                           max_pairs_per_tile=16))
+    return out
+
+
+def _oracles():
+    return {name: int(jmref.intersect_count(jnp.asarray(r), jnp.asarray(s)))
+            for name, (r, s) in (("rs", _rs()), ("dense", _dense_rs()))}
+
+
+REFS = References({**{("engine", m): functools.partial(_engine_reference, m)
+                      for m in METHODS}, "oracles": _oracles})
+
+
 @pytest.mark.parametrize("n_devices", [1, 4])
 @pytest.mark.parametrize("method", METHODS)
-def test_plan_join_matches_repro(rs, method, n_devices):
-    r, s = rs
-    want = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 200,
-                             n_devices)
-    got = tengine.plan_join(method, r, s, 200, n_devices, device="cpu")
+def test_plan_join_matches_repro(method, n_devices):
+    arrays, stats = REFS["engine", method]["plans"][n_devices]
+    got = _tplan(method, n_devices)
     for name in _PLAN_ARRAYS:
-        w = np.asarray(getattr(want, name))
+        w = arrays[name]
         g = getattr(got, name).numpy()
         assert g.shape == w.shape and g.dtype == w.dtype, name
         np.testing.assert_array_equal(g, w, err_msg=name)
-    assert got.stats == want.stats
+    assert got.stats == stats
     np.testing.assert_array_equal(got.live_r, (got.r_ids >= 0).sum(-1))
 
 
 @pytest.mark.parametrize("method", METHODS)
-def test_join_counts_match_repro(rs, method):
-    r, s = rs
-    want = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 200, 1)
-    got = tengine.plan_join(method, r, s, 200, 1, device="cpu")
-    oracle = int(jmref.intersect_count(jnp.asarray(r), jnp.asarray(s)))
+def test_join_counts_match_repro(method):
+    want, got = REFS["engine", method]["counts"], _tplan(method, 1)
+    oracle = REFS["oracles"]["rs"]
     assert tengine.spatial_join_count(got, max_pairs_per_tile=8192) == \
-        jengine.spatial_join_count(want, _mesh(), "d",
-                                   max_pairs_per_tile=8192) == oracle
+        want["join"] == oracle
     for dedup in ("rp", "none"):
-        assert tengine.run_join_count(got, dedup=dedup) == \
-            jengine.run_join_count(want, _mesh(), "d", dedup=dedup)
+        assert tengine.run_join_count(got, dedup=dedup) == want[dedup]
     assert tengine.run_join_pairs_masj(got, max_pairs_per_tile=8192) == \
-        jengine.run_join_pairs_masj(want, _mesh(), "d",
-                                    max_pairs_per_tile=8192)
+        want["masj"]
 
 
 @pytest.mark.parametrize("method", METHODS)
 def test_dense_join_counts_and_truncation_match_repro(method):
     """Many pairs per tile: exact counts, and the MASJ path truncated
     at 16 pairs a tile drops what repro drops."""
-    r, s = _boxes(700, 20, 0.03), _boxes(600, 21, 0.03)
-    want = jengine.plan_join(method, jnp.asarray(r), jnp.asarray(s), 150, 1)
+    r, s = _dense_rs()
+    want = REFS["engine", method]["dense"]
     got = tengine.plan_join(method, r, s, 150, 1, device="cpu")
-    oracle = int(jmref.intersect_count(jnp.asarray(r), jnp.asarray(s)))
+    oracle = REFS["oracles"]["dense"]
     assert tengine.spatial_join_count(got, max_pairs_per_tile=100_000) == \
         oracle
     assert tengine.run_join_count(got, dedup="none") == \
-        jengine.run_join_count(want, _mesh(), "d", dedup="none") >= oracle
+        want["none"] >= oracle
     stats = {}
     short = tengine.run_join_pairs_masj(got, max_pairs_per_tile=16,
                                         stats=stats)
-    assert short == jengine.run_join_pairs_masj(want, _mesh(), "d",
-                                                max_pairs_per_tile=16)
+    assert short == want["masj16"]
     assert stats["truncated_tiles"] > 0 and short < oracle
     per_tile = tengine.tile_counts(got, dedup="none")
     assert stats["max_tile_pairs"] == int(per_tile.max())

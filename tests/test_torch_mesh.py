@@ -246,6 +246,55 @@ def _reference(path):
         text=True)
 
 
+def _repro_serve() -> dict:
+    """repro's one-device prefill logits (batch 4) and teacher-forced
+    decode logits of every serve case (``tm.SERVE_CASES``), jitted, on
+    the port's seeded weights carried across."""
+    from repro.models import encdec as jencdec
+    out = {}
+    cases = {}
+    for per_mesh in tm.SERVE_CASES.values():
+        for arch, layouts in per_mesh.items():
+            cases.setdefault(arch, set()).update(layouts)
+    for arch, layouts in cases.items():
+        # one run a (batch, length): the layouts differ only in the
+        # port's cache split
+        runs = {tm.SERVE_LAYOUTS[lay][:2]: lay for lay in sorted(layouts)}
+        prefill = ["prefill"] if arch in tm.PREFILL_ARCHS else []
+        for layout in list(runs.values()) + prefill:
+            b, length = ((4, tm.PREFILL_LEN) if layout == "prefill"
+                         else tm.SERVE_LAYOUTS[layout][:2])
+            inp = tm.serve_inputs(arch, b, length)
+            cfg = inp["cfg"]
+            jcfg = dataclasses.replace(_jcfg(arch), window=cfg.window)
+            jmodel = jmapi.build(jcfg)
+            params = jax.tree.map(jnp.asarray, convert.params_to_numpy(
+                inp["params"], cfg))
+            tokens = jnp.asarray(inp["tokens"].numpy().astype(np.int32))
+            frames = (jnp.asarray(inp["frames"].numpy())
+                      if "frames" in inp else None)
+            if layout == "prefill":
+                batch = {"tokens": tokens}
+                if frames is not None:
+                    batch["frames"] = frames
+                out[f"{arch}/prefill"] = np.asarray(jax.jit(
+                    jmapi.make_prefill_step(jmodel))(params, batch))
+                continue
+            cache = (jencdec.init_cache(params, frames, jcfg, length)
+                     if frames is not None
+                     else jmodel.init_cache(b, length))
+            step = jax.jit(jmodel.decode_step)
+            logits = []
+            for pos in range(length):
+                lg, cache = step(params, cache, tokens[:, pos],
+                                 jnp.int32(pos))
+                logits.append(np.asarray(lg))
+            for lay in layouts:
+                if tm.SERVE_LAYOUTS[lay][:2] == (b, length):
+                    out[f"{arch}/{lay}"] = np.stack(logits, 1)
+    return out
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Spawn the four ranks once and repro's 4-device subprocess;
@@ -266,12 +315,24 @@ def run(tmp_path_factory):
         except Exception as e:   # noqa: BLE001 - re-raised below
             failed.append(e)
 
-    th = threading.Thread(target=ranks)
-    th.start()
+    serve = {}
+
+    def repro_serve():
+        try:
+            serve.update(_repro_serve())
+        except Exception as e:   # noqa: BLE001 - re-raised below
+            failed.append(e)
+
+    threads = [threading.Thread(target=ranks),
+               threading.Thread(target=repro_serve)]
+    for th in threads:
+        th.start()
     try:
         sim = tm.run_cases(None, inp)
         ref = _repro_sharded(inp)
-        th.join()
+        for th in threads:
+            th.join()
+        ref["serve"] = serve
         _, err = proc.communicate(timeout=DEADLINE_S)
     finally:
         proc.kill()
@@ -814,3 +875,90 @@ def test_run_loop_restarts_under_the_mesh(run):
         assert _rel(mine["loss"], one["loss"]) < 1e-5
         for k, p in one["params"].items():
             assert np.abs(mine["params"][k] - p).max() <= 1e-7, k
+
+
+def _serve_keys():
+    return [(name, arch, layout) for name, per in tm.SERVE_CASES.items()
+            for arch, layouts in per.items() for layout in layouts]
+
+
+def _coords(name, r):
+    return dict(zip(tm.AXES, divmod(r, tm.MESHES[name][1])))
+
+
+@pytest.mark.parametrize("name,arch", sorted(
+    {(n, a) for n, a, _ in _serve_keys() if a in tm.PREFILL_ARCHS}))
+def test_sharded_prefill_matches_repro(run, name, arch):
+    """The prefill on each rank of (2, 2) and (1, 4): its block of the
+    (B, V) logits, the batch's rows over "data" and the padded
+    vocabulary's columns over "model" (the reference's prefill cell's
+    output sharding), against repro's one-device prefill within 1e-5
+    (float32; sums in other orders and the gathered weights)."""
+    got, _, ref, _ = run
+    want = ref["serve"][f"{arch}/prefill"]
+    d, m = tm.MESHES[name]
+    for r in range(tm.RANKS):
+        c = _coords(name, r)
+        rows = want.shape[0] // d
+        cols = want.shape[1] // m
+        block = want[c["data"] * rows:(c["data"] + 1) * rows,
+                     c["model"] * cols:(c["model"] + 1) * cols]
+        mine = got[r]["serve"][f"{arch}/{name}/prefill"]
+        assert mine.shape == block.shape
+        assert np.abs(mine - block).max() <= 1e-5 * max(
+            1.0, np.abs(block).max()), (name, arch, r)
+
+
+@pytest.mark.parametrize("name,arch,layout", _serve_keys())
+def test_sharded_decode_matches_repro(run, name, arch, layout):
+    """Teacher-forced decode from a zero cache on each rank, the cache
+    laid out by ``cache_specs`` (batch 4 over "data" with the slots over
+    "model"; batch 1 with the slots over every rank: the distributed
+    flash-decode; ``"hd"``: the head dimension over "model"; a cache
+    length that splits no slot axis: the kv heads over "model"; a ring
+    that wraps), against repro's one-device ``decode_step`` within 1e-5
+    of max(1, |logit|) (float32), every position.  The serve step's
+    greedy tokens equal repro's argmax wherever its top two are more
+    than 1e-4 apart."""
+    got, _, ref, _ = run
+    want = ref["serve"][f"{arch}/{layout}"]
+    for r in range(tm.RANKS):
+        mine = got[r]["serve"][f"{arch}/{name}/{layout}"]
+        rows = np.asarray(mine["rows"])
+        w = want[rows]
+        assert mine["logits"].shape == w.shape
+        assert np.abs(mine["logits"] - w).max() <= 1e-5 * max(
+            1.0, np.abs(w).max()), (name, arch, layout, r)
+        top2 = np.sort(w[:, :tm.GREEDY_STEPS], -1)[..., -2:]
+        clear = top2[..., 1] - top2[..., 0] > 1e-4
+        greedy = w[:, :tm.GREEDY_STEPS].argmax(-1)
+        assert clear.any()
+        assert (mine["greedy"][clear] == greedy[clear]).all()
+    specs = got[0]["serve"][f"{arch}/{name}/{layout}"]["specs"]
+    flat = [e for layer in (specs if isinstance(specs, list) else
+                            specs["self"]) for sp in layer.values()
+            for e in sp]
+    assert any(e is not None for e in flat)
+
+
+def test_recording_mesh_records_what_the_ranks_send(run):
+    """The qwen smoke train step on a (2, 2) ``RecordingMesh`` from fake
+    tensors makes the collectives, and sends the bytes, that each gloo
+    rank's ``mesh.timers`` count for the same step."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.models import api
+    got, _, _, _ = run
+    cfg = tm.model_cfg("qwen15_4b")
+    model, opt = api.build(cfg, "cpu"), adamw.AdamWConfig()
+    rec = mesh_lib.RecordingMesh.of((2, 2), tm.AXES)
+    with FakeTensorMode():
+        state = api.init_train_state(model, torch.Generator(), opt,
+                                     mesh=rec)
+        batch = {"tokens": torch.empty((4, 16), dtype=torch.int64)}
+        step = api.make_train_step(model, opt, mesh=rec)
+        rec.reset_timers()
+        step(state, batch)
+    for r in range(tm.RANKS):
+        assert got[r]["serve"]["timers"] == {
+            k: rec.timers[k] for k in ("calls", "bytes")}
+    assert rec.timers["calls"] == len(rec.ops) > 0

@@ -14,12 +14,16 @@ theirs."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
+import copy
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.partition import api as japi
 from repro.data import spatial_gen as jgen
 from repro.serve import ServeConfig as JConfig, SpatialServer as JServer
 from repro.query import knn as jknn
@@ -31,6 +35,7 @@ from repro_torch.query import range as trange
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
 from repro_torch.serve import layout as tlayout
 from repro_torch.serve import router as trouter
+from torch_refs import References
 
 torch.set_num_threads(1)
 N, NQ = 3000, 40
@@ -43,9 +48,30 @@ def _qboxes(seed, q, scale=0.06):
     return np.concatenate([c - s, c + s], -1).astype(np.float32)
 
 
-@pytest.fixture(scope="module", params=["osm", "pi"])
+DATASETS = ["osm", "pi"]
+METHODS = ["fg", "bsp", "slc", "bos", "str", "hc"]
+LOCAL_INDEXES = ["off", "x", "hilbert"]
+
+
+@functools.cache
+def _data(name):
+    return np.array(jgen.dataset(name, jax.random.PRNGKey(0), N))
+
+
+def _name(data):
+    """The dataset's name of a ``data`` fixture's array."""
+    return next(n for n in DATASETS if _data(n) is data)
+
+
+def _copied(answer):
+    """An answer's arrays as numpy, its stats copied."""
+    return tuple(copy.deepcopy(a) if isinstance(a, dict) else np.array(a)
+                 for a in answer)
+
+
+@pytest.fixture(scope="module", params=DATASETS)
 def data(request):
-    return np.array(jgen.dataset(request.param, jax.random.PRNGKey(0), N))
+    return _data(request.param)
 
 
 @pytest.fixture(scope="module")
@@ -173,39 +199,59 @@ def test_executors_on_a_staging_carried_from_repro(data, servers,
 N_LAYOUTS = 2500     # objects per dataset in the six-layout parity test
 
 
-@pytest.fixture(scope="module", params=["osm", "pi"])
+@functools.cache
+def _layout_data(name):
+    return np.array(jgen.dataset(name, jax.random.PRNGKey(3), N_LAYOUTS))
+
+
+@pytest.fixture(scope="module", params=DATASETS)
 def layout_data(request):
-    return np.array(jgen.dataset(request.param, jax.random.PRNGKey(3),
-                                 N_LAYOUTS))
+    return request.param, _layout_data(request.param)
 
 
-@pytest.mark.parametrize("local_index", ["off", "x", "hilbert"])
-@pytest.mark.parametrize("method", ["fg", "bsp", "slc", "bos", "str", "hc"])
+def _six_reference(dataset, method, local_index):
+    """repro's side of ``test_six_layouts_and_local_indexes_match_repro``:
+    the staged slots and stats, then the range counts, range ids and
+    kNN answers."""
+    data = _layout_data(dataset)
+    js = JServer.from_method(method, jnp.asarray(data), 120,
+                             JConfig(local_index=local_index))
+    out = dict(layout={n: np.array(getattr(js.layout, n)) for n in (
+        "ids", "canon_tiles", "probe_boxes", "alive")},
+        stats=copy.deepcopy(js.stats))
+    qb = jnp.asarray(_qboxes(30, NQ))
+    out["counts"] = _copied(js.range_counts(qb))
+    out["ids"] = _copied(js.range_ids(qb, max_hits=16))
+    out["knn"] = _copied(js.knn(jnp.asarray(_pts(31, 24)), 5))
+    return out
+
+
+@pytest.mark.parametrize("local_index", LOCAL_INDEXES)
+@pytest.mark.parametrize("method", METHODS)
 def test_six_layouts_and_local_indexes_match_repro(layout_data, method,
                                                    local_index):
     """Every Table-1 layout partitioned by each package itself, staged
     with every local index: the staged slots, range counts, range ids
     (with overflow) and kNN answer bit for bit as repro's, stats
     included."""
-    js = JServer.from_method(method, jnp.asarray(layout_data), 120,
-                             JConfig(local_index=local_index))
-    ts = TServer.from_method(method, layout_data, 120,
+    dataset, data = layout_data
+    ref = REFS["six", dataset, method, local_index]
+    ts = TServer.from_method(method, data, 120,
                              TConfig(local_index=local_index), device="cpu")
     for name in ("ids", "canon_tiles", "probe_boxes", "alive"):
         np.testing.assert_array_equal(getattr(ts.layout, name).numpy(),
-                                      np.asarray(getattr(js.layout, name)))
-    assert ts.stats == js.stats
+                                      ref["layout"][name])
+    assert ts.stats == ref["stats"]
     qb = _qboxes(30, NQ)
-    want, got = js.range_counts(jnp.asarray(qb)), ts.range_counts(qb)
-    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    want, got = ref["counts"], ts.range_counts(qb)
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
     assert got[1] == want[1]
-    want = js.range_ids(jnp.asarray(qb), max_hits=16)
+    want = ref["ids"]
     got = ts.range_ids(qb, max_hits=16)
     for g, w in zip(got[:3], want[:3]):
-        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        np.testing.assert_array_equal(g.numpy(), w)
     assert got[3] == want[3]
-    pts = _pts(31, 24)
-    _assert_knn_equal(ts.knn(pts, 5), js.knn(jnp.asarray(pts), 5))
+    _assert_knn_equal(ts.knn(_pts(31, 24), 5), ref["knn"])
 
 
 @pytest.mark.parametrize("make", [
@@ -234,31 +280,47 @@ def _fresh_servers(data, **cfg):
                        method="bsp")
 
 
-def _assert_same_layout(ts, js):
-    for name in ("ids", "canon_tiles", "probe_boxes", "chunk_boxes",
-                 "alive", "uni"):
-        want = getattr(js.layout, name)
-        np.testing.assert_array_equal(getattr(ts.layout, name).numpy(),
-                                      np.asarray(want), err_msg=name)
+INGEST_CALLS = {
+    "append": lambda s, q: s.append(q),
+    "delete": lambda s, q: s.delete(np.array([0, 17, 300])),
+    "update": lambda s, q: s.update(np.array([5, 6]), q[:2]),
+    "compact": lambda s, q: s.compact(),
+}
+LAYOUT_FIELDS = ("ids", "canon_tiles", "probe_boxes", "chunk_boxes",
+                 "alive", "uni")
 
 
-@pytest.mark.parametrize("call", [
-    lambda s, q: s.append(q),
-    lambda s, q: s.delete(np.array([0, 17, 300])),
-    lambda s, q: s.update(np.array([5, 6]), q[:2]),
-    lambda s, q: s.compact(),
-], ids=["append", "delete", "update", "compact"])
+def _ingest_reference(dataset, call):
+    """repro's side of ``test_ingest_methods_match_repro_on_a_fresh_server``:
+    its partitioning, and its report, stats, staging and cap after
+    ``call``."""
+    js = JServer.from_method("bsp", jnp.asarray(_data(dataset)[:N_FRESH]),
+                             120, JConfig(slack=64))
+    parts = (np.asarray(js.parts.boxes), np.asarray(js.parts.valid))
+    rep = INGEST_CALLS[call](js, jnp.asarray(_qboxes(5, 4) * 0.5))
+    return dict(parts=parts, report=copy.deepcopy(rep),
+                stats=copy.deepcopy(js.stats), cap=js.widths.cap,
+                layout={n: np.array(getattr(js.layout, n))
+                        for n in LAYOUT_FIELDS})
+
+
+@pytest.mark.parametrize("call", list(INGEST_CALLS))
 def test_ingest_methods_match_repro_on_a_fresh_server(data, call):
     """append, delete, update and compact run under the replicated
     placement: the same report (but the bytes each uploads), stats and
     staging as repro's."""
-    js, ts = _fresh_servers(data, slack=64)
-    q = _qboxes(5, 4) * 0.5
-    want, got = call(js, jnp.asarray(q)), call(ts, q)
+    ref = REFS["ingest", _name(data), call]
+    parts = tapi.Partitioning.from_numpy(*ref["parts"], "cpu")
+    ts = TServer(parts, data[:N_FRESH], TConfig(slack=64), device="cpu",
+                 method="bsp")
+    want, got = dict(ref["report"]), INGEST_CALLS[call](
+        ts, _qboxes(5, 4) * 0.5)
     want.pop("bytes_transferred"), got.pop("bytes_transferred")
-    assert got == want and ts.stats == js.stats
-    _assert_same_layout(ts, js)
-    assert ts.widths.cap == js.widths.cap
+    assert got == want and ts.stats == ref["stats"]
+    for name in LAYOUT_FIELDS:
+        np.testing.assert_array_equal(getattr(ts.layout, name).numpy(),
+                                      ref["layout"][name], err_msg=name)
+    assert ts.widths.cap == ref["cap"]
 
 
 def test_replicated_rebalance_is_repros_noop_report(data):
@@ -302,7 +364,7 @@ def test_stage_tiles_with_explicit_ids_matches_repro(data, local_index):
     mbrs = data[:N_FRESH]
     ids = np.sort(np.random.default_rng(13).choice(
         10 * N_FRESH, N_FRESH, replace=False)).astype(np.int32)
-    jparts = JServer.from_method("bsp", jnp.asarray(mbrs), 120).parts
+    jparts = japi.partition("bsp", jnp.asarray(mbrs), 120)
     cfg = dict(local_index=local_index, slack=32)
     jlay, jstats = jstage(jparts, jnp.asarray(mbrs), JConfig(**cfg),
                           ids=jnp.asarray(ids))
@@ -367,20 +429,27 @@ def test_knn_overflow_keeps_repro_candidates(data, servers, pruned):
     assert got[2].any()
 
 
+def _widening_reference(dataset):
+    """repro's side of ``test_knn_widening_ladder_and_heat_match_repro``:
+    a cold server's answers to two batches, then its heat."""
+    js = JServer.from_method("bsp", jnp.asarray(_data(dataset)), 60)
+    answers = [_copied(js.knn(jnp.asarray(_pts(seed)), 8))
+               for seed in (24, 25)]
+    return answers, [np.array(a) for a in js.heat.snapshot()]
+
+
 def test_knn_widening_ladder_and_heat_match_repro(data):
     """A cold server per package: the first batch climbs the ladder from
     the density start, later batches start at the cached width; the heat
     tracker sees each converged frontier."""
-    js = JServer.from_method("bsp", jnp.asarray(data), 60)
+    answers, heat = REFS["widening", _name(data)]
     ts = TServer.from_method("bsp", data, 60, device="cpu")
     retries = []
-    for seed in (24, 25):
-        pts = _pts(seed)
-        want = js.knn(jnp.asarray(pts), 8)
-        _assert_knn_equal(ts.knn(pts, 8), want)
+    for seed, want in zip((24, 25), answers):
+        _assert_knn_equal(ts.knn(_pts(seed), 8), want)
         retries.append(want[3]["retries"])
     assert retries[0] > 0 and retries[1] == 0
-    for got, want in zip(ts.heat.snapshot(), js.heat.snapshot()):
+    for got, want in zip(ts.heat.snapshot(), heat):
         np.testing.assert_array_equal(got, want)
 
 
@@ -458,3 +527,13 @@ def test_osm_background_share_matches_repro():
     _, background = tgen.osm_points(n, g)
     got = float(background.float().mean())
     assert abs(want - 0.05) < 0.008 and abs(got - 0.05) < 0.008
+
+
+REFS = References({
+    **{key: job for d in DATASETS for key, job in [
+        *((("ingest", d, c), functools.partial(_ingest_reference, d, c))
+          for c in INGEST_CALLS),
+        (("widening", d), functools.partial(_widening_reference, d))]},
+    **{("six", d, m, li): functools.partial(_six_reference, d, m, li)
+       for d in DATASETS for m in METHODS for li in LOCAL_INDEXES},
+})

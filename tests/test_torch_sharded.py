@@ -18,6 +18,7 @@ import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
 import logging
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +36,7 @@ from repro_torch.query import knn as tknn, range as trange
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
 from repro_torch.serve import exchange as texchange
 from repro_torch.serve import layout as tlayout
+from torch_refs import THREADS
 
 torch.set_num_threads(1)
 LAYOUTS = ["hc", "str", "fg", "bsp", "slc", "bos"]
@@ -59,26 +61,38 @@ def data(request):
     return np.array(jgen.dataset(request.param, jax.random.PRNGKey(0), N))
 
 
+def _port(data, method, jparts, shards=SHARDS, local_index="x"):
+    """The port's sharded server on repro's partitioning."""
+    tparts = tapi.Partitioning.from_numpy(jparts.boxes, jparts.valid, "cpu")
+    return TServer(tparts, data, TConfig(placement="sharded", shards=shards,
+                                         local_index=local_index),
+                   device="cpu", method=method)
+
+
 def _pair(data, method, shards=SHARDS, local_index="x", parts=None):
     """repro's sharded server and the port's on repro's partitioning."""
     jparts = parts or japi.partition(method, jnp.asarray(data), PAYLOAD)
-    tparts = tapi.Partitioning.from_numpy(jparts.boxes, jparts.valid, "cpu")
     cfg = dict(placement="sharded", shards=shards, local_index=local_index)
     return (JServer(jparts, jnp.asarray(data), JConfig(**cfg), method=method),
-            TServer(tparts, data, TConfig(**cfg), device="cpu",
-                    method=method))
+            _port(data, method, jparts, shards, local_index))
 
 
 @pytest.fixture(scope="module")
 def servers(data):
-    """Per layout: repro's "x" server and the port's three stagings."""
+    """Per layout: repro's "x" server and the port's three stagings
+    (repro's "x" answers stand for its other two, which its own tests
+    hold equal).  repro's servers are built in threads (``torch_refs``),
+    the port's as each arrives."""
+    def jserver(m):
+        parts = japi.partition(m, jnp.asarray(data), PAYLOAD)
+        cfg = JConfig(placement="sharded", shards=SHARDS, local_index="x")
+        return JServer(parts, jnp.asarray(data), cfg, method=m)
+
     out = {}
-    for m in LAYOUTS:
-        js, tx = _pair(data, m)
-        ts = {"x": tx}
-        for li in ("hilbert", "off"):
-            ts[li] = _pair(data, m, local_index=li, parts=js.parts)[1]
-        out[m] = (js, ts)
+    with ThreadPoolExecutor(THREADS) as pool:      # repro's, ahead
+        for m, js in zip(LAYOUTS, pool.map(jserver, LAYOUTS)):
+            out[m] = (js, {li: _port(data, m, js.parts, local_index=li)
+                           for li in ("x", "hilbert", "off")})
     return out
 
 

@@ -20,6 +20,8 @@ which sums in another order)."""
 import os, sys  # noqa: E401
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "port"))
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,7 @@ from repro.serve import ServeConfig as JConfig, SpatialServer as JServer
 from repro_torch.core.partition import api as tapi
 from repro_torch.kernels.range_probe import ops
 from repro_torch.serve import ServeConfig as TConfig, SpatialServer as TServer
+from torch_refs import References
 
 torch.set_num_threads(1)
 SHARDED = dict(placement="sharded", shards=4)
@@ -54,38 +57,75 @@ def _assert_padding_rows(srv):
 
 # -- held to repro's server through the same commands ---------------------------
 
-@pytest.mark.parametrize("method,dataset", [
-    ("bsp", "osm"), ("hc", "pi"), ("str", "osm")])
+FIXED_CASES = [("bsp", "osm"), ("hc", "pi"), ("str", "osm")]
+SHORT_CASES = [("hilbert", 256, "bsp", "osm"), ("off", 128, "fg", "pi")]
+RESTAGE_CFG = dict(slack=256, compact_dead_frac=None, restage_dead_frac=0.3,
+                   **SHARDED)
+REBALANCE_CFG = dict(slack=0, **SHARDED)
+
+
+def _rebalance_reference():
+    """repro's side of ``test_sharded_append_and_rebalance_memory_bound``:
+    1,000 osm objects staged with no slack, then a burst of cap + 1
+    copies of the first tile's centre, then the other 500."""
+    full = np.array(jgen.dataset("osm", jax.random.PRNGKey(0), 1500))
+    base, extra = full[:1000], full[1000:]
+    jparts = japi.partition("bsp", jnp.asarray(base), 120)
+    js = JServer(jparts, jnp.asarray(base), JConfig(**REBALANCE_CFG))
+    tb = np.asarray(jparts.boxes)[0]
+    ctr = [(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2]
+    burst = np.tile(np.asarray(ctr + ctr, np.float32),
+                    (js.stats["cap"] + 1, 1))
+    steps = [("append", (nb,), pair._state(js, js.append(jnp.asarray(nb))))
+             for nb in (burst, extra)]
+    return dict(full=base, boxes=np.asarray(jparts.boxes),
+                valid=np.asarray(jparts.valid), steps=steps)
+
+
+REFS = References({
+    **{("fixed", m, d): functools.partial(
+        pair.reference, m, d, 7, pair.FIXED_STREAM, 8, slack=256, **SHARDED)
+       for m, d in FIXED_CASES},
+    **{("short", li, c, m, d): functools.partial(
+        pair.reference, m, d, 9, pair.SHORT_STREAM, 10,
+        **pair._short_cfg(li, c), **SHARDED)
+       for li, c, m, d in SHORT_CASES},
+    "restage": functools.partial(
+        pair.reference, "str", "osm", 13, [("delete", 0.35), ("delete", 0.3)],
+        **RESTAGE_CFG),
+    "rebalance": _rebalance_reference,
+})
+
+
+@pytest.mark.parametrize("method,dataset", FIXED_CASES)
 def test_sharded_fixed_stream_matches_repro(method, dataset):
     """Slack appends, deletes, updates, a forced compaction, an overflow
     re-stage that re-balances the owners, then churn on the re-staged
     shards (hc and str adopt appends into the nearest tile)."""
-    js, ts = pair._servers(method, dataset, 7, slack=256, **SHARDED)
-    pair._run(js, ts, pair.FIXED_STREAM, seed=7)
+    ref = REFS["fixed", method, dataset]
+    ts = pair._tserver(ref, slack=256, **SHARDED)
+    pair._replay(ts, ref["steps"])
     assert ts.stats["restages"] == 1 and "moved_tiles" in ts.stats
-    pair._assert_same_answers(js, ts, 8)
+    pair._assert_same_answers(ref, ts, 8)
     _assert_padding_rows(ts)
 
 
-@pytest.mark.parametrize("local_index,chunk,method,dataset", [
-    ("hilbert", 256, "bsp", "osm"), ("off", 128, "fg", "pi")])
+@pytest.mark.parametrize("local_index,chunk,method,dataset", SHORT_CASES)
 def test_sharded_short_stream_other_local_indexes_match_repro(
         local_index, chunk, method, dataset):
-    js, ts = pair._servers(method, dataset, 9, slack=128,
-                           local_index=local_index, chunk=chunk,
-                           compact_dead_frac=0.25, **SHARDED)
-    pair._run(js, ts, pair.SHORT_STREAM, seed=9)
+    ref = REFS["short", local_index, chunk, method, dataset]
+    ts = pair._tserver(ref, **pair._short_cfg(local_index, chunk), **SHARDED)
+    pair._replay(ts, ref["steps"])
     assert ts.stats["compactions"] >= 1
-    pair._assert_same_answers(js, ts, 10)
+    pair._assert_same_answers(ref, ts, 10)
 
 
 def test_sharded_restage_threshold_matches_repro():
     """repro's ``test_restage_threshold_stream``, sharded: churn past
     ``restage_dead_frac`` re-stages and re-balances."""
-    js, ts = pair._servers("str", "osm", 13, slack=256,
-                           compact_dead_frac=None, restage_dead_frac=0.3,
-                           **SHARDED)
-    pair._run(js, ts, [("delete", 0.35), ("delete", 0.3)], seed=13)
+    ref = REFS["restage"]
+    ts = pair._tserver(ref, **RESTAGE_CFG)
+    pair._replay(ts, ref["steps"])
     assert ts.stats["restages"] >= 1 and "moved_tiles" in ts.stats
 
 
@@ -94,28 +134,20 @@ def test_sharded_append_and_rebalance_memory_bound():
     and re-balances the owners, then the rest of the data; shards,
     maps and moved tiles equal repro's, the ceil(T/D) memory bound
     holds again, and the answers equal a fresh sharded staging."""
-    full = np.array(jgen.dataset("osm", jax.random.PRNGKey(0),
-                                 1500))
-    base, extra = full[:1000], full[1000:]
-    jparts = japi.partition("bsp", jnp.asarray(base), 120)
-    tparts = tapi.Partitioning.from_numpy(jparts.boxes, jparts.valid, "cpu")
-    cfg = dict(slack=0, **SHARDED)
-    js = JServer(jparts, jnp.asarray(base), JConfig(**cfg))
-    ts = TServer(tparts, base, TConfig(**cfg), device="cpu")
-    tb = np.asarray(jparts.boxes)[0]
-    ctr = [(tb[0] + tb[2]) / 2, (tb[1] + tb[3]) / 2]
-    burst = np.tile(np.asarray(ctr + ctr, np.float32),
-                    (ts.stats["cap"] + 1, 1))
-    for nb in (burst, extra):
-        jrep, trep = js.append(jnp.asarray(nb)), ts.append(nb)
-        pair._assert_same_state(js, ts, jrep, trep, trep["restaged"])
+    ref = REFS["rebalance"]
+    base = ref["full"]
+    tparts = tapi.Partitioning.from_numpy(ref["boxes"], ref["valid"], "cpu")
+    ts = TServer(tparts, base, TConfig(**REBALANCE_CFG), device="cpu")
+    (_, (burst,), _), (_, (extra,), _) = ref["steps"]
+    assert burst.shape[0] == ts.stats["cap"] + 1
+    pair._replay(ts, ref["steps"])
     assert ts.stats["restages"] == 1 and "moved_tiles" in ts.stats
     t, cap = ts.stats["t"], ts.stats["cap"]
     assert ts.stats["t_local"] == -(-t // 4)
     tile_bytes = cap * 4 * 4 + cap * 4
     assert ts.resident_tile_bytes() <= t * tile_bytes / 4 + tile_bytes
     every = np.concatenate([base, burst, extra])
-    osrv = TServer(tparts, every, TConfig(**cfg), device="cpu")
+    osrv = TServer(tparts, every, TConfig(**REBALANCE_CFG), device="cpu")
     alone._assert_same_answers(ts, osrv, every, *alone._queries(5))
 
 

@@ -492,10 +492,134 @@ def _ft_case(mesh, root: str) -> dict:
                 **whole_state(state, specs, mesh, cfg))
 
 
+# the sharded serve steps' cases: arch -> layouts, a layout (global
+# batch, cache length, cache_shard); a length of 4 puts one slot on
+# each of 4 ranks; "b4kv"'s length 3 splits no slot axis, so its cache
+# splits over the kv heads on (2, 2); mixtral's ring (its window cut to
+# 4, SERVE_WINDOW) wraps in 6 steps
+SERVE_LAYOUTS = {"b4w": (4, 4, "w"), "b1w": (1, 4, "w"),
+                 "b1hd": (1, 4, "hd"), "b4kv": (4, 3, "w"),
+                 "b1ring": (1, 6, "w")}
+SERVE_WINDOW = 4
+SERVE_CASES = {
+    "2x2": {"qwen15_4b": ("b4w", "b1w", "b1hd", "b4kv"),
+            "mamba2_1p3b": ("b4w",), "recurrentgemma_9b": ("b1w",),
+            "mixtral_8x22b": ("b1ring",), "whisper_medium": ("b4w",)},
+    "1x4": {"qwen15_4b": ("b1w", "b1hd")},
+}
+PREFILL_ARCHS = ("qwen15_4b", "whisper_medium")   # the sharded prefill's
+PREFILL_LEN, GREEDY_STEPS = 16, 3
+
+
+def serve_inputs(arch: str, batch: int, length: int) -> dict:
+    """A serve case's seeded parameters (the port's own init), tokens
+    (B, L) and, for the encoder-decoder, frames."""
+    cfg = model_cfg(arch)
+    if cfg.window:
+        cfg = dataclasses.replace(cfg, window=SERVE_WINDOW)
+    params = api.build(cfg, "cpu").init_params(
+        torch.Generator().manual_seed(7))
+    rng = np.random.default_rng(8)
+    out = dict(cfg=cfg, params=params, tokens=torch.from_numpy(
+        rng.integers(0, cfg.vocab, (batch, length)).astype(np.int64)))
+    if cfg.family == "encdec":
+        out["frames"] = torch.from_numpy(rng.standard_normal(
+            (batch, cfg.src_len, cfg.d_model)).astype(np.float32))
+    return out
+
+
+def _serve_run(m, arch: str, layout: str) -> dict:
+    """Decode every position of the layout's tokens on mesh ``m`` from a
+    zero cache (teacher forcing) -> this rank's rows, their logits a
+    step (B_rank, L, V), the cache specs, and the serve step's greedy
+    tokens for the first ``GREEDY_STEPS`` positions."""
+    from repro_torch.launch import cells, shapes
+    from repro_torch.models import encdec
+    batch, length, shard = SERVE_LAYOUTS[layout]
+    inp = serve_inputs(arch, batch, length)
+    cfg, params, tokens = inp["cfg"], inp["params"], inp["tokens"]
+    family = encdec if cfg.family == "encdec" else lm
+
+    def zero_cache():
+        with torch.no_grad():
+            return (encdec.init_cache(params, inp["frames"], cfg, length)
+                    if cfg.family == "encdec"
+                    else lm.init_cache(cfg, batch, length, "cpu"))
+
+    cache = zero_cache()
+    specs = cells.cache_specs(cfg, shapes.ShapeSpec(layout, length, batch,
+                                                    "decode"),
+                              m, cache, shard)
+    fresh = cells.shard_cache(zero_cache(), specs, m)
+    cache = cells.shard_cache(cache, specs, m)
+    sharding.shard_params(params, sharding.param_specs(
+        params, cfg, shard_experts=cfg.shard_experts, mesh=m), m)
+    par = parallel.Parallel.of(m, batch)
+    logits = []
+    with torch.no_grad():
+        for pos in range(length):
+            lg, cache = family.decode_step(params, cache,
+                                           par.rows(tokens[:, pos]), pos,
+                                           cfg, par, specs)
+            logits.append(lg)
+    serve = api.make_serve_step(api.build(cfg, "cpu"), mesh=m, specs=specs)
+    greedy = []
+    for pos in range(GREEDY_STEPS):
+        nxt, fresh = serve(params, fresh, tokens[:, pos], pos)
+        greedy.append(nxt)
+    return dict(rows=par.rows(torch.arange(batch)), specs=specs,
+                logits=torch.stack(logits, 1), greedy=torch.stack(greedy, 1))
+
+
+def _prefill_run(m, arch: str) -> torch.Tensor:
+    """The sharded prefill's logits block on ``m`` (batch 4)."""
+    inp = serve_inputs(arch, 4, PREFILL_LEN)
+    cfg, params = inp["cfg"], inp["params"]
+    batch = {k: inp[k] for k in ("tokens", "frames") if k in inp}
+    sharding.shard_params(params, sharding.param_specs(
+        params, cfg, shard_experts=cfg.shard_experts, mesh=m), m)
+    return api.make_prefill_step(api.build(cfg, "cpu"), mesh=m)(params,
+                                                                batch)
+
+
+def _timed_train_step(m):
+    """One sharded train step of the qwen smoke config (the port's own
+    seeded init, ``extra_batch``) on ``m`` -> the calls and bytes its
+    collectives sent (``mesh.timers``)."""
+    cfg = model_cfg("qwen15_4b")
+    model, opt = api.build(cfg, "cpu"), adamw.AdamWConfig()
+    state = api.init_train_state(model, torch.Generator().manual_seed(3),
+                                 opt, mesh=m)
+    step = api.make_train_step(model, opt, mesh=m)
+    m.reset_timers()
+    step(state, extra_batch(cfg, 4, 30))
+    return {k: m.timers[k] for k in ("calls", "bytes")}
+
+
+def serve_cases(mesh, inp) -> dict:
+    """The sharded prefill and decode of ``SERVE_CASES`` on their (2, 2)
+    and (1, 4) meshes, and the (2, 2) train step's collective calls and
+    bytes (held against a ``RecordingMesh`` in the test process); with
+    ``mesh`` None nothing (the test holds the ranks to repro)."""
+    if mesh is None:
+        return {}
+    out = {}
+    for name, dims in MESHES.items():
+        m = mesh_lib.make_mesh(mesh, dims, AXES, timeout=TIMEOUT_S)
+        for arch, layouts in SERVE_CASES[name].items():
+            if arch in PREFILL_ARCHS:
+                out[f"{arch}/{name}/prefill"] = _prefill_run(m, arch)
+            for layout in layouts:
+                out[f"{arch}/{name}/{layout}"] = _serve_run(m, arch, layout)
+        if name == "2x2":
+            out["timers"] = _timed_train_step(m)
+    return out
+
+
 CASES = dict(sharded=sharded_cases, replicated=replicated_cases,
              heat=heat_cases, ingest=ingest_cases, frontend=frontend_cases,
              join=join_cases, partition=partition_cases,
-             compress=compress_cases, model=model_cases)
+             compress=compress_cases, model=model_cases, serve=serve_cases)
 
 
 def run_cases(mesh, inp) -> dict:
